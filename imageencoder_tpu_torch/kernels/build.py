@@ -1,0 +1,144 @@
+"""Build the CUDA kernels in ``csrc/`` and load them with ctypes.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with
+a plain C interface: no PyTorch headers, so a build takes seconds.  The
+build runs at first use, into ``imageencoder_tpu_torch/_build/`` (listed in
+``.gitignore``), under a name keyed by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one loads at once.  A failed
+build raises; nothing falls back.
+
+Every C entry point takes raw pointers and the CUDA stream as ``void*``
+and returns the launch's ``cudaGetLastError()``; :func:`check` raises on a
+nonzero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+SIGNATURES = {
+    "ie_encode_locals": [_P, _I64, _I64, _I32, _P, _P, _P, _I32, _I32, _P,
+                         _P, _P],
+    "ie_pack_locals": [_P, _P, _I64, _I32, _P, _P, _I64, _P],
+    "ie_pack_records": [_P, _P, _I64, _I32, _P, _P, _I64, _P],
+    "ie_pack_threads": [],
+    "ie_byte_histogram": [_P, _I64, _P, _P, _P],
+}
+
+_LOCK = threading.Lock()
+_LIB = None
+BUILD_LOG = ""  # ptxas resource report of the last build in this process
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    """nvcc from CUDA_HOME (as PyTorch resolves it) or from PATH."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
+                           "PATH to build the CUDA kernels")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu into the keyed shared library; returns its path."""
+    global BUILD_LOG
+    out = BUILD_DIR / f"libimageencoder_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    BUILD_LOG = res.stdout + res.stderr
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.ie_error_string.argtypes = [ctypes.c_int]
+            lib.ie_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+    return _LIB
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().ie_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
+
+
+def stream_ptr(device) -> int:
+    """Raw handle of PyTorch's current stream on ``device``."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t, name: str, dtype, ndim: int, device) -> None:
+    """Check what a kernel takes before its launch: a contiguous CUDA
+    tensor of the given dtype and rank on ``device``."""
+    if t.device != device or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")

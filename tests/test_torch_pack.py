@@ -1,0 +1,162 @@
+"""K2 and K4 ports (imageencoder_tpu_torch/ops/cuda_pack.py) and the plain
+packer (ops/device_pack.py) against the JAX package, on the CPU, where
+the wrappers run their plain versions.
+
+  * pack_locals on the TPU front end's own register files is bit-equal to
+    pallas_pack.pack_locals_pallas(..., interpret=True);
+  * pack_records is bit-equal to pack_records_pallas(..., interpret=True)
+    and to device_pack.pack_blocks_device(method="scatter");
+  * the Huffman payload pack equals huffman._device_stages().pack_payload.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from imageencoder_tpu.ops.device_pack import (_local_words,
+                                              pack_blocks_device,
+                                              packed_words_bound)
+from imageencoder_tpu.ops.huffman import _device_stages, _dict_and_codes
+from imageencoder_tpu.ops.pallas_encode import encode_locals, frontend_lw
+from imageencoder_tpu.ops.pallas_pack import (pack_locals_pallas,
+                                              pack_records_pallas)
+from imageencoder_tpu_torch.ops import cuda_pack, device_pack, huffman
+
+JPEG4 = np.array([[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
+                  [14, 17, 22, 29]], np.float32)
+
+
+def fields(n: int, f: int, seed: int):
+    rng = np.random.default_rng(seed)
+    nbits = rng.integers(0, 17, (n, f)).astype(np.int32)
+    vals = rng.integers(-(2 ** 15), 2 ** 15, (n, f)).astype(np.int32)
+    return vals, nbits
+
+
+@pytest.fixture(scope="module")
+def tpu_locals():
+    """The TPU front end's register files for a 32x48 image, in both
+    layouts: JAX's [rows_pad, n_pad] u32 and the port's [N, lw] + [N]."""
+    img = (np.random.default_rng(4).integers(0, 256, (32, 48)) // 2
+           + 64).astype(np.uint8)
+    lw = frontend_lw(4, "reference")
+    locs, n = encode_locals(jnp.asarray(img), JPEG4, 4, True, "reference",
+                            interpret=True)
+    host = np.asarray(locs)
+    local = torch.from_numpy(host[:lw, :n].T.copy().view(np.int32))
+    lens = torch.from_numpy(host[lw, :n].astype(np.int32))
+    return locs, local, lens, lw, n
+
+
+@pytest.mark.parametrize("start", [0, 37, 2047])
+def test_pack_locals_matches_pallas(tpu_locals, start):
+    locs, local, lens, lw, n = tpu_locals
+    nw = packed_words_bound(n, 18)
+    want_w, want_t = pack_locals_pallas(locs, lw, jnp.int32(start), nw,
+                                        interpret=True)
+    got_w, got_t = cuda_pack.pack_locals(local, lens, start, nw)
+    assert got_w.dtype == torch.int32 and got_w.shape == (nw,)
+    assert int(got_t) == int(want_t)
+    np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
+                                  np.asarray(want_w))
+
+
+def test_pack_records_matches_pallas():
+    vals, nbits = fields(300, 16, 1)
+    nw = 300 * 9 + 70
+    want_w, want_t = pack_records_pallas(jnp.asarray(vals),
+                                         jnp.asarray(nbits), jnp.int32(37),
+                                         nw, interpret=True)
+    got_w, got_t = cuda_pack.pack_records(torch.from_numpy(vals),
+                                          torch.from_numpy(nbits), 37, nw)
+    assert int(got_t) == int(want_t)
+    np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
+                                  np.asarray(want_w))
+
+
+@pytest.mark.parametrize("n,f,start,nw", [
+    (1, 3, 0, 20),
+    (257, 18, 171, 257 * 9 + 70),
+    (4101, 16, 2047, 4101 * 8 + 80),
+    (500, 18, 5, 300),            # content past n_words is dropped
+    (64, 16, 31, 64 * 8 + 2),
+])
+def test_pack_records_matches_scatter(n, f, start, nw):
+    vals, nbits = fields(n, f, n + f)
+    if n == 64:
+        nbits[:] = 16  # every field at the 16-bit cap, all words full
+    want_w, want_t = pack_blocks_device(jnp.asarray(vals),
+                                        jnp.asarray(nbits),
+                                        jnp.int32(start), nw,
+                                        method="scatter")
+    got_w, got_t = cuda_pack.pack_records(torch.from_numpy(vals),
+                                          torch.from_numpy(nbits), start, nw)
+    assert int(got_t) == int(want_t)
+    np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
+                                  np.asarray(want_w))
+
+
+def test_register_files_match_jax_level_one():
+    """Level 1 on fields that straddle word edges at every bit offset."""
+    vals, nbits = fields(200, 18, 9)
+    nbits[:8] = [[16] * 18, [1] * 18, [15] * 18, [0] * 17 + [16],
+                 [16] + [0] * 17, [31 % 17] * 18, [0] * 18, [8] * 18]
+    want_local, want_bits = _local_words(jnp.asarray(vals),
+                                         jnp.asarray(nbits))
+    local, lens = device_pack.register_files(torch.from_numpy(vals),
+                                             torch.from_numpy(nbits),
+                                             device_pack.local_words(18))
+    np.testing.assert_array_equal(local.numpy(),
+                                  np.asarray(want_local).astype(np.int64))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(want_bits))
+
+
+def test_prefix_words_are_ored_in():
+    vals, nbits = fields(40, 16, 2)
+    prefix = torch.tensor([-1, 0x12345678, 0], dtype=torch.int32)
+    start = 3 * 32 + 5
+    plain_w, _ = cuda_pack.pack_records(torch.from_numpy(vals),
+                                        torch.from_numpy(nbits), start, 400)
+    got_w, _ = cuda_pack.pack_records(torch.from_numpy(vals),
+                                      torch.from_numpy(nbits), start, 400,
+                                      prefix=prefix)
+    want = plain_w.clone()
+    want[:3] |= prefix
+    assert torch.equal(got_w, want)
+
+
+def test_uint32_round_trip_through_int32():
+    x = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1],
+                     dtype=torch.int64)
+    y = device_pack.as_int32(x)
+    assert y.dtype == torch.int32
+    assert torch.equal(device_pack.as_uint(y), x)
+    np.testing.assert_array_equal(device_pack.words_to_numpy(y),
+                                  x.numpy().astype(np.uint32))
+
+
+def test_pack_payload_matches_device_stages():
+    rng = np.random.default_rng(12)
+    words = (rng.integers(0, 2 ** 32, 1024, dtype=np.uint64)
+             & 0xF0F0FFFF).astype(np.uint32)
+    nbytes = 1024 * 4 - 3
+    data = words.astype(">u4").tobytes()[:nbytes]
+    freqs = np.bincount(np.frombuffer(data, np.uint8), minlength=256)
+    built = _dict_and_codes(freqs)
+    code_w, code_l, dict_words, dict_bits = huffman.dict_tensors(
+        built, torch.device("cpu"))
+
+    _, jax_pack_payload, _ = _device_stages()
+    want_w, want_t = jax_pack_payload(
+        jnp.asarray(words), np.int32(nbytes),
+        jnp.asarray(built[1].astype(np.uint32)),
+        jnp.asarray(built[2].astype(np.int32)), np.int32(dict_bits),
+        jnp.asarray(dict_words.numpy().view(np.uint32)))
+    got_w, got_t = huffman.pack_payload(
+        torch.from_numpy(words.view(np.int32)), nbytes, code_w, code_l,
+        dict_bits, dict_words)
+    assert int(got_t) == int(want_t)
+    np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
+                                  np.asarray(want_w))
