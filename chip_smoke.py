@@ -6,28 +6,43 @@
 It needs one CUDA card (an H100: the kernels are built for sm_90a), nvcc,
 and this checkout.  It imports only the port (and through it the JAX
 package's jax-free host modules), never JAX and never the JAX package's
-encoder or decoder.  Phases, each of which raises on failure:
+encoder or decoder.  It drives three paths: the image encode
+(encode_image), and the video encode (encode_video) with the raw and with
+the recon motion reference.  Phases, each of which raises on failure:
 
-  1. build the kernels in imageencoder_tpu_torch/csrc with nvcc;
-  2. capture the arguments each kernel wrapper (K1 encode_locals, K2
-     pack_locals, K3 byte_histogram, K4 pack_records) receives in one real
-     encode_image call on a 4096x912 image (233,472 blocks), and hold each
-     kernel against its plain PyTorch version on those CUDA tensors:
-     bit-equal;
-  3. drive the main path, encode_image(..., use_huffman=True,
-     device="cuda"), on seeded 4096x912 and 3840x2160 images, plus
-     use_huffman=False and a small noise image that takes the raw-copy
-     fallback; every kernel's launch count over this phase must be at
-     least 1;
-  4. hold every stream from phase 3 against the port's plain path,
-     encode_image(..., device="cpu"), byte for byte.  That path is the one
-     tests/test_torch_image.py holds byte-equal to the JAX package's host
-     engine, and tests/test_torch_cuda.py holds these very streams against
-     that engine on the card;
-  5. time the device encode, the Huffman stage, the whole encode_image and
-     the host-to-device copy, inputs resident on the device;
-  6. profile 10 encode_image calls and print the device time per call by
-     operation: where the device time goes.
+  1. build the kernels in imageencoder_tpu_torch/csrc with nvcc, one
+     process per source, all started together;
+  2. capture the arguments each kernel wrapper receives in one real call
+     of each path, and hold every kernel the path runs against its plain
+     PyTorch version on those CUDA tensors, bit-equal: encode_image on a
+     4096x912 image (233,472 blocks) for K1 encode_locals (u8 pixels), K2
+     pack_locals, K3 byte_histogram and K4 pack_records; encode_video at
+     1280x720, 25 frames, gop 4, merange 16, Huffman on, with the raw
+     reference for K6 motion_search, K7 predict, K1 on the int16 residual
+     stack, K2, K3 and K4 (the Huffman payload); and with the recon
+     reference for every K5 quantize_image, K6 and K7 call, K3, and both
+     K4 calls (the wire fields and the Huffman payload);
+  3. drive each path with every kernel's launch count set to 0 just
+     before it and read just after: encode_image(..., device="cuda") on
+     seeded 4096x912 and 3840x2160 images with Huffman on and off and on
+     a small noise image that takes the raw-copy fallback; encode_video at
+     720p25 with Huffman on and off, raw and recon.  Every kernel a path
+     runs must have been launched at least once in that path's run;
+  4. hold every image stream from phase 3, and video streams of both
+     references at 320x176 with 8 frames (gop 4, merange 16, Huffman on and
+     off), against the port's plain path, device="cpu", byte for byte.
+     That path is the one tests/test_torch_image.py and
+     tests/test_torch_video.py hold byte-equal to the JAX package's host
+     engine; tests/test_torch_cuda.py holds the card's full-size image and
+     720p25 video streams against that engine on the card;
+  5. time, inputs resident on the device: the device encode, the Huffman
+     stage, the whole encode_image and the host-to-device copy of the
+     image; for video, the whole encode_video of frames on the device, the
+     device window (K6 + K7 + K1 + K2 + K3, or per frame K6 + K7 + K5 and
+     then K4 + K3, until meta is ready), the Huffman stage and the copy of
+     the frames;
+  6. profile a few calls of each path and print the device time per call
+     by operation: where the device time goes.
 
 Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
@@ -51,9 +66,16 @@ sys.modules["jax"] = None  # any import of JAX fails loudly
 QUANT = [[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
          [14, 17, 22, 29]]  # top-left of the JPEG luminance table
 SHAPES = ((912, 4096), (2160, 3840))  # (H, W): ex4's geometry, 4K UHD
+VIDEO = (1280, 720, 25)  # W, H, frames: bench.py's video size
+VIDEO_SMALL = (320, 176, 8)  # held against the plain path on the host
+GOP, MERANGE = 4, 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SAMPLES = 110  # per end-to-end timing: p90 has 11 samples beyond it
+VIDEO_SAMPLES = 30  # per video timing: p90 has 3 samples beyond it
 PROFILE_CALLS = 10
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "call_ms", "plain_call_ms",
+            "bytes", "hbm_floor_ms")  # of a kernel's row at another shape
+VIDEO_PROFILE_CALLS = 3
 KERNELS = {  # name: (wrapper's module, wrapper, plain version,
     #                 CUDA kernel symbol, source, the TPU kernel replaced)
     "K1 encode_locals": ("cuda_encode", "encode_locals",
@@ -72,6 +94,25 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                         "pack_records_kernel",
                         "imageencoder_tpu_torch/csrc/pack.cu",
                         "imageencoder_tpu/ops/pallas_pack.py:55"),
+    "K5 quantize_image": ("cuda_encode", "quantize_image",
+                          "quantize_image_plain", "quantize_image_kernel",
+                          "imageencoder_tpu_torch/csrc/transform.cu",
+                          "imageencoder_tpu/ops/pallas_kernels.py:114"),
+    "K6 motion_search": ("cuda_motion", "motion_search",
+                         "motion_search_plain", "motion_search_kernel",
+                         "imageencoder_tpu_torch/csrc/motion.cu",
+                         "imageencoder_tpu/ops/pallas_motion.py:38"),
+    "K7 predict": ("cuda_motion", "predict", "predict_plain",
+                   "predict_kernel", "imageencoder_tpu_torch/csrc/motion.cu",
+                   "imageencoder_tpu/ops/pallas_motion.py:160"),
+}
+PATHS = {  # path: the kernels it runs
+    "image": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
+              "K4 pack_records"),
+    "video raw": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
+                  "K4 pack_records", "K6 motion_search", "K7 predict"),
+    "video recon": ("K3 byte_histogram", "K4 pack_records",
+                    "K5 quantize_image", "K6 motion_search", "K7 predict"),
 }
 
 
@@ -84,6 +125,25 @@ def synthetic(h: int, w: int, seed: int):
     f = (128.0 + 60.0 * np.sin(x / 37.0) * np.cos(y / 23.0)
          + 30.0 * np.sin((x + y) / 91.0) + rng.normal(0.0, 6.0, (h, w)))
     return np.clip(np.rint(f), 0, 255).astype(np.uint8)
+
+
+def video_frames(w: int, h: int, n: int, seed: int):
+    """bench.py's video content: 8x8 random blocks moving by (2, 3) pixels
+    a frame, plus Gaussian noise of sigma 3; u8 [n, h, w]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = np.kron(rng.integers(0, 256, (h // 8, w // 8)), np.ones((8, 8)))
+    return np.stack([np.clip(np.roll(base, (f * 2, f * 3), (0, 1))
+                             + rng.normal(0, 3, base.shape), 0, 255)
+                     .astype(np.uint8) for f in range(n)])
+
+
+def yuv420(frames) -> bytes:
+    """Y planes and a mid-grey UV fill, as encode_video reads them."""
+    h, w = frames.shape[1:]
+    return b"".join(f.tobytes() + bytes([0x80]) * (w * h // 2)
+                    for f in frames)
 
 
 def module(name: str):
@@ -161,15 +221,22 @@ def device_rows(fn, reps: int):
     return rows, wall_ms
 
 
-def profiled_ms(fn, symbol: str | None = None, reps: int = 20) -> float:
+def profiled_ms(fn, symbol: str | None = None, reps: int = 20,
+                tries: int = 3) -> float:
     """Device milliseconds per call of fn() from torch.profiler: the
-    kernels whose name contains ``symbol``, or all device work."""
-    rows, _ = device_rows(fn, reps)
-    us = sum(t for key, t in rows.items() if symbol is None or symbol in key)
-    if us <= 0.0:
-        raise AssertionError(f"the profiler saw no device time for "
-                             f"{symbol or 'the call'}")
-    return us / 1e3
+    kernels whose name contains ``symbol``, or all device work.  The
+    profiler now and then returns a run without its device records; such
+    a run is profiled again, up to ``tries`` times in all."""
+    for _ in range(tries):
+        rows, _ = device_rows(fn, reps)
+        us = sum(t for key, t in rows.items()
+                 if symbol is None or symbol in key)
+        if us > 0.0:
+            return us / 1e3
+        print(f"profiler: no device records for {symbol or 'the call'}; "
+              f"profiling again", flush=True)
+    raise AssertionError(f"the profiler saw no device time for "
+                         f"{symbol or 'the call'} in {tries} runs")
 
 
 def quantiles(samples) -> tuple[float, float]:
@@ -200,12 +267,22 @@ def tensor_bytes(xs) -> int:
                if isinstance(x, torch.Tensor) and x.dim() > 0)
 
 
-def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
-    """Hold one kernel against its plain version on the arguments the main
-    path gave it, and time both."""
+def reps_for(fn, budget_s: float = 0.4) -> int:
+    """Repetitions of fn() that fit about budget_s, between 2 and 20: the
+    plain versions of K6 take tenths of a second per call."""
     import torch
 
-    mod_name, attr, plain_attr, symbol, source, replaces = KERNELS[name]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return max(2, min(20, int(budget_s / (time.perf_counter() - t0))))
+
+
+def calls_of(name: str, args: tuple, kwargs: dict):
+    """(kernel call, plain call): the wrapper and its plain version bound
+    to one captured argument list, each returning a tuple."""
+    mod_name, attr, plain_attr, *_ = KERNELS[name]
     mod = module(mod_name)
     kernel, plain = getattr(mod, attr), getattr(mod, plain_attr)
 
@@ -215,6 +292,15 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     def plain_call():
         return as_tuple(plain(*args, **kwargs))
 
+    return kernel_call, plain_call
+
+
+def held_equal(name: str, args: tuple, kwargs: dict):
+    """Run kernel and plain version on one captured argument list; raise
+    unless bit-equal.  Returns (max abs err, the kernel's outputs)."""
+    import torch
+
+    kernel_call, plain_call = calls_of(name, args, kwargs)
     got, want = kernel_call(), plain_call()
     torch.cuda.synchronize()
     if len(got) != len(want):
@@ -224,21 +310,40 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain "
                              f"version (max abs err {err})")
+    return err, got
+
+
+def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
+    """Hold one kernel against its plain version on the arguments the main
+    path gave it, and time both."""
+    import torch
+
+    _, _, _, symbol, source, replaces = KERNELS[name]
+    kernel_call, plain_call = calls_of(name, args, kwargs)
+    err, got = held_equal(name, args, kwargs)
     # The bytes the kernel itself must move: its tensor inputs, and its
-    # outputs up to the stream's end where the output is a stream.
-    if name in ("K2 pack_locals", "K4 pack_records"):
+    # outputs up to the stream's end where the output is a stream.  K4
+    # reads a record's values only where the record is not empty.
+    if name == "K2 pack_locals":
         nbytes = tensor_bytes(args[:2]) + (int(got[1]) + 7) // 8
+    elif name == "K4 pack_records":
+        live = int((args[1].sum(dim=1) > 0).sum())
+        nbytes = (tensor_bytes(args[1:2]) + 4 * args[0].shape[1] * live
+                  + (int(got[1]) + 7) // 8)
     elif name == "K3 byte_histogram":
         nbytes = (int(args[1]) + 7) // 8
+    elif name in ("K6 motion_search", "K7 predict"):
+        nbytes = tensor_bytes(args[:2]) + tensor_bytes(got)
     else:
         nbytes = tensor_bytes(args[:1]) + tensor_bytes(got)
-    plain_call_ms = cuda_ms(plain_call)
+    plain_reps = reps_for(plain_call)
+    plain_call_ms = cuda_ms(plain_call, plain_reps)
     call_ms = (cuda_ms(kernel_call) + cuda_ms(kernel_call)) / 2
-    plain_call_ms = (plain_call_ms + cuda_ms(plain_call)) / 2
+    plain_call_ms = (plain_call_ms + cuda_ms(plain_call, plain_reps)) / 2
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": profiled_ms(kernel_call, symbol),
-           "plain_ms": profiled_ms(plain_call),
+           "plain_ms": profiled_ms(plain_call, reps=plain_reps),
            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
            "bytes": nbytes, "hbm_floor_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     shapes = ", ".join(str(tuple(a.shape)) for a in args
@@ -248,6 +353,115 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
           f"(plain {plain_call_ms:.4f} ms); HBM floor "
           f"{row['hbm_floor_ms']:.4f} ms for {nbytes} bytes", flush=True)
     return row
+
+
+def beside(row: dict, key: str, other: dict) -> None:
+    """Put a kernel's row at another path's shapes under ``key``."""
+    row[key] = {k: other[k] for k in ROW_KEYS}
+
+
+def phase_of_path(path: str, wrappers: dict, drive) -> dict:
+    """Drive one path with every launch count at 0 just before it; return
+    the counts just after, and fail if a kernel of the path is at 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    drive()
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name in PATHS[path]:
+        if counts[name] < 1:
+            raise AssertionError(f"{name} was not launched on the {path} "
+                                 f"path")
+    print(f"{path} path launches: " + ", ".join(
+        f"{name} {counts[name]}" for name in KERNELS), flush=True)
+    return counts
+
+
+def time_video(frames_np, quant, ref_mode: str, dev) -> None:
+    """Phase 5 for one reference mode at the full video size."""
+    import numpy as np
+    import torch
+
+    from imageencoder_tpu_torch.models.video import (MAX_FRAMES_PER_CALL,
+                                                     encode_frames,
+                                                     video_header)
+    from imageencoder_tpu_torch.models.video import VideoParams, mvec_bits
+    from imageencoder_tpu_torch.ops.device_pack import header_to_words
+    from imageencoder_tpu_torch.ops.huffman import huffman_encode_from_meta
+    from imageencoder_tpu_torch.ops.video_pipeline import (
+        make_encode_video_packed, make_encode_video_packed_recon)
+
+    w, h, n = VIDEO
+    assert n <= MAX_FRAMES_PER_CALL
+    mpix = w * h * n / 1e6
+    t = []
+    for _ in range(VIDEO_SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr_d = torch.from_numpy(frames_np).to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    h2d = quantiles(t)
+
+    writer = video_header(quant, True, w, h, VideoParams(n, GOP, MERANGE),
+                          True)
+    hdr = torch.from_numpy(header_to_words(writer.getvalue())
+                           .view(np.int32)).to(dev)
+    factory = (make_encode_video_packed if ref_mode == "raw"
+               else make_encode_video_packed_recon)
+    enc = factory(GOP, MERANGE, mvec_bits(MERANGE), 4, True, "reference",
+                  with_hist=True)
+    qf = quant.as_float()
+    words, meta = enc(fr_d, qf, writer.position, hdr)
+    meta = meta.cpu().numpy()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True))
+          for _ in range(VIDEO_SAMPLES)]
+    for start, end in ev:
+        start.record()
+        enc(fr_d, qf, writer.position, hdr)
+        end.record()
+    torch.cuda.synchronize()
+    window = quantiles([s.elapsed_time(e) / 1e3 for s, e in ev])
+    busy = profiled_ms(lambda: enc(fr_d, qf, writer.position, hdr),
+                       reps=VIDEO_PROFILE_CALLS)
+
+    t = []
+    for _ in range(VIDEO_SAMPLES):
+        t0 = time.perf_counter()
+        huffman_encode_from_meta(words, meta)
+        t.append(time.perf_counter() - t0)
+    huff = quantiles(t)
+
+    t = []
+    for _ in range(VIDEO_SAMPLES):
+        t0 = time.perf_counter()
+        encode_frames(fr_d, w, h, quant, True, GOP, MERANGE,
+                      use_huffman=True, ref_mode=ref_mode, device=dev)
+        t.append(time.perf_counter() - t0)
+    e2e = quantiles(t)
+    print(f"video {ref_mode} {w}x{h}x{n}: encode_video of frames on the "
+          f"device, Huffman on: median {e2e[0]:.3f} ms, p90 {e2e[1]:.3f} ms "
+          f"(n={VIDEO_SAMPLES}; {mpix / e2e[0] * 1e3:.1f} Mpix/s); device "
+          f"window until meta median {window[0]:.3f} ms, p90 "
+          f"{window[1]:.3f} ms ({mpix / window[0] * 1e3:.1f} Mpix/s), of "
+          f"which device busy {busy:.3f} ms; Huffman stage median "
+          f"{huff[0]:.3f} ms, p90 {huff[1]:.3f} ms; H2D copy of the frames "
+          f"median {h2d[0]:.3f} ms, p90 {h2d[1]:.3f} ms", flush=True)
+
+
+def print_profile(label: str, fn, calls: int) -> None:
+    """Phase 6: device time per call by operation."""
+    by_op, wall_ms = device_rows(fn, calls)
+    busy_us = sum(by_op.values())
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
+    print(f"profile of {calls} {label} calls: device busy {busy_us:.1f} us "
+          f"of {wall_ms * 1e3:.1f} us wall per call; top device items per "
+          f"call: " + "; ".join(f"{key[:60]} {us:.1f} us" for key, us in top),
+          flush=True)
 
 
 def main() -> None:
@@ -260,6 +474,7 @@ def main() -> None:
     import imageencoder_tpu_torch as port
     from imageencoder_tpu_torch.kernels import build
     from imageencoder_tpu_torch.models.image import stream_header
+    from imageencoder_tpu_torch.models.video import encode_frames
     from imageencoder_tpu_torch.ops.huffman import huffman_encode_from_meta
     from imageencoder_tpu_torch.ops.pipeline import make_encode_packed_hist
     from imageencoder_tpu_torch.utils.device import gpu_identity
@@ -280,6 +495,14 @@ def main() -> None:
             print(f"  {line.strip()}")
 
     quant = port.QuantMatrix(np.array(QUANT, dtype=np.uint32))
+    vw, vh, vn = VIDEO
+    vframes = video_frames(vw, vh, vn, 0)
+    vdata = yuv420(vframes)
+
+    def encode_video(data, w, h, ref_mode, huffman, device="cuda"):
+        return port.encode_video(data, w, h, quant, True, GOP, MERANGE,
+                                 use_huffman=huffman, ref_mode=ref_mode,
+                                 device=device)
 
     # ---- 2. each kernel against its plain version, main-path inputs ----
     images = [synthetic(h, w, 2 + i) for i, (h, w) in enumerate(SHAPES)]
@@ -287,14 +510,51 @@ def main() -> None:
         port.encode_image(images[0], quant, use_rle=True, use_huffman=True,
                           device="cuda")
     rows = {}
-    for name in KERNELS:
+    for name in PATHS["image"]:
         if len(calls[name]) != 1:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"encode_image, expected 1")
         rows[name] = check_kernel(name, *calls[name][0])
     del calls
 
-    # ---- 3. the main path ----
+    with captured_calls() as calls:
+        encode_video(vdata, vw, vh, "raw", True)
+    for name in PATHS["video raw"]:
+        if len(calls[name]) != 1:
+            raise AssertionError(f"{name}: {len(calls[name])} calls in one "
+                                 f"raw encode_video, expected 1")
+    for name in ("K6 motion_search", "K7 predict"):
+        rows[name] = check_kernel(name, *calls[name][0])
+    for name in PATHS["image"]:  # the same kernels at the video's shapes
+        beside(rows[name], "video_raw", check_kernel(name, *calls[name][0]))
+    del calls
+
+    with captured_calls() as calls:
+        encode_video(vdata, vw, vh, "recon", True)
+    n_p = sum(1 for f in range(vn) if f % GOP)
+    for name, want in (("K5 quantize_image", vn), ("K6 motion_search", n_p),
+                       ("K7 predict", n_p), ("K3 byte_histogram", 1),
+                       ("K4 pack_records", 2)):
+        if len(calls[name]) != want:
+            raise AssertionError(f"{name}: {len(calls[name])} calls in one "
+                                 f"recon encode_video, expected {want}")
+        for args, kwargs in calls[name]:
+            held_equal(name, args, kwargs)
+    k5_calls = calls["K5 quantize_image"]
+    rows["K5 quantize_image"] = check_kernel(
+        "K5 quantize_image", *next(c for c in k5_calls
+                                   if c[0][0].dtype == torch.int16))
+    beside(rows["K3 byte_histogram"], "video_recon",
+           check_kernel("K3 byte_histogram", *calls["K3 byte_histogram"][0]))
+    for key, call in zip(("video_recon_fields", "video_recon_payload"),
+                         calls["K4 pack_records"]):
+        beside(rows["K4 pack_records"], key,
+               check_kernel("K4 pack_records", *call))
+    print(f"recon encode_video: all {vn} K5, {n_p} K6, {n_p} K7, 1 K3 and 2 "
+          f"K4 calls bit-equal to their plain versions", flush=True)
+    del calls, k5_calls
+
+    # ---- 3. each path, counts from 0 ----
     # No full-size image compresses too little for the dict (the records'
     # headers skew the byte histogram), so the raw-copy fallback runs on a
     # small noise image.
@@ -305,18 +565,23 @@ def main() -> None:
              + [(images[0], quant, False), (noise, q_ones, True)])
     wrappers = {name: getattr(module(mod_name), attr)
                 for name, (mod_name, attr, *_) in KERNELS.items()}
-    torch.cuda.synchronize()
-    for fn in wrappers.values():
-        fn.launches = 0
-    streams = [port.encode_image(im, q, use_rle=True, use_huffman=huff,
-                                 device="cuda") for im, q, huff in cases]
-    for name, fn in wrappers.items():
-        rows[name]["launches"] = fn.launches
-        if fn.launches < 1:
-            raise AssertionError(f"{name} was not launched on the main path")
-    print("main-path launches: " + ", ".join(
-        f"{name} {fn.launches}" for name, fn in wrappers.items()),
-        flush=True)
+    streams = []
+    counts = [phase_of_path("image", wrappers, lambda: streams.extend(
+        port.encode_image(im, q, use_rle=True, use_huffman=huff,
+                          device="cuda") for im, q, huff in cases))]
+    video_streams = {}
+    for mode in ("raw", "recon"):
+        counts.append(phase_of_path(
+            f"video {mode}", wrappers, lambda mode=mode: video_streams.update(
+                {(mode, huff): encode_video(vdata, vw, vh, mode, huff)
+                 for huff in (True, False)})))
+    for name in KERNELS:
+        rows[name]["launches"] = sum(c[name] for c in counts)
+    for (mode, huff), got in video_streams.items():
+        if huff and not got[0] & 0x80:
+            raise AssertionError(f"video {mode}: took the raw-copy fallback")
+        print(f"video {mode} {vw}x{vh}x{vn} huffman={huff}: {len(got)} "
+              f"bytes", flush=True)
 
     # ---- 4. every stream against the port's plain path on the host ----
     for (im, q, huff), got in zip(cases, streams):
@@ -335,8 +600,23 @@ def main() -> None:
             raise AssertionError(f"{label}: took the {kind} branch")
         print(f"{label}: {len(got)} bytes ({kind}), byte-identical to the "
               f"plain path on the host ({plain_s:.2f} s there)", flush=True)
+    sw, sh, sn = VIDEO_SMALL
+    small = yuv420(video_frames(sw, sh, sn, 1))
+    for mode in ("raw", "recon"):
+        for huff in (True, False):
+            label = f"video {mode} {sw}x{sh}x{sn} huffman={huff}"
+            got = encode_video(small, sw, sh, mode, huff)
+            t0 = time.perf_counter()
+            want = encode_video(small, sw, sh, mode, huff, device="cpu")
+            plain_s = time.perf_counter() - t0
+            if got != want:
+                raise AssertionError(f"{label}: the card's stream differs "
+                                     f"from the plain path's ({len(got)} vs "
+                                     f"{len(want)} bytes)")
+            print(f"{label}: {len(got)} bytes, byte-identical to the plain "
+                  f"path on the host ({plain_s:.2f} s there)", flush=True)
 
-    # ---- 5. timing: device encode, Huffman stage, encode_image, H2D ----
+    # ---- 5. timing ----
     for (hh, ww), im in zip(SHAPES, images):
         mpix = hh * ww / 1e6
         t = []
@@ -386,19 +666,21 @@ def main() -> None:
               f"{mpix / e2e[0] * 1e3:.1f} Mpix/s); H2D copy median "
               f"{h2d[0]:.3f} ms, p90 {h2d[1]:.3f} ms (n={SAMPLES})",
               flush=True)
+    for mode in ("raw", "recon"):
+        time_video(vframes, quant, mode, dev)
 
-    # ---- 6. where the device time of encode_image goes ----
+    # ---- 6. where the device time goes ----
     img_d = torch.from_numpy(images[0]).to(dev)
-    by_op, wall_ms = device_rows(
-        lambda: port.encode_image(img_d, quant, use_huffman=True,
-                                  device="cuda"), PROFILE_CALLS)
-    busy_us = sum(by_op.values())
-    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
-    print(f"profile of {PROFILE_CALLS} encode_image calls at "
-          f"{SHAPES[0][1]}x{SHAPES[0][0]}: device busy {busy_us:.1f} us of "
-          f"{wall_ms * 1e3:.1f} us wall per call; top device items per "
-          f"call: " + "; ".join(f"{key[:60]} {us:.1f} us" for key, us in top),
-          flush=True)
+    print_profile(f"encode_image at {SHAPES[0][1]}x{SHAPES[0][0]}",
+                  lambda: port.encode_image(img_d, quant, use_huffman=True,
+                                            device="cuda"), PROFILE_CALLS)
+    fr_d = torch.from_numpy(vframes).to(dev)
+    for mode in ("raw", "recon"):
+        print_profile(
+            f"encode_video {mode} at {vw}x{vh}x{vn}",
+            lambda mode=mode: encode_frames(
+                fr_d, vw, vh, quant, True, GOP, MERANGE, use_huffman=True,
+                ref_mode=mode, device=dev), VIDEO_PROFILE_CALLS)
 
     print(json.dumps({"kernels": [rows[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Build the CUDA kernels in ``csrc/`` and load them with ctypes.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with
-a plain C interface: no PyTorch headers, so a build takes seconds.  The
-build runs at first use, into ``imageencoder_tpu_torch/_build/`` (listed in
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
+interface: no PyTorch headers, so a build takes seconds.  The build runs at
+first use, into ``imageencoder_tpu_torch/_build/`` (listed in
 ``.gitignore``), under a name keyed by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one loads at once.  A failed
 build raises; nothing falls back.
@@ -27,16 +28,19 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
+                 "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 SIGNATURES = {
-    "ie_encode_locals": [_P, _I64, _I64, _I32, _P, _P, _P, _I32, _I32, _P,
-                         _P, _P],
+    "ie_encode_locals": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _I32, _I32,
+                         _P, _P, _P, _P],
+    "ie_quantize_image": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P],
+    "ie_motion_search": [_P, _P, _I64, _I32, _I32, _I32, _P, _P],
+    "ie_predict": [_P, _P, _I64, _I32, _I32, _P, _P],
     "ie_pack_locals": [_P, _P, _I64, _I32, _P, _P, _I64, _P],
     "ie_pack_records": [_P, _P, _I64, _I32, _P, _P, _I64, _P],
     "ie_pack_threads": [],
@@ -68,11 +72,33 @@ def nvcc_path() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; returns their output, and raises with
+    it if any failed.  Every process has ended when this returns."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return outs
 
 
 def build() -> pathlib.Path:
@@ -83,20 +109,15 @@ def build() -> pathlib.Path:
         return out
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_LOG = res.stdout + res.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = sorted(CSRC.glob("*.cu"))
+        objs = [str(pathlib.Path(tmp) / f"{u.stem}.o") for u in units]
+        logs = _run_all([[nvcc, *COMPILE_FLAGS, "-c", str(u), "-o", o]
+                         for u, o in zip(units, objs)])
+        lib = str(pathlib.Path(tmp) / "lib.so")
+        logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
+    BUILD_LOG = "".join(logs)
     return out
 
 

@@ -19,7 +19,7 @@ from imageencoder_tpu.ops.bitpack import BitWriter
 from imageencoder_tpu.utils import profiling
 from imageencoder_tpu.utils.quant import QuantMatrix
 
-from ..ops.device_pack import header_to_words, stream_bytes
+from ..ops.device_pack import header_to_words, host_total, stream_bytes
 from ..ops.huffman import huffman_encode_from_meta
 from ..ops.pipeline import make_encode_packed, make_encode_packed_hist
 from ..utils.device import resolve_device
@@ -75,4 +75,4 @@ def encode_image(img, quant: QuantMatrix, use_rle: bool = True,
             return huffman_encode_from_meta(words, meta)
     with profiling.stage("device encode+pack"):
         words, total = make_encode_packed(block_size, use_rle, norm)(*args)
-        return stream_bytes(words, int(total))
+        return stream_bytes(words, host_total(total))

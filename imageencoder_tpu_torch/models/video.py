@@ -1,0 +1,136 @@
+"""Video encode on a torch device.
+
+The counterpart of imageencoder_tpu/models/video.py::encode_video with
+backend="jax" (models/video.py:223-328): the same signature, header and
+semantics, and streams byte-identical to its backend="numpy".  The host
+writes the header bits exactly as the JAX package does
+(models/headers.py); the device runs the motion search, the transform,
+the pack and the histogram (ops/video_pipeline.py) and, with Huffman, the
+payload pack (ops/huffman.py).  Decoding stays on the JAX package's host
+engine: imageencoder_tpu.models.video.decode_video(backend="fast") reads
+these streams.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from imageencoder_tpu.models.headers import (VideoParams, write_image_header,
+                                             write_video_params)
+from imageencoder_tpu.models.video import mvec_bits, split_yuv420
+from imageencoder_tpu.ops import bitpack
+from imageencoder_tpu.ops.bitpack import BitWriter
+from imageencoder_tpu.ops.huffman import huffman_encode
+from imageencoder_tpu.ops.motion import MACRO
+from imageencoder_tpu.utils import profiling
+from imageencoder_tpu.utils.quant import QuantMatrix
+
+from ..ops.device_pack import header_to_words, host_total, stream_bytes
+from ..ops.huffman import huffman_encode_from_meta
+from ..ops.video_pipeline import (make_encode_video_packed,
+                                  make_encode_video_packed_recon)
+from ..utils.device import resolve_device
+from .image import BLOCK_SIZE
+
+MAX_FRAMES_PER_CALL = 32  # longer videos go in GOP-aligned chunks
+
+
+def video_header(quant: QuantMatrix, use_rle: bool, width: int, height: int,
+                 params: VideoParams, use_huffman: bool) -> BitWriter:
+    """The stream's leading bits: a '0' flag bit without Huffman, the
+    image header, then the video parameters."""
+    writer = BitWriter()
+    if not use_huffman:
+        writer.put_bit(0)
+    write_image_header(writer, quant, use_rle, width, height)
+    write_video_params(writer, params)
+    return writer
+
+
+def encode_video(data: bytes, width: int, height: int, quant: QuantMatrix,
+                 use_rle: bool, gop: int, merange: int,
+                 use_huffman: bool = True, norm: str = "reference",
+                 ref_mode: str = "raw", block_size: int = BLOCK_SIZE,
+                 device="cuda") -> bytes:
+    """Encode a YUV420p byte stream to the reference video wire format on
+    ``device``.  Only Y is coded; UV bytes are skipped.
+
+    ref_mode "raw" predicts every P-frame from the raw frame before it (the
+    shipped reference binaries); "recon" from that frame's reconstruction
+    (the reference source).  The stream is byte-identical to
+    imageencoder_tpu.models.video.encode_video(..., backend="numpy").
+    """
+    frames = split_yuv420(data, width, height)
+    return encode_frames(frames, width, height, quant, use_rle, gop, merange,
+                         use_huffman, norm, ref_mode, block_size, device)
+
+
+def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
+                  use_rle: bool, gop: int, merange: int,
+                  use_huffman: bool = True, norm: str = "reference",
+                  ref_mode: str = "raw", block_size: int = BLOCK_SIZE,
+                  device="cuda") -> bytes:
+    """:func:`encode_video` of Y planes u8 [F, H, W] (a numpy array or a
+    tensor, which may already lie on ``device``)."""
+    if ref_mode not in ("raw", "recon"):
+        raise ValueError(f"unknown ref_mode {ref_mode!r}")
+    gop = max(1, gop)
+    if width % block_size or height % block_size or MACRO % block_size:
+        raise ValueError(f"video {width}x{height} does not tile into "
+                         f"{block_size}-pixel blocks and {MACRO}-pixel "
+                         f"macroblocks")
+    if (width % MACRO or height % MACRO) and gop > 1:
+        # P-frames of such a video desync the reference's decoder: blocks
+        # outside every macroblock never get a record (models/video.py).
+        raise ValueError(
+            f"video dimensions must be multiples of {MACRO} "
+            f"(got {width}x{height}); the reference silently produces "
+            f"undecodable streams for these when gop > 1")
+    dev = resolve_device(device)
+    frames = torch.as_tensor(frames, device=dev)
+    if frames.dtype != torch.uint8 or frames.dim() != 3 or tuple(
+            frames.shape[1:]) != (height, width):
+        raise TypeError(f"expected u8 [F, {height}, {width}] frames, got "
+                        f"{frames.dtype} {tuple(frames.shape)}")
+    frames = frames.contiguous()
+    n_frames = frames.shape[0]
+    writer = video_header(quant, use_rle, width, height,
+                          VideoParams(n_frames, gop, merange), use_huffman)
+    if n_frames == 0:
+        # Input shorter than one frame: a header-only stream, like the
+        # reference (frame_count = filesize / frame_size).
+        inner = writer.getvalue()
+        return huffman_encode(inner) if use_huffman else inner
+
+    factory = (make_encode_video_packed if ref_mode == "raw"
+               else make_encode_video_packed_recon)
+    qf = quant.as_float()
+    mb = mvec_bits(merange)
+    if n_frames <= MAX_FRAMES_PER_CALL:
+        fn = factory(gop, merange, mb, block_size, use_rle, norm,
+                     with_hist=use_huffman)
+        header = torch.from_numpy(
+            header_to_words(writer.getvalue()).view(np.int32)).to(dev)
+        with profiling.stage("device video encode"):
+            words, out = fn(frames, qf, writer.position, header)
+        if use_huffman:
+            with profiling.stage("huffman"):
+                return huffman_encode_from_meta(words, out.cpu().numpy())
+        return stream_bytes(words, host_total(out))
+
+    # Long videos: GOP-aligned chunks (GOPs are independent) encoded at bit
+    # 0 and spliced after the header, then Huffman over the whole stream.
+    chunk = max(gop, (MAX_FRAMES_PER_CALL // gop) * gop)
+    fn = factory(gop, merange, mb, block_size, use_rle, norm)
+    segments = [(writer.getvalue(), writer.position)]
+    with profiling.stage("device video encode"):
+        for s in range(0, n_frames, chunk):
+            words, total = fn(frames[s:s + chunk], qf, 0, None)
+            total = host_total(total)
+            segments.append((stream_bytes(words, total), total))
+    inner = bitpack.concat_bit_segments(segments)
+    if use_huffman:
+        with profiling.stage("huffman"):
+            return huffman_encode(inner)
+    return inner

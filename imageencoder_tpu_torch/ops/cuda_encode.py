@@ -1,23 +1,34 @@
-"""K1: the encode front end, pixels -> per-block register files.
+"""K1 and K5: the f64 block transform on the card.
 
-The counterpart of imageencoder_tpu/ops/pallas_encode.py.  For an [H, W]
-u8 image it returns, per B x B block in row-major block order, the block's
-record as a register file of ``lw = frontend_lw(B, norm)`` MSB-first words
-(int32 [N, lw], the u32 bits) and its bit length (int32 [N]).
-ops/cuda_pack.pack_locals concatenates them into the stream.
+K1, the encode front end, is the counterpart of
+imageencoder_tpu/ops/pallas_encode.py.  For an [H, W] image it returns, per
+B x B block in row-major block order, the block's record as a register
+file of ``lw`` MSB-first words (int32 [N, lw], the u32 bits) and its bit
+length (int32 [N]).  ops/cuda_pack.pack_locals concatenates them into the
+stream.  The input is u8 pixels, or int16 video samples: frames stacked as
+[F*H, W], I-frame rows holding pixels and P-frame rows the residual
+cur - pred.  ``lw`` follows from the dtype: u8 takes ``frontend_lw``,
+int16 the residual range's ``video_lw``.  A record longer than lw words
+is refused, not truncated: an overflow flag comes back with the records
+and turns the stream's total into -1, on which the host raises.
 
-On a CUDA tensor :func:`encode_locals` launches the kernel in
-csrc/encode.cu; on a CPU tensor it runs the plain version, which has two
-stages that the tests check apart:
+K5, :func:`quantize_image`, is the counterpart of
+imageencoder_tpu/ops/pallas_kernels.py::dct_quantize: the same transform
+with the coefficients left in place, int32 [H, W] (block (r, c),
+coefficient (u, v) at [B*r + u, B*c + v]).
+
+On a CUDA tensor the wrappers launch csrc/encode.cu and csrc/transform.cu;
+on a CPU tensor they run the plain versions, which have two stages that
+the tests check apart:
 
   * :func:`transform_quantize_zz`: the f64 DCT in the reference's exact
     order (ops/dct.py::dct2_exact), quantize and round half away from
-    zero, in zig-zag order;
+    zero, in zig-zag order (K5's plain version takes natural order);
   * :func:`locals_from_coeffs`: RLE stats, wire fields and register files.
 
-Unlike the TPU kernel, which computes the transform in f32 and differs from
-the host engine at rounding ties, both stages are exact: the stream equals
-encode_image(backend="numpy") byte for byte.
+Unlike the TPU kernels, which compute the transform in f32 and differ from
+the host engine at rounding ties, both stages are exact: the streams equal
+encode_image / encode_video(backend="numpy") byte for byte.
 """
 
 from __future__ import annotations
@@ -28,29 +39,58 @@ import numpy as np
 import torch
 
 from imageencoder_tpu.ops.dct import _fwd_weights
-from imageencoder_tpu.ops.pallas_encode import frontend_lw
+from imageencoder_tpu.ops.pallas_encode import frontend_lw, video_lw
 from imageencoder_tpu.ops.zigzag import zigzag_order
 
 from ..kernels import build
 from . import device_pack, rle
 
+INPUT_DTYPES = {torch.uint8: 0, torch.int16: 1}  # dtype code of the C ABI
+
+
+def record_words(dtype: torch.dtype, block_size: int, norm: str) -> int:
+    """Register-file words ``lw`` for K1 input of ``dtype``: the data_bits
+    bound of u8 pixels, or of int16 residuals in [-255, 255]."""
+    if dtype == torch.uint8:
+        return frontend_lw(block_size, norm)
+    if dtype == torch.int16:
+        return video_lw(block_size, norm)
+    raise TypeError(f"expected uint8 pixels or int16 residuals, got {dtype}")
+
 
 @lru_cache(maxsize=None)
-def encode_tables(block_size: int, norm: str):
-    """(wz f64 [K, K], scale_z f64 [K]): the forward weights W[c, uv] and
-    C(u)C(v) scales of ops/dct.py::_fwd_weights with their coefficient
-    axis in zig-zag order, so coefficients come out in wire order with each
-    one's arithmetic unchanged."""
+def encode_tables(block_size: int, norm: str, zigzag: bool = True):
+    """(w f64 [K, K], scale f64 [K]): the forward weights W[c, uv] and
+    C(u)C(v) scales of ops/dct.py::_fwd_weights, with the coefficient axis
+    in zig-zag order (K1) or natural order (K5); each coefficient's
+    arithmetic is unchanged."""
     w, scale = _fwd_weights(block_size, norm)
+    if not zigzag:
+        return w, scale
     zz = zigzag_order(block_size)
     return np.ascontiguousarray(w[:, zz]), np.ascontiguousarray(scale[zz])
 
 
-def _quant_zz(quant, block_size: int, device) -> torch.Tensor:
-    """Quant matrix [B, B] (array-like) -> f64 [K] in zig-zag order on
-    ``device``."""
-    q = np.asarray(quant, np.float64).reshape(-1)[zigzag_order(block_size)]
-    return torch.as_tensor(q, device=device)
+def device_constant(a, device) -> torch.Tensor:
+    """A read-only copy of the numpy array ``a`` on ``device``, made once
+    per content and device: a fresh host-to-device copy per call would
+    wait for the stream."""
+    a = np.ascontiguousarray(a)
+    return _constant(a.tobytes(), a.dtype.str, a.shape, torch.device(device))
+
+
+@lru_cache(maxsize=256)
+def _constant(data: bytes, dtype: str, shape: tuple, device: torch.device):
+    arr = np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape)
+    return torch.as_tensor(arr.copy(), device=device)
+
+
+def _quant_vec(quant, block_size: int, device, zigzag: bool) -> torch.Tensor:
+    """Quant matrix [B, B] (array-like) -> f64 [K] on ``device``."""
+    q = np.asarray(quant, np.float64).reshape(-1)
+    if zigzag:
+        q = q[zigzag_order(block_size)]
+    return device_constant(q, device)
 
 
 def _blocks(img: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -61,24 +101,41 @@ def _blocks(img: torch.Tensor, block_size: int) -> torch.Tensor:
             .reshape(-1, b * b))
 
 
-def transform_quantize_zz(img: torch.Tensor, quant, block_size: int = 4,
-                          norm: str = "reference") -> torch.Tensor:
-    """[H, W] u8 -> int32 [N, K] quantized coefficients in zig-zag order.
+def unblocks(blocks: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The inverse of :func:`_blocks`: [N, B*B] -> [H, W]."""
+    b = int(round(blocks.shape[1] ** 0.5))
+    return (blocks.reshape(h // b, w // b, b, b).permute(0, 2, 1, 3)
+            .reshape(h, w))
+
+
+def _check_input(img: torch.Tensor, block_size: int) -> None:
+    if img.dtype not in INPUT_DTYPES:
+        raise TypeError(f"expected uint8 pixels or int16 residuals, got "
+                        f"{img.dtype}")
+    if img.dim() != 2:
+        raise ValueError(f"expected an [H, W] image, got {tuple(img.shape)}")
+    h, w = img.shape
+    if h % block_size or w % block_size:
+        raise ValueError(f"image {h}x{w} is not a multiple of the "
+                         f"{block_size}-pixel block")
+
+
+def _transform(img: torch.Tensor, quant, block_size: int, norm: str,
+               zigzag: bool) -> torch.Tensor:
+    """[H, W] u8 or int16 -> int32 [N, K] quantized coefficients.
 
     Each coefficient is acc = 0; acc = acc + x[c] * w[c] for c = 0..K-1
     (a rounded multiply, then a rounded add: torch runs them as two ops),
-    then * scale, / quant and round half away from zero: bit-identical to
-    imageencoder_tpu.ops.dct.forward_transform_quantize_zz.
+    then * scale, / quant and round half away from zero.
     """
     dev = img.device
-    wz, scale_z = encode_tables(block_size, norm)
-    wz = torch.as_tensor(wz, device=dev)
+    wt, scale = _device_tables(block_size, norm, dev, zigzag)
     x = _blocks(img, block_size).to(torch.float64) - 128.0
     acc = torch.zeros_like(x)
     for c in range(x.shape[1]):
-        acc = acc + x[:, c:c + 1] * wz[c]
-    y = acc * torch.as_tensor(scale_z, device=dev)
-    z = y / _quant_zz(quant, block_size, dev)
+        acc = acc + x[:, c:c + 1] * wt[c]
+    y = acc * scale
+    z = y / _quant_vec(quant, block_size, dev, zigzag)
     t = torch.trunc(z)
     d = z - t
     r = torch.where((d >= 0.5) | (d <= -0.5),
@@ -86,61 +143,126 @@ def transform_quantize_zz(img: torch.Tensor, quant, block_size: int = 4,
     return r.to(torch.int32)
 
 
+def transform_quantize_zz(img: torch.Tensor, quant, block_size: int = 4,
+                          norm: str = "reference") -> torch.Tensor:
+    """[H, W] u8 or int16 -> int32 [N, K] quantized coefficients in zig-zag
+    order, bit-identical to
+    imageencoder_tpu.ops.dct.forward_transform_quantize_zz."""
+    return _transform(img, quant, block_size, norm, zigzag=True)
+
+
 def locals_from_coeffs(coeffs_zz: torch.Tensor, use_rle: bool, lw: int):
     """[N, K] zig-zag coefficients -> (register files int32 [N, lw],
-    record lengths int32 [N])."""
+    record lengths int32 [N]).  A record longer than lw words is refused
+    as K1 refuses it: it keeps its length and its words are zero."""
     stats = rle.block_stats(coeffs_zz, use_rle)
     vals, nbits = rle.block_fields(coeffs_zz, stats, use_rle)
     local, lens = device_pack.register_files(vals, nbits, lw)
+    local = torch.where((lens > 32 * lw)[:, None], 0, local)
     return device_pack.as_int32(local), lens.to(torch.int32)
 
 
 def encode_locals_plain(img: torch.Tensor, quant, block_size: int = 4,
                         use_rle: bool = True, norm: str = "reference"):
     """The plain version of K1, on any device."""
+    lw = record_words(img.dtype, block_size, norm)
     cz = transform_quantize_zz(img, quant, block_size, norm)
-    return locals_from_coeffs(cz, use_rle, frontend_lw(block_size, norm))
+    local, lens = locals_from_coeffs(cz, use_rle, lw)
+    overflow = (lens > 32 * lw).any().to(torch.int32).reshape(1)
+    return local, lens, overflow
 
 
 def encode_locals(img: torch.Tensor, quant, block_size: int = 4,
                   use_rle: bool = True, norm: str = "reference"):
-    """[H, W] u8 image -> (register files int32 [N, lw], lengths int32 [N]).
+    """[H, W] u8 image or int16 residual stack -> (register files int32
+    [N, lw], lengths int32 [N], overflow int32 [1]).
 
-    A CPU image runs the plain version; a CUDA image launches K1.
+    overflow is 1 where a record is longer than lw words (an input outside
+    its dtype's bound); that record is refused, not truncated.  The flag
+    stays on the device: :func:`refuse_overflow` carries it into the
+    stream's total, which the host reads anyway.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K1.
     """
-    h, w = img.shape
-    if h % block_size or w % block_size:
-        raise ValueError(f"image {h}x{w} is not a multiple of the "
-                         f"{block_size}-pixel block")
+    _check_input(img, block_size)
     if img.device.type == "cpu":
         return encode_locals_plain(img, quant, block_size, use_rle, norm)
-    if block_size not in (4, 8):
-        raise ValueError(f"the K1 kernel takes 4x4 or 8x8 blocks, not "
-                         f"{block_size}x{block_size}")
+    _check_kernel_block(block_size, "K1")
     dev = img.device
-    build.require(img, "img", torch.uint8, 2, dev)
-    tables = _device_tables(block_size, norm, dev)
-    quant_z = _quant_zz(quant, block_size, dev)
-    lw = frontend_lw(block_size, norm)
+    build.require(img, "img", img.dtype, 2, dev)  # device and layout
+    h, w = img.shape
+    lw = record_words(img.dtype, block_size, norm)
+    wz, scale_z = _device_tables(block_size, norm, dev, True)
+    quant_z = _quant_vec(quant, block_size, dev, True)
     n = (h // block_size) * (w // block_size)
     out_words = torch.empty((n, lw), dtype=torch.int32, device=dev)
     out_lens = torch.empty((n,), dtype=torch.int32, device=dev)
-    lib = build.library()
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        code = lib.ie_encode_locals(
-            img.data_ptr(), h, w, block_size, tables[0].data_ptr(),
-            tables[1].data_ptr(), quant_z.data_ptr(), int(use_rle), lw,
-            out_words.data_ptr(), out_lens.data_ptr(), build.stream_ptr(dev))
+        code = build.library().ie_encode_locals(
+            img.data_ptr(), INPUT_DTYPES[img.dtype], h, w, block_size,
+            wz.data_ptr(), scale_z.data_ptr(), quant_z.data_ptr(),
+            int(use_rle), lw, out_words.data_ptr(), out_lens.data_ptr(),
+            overflow.data_ptr(), build.stream_ptr(dev))
     build.check(code, "ie_encode_locals")
     encode_locals.launches += 1
-    return out_words, out_lens
+    return out_words, out_lens, overflow
 
 
 encode_locals.launches = 0
 
 
-@lru_cache(maxsize=None)
-def _device_tables(block_size: int, norm: str, device: torch.device):
-    wz, scale_z = encode_tables(block_size, norm)
-    return (torch.as_tensor(wz, device=device),
-            torch.as_tensor(scale_z, device=device))
+def refuse_overflow(total_bits: torch.Tensor,
+                    overflow: torch.Tensor) -> torch.Tensor:
+    """The stream's total bits, or -1 where K1 refused a record: the host
+    raises on it where it reads the total (device_pack.host_total), so the
+    check adds no wait of its own."""
+    return torch.where(overflow.reshape(()) != 0, -1, total_bits)
+
+
+def quantize_image_plain(img: torch.Tensor, quant, block_size: int = 4,
+                         norm: str = "reference") -> torch.Tensor:
+    """The plain version of K5, on any device: int32 [H, W]."""
+    h, w = img.shape
+    q = _transform(img, quant, block_size, norm, zigzag=False)
+    return unblocks(q, h, w)
+
+
+def quantize_image(img: torch.Tensor, quant, block_size: int = 4,
+                   norm: str = "reference") -> torch.Tensor:
+    """[H, W] u8 or int16 -> int32 [H, W] quantized coefficients in place.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K5.
+    """
+    _check_input(img, block_size)
+    if img.device.type == "cpu":
+        return quantize_image_plain(img, quant, block_size, norm)
+    _check_kernel_block(block_size, "K5")
+    dev = img.device
+    build.require(img, "img", img.dtype, 2, dev)  # device and layout
+    h, w = img.shape
+    wt, scale = _device_tables(block_size, norm, dev, False)
+    qv = _quant_vec(quant, block_size, dev, False)
+    out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = build.library().ie_quantize_image(
+            img.data_ptr(), INPUT_DTYPES[img.dtype], h, w, block_size,
+            wt.data_ptr(), scale.data_ptr(), qv.data_ptr(), out.data_ptr(),
+            build.stream_ptr(dev))
+    build.check(code, "ie_quantize_image")
+    quantize_image.launches += 1
+    return out
+
+
+quantize_image.launches = 0
+
+
+def _check_kernel_block(block_size: int, name: str) -> None:
+    if block_size not in (4, 8):
+        raise ValueError(f"the {name} kernel takes 4x4 or 8x8 blocks, not "
+                         f"{block_size}x{block_size}")
+
+
+def _device_tables(block_size: int, norm: str, device, zigzag: bool):
+    wt, scale = encode_tables(block_size, norm, zigzag)
+    return device_constant(wt, device), device_constant(scale, device)

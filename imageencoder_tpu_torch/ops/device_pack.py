@@ -48,6 +48,16 @@ def words_to_numpy(words: torch.Tensor) -> np.ndarray:
     return words.cpu().numpy().view(np.uint32)
 
 
+def host_total(total_bits) -> int:
+    """A stream's total bits as a host int.  Raises on -1, the total of an
+    encode whose K1 refused a record (cuda_encode.refuse_overflow)."""
+    total = int(total_bits)
+    if total < 0:
+        raise ValueError("a block record is longer than its register file "
+                         "(K1 input outside its dtype's bound)")
+    return total
+
+
 def stream_bytes(words: torch.Tensor, total_bits: int) -> bytes:
     """The first ceil(total_bits / 8) stream bytes; copies only the words
     that hold them to the host."""

@@ -17,7 +17,7 @@ from imageencoder_tpu.ops.huffman import (MAX_CODE_LEN, _dict_and_codes,
                                           _fallback)
 
 from . import cuda_kernels, cuda_pack
-from .device_pack import stream_bytes, words_to_u8
+from .device_pack import host_total, stream_bytes, words_to_u8
 
 DICT_WORDS = 256  # dict upper bound: ~6.1k bits for all 256 symbols
 
@@ -105,7 +105,7 @@ def huffman_encode_from_meta(words: torch.Tensor, meta) -> bytes:
     one exact-size copy.
     """
     meta = np.asarray(meta)
-    total_bits = int(meta[0])
+    total_bits = host_total(meta[0])
     freqs = meta[1:]
     inner_bytes = (total_bits + 7) // 8
     built = _dict_and_codes(freqs)

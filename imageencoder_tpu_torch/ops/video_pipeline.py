@@ -1,0 +1,199 @@
+"""The device video encode: frames -> packed stream words (+ histogram).
+
+The counterpart of imageencoder_tpu/ops/video_pipeline.py's
+make_encode_video_packed (ref_mode="raw") and
+make_encode_video_packed_recon (ref_mode="recon").  Both return a function
+f(frames u8 [F, H, W], quant [B, B], start_bit, header_words int32
+[HEADER_WORDS]) -> (words, total_bits), or (words, meta int32 [257]) with
+the byte histogram.  The header words are OR'd into the first words, so
+the words are the complete inner stream.  Stream order per frame
+(Frame.cpp:194-242): a P-frame's motion vectors, 2 x mvec_nbits signed
+bits per macroblock in row-major order, then its residual blocks; an
+I-frame's pixel blocks alone.
+
+Raw reference (every P-frame predicted from the raw frame before it), no
+frame-to-frame carry, so the whole video is one pass:
+
+    K6 motion_search  (ops/cuda_motion.py)   P-frames against frame f - 1
+    K7 predict        (ops/cuda_motion.py)   the prediction windows
+       int16 residual stack [F*H, W]: pixels on I rows, cur - pred on P
+    K1 encode_locals  (ops/cuda_encode.py)   one launch, register files
+       mvec records as one-word register files, interleaved per frame
+    K2 pack_locals    (ops/cuda_pack.py)     the stream words
+    K3 byte_histogram (ops/cuda_kernels.py)  Huffman statistics
+
+Recon reference (every P-frame predicted from the reconstruction of the
+frame before it) carries the reconstruction from frame to frame, so a
+Python loop over frames takes the place of the JAX package's lax.scan.
+Per P-frame: K6 and K7 against the carry, the residual, K5
+quantize_image, and the reconstruction (dequantize, the exact-order f64
+IDCT, +128, + prediction, clamp, truncate to u8), which becomes the
+carry.  An I-frame goes through K5 and resets the carry to its raw pixels
+(Frame.cpp:130-159 never reconstructs it).  After the loop the wire
+fields of every frame are built at once, K4 pack_records packs them, and
+K3 takes the histogram.  The IDCT runs as plain torch f64 ops, as it ran
+as XLA ops in the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from imageencoder_tpu.ops.dct import _inv_weights
+from imageencoder_tpu.ops.motion import MACRO
+from imageencoder_tpu.ops.zigzag import zigzag_order
+
+from . import cuda_encode, cuda_motion, cuda_pack, rle
+from .device_pack import as_int32, packed_words_bound
+from .pipeline import stream_byte_histogram
+
+
+def _p_frames(n_frames: int, gop: int) -> list[int]:
+    """Indices of the P-frames: every frame but each GOP's first."""
+    return [f for f in range(n_frames) if f % gop]
+
+
+def _finish(words, total, with_hist: bool):
+    if with_hist:
+        return words, stream_byte_histogram(words, total)
+    return words, total
+
+
+def mvec_words(mvec: torch.Tensor, mvec_nbits: int) -> torch.Tensor:
+    """Motion vectors int32 [..., 2] -> their record as one MSB-first word
+    (int32 bits): x then y, mvec_nbits two's-complement bits each
+    (pallas_encode.py::mvec_locals)."""
+    nb = mvec_nbits
+    m = mvec.to(torch.int64) & ((1 << nb) - 1)
+    return as_int32((m[..., 0] << (32 - nb)) | (m[..., 1] << (32 - 2 * nb)))
+
+
+def make_encode_video_packed(gop: int, merange: int, mvec_nbits: int,
+                             block_size: int = 4, use_rle: bool = True,
+                             norm: str = "reference",
+                             with_hist: bool = False):
+    """The raw-reference device encoder (see the module docstring)."""
+    b = block_size
+    k = b * b
+
+    def encode_video_packed(frames, quant, start_bit: int, header_words):
+        f, h, w = frames.shape
+        dev = frames.device
+        p_idx = _p_frames(f, gop)
+        n_micro = (h // b) * (w // b)
+        n_macro = (h // MACRO) * (w // MACRO) if p_idx else 0
+
+        x = frames.to(torch.int16)
+        if p_idx:
+            pi = torch.tensor(p_idx, device=dev)
+            cur = frames.index_select(0, pi)
+            ref = frames.index_select(0, pi - 1)
+            mvec = cuda_motion.motion_search(cur, ref, merange)
+            pred = cuda_motion.predict(ref, mvec)
+            x.index_copy_(0, pi, cur.to(torch.int16) - pred)
+        local, lens, overflow = cuda_encode.encode_locals(
+            x.reshape(f * h, w), quant, b, use_rle, norm)
+        lw = local.shape[1]
+
+        # Stream order: per frame, its macroblocks' vector records (zero
+        # length on I-frames), then its block records.
+        mlocal = torch.zeros((f, n_macro, lw), dtype=torch.int32, device=dev)
+        mlens = torch.zeros((f, n_macro), dtype=torch.int32, device=dev)
+        if p_idx:
+            mlocal[pi, :, 0] = mvec_words(mvec, mvec_nbits)
+            mlens[pi] = 2 * mvec_nbits
+        merged = torch.cat([mlocal, local.view(f, n_micro, lw)], dim=1)
+        merged_lens = torch.cat([mlens, lens.view(f, n_micro)], dim=1)
+        n_rows = f * (n_macro + n_micro)
+        words, total = cuda_pack.pack_locals(
+            merged.reshape(n_rows, lw), merged_lens.reshape(n_rows),
+            start_bit, packed_words_bound(n_rows, k + 2),
+            prefix=header_words)
+        return _finish(words, cuda_encode.refuse_overflow(total, overflow),
+                       with_hist)
+
+    return encode_video_packed
+
+
+def reconstruct(coeffs: torch.Tensor, pred: torch.Tensor, quant,
+                block_size: int, norm: str) -> torch.Tensor:
+    """A P-frame's reconstruction: int32 [H, W] in-place coefficients and
+    its u8 [H, W] prediction -> u8 [H, W].
+
+    Dequantize, the inverse DCT in the exact order of ops/dct.py::
+    idct2_exact (acc = acc + y[c] * wi[c] for c = 0..K-1, each a rounded
+    multiply then a rounded add), +128, + prediction, clamp to [0, 255]
+    and truncate: bit-identical to runtime/native.py::
+    idct_recon_exact_native.  The K products are taken in one op; the
+    sum starts from the first product instead of 0.0 + it, which can
+    change only the sign of a zero, and + 128 removes that.
+    """
+    dev = coeffs.device
+    h, w = coeffs.shape
+    wi = cuda_encode.device_constant(_inv_weights(block_size, norm), dev)
+    qv = cuda_encode.device_constant(
+        np.asarray(quant, np.float64).reshape(-1), dev)
+    y = cuda_encode._blocks(coeffs, block_size).to(torch.float64) * qv
+    prod = y[:, :, None] * wi                                  # [N, K, K]
+    acc = prod[:, 0]
+    for c in range(1, y.shape[1]):
+        acc = acc + prod[:, c]
+    pv = cuda_encode._blocks(pred, block_size).to(torch.float64) + (acc
+                                                                    + 128.0)
+    return cuda_encode.unblocks(pv.clamp(0.0, 255.0).to(torch.uint8), h, w)
+
+
+def make_encode_video_packed_recon(gop: int, merange: int, mvec_nbits: int,
+                                   block_size: int = 4, use_rle: bool = True,
+                                   norm: str = "reference",
+                                   with_hist: bool = False):
+    """The recon-reference device encoder (see the module docstring)."""
+    b = block_size
+    k = b * b
+    zz = zigzag_order(b)
+
+    def encode_video_packed(frames, quant, start_bit: int, header_words):
+        f, h, w = frames.shape
+        dev = frames.device
+        p_idx = _p_frames(f, gop)
+        n_micro = (h // b) * (w // b)
+        n_macro = (h // MACRO) * (w // MACRO) if p_idx else 0
+        coeffs = torch.empty((f, h, w), dtype=torch.int32, device=dev)
+        mvecs = []
+        carry = None
+        for fi in range(f):
+            cur = frames[fi]
+            if fi % gop == 0:
+                coeffs[fi] = cuda_encode.quantize_image(cur, quant, b, norm)
+                carry = cur
+                continue
+            mvec = cuda_motion.motion_search(cur[None], carry[None], merange)
+            pred = cuda_motion.predict(carry[None], mvec)[0]
+            res = cur.to(torch.int16) - pred  # int16: [-255, 255]
+            coeffs[fi] = cuda_encode.quantize_image(res, quant, b, norm)
+            carry = reconstruct(coeffs[fi], pred, quant, b, norm)
+            mvecs.append(mvec[0])
+
+        # The fields of every frame at once, in stream order: per frame,
+        # its vector records (zero width on I-frames), then its blocks.
+        zz_t = cuda_encode.device_constant(zz, dev)
+        czz = cuda_encode._blocks(coeffs.reshape(f * h, w), b)[:, zz_t]
+        bv, bb = rle.block_fields(czz, rle.block_stats(czz, use_rle),
+                                  use_rle)
+        mv = torch.zeros((f, n_macro, k + 2), dtype=torch.int32, device=dev)
+        mb = torch.zeros_like(mv)
+        if p_idx:
+            pi = torch.tensor(p_idx, device=dev)
+            mv[pi, :, :2] = torch.stack(mvecs)
+            mb[pi, :, :2] = mvec_nbits
+        vals = torch.cat([mv, bv.to(torch.int32).view(f, n_micro, k + 2)],
+                         dim=1).reshape(-1, k + 2)
+        nbits = torch.cat([mb, bb.to(torch.int32).view(f, n_micro, k + 2)],
+                          dim=1).reshape(-1, k + 2)
+        words, total = cuda_pack.pack_records(
+            vals, nbits, start_bit, packed_words_bound(vals.shape[0], k + 2),
+            prefix=header_words)
+        return _finish(words, total, with_hist)
+
+    return encode_video_packed

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, and its
-full-size streams against the JAX package's host engine, on the card.
+full-size image and video streams against the JAX package's host engine,
+on the card.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips where
 torch.cuda.is_available() is false.  The file imports no JAX (the machine
@@ -16,8 +17,11 @@ import torch
 
 import imageencoder_tpu
 import imageencoder_tpu_torch
+from imageencoder_tpu.models import video as host_video
 from imageencoder_tpu.utils.quant import QuantMatrix
-from imageencoder_tpu_torch.ops import cuda_encode, cuda_kernels, cuda_pack
+from imageencoder_tpu_torch.ops import (cuda_encode, cuda_kernels,
+                                        cuda_motion, cuda_pack, device_pack,
+                                        pipeline)
 
 pytestmark = pytest.mark.cuda
 
@@ -64,13 +68,14 @@ def test_encode_locals_kernel_equals_plain(dev, h, w, b, norm, use_rle,
     got = cuda_encode.encode_locals(img, q, b, use_rle, norm)
     want = cuda_encode.encode_locals_plain(img, q, b, use_rle, norm)
     assert cuda_encode.encode_locals.launches == before + 1
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert len(got) == len(want) == 3
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("start", [0, 37, 2047])
 def test_pack_locals_kernel_equals_plain(dev, start):
     img = torch.from_numpy(image(128, 64, 5)).to(dev)
-    local, lens = cuda_encode.encode_locals(img, quant_for(4))
+    local, lens, _ = cuda_encode.encode_locals(img, quant_for(4))
     nw = local.shape[0] * 9 + 64
     prefix = torch.full((2,), -1, dtype=torch.int32, device=dev)
     prefix = prefix if start >= 64 else None
@@ -147,3 +152,130 @@ def test_full_size_stream_equals_host_engine_and_decodes(
     assert dec.shape == img.shape
     np.testing.assert_array_equal(
         dec, imageencoder_tpu.decode_image(want, backend="fast"))
+
+
+def video_frames(w: int, h: int, n: int, seed: int) -> np.ndarray:
+    """bench.py's video content: 8x8 random blocks moving by (2, 3) pixels
+    a frame, plus Gaussian noise of sigma 3."""
+    rng = np.random.default_rng(seed)
+    base = np.kron(rng.integers(0, 256, (h // 8, w // 8)), np.ones((8, 8)))
+    return np.stack([np.clip(np.roll(base, (f * 2, f * 3), (0, 1))
+                             + rng.normal(0, 3, base.shape), 0, 255)
+                     .astype(np.uint8) for f in range(n)])
+
+
+@pytest.mark.parametrize("h,w,merange", [
+    (64, 96, 16), (48, 2080, 8), (32, 32, 1), (64, 64, 300)])
+def test_motion_kernels_equal_plain(dev, h, w, merange):
+    """K6 and K7: bit-equal vectors and predictions, frames wider than
+    2048 px, no levels (merange 1), and a window too large for shared
+    memory (merange 300)."""
+    frames = torch.from_numpy(video_frames(w, h, 4, w + merange)).to(dev)
+    cur, ref = frames[1:], frames[:-1]
+    before = cuda_motion.motion_search.launches
+    mv = cuda_motion.motion_search(cur, ref, merange)
+    assert cuda_motion.motion_search.launches == before + 1
+    assert torch.equal(mv, cuda_motion.motion_search_plain(cur, ref,
+                                                           merange))
+    rng = np.random.default_rng(h)
+    far = torch.from_numpy(rng.integers(-70, 70, tuple(mv.shape))
+                           .astype(np.int32)).to(dev)
+    for vec in (mv, far):  # found vectors, and windows against the borders
+        assert torch.equal(cuda_motion.predict(ref, vec),
+                           cuda_motion.predict_plain(ref, vec))
+
+
+@pytest.mark.parametrize("b,norm,kind", [
+    (4, "reference", "pixels"), (4, "reference", "residual"),
+    (8, "ortho", "residual")])
+def test_quantize_image_kernel_equals_plain(dev, b, norm, kind):
+    a = video_frames(96, 64, 2, b)
+    x = (torch.from_numpy(a[1]) if kind == "pixels" else
+         torch.from_numpy(a[1].astype(np.int16) - a[0].astype(np.int16)))
+    x = x.to(dev)
+    q = quant_for(b)
+    before = cuda_encode.quantize_image.launches
+    got = cuda_encode.quantize_image(x, q, b, norm)
+    assert cuda_encode.quantize_image.launches == before + 1
+    assert torch.equal(got, cuda_encode.quantize_image_plain(x, q, b, norm))
+
+
+def extreme_residuals() -> np.ndarray:
+    """cur 255 over pred 0, 0 over 255, and an impulse of +255 in a block
+    of -255 (a record of 208 bits: 7 words)."""
+    x = np.empty((4, 12), np.int16)
+    x[:, 0:4] = 255
+    x[:, 4:12] = -255
+    x[1, 9] = 255
+    return x
+
+
+def wild_samples() -> np.ndarray:
+    """int16 samples near +-32767, far outside the residual range: their
+    records need about 18 bits a coefficient, more than 7 words."""
+    rng = np.random.default_rng(3)
+    return (rng.choice([-1, 1], (4, 8)) * rng.integers(30000, 32767, (4, 8))
+            ).astype(np.int16)
+
+
+def test_encode_locals_kernel_takes_extreme_residuals(dev):
+    x = torch.from_numpy(extreme_residuals()).to(dev)
+    q = np.ones((4, 4))
+    words, lens, overflow = cuda_encode.encode_locals(x, q)
+    assert words.shape == (3, 7) and lens.tolist()[2] == 208
+    assert overflow.tolist() == [0]
+    want = cuda_encode.encode_locals_plain(x, q)
+    assert torch.equal(words, want[0]) and torch.equal(lens, want[1])
+    # Samples outside the residual range: the kernel refuses the records
+    # (zero words, as the plain version), and the host raises where it
+    # reads the stream's total.
+    x = torch.from_numpy(wild_samples()).to(dev)
+    got = cuda_encode.encode_locals(x, q)
+    want = cuda_encode.encode_locals_plain(x, q)
+    assert got[2].tolist() == [1] and (got[1] > 32 * 7).all()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _, total = pipeline.make_encode_packed()(x, q, 0, None)
+    with pytest.raises(ValueError, match="register file"):
+        device_pack.host_total(total)
+
+
+@pytest.mark.parametrize("ref_mode", ["raw", "recon"])
+@pytest.mark.parametrize("b,norm,gop,use_rle", [
+    (8, "ortho", 3, True), (4, "reference", 1, False),
+    (4, "reference", 5, False)])
+def test_small_videos_equal_host_engine(dev, ref_mode, b, norm, gop,
+                                        use_rle):
+    """8x8 blocks, all I-frames, RLE off, and 40 frames (two chunks)."""
+    w, h, n = 96, 64, 40
+    frames = video_frames(w, h, n, b + gop)
+    data = b"".join(f.tobytes() + bytes(w * h // 2) for f in frames)
+    quant = QuantMatrix(quant_for(b).astype(np.uint32))
+    for huff in (True, False):
+        got = imageencoder_tpu_torch.encode_video(
+            data, w, h, quant, use_rle, gop, 8, use_huffman=huff, norm=norm,
+            ref_mode=ref_mode, block_size=b, device=dev)
+        assert got == bytes(host_video.encode_video(
+            data, w, h, quant, use_rle, gop, 8, use_huffman=huff, norm=norm,
+            backend="numpy", ref_mode=ref_mode, block_size=b))
+
+
+@pytest.mark.parametrize("ref_mode", ["raw", "recon"])
+def test_video_720p25_equals_host_engine_and_decodes(dev, ref_mode):
+    """bench.py's video size: 1280x720, 25 frames, gop 4, merange 16, RLE
+    and Huffman on."""
+    w, h, n = 1280, 720, 25
+    frames = video_frames(w, h, n, 0)
+    data = b"".join(f.tobytes() + bytes(w * h // 2) for f in frames)
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    got = imageencoder_tpu_torch.encode_video(
+        data, w, h, quant, True, 4, 16, use_huffman=True, ref_mode=ref_mode,
+        device=dev)
+    want = host_video.encode_video(data, w, h, quant, True, 4, 16,
+                                   use_huffman=True, backend="numpy",
+                                   ref_mode=ref_mode)
+    assert got == bytes(want) and got[0] & 0x80
+    dec, params, size = host_video.decode_video(got, backend="fast")
+    assert (params.frame_count, params.gop, size) == (n, 4, (w, h))
+    y = np.frombuffer(dec, np.uint8).reshape(n, -1)[:, :w * h]
+    mse = ((y.astype(np.float64) - frames.reshape(n, -1)) ** 2).mean()
+    assert 10 * np.log10(255 ** 2 / mse) > 28

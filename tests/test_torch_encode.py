@@ -168,8 +168,10 @@ def test_encode_locals_on_cpu_runs_the_plain_version():
     img = image(16, 24, 1)
     quant = quant_for(4, "jpeg").as_float()
     before = cuda_encode.encode_locals.launches
-    words, lens = cuda_encode.encode_locals(torch.from_numpy(img), quant)
+    words, lens, overflow = cuda_encode.encode_locals(torch.from_numpy(img),
+                                                      quant)
     assert cuda_encode.encode_locals.launches == before
+    assert overflow.tolist() == [0]
     cz = cuda_encode.transform_quantize_zz(torch.from_numpy(img), quant)
     pw, pl = cuda_encode.locals_from_coeffs(cz, True, frontend_lw(4,
                                                                   "reference"))
