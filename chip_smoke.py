@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 It needs one CUDA card (an H100: the kernels are built for sm_90a), nvcc,
-and this checkout.  It imports only the port (and through it the JAX
-package's jax-free host modules), never JAX and never the JAX package's
-encoder or decoder.  It drives three paths: the image encode
-(encode_image), and the video encode (encode_video) with the raw and with
-the recon motion reference.  Phases, each of which raises on failure:
+and this checkout.  It imports only the port, which stands alone: JAX and
+the JAX package (imageencoder_tpu) are blocked before anything is
+imported.  It drives three paths: the image encode (encode_image), and
+the video encode (encode_video) with the raw and with the recon motion
+reference.  Phases, each of which raises on failure:
 
   1. build the kernels in imageencoder_tpu_torch/csrc with nvcc, one
      process per source, all started together;
@@ -20,8 +20,11 @@ the recon motion reference.  Phases, each of which raises on failure:
      1280x720, 25 frames, gop 4, merange 16, Huffman on, with the raw
      reference for K6 motion_search, K7 predict, K1 on the int16 residual
      stack, K2, K3 and K4 (the Huffman payload); and with the recon
-     reference for every K5 quantize_image, K6 and K7 call, K3, and both
-     K4 calls (the wire fields and the Huffman payload);
+     reference for every K5 quantize_image (I-frames), K5 recon_step (the
+     fused P-frame step), K6 and K7 call, K3, and both K4 calls (the wire
+     fields and the Huffman payload).  K3 is also timed against
+     torch.bincount over the same stream bytes, the one PyTorch call that
+     computes its function;
   3. drive each path with every kernel's launch count set to 0 just
      before it and read just after: encode_image(..., device="cuda") on
      seeded 4096x912 and 3840x2160 images with Huffman on and off and on
@@ -38,9 +41,9 @@ the recon motion reference.  Phases, each of which raises on failure:
   5. time, inputs resident on the device: the device encode, the Huffman
      stage, the whole encode_image and the host-to-device copy of the
      image; for video, the whole encode_video of frames on the device, the
-     device window (K6 + K7 + K1 + K2 + K3, or per frame K6 + K7 + K5 and
-     then K4 + K3, until meta is ready), the Huffman stage and the copy of
-     the frames;
+     device window (K6 + K7 + K1 + K2 + K3, or per frame K6 + K7 + the
+     recon step (K5 on I-frames) and then K4 + K3, until meta is ready),
+     the Huffman stage and the copy of the frames;
   6. profile a few calls of each path and print the device time per call
      by operation: where the device time goes.
 
@@ -48,6 +51,13 @@ Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
 ``call_ms`` and ``plain_call_ms`` are CUDA-event times of back-to-back
 calls, which include the wrappers' glue and launch overhead.
+``bound_ms`` is the larger of the HBM floor (the bytes the function must
+move at 3.35 TB/s) and the operation floor (f64 transforms: their
+separately rounded f64 ops at 64 an SM a clock; K6: its byte SADs, 4 to a
+__vsadu4 lane op at 64 int32 ops an SM a clock), both at the H100 SXM's
+132 SMs and 1.98 GHz boost clock.  ``library_ms`` is the profiler's
+device time of one PyTorch call computing the same function, where one
+exists (K3: torch.bincount), else null.
 
 Output: the card's name and power limit on an early line, one JSON line
 {"kernels": [...]} before the last, and last
@@ -62,6 +72,7 @@ import sys
 import time
 
 sys.modules["jax"] = None  # any import of JAX fails loudly
+sys.modules["imageencoder_tpu"] = None  # and of the JAX package
 
 QUANT = [[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
          [14, 17, 22, 29]]  # top-left of the JPEG luminance table
@@ -70,11 +81,15 @@ VIDEO = (1280, 720, 25)  # W, H, frames: bench.py's video size
 VIDEO_SMALL = (320, 176, 8)  # held against the plain path on the host
 GOP, MERANGE = 4, 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+SMS, BOOST_HZ = 132, 1.98e9  # H100 SXM
+F64_OPS_PER_S = 64 * SMS * BOOST_HZ  # separately rounded f64 ops
+INT32_OPS_PER_S = 64 * SMS * BOOST_HZ  # 32-bit integer lane ops
 SAMPLES = 110  # per end-to-end timing: p90 has 11 samples beyond it
 VIDEO_SAMPLES = 30  # per video timing: p90 has 3 samples beyond it
 PROFILE_CALLS = 10
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "call_ms", "plain_call_ms",
-            "bytes", "hbm_floor_ms")  # of a kernel's row at another shape
+            "bytes", "ops", "hbm_floor_ms", "bound_ms", "bound_by",
+            "library_ms")  # of a kernel's row at another shape
 VIDEO_PROFILE_CALLS = 3
 KERNELS = {  # name: (wrapper's module, wrapper, plain version,
     #                 CUDA kernel symbol, source, the TPU kernel replaced)
@@ -98,6 +113,10 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                           "quantize_image_plain", "quantize_image_kernel",
                           "imageencoder_tpu_torch/csrc/transform.cu",
                           "imageencoder_tpu/ops/pallas_kernels.py:114"),
+    "K5 recon_step": ("cuda_encode", "recon_step", "recon_step_plain",
+                      "recon_step_kernel",
+                      "imageencoder_tpu_torch/csrc/transform.cu",
+                      "imageencoder_tpu/ops/pallas_kernels.py:114"),
     "K6 motion_search": ("cuda_motion", "motion_search",
                          "motion_search_plain", "motion_search_kernel",
                          "imageencoder_tpu_torch/csrc/motion.cu",
@@ -112,7 +131,8 @@ PATHS = {  # path: the kernels it runs
     "video raw": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
                   "K4 pack_records", "K6 motion_search", "K7 predict"),
     "video recon": ("K3 byte_histogram", "K4 pack_records",
-                    "K5 quantize_image", "K6 motion_search", "K7 predict"),
+                    "K5 quantize_image", "K5 recon_step", "K6 motion_search",
+                    "K7 predict"),
 }
 
 
@@ -194,9 +214,10 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_rows(fn, reps: int):
+def device_rows(fn, reps: int, counts: dict | None = None):
     """(device microseconds per call by operation, host wall ms per call)
-    of fn() under torch.profiler."""
+    of fn() under torch.profiler; ``counts``, where given, receives the
+    device operations per call by operation."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -218,6 +239,8 @@ def device_rows(fn, reps: int):
         t = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if t is None else t
         rows[e.key] = rows.get(e.key, 0.0) + us / reps
+        if counts is not None:
+            counts[e.key] = counts.get(e.key, 0.0) + e.count / reps
     return rows, wall_ms
 
 
@@ -285,6 +308,10 @@ def calls_of(name: str, args: tuple, kwargs: dict):
     mod_name, attr, plain_attr, *_ = KERNELS[name]
     mod = module(mod_name)
     kernel, plain = getattr(mod, attr), getattr(mod, plain_attr)
+    # Both write fresh outputs: an ``out`` the main path passed (a frame
+    # of its coefficient buffer) would make them compare a tensor with
+    # itself.
+    kwargs = {k: v for k, v in kwargs.items() if k != "out"}
 
     def kernel_call():
         return as_tuple(kernel(*args, **kwargs))
@@ -313,6 +340,56 @@ def held_equal(name: str, args: tuple, kwargs: dict):
     return err, got
 
 
+def f64_ops_per_block(k: int, recon: bool) -> int:
+    """Separately rounded f64 ops of one block's transform: K*K multiplies
+    and adds, then a scale multiply and a divide per coefficient; the
+    recon step adds the dequantize multiply, the inverse's K*K multiplies
+    and adds, and two adds a pixel (+ 128, + prediction)."""
+    fwd = 2 * k * k + 2 * k
+    return fwd + (k + 2 * k * k + 2 * k if recon else 0)
+
+
+def operations(name: str, args: tuple) -> tuple[float, float]:
+    """(ops, ops/s of their type) the function does on these inputs; 0 ops
+    for the kernels that only move bytes."""
+    from imageencoder_tpu_torch.ops.motion import MACRO, search_steps
+
+    if name in ("K1 encode_locals", "K5 quantize_image", "K5 recon_step"):
+        at = 3 if name == "K5 recon_step" else 2  # the block size argument
+        b = args[at] if len(args) > at else 4
+        blocks = args[0].numel() // (b * b)
+        return (blocks * f64_ops_per_block(b * b, name == "K5 recon_step"),
+                F64_OPS_PER_S)
+    if name == "K6 motion_search":
+        # 9 candidates on the first level, 8 on each further one (the
+        # centre's SAD is the previous level's best).
+        f, h, w = args[0].shape
+        levels = len(search_steps(args[2]))
+        candidates = 9 + 8 * (levels - 1) if levels else 0
+        byte_sads = (f * (h // MACRO) * (w // MACRO) * candidates
+                     * MACRO * MACRO)
+        return byte_sads / 4, INT32_OPS_PER_S  # 4 bytes a __vsadu4
+    return 0.0, 1.0
+
+
+def bincount_ms(words, total_bits) -> float:
+    """Device ms of torch.bincount over the stream's bytes (the first
+    ceil(total / 8) bytes of the words in memory order, which for a whole
+    number of words are the stream's own), checked against K3."""
+    import torch
+
+    from imageencoder_tpu_torch.ops import cuda_kernels
+
+    nbytes = (int(total_bits) + 7) // 8
+    data = words.view(torch.uint8)[:nbytes]
+    hist = torch.bincount(data, minlength=256)
+    want = cuda_kernels.byte_histogram(words, total_bits)
+    # Bytes of a partial last word are taken from its other end.
+    if int((hist - want).abs().sum()) > 2 * (nbytes % 4):
+        raise AssertionError("torch.bincount disagrees with K3")
+    return profiled_ms(lambda: torch.bincount(data, minlength=256))
+
+
 def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     """Hold one kernel against its plain version on the arguments the main
     path gave it, and time both."""
@@ -332,10 +409,13 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
                   + (int(got[1]) + 7) // 8)
     elif name == "K3 byte_histogram":
         nbytes = (int(args[1]) + 7) // 8
-    elif name in ("K6 motion_search", "K7 predict"):
+    elif name in ("K6 motion_search", "K7 predict", "K5 recon_step"):
         nbytes = tensor_bytes(args[:2]) + tensor_bytes(got)
     else:
         nbytes = tensor_bytes(args[:1]) + tensor_bytes(got)
+    ops, rate = operations(name, args)
+    hbm_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / rate * 1e3
     plain_reps = reps_for(plain_call)
     plain_call_ms = cuda_ms(plain_call, plain_reps)
     call_ms = (cuda_ms(kernel_call) + cuda_ms(kernel_call)) / 2
@@ -344,14 +424,22 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": profiled_ms(kernel_call, symbol),
            "plain_ms": profiled_ms(plain_call, reps=plain_reps),
+           "bound_ms": max(hbm_ms, ops_ms),
+           "bound_by": "operations" if ops_ms > hbm_ms else "bytes",
+           "library_ms": (bincount_ms(*args)
+                          if name == "K3 byte_histogram" else None),
            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-           "bytes": nbytes, "hbm_floor_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+           "bytes": nbytes, "ops": ops, "hbm_floor_ms": hbm_ms}
     shapes = ", ".join(str(tuple(a.shape)) for a in args
                        if isinstance(a, torch.Tensor))
+    lib = ("" if row["library_ms"] is None
+           else f"; torch.bincount {row['library_ms']:.4f} ms")
     print(f"{name} on {shapes}: bit-equal to plain; device {row['ms']:.4f} "
           f"ms (plain {row['plain_ms']:.4f} ms); per call {call_ms:.4f} ms "
-          f"(plain {plain_call_ms:.4f} ms); HBM floor "
-          f"{row['hbm_floor_ms']:.4f} ms for {nbytes} bytes", flush=True)
+          f"(plain {plain_call_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
+          f"by {row['bound_by']} (HBM floor {hbm_ms:.4f} ms for {nbytes} "
+          f"bytes, op floor {ops_ms:.4f} ms for {ops:.0f} ops){lib}",
+          flush=True)
     return row
 
 
@@ -454,14 +542,18 @@ def time_video(frames_np, quant, ref_mode: str, dev) -> None:
 
 
 def print_profile(label: str, fn, calls: int) -> None:
-    """Phase 6: device time per call by operation."""
-    by_op, wall_ms = device_rows(fn, calls)
+    """Phase 6: device time per call by operation, and the number of
+    device operations (kernels and copies) per call."""
+    counts = {}
+    by_op, wall_ms = device_rows(fn, calls, counts)
     busy_us = sum(by_op.values())
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
     print(f"profile of {calls} {label} calls: device busy {busy_us:.1f} us "
-          f"of {wall_ms * 1e3:.1f} us wall per call; top device items per "
-          f"call: " + "; ".join(f"{key[:60]} {us:.1f} us" for key, us in top),
-          flush=True)
+          f"of {wall_ms * 1e3:.1f} us wall per call, "
+          f"{sum(counts.values()):.0f} device operations per call; top "
+          f"device items per call: " + "; ".join(
+              f"{key[:60]} {us:.1f} us ({counts[key]:.0f}x)"
+              for key, us in top), flush=True)
 
 
 def main() -> None:
@@ -532,7 +624,8 @@ def main() -> None:
     with captured_calls() as calls:
         encode_video(vdata, vw, vh, "recon", True)
     n_p = sum(1 for f in range(vn) if f % GOP)
-    for name, want in (("K5 quantize_image", vn), ("K6 motion_search", n_p),
+    for name, want in (("K5 quantize_image", vn - n_p),
+                       ("K5 recon_step", n_p), ("K6 motion_search", n_p),
                        ("K7 predict", n_p), ("K3 byte_histogram", 1),
                        ("K4 pack_records", 2)):
         if len(calls[name]) != want:
@@ -540,19 +633,28 @@ def main() -> None:
                                  f"recon encode_video, expected {want}")
         for args, kwargs in calls[name]:
             held_equal(name, args, kwargs)
-    k5_calls = calls["K5 quantize_image"]
-    rows["K5 quantize_image"] = check_kernel(
-        "K5 quantize_image", *next(c for c in k5_calls
-                                   if c[0][0].dtype == torch.int16))
+    rows["K5 quantize_image"] = check_kernel("K5 quantize_image",
+                                             *calls["K5 quantize_image"][0])
+    step_args = calls["K5 recon_step"][0][0]
+    rows["K5 recon_step"] = check_kernel("K5 recon_step", step_args, {})
+    # K5 alone on a P-frame residual, the input it took before the step
+    # was fused.
+    cur, pred, *rest = step_args
+    beside(rows["K5 quantize_image"], "p_frame_residual", check_kernel(
+        "K5 quantize_image", (cur.to(torch.int16) - pred, *rest), {}))
+    for key, name in (("video_recon", "K6 motion_search"),
+                      ("video_recon", "K7 predict")):
+        beside(rows[name], key, check_kernel(name, *calls[name][0]))
     beside(rows["K3 byte_histogram"], "video_recon",
            check_kernel("K3 byte_histogram", *calls["K3 byte_histogram"][0]))
     for key, call in zip(("video_recon_fields", "video_recon_payload"),
                          calls["K4 pack_records"]):
         beside(rows["K4 pack_records"], key,
                check_kernel("K4 pack_records", *call))
-    print(f"recon encode_video: all {vn} K5, {n_p} K6, {n_p} K7, 1 K3 and 2 "
-          f"K4 calls bit-equal to their plain versions", flush=True)
-    del calls, k5_calls
+    print(f"recon encode_video: all {vn - n_p} K5, {n_p} recon step, {n_p} "
+          f"K6, {n_p} K7, 1 K3 and 2 K4 calls bit-equal to their plain "
+          f"versions", flush=True)
+    del calls, step_args, cur, pred, rest
 
     # ---- 3. each path, counts from 0 ----
     # No full-size image compresses too little for the dict (the records'

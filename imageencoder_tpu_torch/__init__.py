@@ -2,22 +2,25 @@
 PyTorch and CUDA (an NVIDIA H100, sm_90a).
 
 The port of imageencoder_tpu's JAX/Pallas device layer.  It imports torch
-and never jax; the JAX package's host code (headers, Huffman dict, quant
-matrices, the native engine) is shared, not copied.
+and never jax, and nothing of imageencoder_tpu: it keeps its own copy of
+the host code it needs (headers, bit packing, quant matrices, DCT tables,
+the Huffman dict), so it runs where the JAX package is absent.
 
 Public API:
-    encode_image   still-image encode on a torch device (reference format)
-    encode_video   YUV420p video encode on a torch device (raw or recon
-                   motion reference)
-    QuantMatrix    quantization matrices (imageencoder_tpu.utils.quant)
+    encode_image      still-image encode on a torch device (reference
+                      format)
+    encode_video      YUV420p video encode on a torch device (raw or recon
+                      motion reference)
+    QuantMatrix       quantization matrices (utils/quant.py)
+    quant_from_numpy  a QuantMatrix from a numpy array, such as the matrix
+                      of imageencoder_tpu's QuantMatrix
 
 Decode with imageencoder_tpu.decode_image(backend="fast") and
 imageencoder_tpu.models.video.decode_video(backend="fast").
 """
 
-from imageencoder_tpu.utils.quant import QuantMatrix  # noqa: F401
-
 from .models.image import encode_image  # noqa: F401
 from .models.video import encode_video  # noqa: F401
+from .utils.quant import QuantMatrix, quant_from_numpy  # noqa: F401
 
 __version__ = "0.1.0"

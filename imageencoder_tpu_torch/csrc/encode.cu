@@ -22,10 +22,13 @@
 // ops/rle.py::block_stats (trailing-strip quirk, ffs(0) clamp) and the
 // wire fields of block_fields, emitted MSB-first.
 //
-// Bound on this card: HBM bytes and launch overhead.  A 4x4 block reads 16
-// or 32 bytes and writes 28 or 32 (lw words + a length) for about 544 f64
-// flops, which the H100 SXM runs at 34 TFLOP/s without tensor cores; the
-// per-thread stores are strided by lw words, which the L2 merges.
+// Bound on this card: f64 operations.  A 4x4 block reads 16 or 32 bytes
+// and writes 28 or 32 (lw words + a length) for about 544 separately
+// rounded f64 ops: 256 __dmul_rn and 256 __dadd_rn, with no FMA.  The H100
+// SXM issues 64 f64 ops an SM a clock, about 16.7 T such ops/s (its 34
+// TFLOP/s counts an FMA as two), so the ops bound it above the bytes.  The
+// tables sit in shared memory (transform.cuh); the per-thread stores are
+// strided by lw words, which the L2 merges.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -51,6 +54,7 @@ __global__ void encode_locals_kernel(
         uint32_t* __restrict__ out_words, int32_t* __restrict__ out_lens,
         int* __restrict__ err) {
     constexpr int K = B * B;
+    const ie::TableCache<K, 1, 2> tab({wz}, {scale_z, quant_z});
     const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     if (n >= n_blocks) return;
     const long long by = n / blocks_x;
@@ -59,7 +63,7 @@ __global__ void encode_locals_kernel(
     double x[K];
     ie::load_block<B>(img + by * B * width + bx * B, width, x);
     int q[K];
-    ie::dct_quantize<K>(x, wz, scale_z, quant_z, q);
+    ie::dct_quantize<K>(x, tab.mat[0], tab.vec[0], tab.vec[1], q);
 
     // RLE stats (ops/rle.py::block_stats).
     int length_full = 0, length_head = 0, max_bits = 0;

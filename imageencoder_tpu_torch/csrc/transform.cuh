@@ -1,6 +1,7 @@
-// The f64 block transform shared by K1 (encode.cu) and K5 (transform.cu):
-// x = sample - 128, the 2-D DCT in the reference's exact order, * scale,
-// / quant, round half away from zero.
+// The f64 block transform shared by K1 (encode.cu), K5 and the recon step
+// (transform.cu): x = sample - 128, the 2-D DCT in the reference's exact
+// order, * scale, / quant, round half away from zero; and, for the recon
+// step, the exact-order inverse.
 //
 // For each coefficient j: acc = 0; acc = acc + x[c] * w[c][j] for
 // c = 0..K-1, one rounded multiply then one rounded add
@@ -10,6 +11,14 @@
 // library is also built with --fmad=false so no contraction slips in.
 // The caller picks the coefficient order through the tables: K1 passes
 // weight columns, scales and quant in zig-zag order, K5 in natural order.
+//
+// Tables.  A CTA copies its tables into shared memory once (TableCache),
+// and every thread then reads them at warp-uniform addresses: a broadcast,
+// no bank conflicts.  At 4x4 the sum runs c-outer over 16 accumulators,
+// so each weight row w[c][0..15] is read as 8 16-byte loads; each
+// coefficient's own order (c = 0..15) is unchanged.  At 8x8 the tables
+// (32 KB each) stay in global memory and the sum runs j-outer, one
+// accumulator at a time, to keep registers in bounds.
 #pragma once
 
 #include <cstdint>
@@ -28,19 +37,86 @@ __device__ __forceinline__ void load_block(const T* p, long long pitch,
             x[r * B + c] = __dsub_rn((double)p[r * pitch + c], 128.0);
 }
 
+// Whether a K-coefficient transform keeps its tables in shared memory.
 template <int K>
-__device__ __forceinline__ void dct_quantize(
-        const double* x, const double* __restrict__ w,
-        const double* __restrict__ scale, const double* __restrict__ quant,
-        int* q) {
+constexpr bool kSharedTables = K <= 16;
+
+// N tables of K*K doubles and M of K doubles, in shared memory where
+// kSharedTables<K>, else the global pointers as given.  Construct it in
+// every thread of the CTA before any thread returns: it synchronizes.
+template <int K, int N, int M>
+struct TableCache {
+    static constexpr bool kShared = kSharedTables<K>;
+    const double* mat[N];
+    const double* vec[M];
+
+    __device__ __forceinline__ TableCache(const double* const (&gm)[N],
+                                          const double* const (&gv)[M]) {
+        if constexpr (kShared) {
+            __shared__ __align__(16) double s_mat[N][K * K];
+            __shared__ __align__(16) double s_vec[M][K];
+            for (int i = threadIdx.x; i < N * K * K; i += blockDim.x)
+                s_mat[i / (K * K)][i % (K * K)] =
+                    __ldg(gm[i / (K * K)] + i % (K * K));
+            for (int i = threadIdx.x; i < M * K; i += blockDim.x)
+                s_vec[i / K][i % K] = __ldg(gv[i / K] + i % K);
+            __syncthreads();
+#pragma unroll
+            for (int t = 0; t < N; t++) mat[t] = s_mat[t];
+#pragma unroll
+            for (int t = 0; t < M; t++) vec[t] = s_vec[t];
+        } else {
+#pragma unroll
+            for (int t = 0; t < N; t++) mat[t] = gm[t];
+#pragma unroll
+            for (int t = 0; t < M; t++) vec[t] = gv[t];
+        }
+    }
+};
+
+// out[j] = 0 + x[0] * m[0][j] + ... + x[K-1] * m[K-1][j], in that order,
+// each step a rounded multiply then a rounded add.
+template <int K>
+__device__ __forceinline__ void exact_matvec(const double* x, const double* m,
+                                             double* out) {
+    if constexpr (kSharedTables<K>) {
+#pragma unroll
+        for (int j = 0; j < K; j++) out[j] = 0.0;
+#pragma unroll
+        for (int c = 0; c < K; c++) {
+            const double2* row = reinterpret_cast<const double2*>(m + c * K);
+#pragma unroll
+            for (int j = 0; j < K / 2; j++) {
+                const double2 wv = row[j];
+                out[2 * j] = __dadd_rn(out[2 * j], __dmul_rn(x[c], wv.x));
+                out[2 * j + 1] = __dadd_rn(out[2 * j + 1],
+                                           __dmul_rn(x[c], wv.y));
+            }
+        }
+    } else {
+#pragma unroll 1
+        for (int j = 0; j < K; j++) {
+            double acc = 0.0;
+#pragma unroll
+            for (int c = 0; c < K; c++)
+                acc = __dadd_rn(acc, __dmul_rn(x[c], __ldg(m + c * K + j)));
+            out[j] = acc;
+        }
+    }
+}
+
+// The quantized coefficients of x (biased samples) under weights w,
+// scale and quant.
+template <int K>
+__device__ __forceinline__ void dct_quantize(const double* x, const double* w,
+                                             const double* scale,
+                                             const double* quant, int* q) {
+    double acc[K];
+    exact_matvec<K>(x, w, acc);
 #pragma unroll
     for (int j = 0; j < K; j++) {
-        double acc = 0.0;
-#pragma unroll
-        for (int c = 0; c < K; c++)
-            acc = __dadd_rn(acc, __dmul_rn(x[c], __ldg(w + c * K + j)));
-        const double y = __dmul_rn(acc, __ldg(scale + j));
-        const double z = __ddiv_rn(y, __ldg(quant + j));
+        const double y = __dmul_rn(acc[j], scale[j]);
+        const double z = __ddiv_rn(y, quant[j]);
         const double t = trunc(z);
         const double d = __dsub_rn(z, t);
         const double r = (d >= 0.5 || d <= -0.5)

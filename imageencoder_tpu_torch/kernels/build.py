@@ -39,6 +39,7 @@ SIGNATURES = {
     "ie_encode_locals": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _I32, _I32,
                          _P, _P, _P, _P],
     "ie_quantize_image": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P],
+    "ie_recon_step": [_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P],
     "ie_motion_search": [_P, _P, _I64, _I32, _I32, _I32, _P, _P],
     "ie_predict": [_P, _P, _I64, _I32, _I32, _P, _P],
     "ie_pack_locals": [_P, _P, _I64, _I32, _P, _P, _I64, _P],
@@ -163,3 +164,11 @@ def require(t, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def require_aligned(t, name: str, align: int = 16) -> None:
+    """Check that a kernel reading ``t`` in vectors may: its data starts
+    at a multiple of ``align`` bytes (a fresh allocation does)."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data must start at a multiple of {align} "
+                         f"bytes")

@@ -14,15 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from imageencoder_tpu.models.headers import write_image_header
-from imageencoder_tpu.ops.bitpack import BitWriter
-from imageencoder_tpu.utils import profiling
-from imageencoder_tpu.utils.quant import QuantMatrix
-
+from ..ops.bitpack import BitWriter
 from ..ops.device_pack import header_to_words, host_total, stream_bytes
 from ..ops.huffman import huffman_encode_from_meta
 from ..ops.pipeline import make_encode_packed, make_encode_packed_hist
+from ..utils import profiling
 from ..utils.device import resolve_device
+from ..utils.quant import QuantMatrix
+from .headers import write_image_header
 
 BLOCK_SIZE = 4
 

@@ -16,24 +16,38 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from imageencoder_tpu.models.headers import (VideoParams, write_image_header,
-                                             write_video_params)
-from imageencoder_tpu.models.video import mvec_bits, split_yuv420
-from imageencoder_tpu.ops import bitpack
-from imageencoder_tpu.ops.bitpack import BitWriter
-from imageencoder_tpu.ops.huffman import huffman_encode
-from imageencoder_tpu.ops.motion import MACRO
-from imageencoder_tpu.utils import profiling
-from imageencoder_tpu.utils.quant import QuantMatrix
-
+from ..ops import bitpack
+from ..ops.bitpack import BitWriter
 from ..ops.device_pack import header_to_words, host_total, stream_bytes
-from ..ops.huffman import huffman_encode_from_meta
+from ..ops.huffman import huffman_encode, huffman_encode_from_meta
+from ..ops.motion import MACRO
 from ..ops.video_pipeline import (make_encode_video_packed,
                                   make_encode_video_packed_recon)
+from ..utils import profiling
 from ..utils.device import resolve_device
+from ..utils.quant import QuantMatrix
+from .headers import VideoParams, write_image_header, write_video_params
 from .image import BLOCK_SIZE
 
 MAX_FRAMES_PER_CALL = 32  # longer videos go in GOP-aligned chunks
+
+
+def mvec_bits(merange: int) -> int:
+    """MVEC_BIT_SIZE = bits_needed(int16(merange)) (VideoBase.cpp:42): the
+    minimal signed two's-complement width of the value."""
+    v = int(np.int16(merange))
+    return (v if v >= 0 else -v - 1).bit_length() + 1
+
+
+def split_yuv420(data: bytes, width: int, height: int) -> np.ndarray:
+    """u8 [F, H, W] Y planes of a YUV420p byte stream; UV bytes and a
+    trailing partial frame are skipped (VideoBase.cpp:39-40)."""
+    y_size = width * height
+    frame_size = y_size + y_size // 2
+    n = len(data) // frame_size
+    arr = np.frombuffer(data, dtype=np.uint8, count=n * frame_size)
+    return arr.reshape(n, frame_size)[:, :y_size].reshape(
+        n, height, width).copy()
 
 
 def video_header(quant: QuantMatrix, use_rle: bool, width: int, height: int,
@@ -101,7 +115,7 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
         # Input shorter than one frame: a header-only stream, like the
         # reference (frame_count = filesize / frame_size).
         inner = writer.getvalue()
-        return huffman_encode(inner) if use_huffman else inner
+        return huffman_encode(inner, dev) if use_huffman else inner
 
     factory = (make_encode_video_packed if ref_mode == "raw"
                else make_encode_video_packed_recon)
@@ -120,7 +134,8 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
         return stream_bytes(words, host_total(out))
 
     # Long videos: GOP-aligned chunks (GOPs are independent) encoded at bit
-    # 0 and spliced after the header, then Huffman over the whole stream.
+    # 0 and spliced after the header on the host, then Huffman over the
+    # whole stream on ``dev`` (K3 and K4 on a card).
     chunk = max(gop, (MAX_FRAMES_PER_CALL // gop) * gop)
     fn = factory(gop, merange, mb, block_size, use_rle, norm)
     segments = [(writer.getvalue(), writer.position)]
@@ -132,5 +147,5 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
     inner = bitpack.concat_bit_segments(segments)
     if use_huffman:
         with profiling.stage("huffman"):
-            return huffman_encode(inner)
+            return huffman_encode(inner, dev)
     return inner

@@ -15,10 +15,12 @@ and turns the stream's total into -1, on which the host raises.
 K5, :func:`quantize_image`, is the counterpart of
 imageencoder_tpu/ops/pallas_kernels.py::dct_quantize: the same transform
 with the coefficients left in place, int32 [H, W] (block (r, c),
-coefficient (u, v) at [B*r + u, B*c + v]).
+coefficient (u, v) at [B*r + u, B*c + v]).  :func:`recon_step` is K5 with
+a recon P-frame's reconstruction fused in: from the frame and its
+prediction it writes the coefficients and returns the reconstruction.
 
 On a CUDA tensor the wrappers launch csrc/encode.cu and csrc/transform.cu;
-on a CPU tensor they run the plain versions, which have two stages that
+on a CPU tensor they run the plain versions.  K1's has two stages that
 the tests check apart:
 
   * :func:`transform_quantize_zz`: the f64 DCT in the reference's exact
@@ -38,14 +40,54 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from imageencoder_tpu.ops.dct import _fwd_weights
-from imageencoder_tpu.ops.pallas_encode import frontend_lw, video_lw
-from imageencoder_tpu.ops.zigzag import zigzag_order
-
 from ..kernels import build
 from . import device_pack, rle
+from .dct import _fwd_weights, _inv_weights, dct_matrix
+from .zigzag import zigzag_order
 
 INPUT_DTYPES = {torch.uint8: 0, torch.int16: 1}  # dtype code of the C ABI
+
+
+# Register-file sizes: the port's copies of imageencoder_tpu/ops/
+# pallas_encode.py's bounds.
+def _bound_bits(block_size: int, norm: str, peak: float) -> int:
+    """data_bits bound for samples - 128 of magnitude at most ``peak``:
+    |Y(u, v)| <= peak * (max_u sum_i |D[u, i]|)^2, and data_bits also
+    covers ffs(count) <= bit_length(B*B)."""
+    d = np.abs(np.asarray(dct_matrix(block_size, norm), np.float64))
+    r = d.sum(axis=1).max()
+    mag = int(np.ceil(peak * r * r))
+    return max(mag.bit_length() + 1, (block_size * block_size).bit_length(),
+               1)
+
+
+def coeff_bound_bits(block_size: int, norm: str) -> int:
+    """data_bits bound for u8 pixels (pixel - 128 in [-128, 127]) and an
+    integer quant >= 1: 11 bits at 4x4."""
+    return _bound_bits(block_size, norm, 128.0)
+
+
+def coeff_bound_bits_residual(block_size: int, norm: str) -> int:
+    """data_bits bound for P-frame residuals cur - pred in [-255, 255],
+    biased by -128 as pixels are (Block.cpp:139-153): [-383, 127]."""
+    return _bound_bits(block_size, norm, 383.0)
+
+
+def lw_for_bits(block_size: int, db: int) -> int:
+    """Register words per record for a data_bits bound of db."""
+    k2 = block_size * block_size
+    return -(-(4 + db + k2 * db) // 32)
+
+
+def frontend_lw(block_size: int, norm: str) -> int:
+    """Register words per record under the u8-pixel bound (6 at 4x4)."""
+    return lw_for_bits(block_size, coeff_bound_bits(block_size, norm))
+
+
+def video_lw(block_size: int, norm: str) -> int:
+    """Register words per record under the residual bound (7 at 4x4)."""
+    return lw_for_bits(block_size,
+                       coeff_bound_bits_residual(block_size, norm))
 
 
 def record_words(dtype: torch.dtype, block_size: int, norm: str) -> int:
@@ -221,29 +263,40 @@ def refuse_overflow(total_bits: torch.Tensor,
 
 
 def quantize_image_plain(img: torch.Tensor, quant, block_size: int = 4,
-                         norm: str = "reference") -> torch.Tensor:
+                         norm: str = "reference",
+                         out: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version of K5, on any device: int32 [H, W]."""
     h, w = img.shape
-    q = _transform(img, quant, block_size, norm, zigzag=False)
-    return unblocks(q, h, w)
+    q = unblocks(_transform(img, quant, block_size, norm, zigzag=False), h, w)
+    if out is None:
+        return q
+    return out.copy_(q)
 
 
 def quantize_image(img: torch.Tensor, quant, block_size: int = 4,
-                   norm: str = "reference") -> torch.Tensor:
-    """[H, W] u8 or int16 -> int32 [H, W] quantized coefficients in place.
+                   norm: str = "reference",
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """[H, W] u8 or int16 -> int32 [H, W] quantized coefficients in place,
+    written into ``out`` where given.
 
     A CPU tensor runs the plain version; a CUDA tensor launches K5.
     """
     _check_input(img, block_size)
+    h, w = img.shape
+    if out is not None and (out.dtype != torch.int32
+                            or tuple(out.shape) != (h, w)):
+        raise ValueError(f"out: expected int32 [{h}, {w}], got {out.dtype} "
+                         f"{tuple(out.shape)}")
     if img.device.type == "cpu":
-        return quantize_image_plain(img, quant, block_size, norm)
+        return quantize_image_plain(img, quant, block_size, norm, out)
     _check_kernel_block(block_size, "K5")
     dev = img.device
     build.require(img, "img", img.dtype, 2, dev)  # device and layout
-    h, w = img.shape
     wt, scale = _device_tables(block_size, norm, dev, False)
     qv = _quant_vec(quant, block_size, dev, False)
-    out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    build.require(out, "out", torch.int32, 2, dev)
     with torch.cuda.device(dev):
         code = build.library().ie_quantize_image(
             img.data_ptr(), INPUT_DTYPES[img.dtype], h, w, block_size,
@@ -255,6 +308,94 @@ def quantize_image(img: torch.Tensor, quant, block_size: int = 4,
 
 
 quantize_image.launches = 0
+
+
+def reconstruct(coeffs: torch.Tensor, pred: torch.Tensor, quant,
+                block_size: int, norm: str) -> torch.Tensor:
+    """A P-frame's reconstruction: int32 [H, W] in-place coefficients and
+    its u8 [H, W] prediction -> u8 [H, W].
+
+    Dequantize, the inverse DCT in the exact order of ops/dct.py::
+    idct2_exact (acc = acc + y[c] * wi[c] for c = 0..K-1, each a rounded
+    multiply then a rounded add), +128, + prediction, clamp to [0, 255]
+    and truncate: bit-identical to runtime/native.py::
+    idct_recon_exact_native.  The K products are taken in one op; the
+    sum starts from the first product instead of 0.0 + it, which can
+    change only the sign of a zero, and + 128 removes that.
+    """
+    dev = coeffs.device
+    h, w = coeffs.shape
+    wi = device_constant(_inv_weights(block_size, norm), dev)
+    qv = device_constant(np.asarray(quant, np.float64).reshape(-1), dev)
+    y = _blocks(coeffs, block_size).to(torch.float64) * qv
+    prod = y[:, :, None] * wi                                  # [N, K, K]
+    acc = prod[:, 0]
+    for c in range(1, y.shape[1]):
+        acc = acc + prod[:, c]
+    pv = _blocks(pred, block_size).to(torch.float64) + (acc + 128.0)
+    return unblocks(pv.clamp(0.0, 255.0).to(torch.uint8), h, w)
+
+
+def recon_step_plain(cur: torch.Tensor, pred: torch.Tensor, quant,
+                     block_size: int = 4, norm: str = "reference",
+                     out: torch.Tensor | None = None):
+    """The plain version of the recon step, on any device: K5 on the
+    residual cur - pred, then :func:`reconstruct`."""
+    q = quantize_image_plain(cur.to(torch.int16) - pred, quant, block_size,
+                             norm)
+    if out is not None:
+        out.copy_(q)
+        q = out
+    return q, reconstruct(q, pred, quant, block_size, norm)
+
+
+def recon_step(cur: torch.Tensor, pred: torch.Tensor, quant,
+               block_size: int = 4, norm: str = "reference",
+               out: torch.Tensor | None = None):
+    """A recon P-frame's step: cur and its prediction pred, u8 [H, W] ->
+    (int32 [H, W] coefficients of cur - pred in place, written into
+    ``out`` where given, and the u8 [H, W] reconstruction).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the fused
+    kernel of csrc/transform.cu, one launch for the whole step.
+    """
+    for name, x in (("cur", cur), ("pred", pred)):
+        if x.dtype != torch.uint8 or x.dim() != 2:
+            raise TypeError(f"{name}: expected u8 [H, W], got {x.dtype} "
+                            f"{tuple(x.shape)}")
+    if pred.shape != cur.shape:
+        raise ValueError(f"pred {tuple(pred.shape)} != cur "
+                         f"{tuple(cur.shape)}")
+    _check_input(cur, block_size)
+    h, w = cur.shape
+    if out is not None and (out.dtype != torch.int32
+                            or tuple(out.shape) != (h, w)):
+        raise ValueError(f"out: expected int32 [{h}, {w}], got {out.dtype} "
+                         f"{tuple(out.shape)}")
+    if cur.device.type == "cpu":
+        return recon_step_plain(cur, pred, quant, block_size, norm, out)
+    _check_kernel_block(block_size, "recon step")
+    dev = cur.device
+    wt, scale = _device_tables(block_size, norm, dev, False)
+    qv = _quant_vec(quant, block_size, dev, False)
+    wi = device_constant(_inv_weights(block_size, norm), dev)
+    coeffs = (torch.empty((h, w), dtype=torch.int32, device=dev)
+              if out is None else out)
+    recon = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    for name, x in (("cur", cur), ("pred", pred), ("out", coeffs)):
+        build.require(x, name, x.dtype, 2, dev)
+        build.require_aligned(x, name)
+    with torch.cuda.device(dev):
+        code = build.library().ie_recon_step(
+            cur.data_ptr(), pred.data_ptr(), h, w, block_size, wt.data_ptr(),
+            scale.data_ptr(), qv.data_ptr(), wi.data_ptr(),
+            coeffs.data_ptr(), recon.data_ptr(), build.stream_ptr(dev))
+    build.check(code, "ie_recon_step")
+    recon_step.launches += 1
+    return coeffs, recon
+
+
+recon_step.launches = 0
 
 
 def _check_kernel_block(block_size: int, name: str) -> None:

@@ -6,16 +6,17 @@ predict_translate_pallas).  On a CUDA tensor :func:`motion_search` and
 :func:`predict` launch csrc/motion.cu; on a CPU tensor they run the plain
 versions of ops/motion.py.  K6 searches each macroblock directly and
 builds no SAD maps; the vectors equal the plain descent's bit for bit.
+K6 reads the frames as 32-bit words and 16-byte vectors, so their data
+must start 16-byte aligned: frames of a contiguous [F, H, W] tensor with
+H * W a multiple of 256 do.
 """
 
 from __future__ import annotations
 
 import torch
 
-from imageencoder_tpu.ops.motion import MACRO
-
 from ..kernels import build
-from .motion import motion_search_plain, predict_plain  # noqa: F401
+from .motion import MACRO, motion_search_plain, predict_plain  # noqa: F401
 
 
 def _check_frames(x: torch.Tensor, name: str) -> None:
@@ -40,6 +41,8 @@ def motion_search(cur: torch.Tensor, ref: torch.Tensor,
     dev = cur.device
     build.require(cur, "cur", torch.uint8, 3, dev)
     build.require(ref, "ref", torch.uint8, 3, dev)
+    build.require_aligned(cur, "cur")
+    build.require_aligned(ref, "ref")
     f, h, w = cur.shape
     out = torch.empty((f, (h // MACRO) * (w // MACRO), 2), dtype=torch.int32,
                       device=dev)

@@ -19,7 +19,9 @@ word travels as an int32 tensor holding the same 32 bits (``as_int32`` /
 ``as_uint``).  Shift amounts are clamped below 32 where a wider shift
 would be undefined on the card.
 
-The header helpers are the JAX package's own numpy functions.
+The numpy helpers at the top (header words, buffer bounds, word
+serialization) are the port's copies of imageencoder_tpu/ops/
+device_pack.py's.
 """
 
 from __future__ import annotations
@@ -27,10 +29,44 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from imageencoder_tpu.ops.device_pack import (  # noqa: F401  (re-exported)
-    header_to_words, local_words, packed_words_bound, words_to_bytes)
-
 MASK32 = 0xFFFFFFFF
+MAX_FIELD_BITS = 16  # coefficients, counts, mvecs, Huffman codes all fit
+HEADER_WORDS = 64  # host header prefix capacity (2048 bits)
+
+
+def local_words(n_fields: int) -> int:
+    """Register-file words per record: worst case every field at 16 bits."""
+    return (n_fields * MAX_FIELD_BITS + 31) // 32
+
+
+def packed_words_bound(n_records: int, n_fields: int) -> int:
+    """Output words covering any record content plus the header."""
+    return n_records * local_words(n_fields) + HEADER_WORDS
+
+
+def header_to_words(header: bytes) -> np.ndarray:
+    """A host-packed header as the u32 [HEADER_WORDS] stream prefix."""
+    if len(header) > HEADER_WORDS * 4:
+        raise ValueError(f"header of {len(header)} bytes exceeds "
+                         f"{HEADER_WORDS} words")
+    buf = np.zeros(HEADER_WORDS * 4, dtype=np.uint8)
+    buf[:len(header)] = np.frombuffer(header, dtype=np.uint8)
+    return buf.view(">u4").astype(np.uint32)
+
+
+def words_to_bytes(words: np.ndarray, total_bits: int) -> bytes:
+    """Big-endian serialization of u32 words, trimmed to whole bytes."""
+    nbytes = (int(total_bits) + 7) // 8
+    nw = (nbytes + 3) // 4
+    return np.asarray(words[:nw]).astype(">u4").tobytes()[:nbytes]
+
+
+def bytes_to_words(data: bytes) -> np.ndarray:
+    """The inverse of :func:`words_to_bytes`: bytes -> int32 bit patterns
+    of the big-endian u32 words, the last one zero-padded."""
+    buf = np.zeros(((len(data) + 3) // 4) * 4, dtype=np.uint8)
+    buf[:len(data)] = np.frombuffer(data, dtype=np.uint8)
+    return buf.view(">u4").astype(np.uint32).view(np.int32)
 
 
 def as_int32(x: torch.Tensor) -> torch.Tensor:

@@ -1,25 +1,174 @@
-"""Device half of the whole-stream Huffman encoder.
+"""The whole-stream Huffman encoder.
 
-The counterpart of imageencoder_tpu/ops/huffman.py's _device_stages,
-huffman_encode_from_meta and huffman_encode_device.  The host half, the
-canonical dict (``_dict_and_codes``) and the raw-copy fallback
-(``_fallback``), is the JAX package's own code.  The inner stream stays on
-the device: the host reads the histogram (in ``meta``) once, decides the
-fallback-if-bigger from it, and then reads the final words once.
+The counterpart of imageencoder_tpu/ops/huffman.py.  Wire format
+(Huffman.cpp:36-46, 233-344): a dict of groups, each [1-bit has-items = 1]
+[7-bit group length][4-bit code length] then per entry [8-bit symbol]
+[code], ended by one 0 bit; then each input byte replaced by its code,
+MSB-first.  When that is not smaller than the input, the stream is
+[0 bit][raw input bytes] instead, n + 1 bytes in all.
+
+The host half is the port's copy of the JAX package's: a deterministic
+tree build (heap ties broken by frequency, then first symbol), code
+lengths limited to 15 bits (JPEG-style adjust), canonical codes and the
+serialized dict.  There is no native path.
+
+The device half keeps the inner stream on the device: the host reads the
+histogram (in ``meta``, or from K3) once, decides the fallback-if-bigger
+from it, and then reads the final words once.  K4 packs the payload.
 """
 
 from __future__ import annotations
 
+import heapq
+
 import numpy as np
 import torch
 
-from imageencoder_tpu.ops.huffman import (MAX_CODE_LEN, _dict_and_codes,
-                                          _fallback)
-
 from . import cuda_kernels, cuda_pack
-from .device_pack import host_total, stream_bytes, words_to_u8
+from .bitpack import pack_fields
+from .device_pack import (bytes_to_words, host_total, stream_bytes,
+                          words_to_u8)
 
+KEY_BITS = 8
+MAX_CODE_LEN = 15  # must fit the 4-bit dict header field
+MAX_GROUP = 127  # must fit the 7-bit group length field
 DICT_WORDS = 256  # dict upper bound: ~6.1k bits for all 256 symbols
+
+
+def code_lengths(freqs: np.ndarray) -> np.ndarray:
+    """Huffman code length per symbol (0 for absent ones), at most 15.
+    Raises ValueError for fewer than 2 distinct symbols."""
+    lengths = _code_lengths_tree(freqs)
+    if lengths.max() > MAX_CODE_LEN:
+        lengths = _limit_lengths(lengths, MAX_CODE_LEN)
+    return lengths
+
+
+def _code_lengths_tree(freqs: np.ndarray) -> np.ndarray:
+    """The Huffman tree's depths (unlimited).  Heap entries are packed
+    ints (freq << 17) | (tiebreak << 9) | id, so integer order is the
+    (freq, first symbol, id) order."""
+    counts = np.asarray(freqs)[:256].tolist()  # Python ints: fast compares
+    syms = [s for s, n in enumerate(counts) if n > 0]
+    n_syms = len(syms)
+    if n_syms < 2:
+        raise ValueError("need >= 2 distinct symbols")
+    heap = [(counts[s] << 17) | (s << 9) | i for i, s in enumerate(syms)]
+    heapq.heapify(heap)
+    pop, push = heapq.heappop, heapq.heappush
+    children = [None] * (2 * n_syms - 1)
+    next_id = n_syms
+    while len(heap) > 1:
+        e1 = pop(heap)
+        e2 = pop(heap)
+        tie = min((e1 >> 9) & 0xFF, (e2 >> 9) & 0xFF)
+        children[next_id] = (e1 & 0x1FF, e2 & 0x1FF)
+        push(heap, (((e1 >> 17) + (e2 >> 17)) << 17) | (tie << 9) | next_id)
+        next_id += 1
+    # Parents have larger ids than their children: one descending sweep.
+    depth = [0] * next_id
+    for nid in range(next_id - 1, n_syms - 1, -1):
+        left, right = children[nid]
+        depth[left] = depth[right] = depth[nid] + 1
+    lengths = np.zeros(256, dtype=np.int32)
+    lengths[syms] = np.maximum(np.asarray(depth[:n_syms], dtype=np.int32), 1)
+    return lengths
+
+
+def _limit_lengths(lengths: np.ndarray, cap: int) -> np.ndarray:
+    """Fold codes longer than ``cap`` back under it, keeping the Kraft sum
+    <= 1, then give the shortest lengths to the symbols that had them."""
+    hist = np.bincount(lengths[lengths > 0]).astype(np.int64)
+    for ln in range(len(hist) - 1, cap, -1):
+        while hist[ln] > 1:
+            # Move a pair at depth ln up one level, paid for by splitting
+            # a code at the deepest occupied depth j <= ln - 2.
+            j = ln - 2
+            while j > 0 and hist[j] == 0:
+                j -= 1
+            if j == 0:
+                raise ValueError("length-limit rebalance ran out of "
+                                 "splittable depths (invalid code profile)")
+            hist[ln] -= 2
+            hist[ln - 1] += 1
+            hist[j + 1] += 2
+            hist[j] -= 1
+        if hist[ln] == 1:
+            raise ValueError("length-limit rebalance left an odd code at "
+                             f"depth {ln} (invalid Huffman profile)")
+    order = np.argsort(lengths, kind="stable")
+    present = order[lengths[order] > 0]
+    new_lengths = np.zeros_like(lengths)
+    new_lengths[present] = np.repeat(np.arange(len(hist)),
+                                     np.maximum(hist, 0))
+    return new_lengths
+
+
+def canonical_codes(lengths: np.ndarray):
+    """Canonical codes, shorter first, then by symbol: (words, lengths)."""
+    words = np.zeros(256, dtype=np.uint32)
+    code = 0
+    prev_len = 0
+    for ln in np.unique(lengths[lengths > 0]):
+        syms = np.nonzero(lengths == ln)[0]
+        code <<= int(ln) - prev_len
+        prev_len = int(ln)
+        words[syms] = code + np.arange(len(syms), dtype=np.uint32)
+        code += len(syms)
+    return words, lengths
+
+
+class _FieldSeq:
+    """The serialized dict as (value, nbits) fields: ``position`` is its
+    length in bits, ``getvalue()`` its bytes."""
+
+    __slots__ = ("values", "nbits", "position")
+
+    def __init__(self, values: np.ndarray, nbits: np.ndarray):
+        self.values = values
+        self.nbits = nbits
+        self.position = int(nbits.sum())
+
+    def getvalue(self) -> bytes:
+        return pack_fields(self.values, self.nbits)[0]
+
+
+def _dict_and_codes(freqs: np.ndarray):
+    """(dict fields, code words, code lengths) for a byte histogram, or
+    None for fewer than 2 symbols (the caller takes the fallback)."""
+    try:
+        lengths = code_lengths(freqs)
+    except ValueError:
+        return None
+    words, lengths = canonical_codes(lengths)
+    # Groups by code length, longest first (Huffman.cpp:272), entries by
+    # symbol, at most MAX_GROUP a group.
+    vparts, bparts = [], []
+    for ln in np.unique(lengths[lengths > 0])[::-1]:
+        syms = np.nonzero(lengths == ln)[0]
+        for start in range(0, len(syms), MAX_GROUP):
+            chunk = syms[start:start + MAX_GROUP]
+            n = len(chunk)
+            v = np.empty(2 + 2 * n, dtype=np.int64)
+            b = np.empty(2 + 2 * n, dtype=np.int64)
+            v[0], b[0] = 0x80 | n, 8  # has-items bit + 7-bit length
+            v[1], b[1] = int(ln), 4
+            v[2::2], b[2::2] = chunk, KEY_BITS
+            v[3::2], b[3::2] = words[chunk], int(ln)
+            vparts.append(v)
+            bparts.append(b)
+    vparts.append(np.zeros(1, dtype=np.int64))  # the closing 0 bit
+    bparts.append(np.ones(1, dtype=np.int64))
+    return _FieldSeq(np.concatenate(vparts), np.concatenate(bparts)), \
+        words, lengths
+
+
+def _fallback(inner: bytes) -> bytes:
+    """[0 bit][raw bytes], padded to len(inner) + 1 bytes."""
+    data = np.frombuffer(inner, dtype=np.uint8)
+    vals = np.concatenate([[0], data]).astype(np.int64)
+    nbits = np.concatenate([[1], np.full(len(data), 8)]).astype(np.int64)
+    return pack_fields(vals, nbits, pad_to_bytes=len(inner) + 1)[0]
 
 
 def payload_fields(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,
@@ -137,3 +286,12 @@ def huffman_encode_device(words: torch.Tensor, total_bits: int) -> bytes:
     if inner_bytes < (out_total + 7) // 8:
         return _fallback(stream_bytes(words, int(total_bits)))
     return stream_bytes(out, out_total)
+
+
+def huffman_encode(inner: bytes, device) -> bytes:
+    """Huffman over a whole-byte inner stream held on the host (the
+    spliced chunks of a long video, a header-only stream): its words go to
+    ``device`` and through :func:`huffman_encode_device`, so on a card K3
+    and K4 run and on the CPU their plain versions."""
+    words = torch.from_numpy(bytes_to_words(inner)).to(device)
+    return huffman_encode_device(words, 8 * len(inner))

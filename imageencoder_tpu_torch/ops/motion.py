@@ -26,9 +26,25 @@ the maps.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from imageencoder_tpu.ops.motion import MACRO, MER_SIGNS, search_steps
+# The port's copies of imageencoder_tpu/ops/motion.py's constants.
+MACRO = 16  # dc::MacroBlockSize (Block.hpp:14)
+
+# algo.cpp:90-100, as (x, y), in evaluation order.
+MER_SIGNS = np.array([(0, 0), (1, 0), (1, 1), (0, 1), (-1, 1),
+                      (-1, 0), (-1, -1), (0, -1), (1, -1)], dtype=np.int32)
+
+
+def search_steps(merange: int) -> list[int]:
+    """Per-level step sizes: merange//2, //4, ... 1 (algo.cpp:119-139)."""
+    steps = []
+    m = int(merange) // 2
+    while m > 0:
+        steps.append(m)
+        m //= 2
+    return steps
 
 
 def macro_origins(h: int, w: int, device):

@@ -19,6 +19,7 @@ import imageencoder_tpu
 import imageencoder_tpu_torch
 from imageencoder_tpu.models import video as host_video
 from imageencoder_tpu.utils.quant import QuantMatrix
+from imageencoder_tpu_torch import quant_from_numpy
 from imageencoder_tpu_torch.ops import (cuda_encode, cuda_kernels,
                                         cuda_motion, cuda_pack, device_pack,
                                         pipeline)
@@ -117,7 +118,8 @@ def test_encode_image_on_the_card_equals_host_engine(dev, use_rle,
     img = image(96, 128, 3)
     quant = QuantMatrix(np.array(JPEG4, np.uint32))
     got = imageencoder_tpu_torch.encode_image(
-        img, quant, use_rle=use_rle, use_huffman=use_huffman, device=dev)
+        img, quant_from_numpy(quant.matrix), use_rle=use_rle,
+        use_huffman=use_huffman, device=dev)
     assert got == imageencoder_tpu.encode_image(
         img, quant, use_rle=use_rle, use_huffman=use_huffman,
         backend="numpy")
@@ -141,7 +143,8 @@ def test_full_size_stream_equals_host_engine_and_decodes(
         img = image(h, w, h + w)
     quant = QuantMatrix(quant_for(4, qkind).astype(np.uint32))
     got = imageencoder_tpu_torch.encode_image(
-        img, quant, use_huffman=use_huffman, device=dev)
+        img, quant_from_numpy(quant.matrix), use_huffman=use_huffman,
+        device=dev)
     want = imageencoder_tpu.encode_image(img, quant, use_huffman=use_huffman,
                                          backend="numpy")
     assert got == want
@@ -165,11 +168,13 @@ def video_frames(w: int, h: int, n: int, seed: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("h,w,merange", [
-    (64, 96, 16), (48, 2080, 8), (32, 32, 1), (64, 64, 300)])
+    (64, 96, 16), (48, 2080, 8), (32, 32, 1), (64, 64, 300),
+    (176, 320, 80)])
 def test_motion_kernels_equal_plain(dev, h, w, merange):
     """K6 and K7: bit-equal vectors and predictions, frames wider than
-    2048 px, no levels (merange 1), and a window too large for shared
-    memory (merange 300)."""
+    2048 px, no levels (merange 1), a search wider than the frame (merange
+    300), and a window too large for shared memory (merange 80 at
+    320x176: 320 x 172 bytes, read from global memory)."""
     frames = torch.from_numpy(video_frames(w, h, 4, w + merange)).to(dev)
     cur, ref = frames[1:], frames[:-1]
     before = cuda_motion.motion_search.launches
@@ -198,6 +203,36 @@ def test_quantize_image_kernel_equals_plain(dev, b, norm, kind):
     got = cuda_encode.quantize_image(x, q, b, norm)
     assert cuda_encode.quantize_image.launches == before + 1
     assert torch.equal(got, cuda_encode.quantize_image_plain(x, q, b, norm))
+
+
+@pytest.mark.parametrize("b,norm", [(4, "reference"), (8, "ortho")])
+def test_recon_step_kernel_equals_plain(dev, b, norm):
+    """The fused recon step at 720p: frames over predictions that put the
+    residual near +-255 (white over black and back, in blocks), bit-equal
+    coefficients and reconstruction, written in place."""
+    h, w = 720, 1280
+    rng = np.random.default_rng(b)
+    pred = video_frames(w, h, 1, 7)[0]
+    hi = rng.random((h // 4, w // 4)) < 0.5
+    cur = np.where(np.kron(hi, np.ones((4, 4), bool)),
+                   rng.integers(250, 256, (h, w)),
+                   rng.integers(0, 6, (h, w))).astype(np.uint8)
+    pred = np.where(np.kron(hi, np.ones((4, 4), bool)),
+                    rng.integers(0, 6, (h, w)), pred).astype(np.uint8)
+    res = cur.astype(np.int16) - pred
+    assert res.max() >= 250 and res.min() <= -200
+    cur_t = torch.from_numpy(cur).to(dev)
+    pred_t = torch.from_numpy(pred).to(dev)
+    q = quant_for(b)
+    out = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    before = cuda_encode.recon_step.launches
+    got_q, got_r = cuda_encode.recon_step(cur_t, pred_t, q, b, norm, out=out)
+    assert cuda_encode.recon_step.launches == before + 1
+    assert got_q.data_ptr() == out.data_ptr()
+    want_q, want_r = cuda_encode.recon_step_plain(cur_t, pred_t, q, b, norm)
+    assert torch.equal(got_q, want_q) and torch.equal(got_r, want_r)
+    assert torch.equal(got_q, cuda_encode.quantize_image(
+        torch.from_numpy(res).to(dev), q, b, norm))
 
 
 def extreme_residuals() -> np.ndarray:
@@ -252,8 +287,9 @@ def test_small_videos_equal_host_engine(dev, ref_mode, b, norm, gop,
     quant = QuantMatrix(quant_for(b).astype(np.uint32))
     for huff in (True, False):
         got = imageencoder_tpu_torch.encode_video(
-            data, w, h, quant, use_rle, gop, 8, use_huffman=huff, norm=norm,
-            ref_mode=ref_mode, block_size=b, device=dev)
+            data, w, h, quant_from_numpy(quant.matrix), use_rle, gop, 8,
+            use_huffman=huff, norm=norm, ref_mode=ref_mode, block_size=b,
+            device=dev)
         assert got == bytes(host_video.encode_video(
             data, w, h, quant, use_rle, gop, 8, use_huffman=huff, norm=norm,
             backend="numpy", ref_mode=ref_mode, block_size=b))
@@ -268,8 +304,8 @@ def test_video_720p25_equals_host_engine_and_decodes(dev, ref_mode):
     data = b"".join(f.tobytes() + bytes(w * h // 2) for f in frames)
     quant = QuantMatrix(np.array(JPEG4, np.uint32))
     got = imageencoder_tpu_torch.encode_video(
-        data, w, h, quant, True, 4, 16, use_huffman=True, ref_mode=ref_mode,
-        device=dev)
+        data, w, h, quant_from_numpy(quant.matrix), True, 4, 16,
+        use_huffman=True, ref_mode=ref_mode, device=dev)
     want = host_video.encode_video(data, w, h, quant, True, 4, 16,
                                    use_huffman=True, backend="numpy",
                                    ref_mode=ref_mode)

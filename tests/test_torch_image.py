@@ -19,6 +19,7 @@ import imageencoder_tpu
 import imageencoder_tpu_torch
 from imageencoder_tpu.ops.huffman import huffman_encode
 from imageencoder_tpu.utils.quant import QuantMatrix
+from imageencoder_tpu_torch import quant_from_numpy
 from imageencoder_tpu_torch.ops import huffman
 from imageencoder_tpu_torch.ops.device_pack import header_to_words
 from imageencoder_tpu_torch.ops.pipeline import make_encode_packed
@@ -62,8 +63,8 @@ def test_encode_image_equals_host_engine(h, w, use_rle, use_huffman, b,
     img = smooth_image(h, w, h + w)
     quant = quant_for(b)
     got = imageencoder_tpu_torch.encode_image(
-        img, quant, use_rle=use_rle, use_huffman=use_huffman, norm=norm,
-        block_size=b, device="cpu")
+        img, quant_from_numpy(quant.matrix), use_rle=use_rle,
+        use_huffman=use_huffman, norm=norm, block_size=b, device="cpu")
     want = imageencoder_tpu.encode_image(
         img, quant, use_rle=use_rle, use_huffman=use_huffman, norm=norm,
         backend="numpy", block_size=b)
@@ -81,8 +82,8 @@ def test_encode_image_equals_host_engine(h, w, use_rle, use_huffman, b,
 def test_incompressible_image_takes_the_fallback():
     img = np.random.default_rng(9).integers(0, 256, (64, 64), np.uint8)
     quant = QuantMatrix(np.ones((4, 4), np.uint32))
-    got = imageencoder_tpu_torch.encode_image(img, quant, use_huffman=True,
-                                              device="cpu")
+    got = imageencoder_tpu_torch.encode_image(
+        img, quant_from_numpy(quant.matrix), use_huffman=True, device="cpu")
     want = imageencoder_tpu.encode_image(img, quant, use_huffman=True,
                                          backend="numpy")
     assert got == want
@@ -95,9 +96,9 @@ def test_incompressible_image_takes_the_fallback():
 def test_encode_image_accepts_a_tensor():
     img = smooth_image(32, 32, 3)
     quant = quant_for(4)
-    assert (imageencoder_tpu_torch.encode_image(torch.from_numpy(img), quant,
-                                                use_huffman=True,
-                                                device="cpu")
+    assert (imageencoder_tpu_torch.encode_image(
+        torch.from_numpy(img), quant_from_numpy(quant.matrix),
+        use_huffman=True, device="cpu")
             == imageencoder_tpu.encode_image(img, quant, use_huffman=True))
 
 
@@ -165,14 +166,22 @@ def test_port_sources_never_import_jax():
 
 
 def test_chip_smoke_imports_only_the_port():
-    """The smoke drives the port alone: no import of the JAX package's
-    modules of its own, only of imageencoder_tpu_torch."""
-    text = (REPO / "chip_smoke.py").read_text()
+    """The smoke and every module of the port stand alone: no import of
+    the JAX package's modules, under any name, only of
+    imageencoder_tpu_torch."""
     pat = re.compile(r"^\s*(import|from)\s+imageencoder_tpu(?!_torch)\b",
                      re.M)
-    assert not pat.search(text)
+    text = (REPO / "chip_smoke.py").read_text()
     assert "imageencoder_tpu_torch" in text
-    assert '"imageencoder_tpu.' not in text and "'imageencoder_tpu." not in text
+    files = sorted((REPO / "imageencoder_tpu_torch").rglob("*.py"))
+    assert len(files) > 20
+    for path in [REPO / "chip_smoke.py", *files]:
+        text = path.read_text()
+        assert not pat.search(text), path
+        assert '"imageencoder_tpu.' not in text, path
+        assert "'imageencoder_tpu." not in text, path
+        assert '"imageencoder_tpu"' not in text.replace(
+            'sys.modules["imageencoder_tpu"] = None', ""), path
 
 
 def test_kernel_build_raises_or_builds():

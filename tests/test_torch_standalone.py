@@ -1,0 +1,253 @@
+"""The port stands alone: imageencoder_tpu_torch imports nothing of the JAX
+package and keeps its own copy of the host code it needs.
+
+  * with both ``jax`` and ``imageencoder_tpu`` blocked, a fresh process
+    imports the port and encodes an image and a 40-frame video (raw and
+    recon, Huffman on, so the chunked path runs) byte for byte as this
+    process's ``backend="numpy"`` did;
+  * every copied helper equals its JAX-package original: header bits,
+    QuantMatrix serialization, zig-zag, the DCT tables bit for bit, the
+    register-file bounds, search steps, motion-vector width, YUV420 split,
+    the bit packers and the Huffman dict;
+  * the port's Python Huffman tree build equals the JAX package's (native)
+    code_lengths on seeded histograms with ties and with skew deep enough
+    to need the 15-bit length limit.
+"""
+
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+import imageencoder_tpu
+from imageencoder_tpu.models import headers as jax_headers
+from imageencoder_tpu.models import video as jax_video
+from imageencoder_tpu.ops import bitpack as jax_bitpack
+from imageencoder_tpu.ops import dct as jax_dct
+from imageencoder_tpu.ops import device_pack as jax_device_pack
+from imageencoder_tpu.ops import huffman as jax_huffman
+from imageencoder_tpu.ops import motion as jax_motion
+from imageencoder_tpu.ops import pallas_encode as jax_pallas_encode
+from imageencoder_tpu.ops import zigzag as jax_zigzag
+from imageencoder_tpu.utils.quant import QuantMatrix
+import imageencoder_tpu_torch
+from imageencoder_tpu_torch.models import headers, video
+from imageencoder_tpu_torch.ops import (bitpack, cuda_encode, dct,
+                                        device_pack, huffman, motion, zigzag)
+
+from tests.test_torch_image import REPO, smooth_image
+from tests.test_torch_video import bench_frames, yuv420
+
+JPEG4 = np.array([[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
+                  [14, 17, 22, 29]], np.uint32)
+
+
+def test_port_encodes_with_jax_and_the_jax_package_blocked(tmp_path):
+    img = smooth_image(48, 64, 5)
+    w, h, n = 32, 32, 40
+    data = yuv420(bench_frames(w, h, n, 11))
+    quant = QuantMatrix(JPEG4)
+    want = {
+        "image": imageencoder_tpu.encode_image(img, quant, use_huffman=True,
+                                               backend="numpy"),
+        **{mode: bytes(jax_video.encode_video(
+            data, w, h, quant, True, 4, 8, use_huffman=True,
+            backend="numpy", ref_mode=mode)) for mode in ("raw", "recon")},
+    }
+    case = tmp_path / "case.pkl"
+    case.write_bytes(pickle.dumps((img, data, quant.matrix, want)))
+    code = textwrap.dedent(f"""
+        import pickle, sys
+        sys.modules["jax"] = None
+        sys.modules["imageencoder_tpu"] = None
+        import imageencoder_tpu_torch as port
+        img, data, matrix, want = pickle.loads(
+            open({str(case)!r}, "rb").read())
+        q = port.quant_from_numpy(matrix)
+        assert port.encode_image(img, q, use_huffman=True,
+                                 device="cpu") == want["image"]
+        for mode in ("raw", "recon"):
+            got = port.encode_video(data, {w}, {h}, q, True, 4, 8,
+                                    use_huffman=True, ref_mode=mode,
+                                    device="cpu")
+            assert got == want[mode], mode
+        assert sys.modules["jax"] is None
+        assert sys.modules["imageencoder_tpu"] is None
+        assert not [m for m in sys.modules
+                    if m.startswith(("jax.", "imageencoder_tpu."))]
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+    assert want["raw"][0] & 0x80 and want["recon"][0] & 0x80  # Huffman
+
+
+def _header_bits(mod_headers, mod_bitpack, quant):
+    writer = mod_bitpack.BitWriter()
+    writer.put_bit(0)
+    mod_headers.write_image_header(writer, quant, True, 1280, 720)
+    mod_headers.write_video_params(writer,
+                                   mod_headers.VideoParams(25, 4, 16))
+    return writer.getvalue(), writer.position
+
+
+def _quant_bits(mod_bitpack, quant):
+    writer = mod_bitpack.BitWriter()
+    quant.write(writer)
+    return writer.getvalue(), writer.position, quant.max_bit_length()
+
+
+def _dict_bits(mod, freqs):
+    w, words, lengths = mod._dict_and_codes(freqs)
+    return w.getvalue(), w.position, words.tolist(), lengths.tolist()
+
+
+def _freqs(seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 50, 256) * (rng.random(256) < 0.7)).astype(
+        np.int64)
+
+
+# name: (the port's value, the JAX package's), each a thunk.
+HELPERS = {
+    "image+video header": (
+        lambda: _header_bits(headers, bitpack,
+                             imageencoder_tpu_torch.quant_from_numpy(JPEG4)),
+        lambda: _header_bits(jax_headers, jax_bitpack, QuantMatrix(JPEG4))),
+    "quant serialization": (
+        lambda: _quant_bits(bitpack, imageencoder_tpu_torch.quant_from_numpy(
+            np.array([[1, 300, 7, 65535]] * 4))),
+        lambda: _quant_bits(jax_bitpack, QuantMatrix(
+            np.array([[1, 300, 7, 65535]] * 4, np.uint32)))),
+    "zigzag 4, 8, 5": (
+        lambda: [zigzag.zigzag_order(n).tolist() for n in (4, 8, 5)],
+        lambda: [jax_zigzag.zigzag_order(n).tolist() for n in (4, 8, 5)]),
+    "cos table": (
+        lambda: [dct._cos_table(n).tobytes() for n in (4, 8)],
+        lambda: [jax_dct._cos_table(n).tobytes() for n in (4, 8)]),
+    "dct matrix": (
+        lambda: [dct.dct_matrix(n, m).tobytes() for n in (4, 8)
+                 for m in ("reference", "ortho")],
+        lambda: [jax_dct.dct_matrix(n, m).tobytes() for n in (4, 8)
+                 for m in ("reference", "ortho")]),
+    "forward weights": (
+        lambda: [b.tobytes() for n in (4, 8) for m in ("reference", "ortho")
+                 for b in dct._fwd_weights(n, m)],
+        lambda: [b.tobytes() for n in (4, 8) for m in ("reference", "ortho")
+                 for b in jax_dct._fwd_weights(n, m)]),
+    "inverse weights": (
+        lambda: [dct._inv_weights(n, m).tobytes() for n in (4, 8)
+                 for m in ("reference", "ortho")],
+        lambda: [jax_dct._inv_weights(n, m).tobytes() for n in (4, 8)
+                 for m in ("reference", "ortho")]),
+    "register-file bounds": (
+        lambda: [(f(n, m)) for f in (
+            cuda_encode.coeff_bound_bits, cuda_encode.coeff_bound_bits_residual,
+            cuda_encode.frontend_lw, cuda_encode.video_lw)
+            for n in (4, 8) for m in ("reference", "ortho")]
+        + [cuda_encode.lw_for_bits(n, db) for n in (4, 8) for db in (1, 12)],
+        lambda: [(f(n, m)) for f in (
+            jax_pallas_encode.coeff_bound_bits,
+            jax_pallas_encode.coeff_bound_bits_residual,
+            jax_pallas_encode.frontend_lw, jax_pallas_encode.video_lw)
+            for n in (4, 8) for m in ("reference", "ortho")]
+        + [jax_pallas_encode.lw_for_bits(n, db) for n in (4, 8)
+           for db in (1, 12)]),
+    "search steps and signs": (
+        lambda: ([motion.search_steps(m) for m in (0, 1, 2, 16, 300)],
+                 motion.MER_SIGNS.tolist(), motion.MACRO),
+        lambda: ([jax_motion.search_steps(m) for m in (0, 1, 2, 16, 300)],
+                 jax_motion.MER_SIGNS.tolist(), jax_motion.MACRO)),
+    "mvec bits": (
+        lambda: [video.mvec_bits(m) for m in (0, 1, 4, 16, 255, 32767)],
+        lambda: [jax_video.mvec_bits(m) for m in (0, 1, 4, 16, 255, 32767)]),
+    "yuv420 split": (
+        lambda: video.split_yuv420(bytes(range(256)) * 19 + b"xy", 8,
+                                   16).tobytes(),
+        lambda: jax_video.split_yuv420(bytes(range(256)) * 19 + b"xy", 8,
+                                       16).tobytes()),
+    "header words and bounds": (
+        lambda: (device_pack.header_to_words(b"\xab\xcd\xef").tolist(),
+                 device_pack.packed_words_bound(1000, 18),
+                 device_pack.local_words(3)),
+        lambda: (jax_device_pack.header_to_words(b"\xab\xcd\xef").tolist(),
+                 jax_device_pack.packed_words_bound(1000, 18),
+                 jax_device_pack.local_words(3))),
+    "words to bytes": (
+        lambda: device_pack.words_to_bytes(
+            np.array([0x01020304, 0xA0B0C0D0], np.uint32), 45),
+        lambda: jax_device_pack.words_to_bytes(
+            np.array([0x01020304, 0xA0B0C0D0], np.uint32), 45)),
+    "pack fields": (
+        lambda: bitpack.pack_fields([5, -1, 0x1234, 7], [3, 16, 13, 0],
+                                    pad_to_bytes=9),
+        lambda: jax_bitpack.pack_fields([5, -1, 0x1234, 7], [3, 16, 13, 0],
+                                        pad_to_bytes=9)),
+    "bit segments": (
+        lambda: bitpack.concat_bit_segments([(b"\xff\x80", 9), (b"\x55", 5),
+                                             (b"", 0), (b"\xc3\x3c", 16)]),
+        lambda: jax_bitpack.concat_bit_segments(
+            [(b"\xff\x80", 9), (b"\x55", 5), (b"", 0), (b"\xc3\x3c", 16)])),
+    "huffman dict": (
+        lambda: [_dict_bits(huffman, _freqs(s)) for s in range(4)],
+        lambda: [_dict_bits(jax_huffman, _freqs(s)) for s in range(4)]),
+    "huffman fallback": (
+        lambda: huffman._fallback(bytes(range(200))),
+        lambda: jax_huffman._fallback(bytes(range(200)))),
+}
+
+
+@pytest.mark.parametrize("name", list(HELPERS))
+def test_copied_helper_equals_jax_original(name):
+    port, original = HELPERS[name]
+    assert port() == original()
+
+
+def _histogram(kind: str, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        # Few distinct counts over many symbols: heap ties everywhere.
+        return rng.choice([0, 1, 2, 3, 8], 256).astype(np.int64)
+    if kind == "fibonacci":
+        # Fibonacci counts give a tree as deep as its symbols: lengths far
+        # past 15, folded back by the limit.
+        f = np.zeros(256, np.int64)
+        a, b = 1, 1
+        for s in rng.permutation(256)[:30]:
+            f[s] = a
+            a, b = b, a + b
+        return f
+    if kind == "geometric":
+        return np.floor(2.0 ** rng.uniform(0, 40, 256)).astype(np.int64)
+    if kind == "two":
+        f = np.zeros(256, np.int64)
+        f[[3, 200]] = [1, 10 ** 9]
+        return f
+    return rng.integers(0, 10 ** 6, 256).astype(np.int64)
+
+
+@pytest.mark.parametrize("kind,seed", [
+    ("ties", 0), ("ties", 1), ("fibonacci", 2), ("fibonacci", 3),
+    ("geometric", 4), ("geometric", 5), ("uniform", 6), ("two", 7)])
+def test_code_lengths_equal_jax_package(kind, seed):
+    freqs = _histogram(kind, seed)
+    got = huffman.code_lengths(freqs)
+    np.testing.assert_array_equal(got, jax_huffman.code_lengths(freqs))
+    assert got.max() <= huffman.MAX_CODE_LEN
+    if kind == "fibonacci":  # the limit had work to do
+        assert huffman._code_lengths_tree(freqs).max() > huffman.MAX_CODE_LEN
+    kraft = sum(2.0 ** -int(n) for n in got if n)
+    assert kraft <= 1.0
+
+
+def test_code_lengths_refuse_a_single_symbol():
+    f = np.zeros(256, np.int64)
+    f[9] = 5
+    with pytest.raises(ValueError):
+        huffman.code_lengths(f)
+    assert huffman._dict_and_codes(f) is None

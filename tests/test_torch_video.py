@@ -11,7 +11,9 @@ every kernel wrapper runs its plain version.
     register files of video_lw words, and int16 samples outside the
     residual range are refused, not truncated: the host raises where it
     reads the stream's total;
-  * the reconstruction equals runtime/native.py::idct_recon_exact_native;
+  * the reconstruction, and the fused recon step's plain version
+    (residual, K5, reconstruction), equal runtime/native.py::
+    idct_recon_exact_native;
   * encode_video(device="cpu") equals imageencoder_tpu's
     encode_video(backend="numpy") byte for byte, raw and recon reference,
     Huffman on and off, gop 1/3/4, RLE off, 40 frames (chunked) and an
@@ -19,7 +21,8 @@ every kernel wrapper runs its plain version.
     tests/test_video_device.py:73-86 of encode_video(backend="jax").
 
 Inputs are seeded frames built like bench.py's video content, and the 4x4
-top-left of the JPEG luminance table.
+top-left of the JPEG luminance table, one array made into each package's
+QuantMatrix.
 """
 
 import numpy as np
@@ -41,13 +44,13 @@ from imageencoder_tpu.runtime.native import idct_recon_exact_native
 from imageencoder_tpu.utils.quant import QuantMatrix
 import imageencoder_tpu_torch
 from imageencoder_tpu_torch.ops import cuda_encode, device_pack, pipeline
-from imageencoder_tpu_torch.ops.video_pipeline import reconstruct
 
 from tests.test_video_parity import make_video
 
 JPEG4 = [[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
          [14, 17, 22, 29]]
 QUANT = QuantMatrix(np.array(JPEG4, np.uint32))
+PORT_QUANT = imageencoder_tpu_torch.quant_from_numpy(QUANT.matrix)
 
 
 def bench_frames(w: int, h: int, n: int, seed: int) -> np.ndarray:
@@ -173,19 +176,43 @@ def test_k1_refuses_samples_outside_the_residual_bound():
 
 
 def test_reconstruction_equals_host_engine():
+    """reconstruct, and the recon step's plain version from the frame and
+    its prediction, both equal the host engine's exact reconstruction; the
+    step's coefficients equal K5's on the residual and land in ``out``."""
     h, w = 32, 48
     rng = np.random.default_rng(8)
     res = residual_image(h, w, 9)
     pred = rng.integers(0, 256, (h, w), dtype=np.uint8)
     q = np.array(JPEG4, np.float64)
     coeffs = cuda_encode.quantize_image(torch.from_numpy(res), q)
-    got = reconstruct(coeffs, torch.from_numpy(pred), q, 4, "reference")
+    got = cuda_encode.reconstruct(coeffs, torch.from_numpy(pred), q, 4,
+                                  "reference")
     zz = zigzag_order(4)
     czz = (coeffs.numpy().reshape(h // 4, 4, w // 4, 4).transpose(0, 2, 1, 3)
            .reshape(-1, 16)[:, zz])
     want = idct_recon_exact_native(czz, 4, zz, _inv_weights(4, "reference"),
                                    q, pred, h, w)
     np.testing.assert_array_equal(got.numpy(), want)
+
+    # The same residual as a frame over its prediction (cur = pred + res
+    # wherever that is a pixel; elsewhere the residual is clipped).
+    cur = np.clip(pred.astype(np.int16) + res, 0, 255).astype(np.uint8)
+    step_res = cur.astype(np.int16) - pred
+    out = torch.full((h, w), -7, dtype=torch.int32)
+    for fn in (cuda_encode.recon_step_plain, cuda_encode.recon_step):
+        before = cuda_encode.recon_step.launches
+        sq, srec = fn(torch.from_numpy(cur), torch.from_numpy(pred), q, 4,
+                      "reference", out=out)
+        assert cuda_encode.recon_step.launches == before
+        assert sq.data_ptr() == out.data_ptr()
+        assert torch.equal(sq, cuda_encode.quantize_image(
+            torch.from_numpy(step_res), q))
+        czz = (sq.numpy().reshape(h // 4, 4, w // 4, 4).transpose(0, 2, 1, 3)
+               .reshape(-1, 16)[:, zz])
+        want = idct_recon_exact_native(czz, 4, zz,
+                                       _inv_weights(4, "reference"), q, pred,
+                                       h, w)
+        np.testing.assert_array_equal(srec.numpy(), want)
 
 
 CASES = [  # w, h, frames, gop, merange, rle, huffman, ref_mode
@@ -208,7 +235,7 @@ def test_encode_video_equals_host_engine(w, h, n, gop, merange, use_rle,
                                          huff, mode):
     data = yuv420(bench_frames(w, h, n, w * n + gop))
     got = imageencoder_tpu_torch.encode_video(
-        data, w, h, QUANT, use_rle, gop, merange, use_huffman=huff,
+        data, w, h, PORT_QUANT, use_rle, gop, merange, use_huffman=huff,
         ref_mode=mode, device="cpu")
     want = jax_video.encode_video(data, w, h, QUANT, use_rle, gop, merange,
                                   use_huffman=huff, backend="numpy",
@@ -223,7 +250,8 @@ def test_encode_video_8x8_blocks_equals_host_engine(mode, norm):
     quant = QuantMatrix((1 + 2 * (i + j)).astype(np.uint32))
     data = yuv420(bench_frames(64, 48, 6, 3))
     got = imageencoder_tpu_torch.encode_video(
-        data, 64, 48, quant, True, 3, 8, norm=norm, ref_mode=mode,
+        data, 64, 48, imageencoder_tpu_torch.quant_from_numpy(quant.matrix),
+        True, 3, 8, norm=norm, ref_mode=mode,
         block_size=8, device="cpu")
     assert got == bytes(jax_video.encode_video(
         data, 64, 48, quant, True, 3, 8, norm=norm, backend="numpy",
@@ -233,8 +261,8 @@ def test_encode_video_8x8_blocks_equals_host_engine(mode, norm):
 @pytest.mark.parametrize("huff", [True, False])
 def test_empty_video_is_a_header_only_stream(huff):
     data = bytes(64 * 64)  # less than one YUV420p frame
-    got = imageencoder_tpu_torch.encode_video(data, 64, 64, QUANT, True, 4,
-                                              16, use_huffman=huff,
+    got = imageencoder_tpu_torch.encode_video(data, 64, 64, PORT_QUANT,
+                                              True, 4, 16, use_huffman=huff,
                                               device="cpu")
     assert got == bytes(jax_video.encode_video(
         data, 64, 64, QUANT, True, 4, 16, use_huffman=huff,
@@ -244,11 +272,12 @@ def test_empty_video_is_a_header_only_stream(huff):
 def test_geometry_and_mode_are_checked():
     data = yuv420(bench_frames(40, 24, 2, 1))
     with pytest.raises(ValueError, match="multiples of 16"):
-        imageencoder_tpu_torch.encode_video(data, 40, 24, QUANT, True, 4, 16,
-                                            device="cpu")
+        imageencoder_tpu_torch.encode_video(data, 40, 24, PORT_QUANT, True,
+                                            4, 16, device="cpu")
     with pytest.raises(ValueError, match="ref_mode"):
-        imageencoder_tpu_torch.encode_video(data, 40, 24, QUANT, True, 1, 16,
-                                            ref_mode="decoded", device="cpu")
+        imageencoder_tpu_torch.encode_video(data, 40, 24, PORT_QUANT, True,
+                                            1, 16, ref_mode="decoded",
+                                            device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["raw", "recon"])
@@ -259,8 +288,8 @@ def test_encode_video_near_the_jax_device_path_and_decodes(mode):
     0.5 on average.  Both decode."""
     data, frames = make_video(smooth=True, seed=2)
     got = imageencoder_tpu_torch.encode_video(
-        data, 64, 64, QUANT, True, 4, 16, use_huffman=False, ref_mode=mode,
-        device="cpu")
+        data, 64, 64, PORT_QUANT, True, 4, 16, use_huffman=False,
+        ref_mode=mode, device="cpu")
     jx = jax_video.encode_video(data, 64, 64, QUANT, True, 4, 16,
                                 use_huffman=False, backend="jax",
                                 ref_mode=mode)
