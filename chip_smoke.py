@@ -16,13 +16,16 @@ reference.  Phases, each of which raises on failure:
      of each path, and hold every kernel the path runs against its plain
      PyTorch version on those CUDA tensors, bit-equal: encode_image on a
      4096x912 image (233,472 blocks) for K1 encode_locals (u8 pixels), K2
-     pack_locals, K3 byte_histogram and K4 pack_records; encode_video at
-     1280x720, 25 frames, gop 4, merange 16, Huffman on, with the raw
-     reference for K6 motion_search, K7 predict, K1 on the int16 residual
-     stack, K2, K3 and K4 (the Huffman payload); and with the recon
-     reference for every K5 quantize_image (I-frames), K5 recon_step (the
-     fused P-frame step), K6 and K7 call, K3, and both K4 calls (the wire
-     fields and the Huffman payload).  K3 is also timed against
+     pack_locals, K3 byte_histogram and K4 pack_payload (the Huffman
+     payload); encode_video at 1280x720, 25 frames, gop 4, merange 16,
+     Huffman on, with the raw reference for K6 motion_search, K7 predict,
+     K1 on the int16 residual stack, K2, K3 and K4 pack_payload; and with
+     the recon reference for every K5 quantize_image (I-frames), K5
+     recon_step (the fused P-frame step), K6 and K7 call, K3, K4
+     pack_coeffs (the records from the coefficients) and K4 pack_payload;
+     K4 pack_records, which no path runs, on the recon records as fields
+     built by the plain glue.  K4's words are compared up to the stream's
+     last word, which is all the kernel defines.  K3 is also timed against
      torch.bincount over the same stream bytes, the one PyTorch call that
      computes its function;
   3. drive each path with every kernel's launch count set to 0 just
@@ -38,17 +41,25 @@ reference.  Phases, each of which raises on failure:
      tests/test_torch_video.py hold byte-equal to the JAX package's host
      engine; tests/test_torch_cuda.py holds the card's full-size image and
      720p25 video streams against that engine on the card;
-  5. time, inputs resident on the device: the device encode, the Huffman
+  5. the division sweep: K1's reciprocal division beside __ddiv_rn for
+     every quant q in 1..255, around every quotient k, k + 1/2 and k + 1/4
+     within the residual coefficient bound (8 ulps each way) and for 10^7
+     seeded random y (csrc/division.cu); any mismatch fails;
+  6. time, inputs resident on the device: the device encode, the Huffman
      stage, the whole encode_image and the host-to-device copy of the
      image; for video, the whole encode_video of frames on the device, the
      device window (K6 + K7 + K1 + K2 + K3, or per frame K6 + K7 + the
-     recon step (K5 on I-frames) and then K4 + K3, until meta is ready),
+     recon step (K5 on I-frames) and then K4 pack_coeffs + K3, until meta
+     is ready),
      the Huffman stage and the copy of the frames;
-  6. profile a few calls of each path and print the device time per call
-     by operation: where the device time goes.
+  7. profile a few calls of each path and print the device time per call
+     by operation and the device operations per call: where the device
+     time goes.
 
 Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
+``stage_ms`` is everything the wrapper runs on the device (the kernel and
+its glue: scratch zeroing, index and cumsum ops);
 ``call_ms`` and ``plain_call_ms`` are CUDA-event times of back-to-back
 calls, which include the wrappers' glue and launch overhead.
 ``bound_ms`` is the larger of the HBM floor (the bytes the function must
@@ -87,9 +98,10 @@ INT32_OPS_PER_S = 64 * SMS * BOOST_HZ  # 32-bit integer lane ops
 SAMPLES = 110  # per end-to-end timing: p90 has 11 samples beyond it
 VIDEO_SAMPLES = 30  # per video timing: p90 has 3 samples beyond it
 PROFILE_CALLS = 10
-ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "call_ms", "plain_call_ms",
-            "bytes", "ops", "hbm_floor_ms", "bound_ms", "bound_by",
-            "library_ms")  # of a kernel's row at another shape
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "stage_ms", "call_ms",
+            "plain_call_ms", "bytes", "ops", "hbm_floor_ms", "bound_ms",
+            "bound_by", "library_ms")  # of a kernel's row at another shape
+DIV_RANDOM = 10_000_000  # random y of the division sweep, each over q 1..255
 VIDEO_PROFILE_CALLS = 3
 KERNELS = {  # name: (wrapper's module, wrapper, plain version,
     #                 CUDA kernel symbol, source, the TPU kernel replaced)
@@ -109,6 +121,14 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                         "pack_records_kernel",
                         "imageencoder_tpu_torch/csrc/pack.cu",
                         "imageencoder_tpu/ops/pallas_pack.py:55"),
+    "K4 pack_payload": ("cuda_pack", "pack_payload", "pack_payload_plain",
+                        "pack_payload_kernel",
+                        "imageencoder_tpu_torch/csrc/pack.cu",
+                        "imageencoder_tpu/ops/pallas_pack.py:55"),
+    "K4 pack_coeffs": ("cuda_pack", "pack_coeffs", "pack_coeffs_plain",
+                       "pack_coeffs_kernel",
+                       "imageencoder_tpu_torch/csrc/pack.cu",
+                       "imageencoder_tpu/ops/pallas_pack.py:55"),
     "K5 quantize_image": ("cuda_encode", "quantize_image",
                           "quantize_image_plain", "quantize_image_kernel",
                           "imageencoder_tpu_torch/csrc/transform.cu",
@@ -127,13 +147,16 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
 }
 PATHS = {  # path: the kernels it runs
     "image": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
-              "K4 pack_records"),
+              "K4 pack_payload"),
     "video raw": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
-                  "K4 pack_records", "K6 motion_search", "K7 predict"),
-    "video recon": ("K3 byte_histogram", "K4 pack_records",
+                  "K4 pack_payload", "K6 motion_search", "K7 predict"),
+    "video recon": ("K3 byte_histogram", "K4 pack_coeffs", "K4 pack_payload",
                     "K5 quantize_image", "K5 recon_step", "K6 motion_search",
                     "K7 predict"),
 }
+# K4's output is defined up to the stream's last word (the plain versions
+# zero the rest of the buffer, the kernel leaves it): compare that part.
+STREAM_OUT = ("K4 pack_records", "K4 pack_payload", "K4 pack_coeffs")
 
 
 def synthetic(h: int, w: int, seed: int):
@@ -333,6 +356,11 @@ def held_equal(name: str, args: tuple, kwargs: dict):
     if len(got) != len(want):
         raise AssertionError(f"{name}: {len(got)} outputs, plain "
                              f"{len(want)}")
+    if name in STREAM_OUT:
+        from imageencoder_tpu_torch.ops.cuda_pack import stream_words
+
+        got = (stream_words(*got), got[1])
+        want = (stream_words(*want), want[1])
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain "
@@ -400,13 +428,21 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     err, got = held_equal(name, args, kwargs)
     # The bytes the kernel itself must move: its tensor inputs, and its
     # outputs up to the stream's end where the output is a stream.  K4
-    # reads a record's values only where the record is not empty.
+    # pack_records reads a record's values only where the record is not
+    # empty; pack_payload reads the nbytes stream bytes, its two tables
+    # and the dict; pack_coeffs 4 bytes a coefficient and the vectors.
     if name == "K2 pack_locals":
         nbytes = tensor_bytes(args[:2]) + (int(got[1]) + 7) // 8
     elif name == "K4 pack_records":
         live = int((args[1].sum(dim=1) > 0).sum())
         nbytes = (tensor_bytes(args[1:2]) + 4 * args[0].shape[1] * live
                   + (int(got[1]) + 7) // 8)
+    elif name == "K4 pack_payload":
+        prefix = kwargs.get("prefix", args[6] if len(args) > 6 else None)
+        nbytes = (args[1] + tensor_bytes(args[2:4]) + tensor_bytes([prefix])
+                  + (int(got[1]) + 7) // 8)
+    elif name == "K4 pack_coeffs":
+        nbytes = tensor_bytes(args[:2]) + (int(got[1]) + 7) // 8
     elif name == "K3 byte_histogram":
         nbytes = (int(args[1]) + 7) // 8
     elif name in ("K6 motion_search", "K7 predict", "K5 recon_step"):
@@ -428,6 +464,7 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
            "bound_by": "operations" if ops_ms > hbm_ms else "bytes",
            "library_ms": (bincount_ms(*args)
                           if name == "K3 byte_histogram" else None),
+           "stage_ms": profiled_ms(kernel_call),
            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
            "bytes": nbytes, "ops": ops, "hbm_floor_ms": hbm_ms}
     shapes = ", ".join(str(tuple(a.shape)) for a in args
@@ -435,7 +472,8 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     lib = ("" if row["library_ms"] is None
            else f"; torch.bincount {row['library_ms']:.4f} ms")
     print(f"{name} on {shapes}: bit-equal to plain; device {row['ms']:.4f} "
-          f"ms (plain {row['plain_ms']:.4f} ms); per call {call_ms:.4f} ms "
+          f"ms (plain {row['plain_ms']:.4f} ms; the wrapper's whole device "
+          f"work {row['stage_ms']:.4f} ms); per call {call_ms:.4f} ms "
           f"(plain {plain_call_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
           f"by {row['bound_by']} (HBM floor {hbm_ms:.4f} ms for {nbytes} "
           f"bytes, op floor {ops_ms:.4f} ms for {ops:.0f} ops){lib}",
@@ -627,7 +665,7 @@ def main() -> None:
     for name, want in (("K5 quantize_image", vn - n_p),
                        ("K5 recon_step", n_p), ("K6 motion_search", n_p),
                        ("K7 predict", n_p), ("K3 byte_histogram", 1),
-                       ("K4 pack_records", 2)):
+                       ("K4 pack_coeffs", 1), ("K4 pack_payload", 1)):
         if len(calls[name]) != want:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"recon encode_video, expected {want}")
@@ -647,14 +685,22 @@ def main() -> None:
         beside(rows[name], key, check_kernel(name, *calls[name][0]))
     beside(rows["K3 byte_histogram"], "video_recon",
            check_kernel("K3 byte_histogram", *calls["K3 byte_histogram"][0]))
-    for key, call in zip(("video_recon_fields", "video_recon_payload"),
-                         calls["K4 pack_records"]):
-        beside(rows["K4 pack_records"], key,
-               check_kernel("K4 pack_records", *call))
+    beside(rows["K4 pack_payload"], "video_recon",
+           check_kernel("K4 pack_payload", *calls["K4 pack_payload"][0]))
+    rows["K4 pack_coeffs"] = check_kernel("K4 pack_coeffs",
+                                          *calls["K4 pack_coeffs"][0])
+    # The generic front end on the same records, as [N, F] fields built by
+    # the plain glue from the captured coefficients and vectors.
+    (coeffs, mvecs, gop, nb, b, rle, _lw, start, n_words), kw = \
+        calls["K4 pack_coeffs"][0]
+    vals, nbits = module("cuda_pack").coeff_fields(coeffs, mvecs, gop, nb, b,
+                                                   rle)
+    rows["K4 pack_records"] = check_kernel(
+        "K4 pack_records", (vals, nbits, start, n_words), kw)
     print(f"recon encode_video: all {vn - n_p} K5, {n_p} recon step, {n_p} "
-          f"K6, {n_p} K7, 1 K3 and 2 K4 calls bit-equal to their plain "
-          f"versions", flush=True)
-    del calls, step_args, cur, pred, rest
+          f"K6, {n_p} K7, 1 K3, 1 K4 pack_coeffs and 1 K4 pack_payload calls "
+          f"bit-equal to their plain versions", flush=True)
+    del calls, step_args, cur, pred, rest, coeffs, mvecs, vals, nbits
 
     # ---- 3. each path, counts from 0 ----
     # No full-size image compresses too little for the dict (the records'
@@ -718,7 +764,26 @@ def main() -> None:
             print(f"{label}: {len(got)} bytes, byte-identical to the plain "
                   f"path on the host ({plain_s:.2f} s there)", flush=True)
 
-    # ---- 5. timing ----
+    # ---- 5. K1's division beside __ddiv_rn ----
+    from imageencoder_tpu_torch.ops.cuda_encode import (
+        coeff_bound_bits_residual, division_sweep)
+
+    k_max = 2 ** max(coeff_bound_bits_residual(b, norm) - 1
+                     for b in (4, 8) for norm in ("reference", "ortho"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep = division_sweep(dev, k_max, DIV_RANDOM, seed=2024)
+    sweep_s = time.perf_counter() - t0
+    want_checks = 255 * ((2 * k_max + 1) * 51 + DIV_RANDOM)
+    if sweep["checks"] != want_checks or sweep["mismatches"]:
+        raise AssertionError(f"division sweep: {sweep} ({want_checks} "
+                             f"checks expected)")
+    print(f"division sweep: K1's reciprocal division equals __ddiv_rn in all "
+          f"{sweep['checks']} checks (q 1..255; |k| <= {k_max} at k*q, "
+          f"(k+1/2)*q, (k+1/4)*q +-8 ulps; {DIV_RANDOM} random y), "
+          f"{sweep_s:.2f} s", flush=True)
+
+    # ---- 6. timing ----
     for (hh, ww), im in zip(SHAPES, images):
         mpix = hh * ww / 1e6
         t = []
@@ -771,7 +836,7 @@ def main() -> None:
     for mode in ("raw", "recon"):
         time_video(vframes, quant, mode, dev)
 
-    # ---- 6. where the device time goes ----
+    # ---- 7. where the device time goes ----
     img_d = torch.from_numpy(images[0]).to(dev)
     print_profile(f"encode_image at {SHAPES[0][1]}x{SHAPES[0][0]}",
                   lambda: port.encode_image(img_d, quant, use_huffman=True,

@@ -18,25 +18,35 @@
 // words for it.  The flag stays on the device until the host reads the
 // stream's total, and the host raises there.  Nothing is truncated.
 //
-// One thread per B x B block: the transform, then the RLE stats of
-// ops/rle.py::block_stats (trailing-strip quirk, ffs(0) clamp) and the
-// wire fields of block_fields, emitted MSB-first.
+// One thread per B x B block: the transform, then the record of
+// records.cuh (the RLE stats and wire fields, shared with K4's
+// pack_coeffs), emitted MSB-first.
 //
 // Bound on this card: f64 operations.  A 4x4 block reads 16 or 32 bytes
-// and writes 28 or 32 (lw words + a length) for about 544 separately
-// rounded f64 ops: 256 __dmul_rn and 256 __dadd_rn, with no FMA.  The H100
-// SXM issues 64 f64 ops an SM a clock, about 16.7 T such ops/s (its 34
-// TFLOP/s counts an FMA as two), so the ops bound it above the bytes.  The
-// tables sit in shared memory (transform.cuh); the per-thread stores are
-// strided by lw words, which the L2 merges.
+// and writes 28 or 32 (lw words + a length) for 544 separately rounded
+// f64 ops as the bound counts them: 256 multiplies and 256 adds, then a
+// scale multiply and a divide a coefficient.  The H100 SXM issues 64 f64
+// ops an SM a clock, about 16.7 T such ops/s (its 34 TFLOP/s counts an
+// FMA as two), so the ops bound it above the bytes.  What the design does
+// about it:
+//   * the divide is a multiply by the host's reciprocal and two FMAs, not
+//     __ddiv_rn's seed, Newton chain and slow-path check (transform.cuh);
+//   * a row of samples is one 4-, 8- or 16-byte load, biased in integer
+//     arithmetic and converted once;
+//   * the tables sit in shared memory (transform.cuh);
+//   * the CTA's register files are composed in shared memory and leave by
+//     coalesced 16-byte stores, the zero words past each record included.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "bits.cuh"
+#include "records.cuh"
 #include "transform.cuh"
 
 namespace {
+
+constexpr int kThreads = 128;
 
 struct RowSink {
     uint32_t* row;
@@ -46,99 +56,103 @@ struct RowSink {
 };
 
 template <int B, class T>
-__global__ void encode_locals_kernel(
+__global__ void __launch_bounds__(kThreads) encode_locals_kernel(
         const T* __restrict__ img, long long width,
         long long blocks_x, long long n_blocks,
         const double* __restrict__ wz, const double* __restrict__ scale_z,
-        const double* __restrict__ quant_z, int use_rle, int lw,
+        const double* __restrict__ quant_z,
+        const double* __restrict__ recip_z, int use_rle, int lw,
         uint32_t* __restrict__ out_words, int32_t* __restrict__ out_lens,
         int* __restrict__ err) {
     constexpr int K = B * B;
-    const ie::TableCache<K, 1, 2> tab({wz}, {scale_z, quant_z});
-    const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (n >= n_blocks) return;
-    const long long by = n / blocks_x;
-    const long long bx = n - by * blocks_x;
+    extern __shared__ __align__(16) uint32_t stage[];  // [kThreads][lw]
+    const ie::TableCache<K, 1, 3> tab({wz}, {scale_z, quant_z, recip_z});
+    const long long n0 = blockIdx.x * (long long)kThreads;
+    const long long n = n0 + threadIdx.x;
+    uint32_t* row = stage + threadIdx.x * lw;
 
-    double x[K];
-    ie::load_block<B>(img + by * B * width + bx * B, width, x);
-    int q[K];
-    ie::dct_quantize<K>(x, tab.mat[0], tab.vec[0], tab.vec[1], q);
-
-    // RLE stats (ops/rle.py::block_stats).
-    int length_full = 0, length_head = 0, max_bits = 0;
-#pragma unroll
-    for (int j = 0; j < K; j++) {
-        const int v = q[j];
-        if (v != 0) {
-            length_full = j + 1;
-            if (j < K - 1) length_head = j + 1;
-            const unsigned mag = v >= 0 ? (unsigned)v : (unsigned)(-v - 1);
-            max_bits = max(max_bits, 33 - __clz((int)mag));  // bits_needed
+    if (n < n_blocks) {
+        const long long by = n / blocks_x;
+        const long long bx = n - by * blocks_x;
+        double x[K];
+        ie::load_block_vec<B>(img + by * B * width + bx * B, width, x);
+        int q[K];
+        ie::dct_quantize<K>(x, tab.mat[0], tab.vec[0], tab.vec[1], q,
+                            tab.vec[2]);
+        const ie::BlockStats st = ie::block_stats<K>(q, use_rle);
+        out_lens[n] = st.len;
+        int k = 0;
+        if (st.len > 32 * lw) {  // the register file cannot hold it: refuse
+            *err = 1;
+        } else {
+            ie::BitEmitter<RowSink> em(RowSink{row}, 0);
+            ie::emit_block<K>(em, q, st, use_rle);
+            em.finish();
+            k = em.word;
         }
+        for (; k < lw; k++) row[k] = 0u;
     }
-    const int ffs_len = 32 - __clz(length_full);
-    const int db = max(max(max_bits, ffs_len), 1);
-    int count, n_payload;
-    if (use_rle) {
-        const int gap = (K - 1) - length_head;
-        count = (length_full == K && gap > 0) ? length_head : length_full;
-        n_payload = count;
-    } else {
-        count = length_full;
-        n_payload = K;
-    }
-    const int len = 4 + (use_rle ? db : 0) + n_payload * db;
-    out_lens[n] = len;
+    __syncthreads();
 
-    uint32_t* row = out_words + n * lw;
-    if (len > 32 * lw) {  // the register file cannot hold it: refuse
-        *err = 1;
-        for (int k = 0; k < lw; k++) row[k] = 0u;
-        return;
+    // The CTA's files are one contiguous run of words, 16-byte aligned:
+    // n0 * lw words is a multiple of 4.
+    const long long rows = min((long long)kThreads, n_blocks - n0);
+    const int words = (int)(rows * lw);
+    uint32_t* out = out_words + n0 * lw;
+    for (int v = threadIdx.x; v < words / 4; v += kThreads)
+        reinterpret_cast<uint4*>(out)[v] =
+            reinterpret_cast<const uint4*>(stage)[v];
+    for (int v = (words / 4) * 4 + threadIdx.x; v < words; v += kThreads)
+        out[v] = stage[v];
+}
+
+template <int B, class T>
+int launch_one(const T* im, long long width, long long blocks_x, long long n,
+               const double* w, const double* sc, const double* qz,
+               const double* rz, int use_rle, int lw, uint32_t* ow,
+               int32_t* ol, int* err, cudaStream_t s) {
+    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+    const size_t smem = (size_t)kThreads * lw * sizeof(uint32_t);
+    auto* kernel = encode_locals_kernel<B, T>;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
     }
-    // Wire fields (ops/rle.py::block_fields): width, count, payload.
-    ie::BitEmitter<RowSink> em(RowSink{row}, 0);
-    em.put(4, (uint32_t)db);
-    if (use_rle) em.put(db, (uint32_t)count);
-#pragma unroll
-    for (int j = 0; j < K; j++)
-        if (j < n_payload) em.put(db, (uint32_t)q[j]);
-    em.finish();
-    for (int k = em.word; k < lw; k++) row[k] = 0u;
+    kernel<<<grid, kThreads, smem, s>>>(im, width, blocks_x, n, w, sc, qz,
+                                        rz, use_rle, lw, ow, ol, err);
+    return (int)cudaGetLastError();
 }
 
 template <class T>
 int launch(const T* im, long long width, int block_size, long long blocks_x,
            long long n, const double* w, const double* sc, const double* qz,
-           int use_rle, int lw, uint32_t* ow, int32_t* ol, int* err,
-           cudaStream_t s) {
-    const int threads = 128;
-    const unsigned grid = (unsigned)((n + threads - 1) / threads);
-    if (block_size == 4) {
-        encode_locals_kernel<4, T><<<grid, threads, 0, s>>>(
-            im, width, blocks_x, n, w, sc, qz, use_rle, lw, ow, ol, err);
-    } else if (block_size == 8) {
-        encode_locals_kernel<8, T><<<grid, threads, 0, s>>>(
-            im, width, blocks_x, n, w, sc, qz, use_rle, lw, ow, ol, err);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
+           const double* rz, int use_rle, int lw, uint32_t* ow, int32_t* ol,
+           int* err, cudaStream_t s) {
+    if (block_size == 4)
+        return launch_one<4>(im, width, blocks_x, n, w, sc, qz, rz, use_rle,
+                             lw, ow, ol, err, s);
+    if (block_size == 8)
+        return launch_one<8>(im, width, blocks_x, n, w, sc, qz, rz, use_rle,
+                             lw, ow, ol, err, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// img: [H, W] of u8 (dtype 0) or int16 (dtype 1); wz: f64 [K, K] forward
-// weights with zig-zag-ordered columns; scale_z, quant_z: f64 [K] in
-// zig-zag order; out_words: u32 [N, lw]; out_lens: i32 [N]; err: i32 [1],
-// zeroed by the caller, set to 1 if any record is longer than lw words.
-// Returns the launch's cudaError_t.
+// img: [H, W] of u8 (dtype 0) or int16 (dtype 1), 16-byte aligned, W a
+// multiple of the block size; wz: f64 [K, K] forward weights with
+// zig-zag-ordered columns; scale_z, quant_z, recip_z: f64 [K] in zig-zag
+// order, recip_z[j] = RN(1 / quant_z[j]) where that is an integer in
+// 1..255, else 0 (divide by __ddiv_rn); out_words: u32 [N, lw], 16-byte
+// aligned; out_lens: i32 [N]; err: i32 [1], zeroed by the caller, set to
+// 1 if any record is longer than lw words.  Returns the launch's
+// cudaError_t.
 extern "C" int ie_encode_locals(
         const void* img, int dtype, long long height, long long width,
         int block_size, const void* wz, const void* scale_z,
-        const void* quant_z, int use_rle, int lw, void* out_words,
-        void* out_lens, void* err, void* stream) {
+        const void* quant_z, const void* recip_z, int use_rle, int lw,
+        void* out_words, void* out_lens, void* err, void* stream) {
     const long long blocks_x = width / block_size;
     const long long n = blocks_x * (height / block_size);
     if (n <= 0) return (int)cudaGetLastError();
@@ -146,14 +160,15 @@ extern "C" int ie_encode_locals(
     const auto* w = (const double*)wz;
     const auto* sc = (const double*)scale_z;
     const auto* qz = (const double*)quant_z;
+    const auto* rz = (const double*)recip_z;
     auto* ow = (uint32_t*)out_words;
     auto* ol = (int32_t*)out_lens;
     auto* e = (int*)err;
     if (dtype == 0)
         return launch((const uint8_t*)img, width, block_size, blocks_x, n, w,
-                      sc, qz, use_rle, lw, ow, ol, e, s);
+                      sc, qz, rz, use_rle, lw, ow, ol, e, s);
     if (dtype == 1)
         return launch((const int16_t*)img, width, block_size, blocks_x, n, w,
-                      sc, qz, use_rle, lw, ow, ol, e, s);
+                      sc, qz, rz, use_rle, lw, ow, ol, e, s);
     return (int)cudaErrorInvalidValue;
 }

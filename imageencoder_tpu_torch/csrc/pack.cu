@@ -1,35 +1,45 @@
-// K2 and K4: the bitstream packer, one kernel body with two front ends.
+// K2 and K4: the bitstream packers.
 //
-// Replaces the TPU kernels imageencoder_tpu/ops/pallas_pack.py
-// _pack_locals_call (K2, reached through pack_locals_pallas) and _pack_call
-// (K4, reached through pack_records_pallas).  Both concatenate N
-// variable-length records into one MSB-first, big-endian u32 stream that
-// starts at bit `start_bit`.  The front ends differ in what a record is:
-//   K2 pack_locals:  a register file of lw words plus a bit length, as the
-//                    encode front end (encode.cu) writes it;
-//   K4 pack_records: F (value, nbits) fields of at most 16 bits, emitted
-//                    MSB-first as the thread walks them.
+// Both concatenate N variable-length records into one MSB-first,
+// big-endian u32 stream that starts at bit `start_bit`.
 //
-// One thread per record.  The record's start is an int64 exclusive scan of
-// the record lengths: a shared-memory block scan inside the kernel, on top
-// of per-block starts that the wrapper takes from torch.cumsum (as the JAX
-// package takes its chunk starts from an XLA cumsum).  Each record is
+// K2, pack_locals, replaces imageencoder_tpu/ops/pallas_pack.py
+// _pack_locals_call (reached through pack_locals_pallas): a record is a
+// register file of lw words plus a bit length, as K1 (encode.cu) writes
+// it.  One thread per record; the record's start is an int64 exclusive
+// scan of the lengths: a shared-memory block scan on top of per-block
+// starts that the wrapper takes from torch.cumsum.  Each record is
 // funnel-shifted by start & 31 and OR'd in at word start >> 5 with
 // atomicOr: records' bits never overlap, so the OR equals the serial
-// writer.  Only the first and last word of a record can be shared, and
-// zero words are skipped.
+// writer.  Bound: HBM bytes (28 read per 4x4 record, about 4 written).
+//
+// K4 replaces pallas_pack.py _pack_call (reached through
+// pack_records_pallas and device_pack.pack_blocks_device): one
+// single-pass packer (pack_tiles) with three front ends that yield each
+// record's length and then its fields, so no field tensor is built first:
+//   pack_records: [N, F] (value, width) fields, the generic form;
+//   pack_payload: the Huffman payload, 16 stream bytes a record, each
+//                 byte's code looked up in shared memory;
+//   pack_coeffs:  a recon video's motion-vector and block records, read
+//                 from the coefficient tensor and the vectors.
+// Bound: HBM bytes.  pack_payload reads 1 byte per coded byte and the
+// payload, pack_coeffs 4 bytes per coefficient; both write the stream.
+// The design keeps everything else on chip: the scan is one pass
+// (decoupled look-back over tiles taken in order); a tile's words are
+// composed in shared memory and leave by 16-byte stores; the words tiles
+// share are merged once at the end instead of by global atomics; the
+// output is not zeroed first.
 //
 // The TPU kernel's merge tree, its bit-reversal pre-permute, the capped
 // level schedule and the row splice are workarounds for a machine without
 // scatter or atomics; none of them has a counterpart here.
-//
-// Bound on this card: HBM bytes and launch overhead.  K2 reads 28 bytes
-// per 4x4 record and writes about 4; K4 reads 8 bytes per field.
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "bits.cuh"
+#include "records.cuh"
 
 namespace {
 
@@ -67,23 +77,530 @@ __global__ void __launch_bounds__(kPackThreads) pack_locals_kernel(
     }
 }
 
-__global__ void __launch_bounds__(kPackThreads) pack_records_kernel(
-        const int32_t* __restrict__ vals, const int32_t* __restrict__ nbits,
-        long long n, int f, const long long* __restrict__ block_start,
-        uint32_t* __restrict__ out, long long n_words) {
+// ---- K4: one single-pass packer, three front ends ----
+
+constexpr int kTile = 256;  // records a tile, threads a CTA
+constexpr unsigned long long kFlagA = 1ull << 62;  // a tile's aggregate
+constexpr unsigned long long kFlagP = 2ull << 62;  // its inclusive prefix
+constexpr unsigned long long kValue = kFlagA - 1ull;
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+        const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// Coherent at the card's scope, and free to overlap with other loads.
+__device__ __forceinline__ unsigned long long ld_relaxed(
+        const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+    asm volatile("st.release.gpu.global.u64 [%0], %1;"
+                 :: "l"(p), "l"(v) : "memory");
+}
+
+// One pack's outputs and scratch.  scratch: u64 words zeroed by the
+// caller, [0] the tile counter, [1] tiles done, [2] the error flag, [3 + t]
+// tile t's status (flag | value); edges: u64 [2 * n_tiles], each tile's
+// first and last span word as ((word + 1) << 32) | bits, 0 for none.
+struct PackOut {
+    long long n;  // records
+    long long n_tiles;
+    long long start_bit;
+    const uint32_t* prefix;
+    long long prefix_words;
+    uint32_t* out;
+    long long n_words;
+    unsigned long long* scratch;
+    unsigned long long* edges;
+    long long* total;
+    int span_words;       // capacity of the shared span
+    int max_record_bits;  // longer records are refused
+
+    __device__ __forceinline__ uint32_t prefix_word(long long w) const {
+        return w < prefix_words ? prefix[w] : 0u;
+    }
+};
+
+// A record's words into the tile's span: the first and last word may be
+// shared with the neighbouring records (shared-memory atomicOr), the
+// interior ones are the record's alone.
+struct SpanSink {
+    uint32_t* span;
+    int base;
+    int last;
+    __device__ __forceinline__ void operator()(int k, uint32_t w) const {
+        if (k == 0 || k == last) {
+            if (w != 0u) atomicOr(span + base + k, w);
+        } else {
+            span[base + k] = w;
+        }
+    }
+};
+
+// The exclusive prefix (start_bit included) of tile t, by decoupled
+// look-back: warp 0 publishes the tile's aggregate, then reads the status
+// of kWindow earlier tiles at a time (kPerLane consecutive ones a lane),
+// adding aggregates back to the nearest inclusive prefix, and publishes
+// its own.  Tiles are taken in order from a counter, so every tile looked
+// at belongs to a running CTA.  The prefixes advance by at most a window
+// per round trip to L2, so the window is wide.
+constexpr int kPerLane = 4;
+constexpr int kWindow = 32 * kPerLane;
+
+__device__ __forceinline__ long long look_back(unsigned long long* status,
+                                               long long t, long long agg,
+                                               long long start_bit) {
+    const int lane = threadIdx.x & 31;
+    if (t == 0) {
+        if (lane == 0) st_release(status, kFlagP | (start_bit + agg));
+        return start_bit;
+    }
+    if (lane == 0) st_release(status + t, kFlagA | agg);
+    long long excl = 0;
+    for (long long top = t - 1;; top -= kWindow) {
+        // Lane l holds tiles top - kPerLane * l - k, k = 0..kPerLane-1,
+        // nearest first: all read at once, then the unpublished ones read
+        // again up to the lane's nearest inclusive prefix.
+        unsigned long long s[kPerLane];
+#pragma unroll
+        for (int k = 0; k < kPerLane; k++) {
+            const long long j = top - kPerLane * lane - k;
+            s[k] = j >= 0 ? ld_relaxed(status + j) : kFlagP;  // before tile 0
+        }
+        int first_p = kPerLane;  // the lane's nearest inclusive prefix
+#pragma unroll
+        for (int k = 0; k < kPerLane; k++) {
+            const long long j = top - kPerLane * lane - k;
+            while ((s[k] >> 62) == 0) s[k] = ld_relaxed(status + j);
+            if ((s[k] >> 62) == 2) {
+                first_p = k;
+                break;
+            }
+        }
+        const unsigned p = __ballot_sync(0xffffffffu, first_p < kPerLane);
+        const int stop = p ? __ffs(p) - 1 : 31;
+        long long v = 0;
+#pragma unroll
+        for (int k = 0; k < kPerLane; k++)
+            if (lane < stop || (lane == stop && k <= first_p))
+                v += (long long)(s[k] & kValue);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, o);
+        excl += v;
+        if (p) break;
+    }
+    if (lane == 0) st_release(status + t, kFlagP | (excl + agg));
+    return excl;
+}
+
+// The packer.  A CTA takes tiles of kTile * ITEMS records from the tile
+// counter, each thread ITEMS consecutive records.  Per tile: each record's
+// length from the front end; a block scan of the threads' sums; the tile's
+// prefix by look-back; the tile's span of output words composed in shared
+// memory, each record emitted from the state its thread kept; the span's
+// interior words stored by 16-byte stores; its first and last word, which
+// other tiles (or the prefix) may share, kept as edges.  When every tile is
+// done, every CTA merges the edges: the tile holding the first stream bit
+// of a shared word ORs in the later tiles' parts of it and stores it, once.
+// No word of the output is written twice or by an atomic, and nothing of
+// it is zeroed first: the words past the stream's last word are left as
+// they were.
+template <int ITEMS, class Front>
+__device__ __forceinline__ void pack_tiles(const Front& fe,
+                                           const PackOut& a) {
+    constexpr long long kRecords = (long long)kTile * ITEMS;
+    extern __shared__ __align__(16) uint32_t span[];
     __shared__ long long warp_sums[32];
-    const long long i = blockIdx.x * (long long)kPackThreads + threadIdx.x;
-    long long len = 0;
-    if (i < n)
-        for (int k = 0; k < f; k++) len += nbits[i * f + k];
-    const long long start =
-        block_start[blockIdx.x] + ie::block_exclusive_scan(len, warp_sums);
-    if (i >= n || len == 0) return;
-    ie::BitEmitter<StreamSink> em(StreamSink{out, start >> 5, n_words},
-                                  (int)(start & 31));
-    for (int k = 0; k < f; k++)
-        em.put(nbits[i * f + k], (uint32_t)vals[i * f + k]);
-    em.finish();
+    __shared__ long long s_tile, s_agg, s_excl;
+    unsigned long long* counter = a.scratch;
+    unsigned long long* done = a.scratch + 1;
+    unsigned long long* err = a.scratch + 2;
+    unsigned long long* status = a.scratch + 3;
+    const int tid = threadIdx.x;
+
+    for (;;) {
+        // Take a tile only when about to pack it: a later tile's look-back
+        // waits for this one's aggregate.
+        if (tid == 0) s_tile = (long long)atomicAdd(counter, 1ull);
+        __syncthreads();
+        const long long t = s_tile;
+        if (t >= a.n_tiles) break;
+        const long long first = t * kRecords + (long long)tid * ITEMS;
+        typename Front::State st[ITEMS];
+        long long lens[ITEMS];
+        long long sum = 0;
+        unsigned refused = 0u;
+#pragma unroll
+        for (int r = 0; r < ITEMS; r++) {
+            long long len = first + r < a.n ? fe.length(first + r, st[r]) : 0;
+            if (len < 0 || len > a.max_record_bits) refused |= 1u << r;
+            lens[r] = len < 0 ? 0 : len;
+            sum += lens[r];
+        }
+        if (refused) atomicExch(err, 1ull);
+        const long long local = ie::block_exclusive_scan(sum, warp_sums);
+        if (tid == kTile - 1) s_agg = local + sum;
+        __syncthreads();
+        const long long agg = s_agg;
+        // ceil((31 + agg) / 32) words hold the tile at any offset.
+        const long long need = (agg + 62) >> 5;
+        const bool fits = need <= a.span_words;
+        if (fits) {
+            for (long long k = tid; k < need; k += kTile) span[k] = 0u;
+        } else if (tid == 0) {
+            atomicExch(err, 1ull);
+        }
+        if (tid < 32) {
+            const long long excl = look_back(status, t, agg, a.start_bit);
+            if (tid == 0) s_excl = excl;
+        }
+        __syncthreads();
+        const long long s0 = s_excl;
+        const long long f = s0 >> 5;
+        const int nspan = agg > 0 ? (int)(((s0 + agg - 1) >> 5) - f + 1) : 0;
+        if (fits) {
+            long long rs = s0 + local;
+#pragma unroll
+            for (int r = 0; r < ITEMS; r++) {
+                const long long len = lens[r];
+                if (len > 0 && !(refused >> r & 1u)) {
+                    const int lead = (int)(rs & 31);
+                    const int touched = (int)((lead + len + 31) >> 5);
+                    ie::BitEmitter<SpanSink> em(
+                        SpanSink{span, (int)((rs >> 5) - f), touched - 1},
+                        lead);
+                    fe.emit(st[r], em);
+                    em.finish();
+                }
+                rs += len;
+            }
+        }
+        __syncthreads();
+        if (fits) {
+            const long long lo = f + 1;
+            const long long hi = min(f + nspan - 1, a.n_words);
+            if (lo < hi) {
+                const long long a0 = min((lo + 3) & ~3ll, hi);
+                const long long a1 = a0 + ((hi - a0) & ~3ll);
+                if (tid < a0 - lo)
+                    a.out[lo + tid] =
+                        span[lo + tid - f] | a.prefix_word(lo + tid);
+                if (tid < hi - a1)
+                    a.out[a1 + tid] =
+                        span[a1 + tid - f] | a.prefix_word(a1 + tid);
+                for (long long v = a0 + 4 * tid; v < a1; v += 4 * kTile) {
+                    const uint32_t* sp = span + (v - f);
+                    *reinterpret_cast<uint4*>(a.out + v) = make_uint4(
+                        sp[0] | a.prefix_word(v), sp[1] | a.prefix_word(v + 1),
+                        sp[2] | a.prefix_word(v + 2),
+                        sp[3] | a.prefix_word(v + 3));
+                }
+            }
+        }
+        if (tid == 0) {
+            a.edges[2 * t] = fits && nspan > 0
+                ? ((unsigned long long)(f + 1) << 32) | span[0] : 0ull;
+            a.edges[2 * t + 1] = fits && nspan > 1
+                ? ((unsigned long long)(f + nspan) << 32) | span[nspan - 1]
+                : 0ull;
+            __threadfence();  // the edges before the count that reveals them
+            atomicAdd(done, 1ull);
+        }
+    }
+
+    // Every tile has been taken by a running CTA: wait for all of them.
+    if (tid == 0)
+        while (ld_acquire(done) < (unsigned long long)a.n_tiles)
+            __nanosleep(64);
+    __syncthreads();
+    const long long total = a.n_tiles
+        ? (long long)(ld_acquire(status + a.n_tiles - 1) & kValue)
+        : a.start_bit;
+    const long long g = blockIdx.x * (long long)kTile + tid;
+    const long long stride = (long long)gridDim.x * kTile;
+    for (long long e = g; e < 2 * a.n_tiles; e += stride) {
+        const unsigned long long ed = ld_relaxed(a.edges + e);
+        if (ed == 0ull) continue;
+        const long long w = (long long)(ed >> 32) - 1;
+        const long long t = e >> 1;
+        const long long s0 =
+            t ? (long long)(ld_relaxed(status + t - 1) & kValue) : a.start_bit;
+        if (s0 > max(32 * w, a.start_bit)) continue;  // an earlier tile's word
+        uint32_t v = (uint32_t)ed | a.prefix_word(w);
+        const long long end = min(32 * (w + 1), total);
+        for (long long t2 = t + 1; t2 < a.n_tiles; t2++) {
+            if ((long long)(ld_relaxed(status + t2 - 1) & kValue) >= end)
+                break;
+            v |= (uint32_t)ld_relaxed(a.edges + 2 * t2);
+        }
+        if (w < a.n_words) a.out[w] = v;
+    }
+    const long long head = min(a.start_bit >> 5, a.n_words);
+    for (long long w = g; w < head; w += stride) a.out[w] = a.prefix_word(w);
+    if (g == 0) {
+        // An empty stream that starts inside a word: that word is prefix.
+        if (total == a.start_bit && (a.start_bit & 31) && head < a.n_words)
+            a.out[head] = a.prefix_word(head);
+        *a.total = ld_acquire(err) ? -1 : total;
+    }
+}
+
+// The front ends: length(i, st) is record i's length in bits (-1 for a
+// record that breaks the front end's contract), keeping in st what
+// emit(st, em) needs to emit its fields; kItems is the records a thread.
+
+// pack_records: [N, F] fields (value, width 0..16), read from global
+// memory as the thread walks them.
+struct RecordsFront {
+    static constexpr int kItems = 1;
+    struct State {
+        long long r;
+    };
+    const int32_t* vals;
+    const int32_t* nbits;
+    int f;
+
+    __device__ __forceinline__ long long length(long long r,
+                                                State& st) const {
+        st.r = r;
+        long long len = 0;
+        for (int k = 0; k < f; k++) {
+            const int nb = nbits[r * f + k];
+            if (nb < 0 || nb > 16) return -1;
+            len += nb;
+        }
+        return len;
+    }
+
+    template <class E>
+    __device__ __forceinline__ void emit(const State& st, E& em) const {
+        for (int k = 0; k < f; k++)
+            em.put(nbits[st.r * f + k], (uint32_t)vals[st.r * f + k]);
+    }
+};
+
+// pack_payload: 16 stream bytes a record, one 16-byte load, taken in the
+// order w>>24, >>16, >>8, &0xFF, each replaced by its code from a table in
+// shared memory ((length << 16) | code); bytes at or past nbytes have
+// width 0.
+struct PayloadFront {
+    static constexpr int kItems = 2;
+    struct State {
+        uint32_t w[4];
+        long long r;
+    };
+    const uint32_t* words;
+    long long n_in;
+    long long nbytes;
+    const uint32_t* tab;
+
+    __device__ __forceinline__ void load(long long r, uint32_t* w) const {
+        const long long b = 4 * r;
+        if (b + 3 < n_in) {
+            const uint4 v = *reinterpret_cast<const uint4*>(words + b);
+            w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; k++)
+                w[k] = b + k < n_in ? words[b + k] : 0u;
+        }
+    }
+    // The table entry of byte k of the record, 0 past nbytes.
+    __device__ __forceinline__ uint32_t entry(const uint32_t* w, long long r,
+                                              int k) const {
+        return 16 * r + k < nbytes
+            ? tab[(w[k >> 2] >> (24 - 8 * (k & 3))) & 0xFFu] : 0u;
+    }
+
+    __device__ __forceinline__ long long length(long long r,
+                                                State& st) const {
+        st.r = r;
+        load(r, st.w);
+        long long len = 0;
+#pragma unroll
+        for (int k = 0; k < 16; k++) len += entry(st.w, r, k) >> 16;
+        return len;
+    }
+
+    template <class E>
+    __device__ __forceinline__ void emit(const State& st, E& em) const {
+#pragma unroll
+        for (int k = 0; k < 16; k++) {
+            const uint32_t e = entry(st.w, st.r, k);
+            em.put((int)(e >> 16), e & 0xFFFFu);
+        }
+    }
+};
+
+// pack_coeffs: the recon video's records straight from its coefficients,
+// int32 [F, H, W] in place (block (r, c), coefficient (u, v) at
+// [B*r + u, B*c + v]), and motion vectors int32 [P, n_macro, 2].  Per
+// frame: n_macro vector records (x then y, mvec_nbits bits each, on a
+// P-frame; empty on an I-frame), then the frame's blocks in row-major
+// order, each read by rows of 16-byte loads, put in zig-zag order in
+// registers and emitted as K1 emits it (records.cuh).
+template <int B>
+struct CoeffsFront {
+    static constexpr int K = B * B;
+    static constexpr int kItems = B == 4 ? 2 : 1;
+    struct State {
+        int kind;  // 0 empty, 1 vectors (in q[0], q[1]), 2 block
+        int q[K];
+        ie::BlockStats bs;
+    };
+    const int32_t* coeffs;
+    long long height, width, blocks_x, n_macro, per_frame;
+    const int32_t* mvecs;
+    int gop, mvec_nbits, use_rle;
+
+    // Record r's kind (State::kind) and its coefficients in zig-zag order
+    // or its vector pair in q[0], q[1].
+    __device__ __forceinline__ int load(long long r, int* q) const {
+        const long long fi = r / per_frame;
+        const long long j = r - fi * per_frame;
+        if (j < n_macro) {
+            if (fi % gop == 0) return 0;
+            const long long p = fi - fi / gop - 1;  // among the P-frames
+            const int2 v = *reinterpret_cast<const int2*>(
+                mvecs + 2 * (p * n_macro + j));
+            q[0] = v.x;
+            q[1] = v.y;
+            return 1;
+        }
+        const long long b = j - n_macro;
+        const long long by = b / blocks_x;
+        const long long bx = b - by * blocks_x;
+        const int32_t* base = coeffs + (fi * height + by * B) * width + bx * B;
+        int nat[K];
+#pragma unroll
+        for (int rr = 0; rr < B; rr++)
+#pragma unroll
+            for (int c4 = 0; c4 < B / 4; c4++) {
+                const int4 v = *reinterpret_cast<const int4*>(
+                    base + rr * width + 4 * c4);
+                nat[rr * B + 4 * c4] = v.x;
+                nat[rr * B + 4 * c4 + 1] = v.y;
+                nat[rr * B + 4 * c4 + 2] = v.z;
+                nat[rr * B + 4 * c4 + 3] = v.w;
+            }
+        ie::gather_zigzag<B>(nat, q);
+        return 2;
+    }
+
+    __device__ __forceinline__ long long length(long long r,
+                                                State& st) const {
+        st.kind = load(r, st.q);
+        if (st.kind == 0) return 0;
+        if (st.kind == 1) return 2 * mvec_nbits;
+        st.bs = ie::block_stats<K>(st.q, use_rle);
+        return st.bs.len;
+    }
+
+    template <class E>
+    __device__ __forceinline__ void emit(const State& st, E& em) const {
+        if (st.kind == 1) {
+            em.put(mvec_nbits, (uint32_t)st.q[0]);
+            em.put(mvec_nbits, (uint32_t)st.q[1]);
+        } else if (st.kind == 2) {
+            ie::emit_block<K>(em, st.q, st.bs, use_rle);
+        }
+    }
+};
+
+__global__ void __launch_bounds__(kTile) pack_records_kernel(
+        const int32_t* __restrict__ vals, const int32_t* __restrict__ nbits,
+        int f, PackOut a) {
+    const RecordsFront fe{vals, nbits, f};
+    pack_tiles<RecordsFront::kItems>(fe, a);
+}
+
+__global__ void __launch_bounds__(kTile) pack_payload_kernel(
+        const uint32_t* __restrict__ words, long long n_in, long long nbytes,
+        const int32_t* __restrict__ code_w, const int32_t* __restrict__ code_l,
+        PackOut a) {
+    __shared__ uint32_t tab[256];
+    for (int k = threadIdx.x; k < 256; k += kTile)
+        tab[k] = ((uint32_t)min(max(code_l[k], 0), 0xFFFF) << 16)
+                 | ((uint32_t)code_w[k] & 0xFFFFu);
+    __syncthreads();
+    const PayloadFront fe{words, n_in, nbytes, tab};
+    pack_tiles<PayloadFront::kItems>(fe, a);
+}
+
+template <int B>
+__global__ void __launch_bounds__(kTile) pack_coeffs_kernel(
+        const int32_t* __restrict__ coeffs, long long height, long long width,
+        const int32_t* __restrict__ mvecs, long long n_macro, int gop,
+        int mvec_nbits, int use_rle, PackOut a) {
+    CoeffsFront<B> fe{};
+    fe.coeffs = coeffs;
+    fe.height = height;
+    fe.width = width;
+    fe.blocks_x = width / B;
+    fe.n_macro = n_macro;
+    fe.per_frame = n_macro + (height / B) * fe.blocks_x;
+    fe.mvecs = mvecs;
+    fe.gop = gop;
+    fe.mvec_nbits = mvec_nbits;
+    fe.use_rle = use_rle;
+    pack_tiles<CoeffsFront<B>::kItems>(fe, a);
+}
+
+// Fills in the launch-side fields of PackOut for tiles of kTile * items
+// records and launches a persistent grid: as many CTAs as fit on the card
+// at once, at most one a tile, so that every CTA that waits for the others
+// waits on running ones.
+template <class... P, class... A>
+int launch_pack(void (*kernel)(P...), int items, PackOut a,
+                long long max_record_bits, cudaStream_t s, A... args) {
+    const long long records = (long long)kTile * items;  // a tile
+    a.n_tiles = (a.n + records - 1) / records;
+    a.max_record_bits = (int)max_record_bits;
+    a.span_words = (int)(records * ((max_record_bits + 31) / 32) + 2);
+    const size_t smem = (size_t)a.span_words * sizeof(uint32_t);
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int per_sm = 0, dev = 0, sms = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kTile, smem);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long grid =
+        std::max(1ll, std::min(a.n_tiles, (long long)per_sm * sms));
+    kernel<<<(unsigned)grid, kTile, smem, s>>>(args..., a);
+    return (int)cudaGetLastError();
+}
+
+PackOut pack_out(long long n, long long start_bit, const void* prefix,
+                 long long prefix_words, void* out, long long n_words,
+                 void* scratch, void* edges, void* total) {
+    PackOut a{};
+    a.n = n;
+    a.start_bit = start_bit;
+    a.prefix = (const uint32_t*)prefix;
+    a.prefix_words = prefix ? prefix_words : 0;
+    a.out = (uint32_t*)out;
+    a.n_words = n_words;
+    a.scratch = (unsigned long long*)scratch;
+    a.edges = (unsigned long long*)edges;
+    a.total = (long long*)total;
+    return a;
 }
 
 }  // namespace
@@ -108,14 +625,76 @@ extern "C" int ie_pack_locals(const void* local, const void* lens,
     return (int)cudaGetLastError();
 }
 
-// vals, nbits: i32 [N, F]; otherwise as ie_pack_locals.
+// The K4 entry points share their tail: start_bit; prefix, u32
+// [prefix_words] OR'd into the first words (the header or dict; may be
+// null); out, u32 [n_words], 16-byte aligned, not zeroed: the stream's
+// words are written up to its last, the rest is left as it was; scratch,
+// u64 [3 + n_tiles] zeroed; edges, u64 [2 * n_tiles]; total, i64 [1]: the
+// stream's end bit (start_bit included), or -1 if a record was refused
+// (longer than the front end's bound).  A tile is ie_pack_tile() threads of
+// 1 to 4 records each, so n_tiles <= ceil(N / ie_pack_tile()).
+
+extern "C" int ie_pack_tile() { return kTile; }
+
+// vals, nbits: i32 [N, F], widths 0..16.
 extern "C" int ie_pack_records(const void* vals, const void* nbits,
-                               long long n, int f, const void* block_start,
-                               void* out, long long n_words, void* stream) {
-    if (n <= 0) return (int)cudaGetLastError();
-    const unsigned grid = (unsigned)((n + kPackThreads - 1) / kPackThreads);
-    pack_records_kernel<<<grid, kPackThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)vals, (const int32_t*)nbits, n, f,
-        (const long long*)block_start, (uint32_t*)out, n_words);
-    return (int)cudaGetLastError();
+                               long long n, int f, long long start_bit,
+                               const void* prefix, long long prefix_words,
+                               void* out, long long n_words, void* scratch,
+                               void* edges, void* total, void* stream) {
+    const PackOut a = pack_out(n, start_bit, prefix, prefix_words, out,
+                               n_words, scratch, edges, total);
+    return launch_pack(pack_records_kernel, RecordsFront::kItems, a,
+                       16ll * f, (cudaStream_t)stream, (const int32_t*)vals,
+                       (const int32_t*)nbits, f);
+}
+
+// words: u32 [n_in], 16-byte aligned, the inner stream; its first nbytes
+// bytes are coded; code_w, code_l: i32 [256], codes and lengths (<= 16).
+// Records are 16 bytes: ceil(n_in / 4) of them.
+extern "C" int ie_pack_payload(const void* words, long long n_in,
+                               long long nbytes, const void* code_w,
+                               const void* code_l, long long start_bit,
+                               const void* prefix, long long prefix_words,
+                               void* out, long long n_words, void* scratch,
+                               void* edges, void* total, void* stream) {
+    const PackOut a = pack_out((n_in + 3) / 4, start_bit, prefix,
+                               prefix_words, out, n_words, scratch, edges,
+                               total);
+    return launch_pack(pack_payload_kernel, PayloadFront::kItems, a,
+                       16ll * 16, (cudaStream_t)stream,
+                       (const uint32_t*)words, n_in, nbytes,
+                       (const int32_t*)code_w, (const int32_t*)code_l);
+}
+
+// coeffs: i32 [F, H, W], 16-byte aligned, W % 4 == 0; mvecs: i32
+// [P, n_macro, 2], 8-byte aligned, the vectors of the P-frames (f % gop !=
+// 0) in order; a block record longer than lw words is refused.  Records:
+// F * (n_macro + (H / B) * (W / B)).
+extern "C" int ie_pack_coeffs(const void* coeffs, long long frames,
+                              long long height, long long width,
+                              int block_size, const void* mvecs,
+                              long long n_macro, int gop, int mvec_nbits,
+                              int use_rle, int lw, long long start_bit,
+                              const void* prefix, long long prefix_words,
+                              void* out, long long n_words, void* scratch,
+                              void* edges, void* total, void* stream) {
+    if ((block_size != 4 && block_size != 8) || width % 4 || gop < 1)
+        return (int)cudaErrorInvalidValue;
+    const long long per_frame =
+        n_macro + (height / block_size) * (width / block_size);
+    const PackOut a = pack_out(frames * per_frame, start_bit, prefix,
+                               prefix_words, out, n_words, scratch, edges,
+                               total);
+    const long long bits = std::max(32ll * lw, 2ll * mvec_nbits);
+    cudaStream_t s = (cudaStream_t)stream;
+    const auto* c = (const int32_t*)coeffs;
+    const auto* m = (const int32_t*)mvecs;
+    if (block_size == 4)
+        return launch_pack(pack_coeffs_kernel<4>, CoeffsFront<4>::kItems, a,
+                           bits, s, c, height, width, m, n_macro, gop,
+                           mvec_nbits, use_rle);
+    return launch_pack(pack_coeffs_kernel<8>, CoeffsFront<8>::kItems, a, bits,
+                       s, c, height, width, m, n_macro, gop, mvec_nbits,
+                       use_rle);
 }

@@ -3,6 +3,16 @@
 // order, * scale, / quant, round half away from zero; and, for the recon
 // step, the exact-order inverse.
 //
+// Division.  K5 and the step divide by __ddiv_rn.  K1 divides by an
+// integer quant q in 1..255 through its reciprocal r = RN(1/q), taken on
+// the host: z0 = RN(y * r), e = y - z0 * q (one FMA, exact), z =
+// RN(e * r + z0) (one FMA).  For those q that z equals RN(y / q) bit for
+// bit (tests/test_torch_division.py emulates it with exact rationals;
+// chip_smoke.py's division sweep runs it beside __ddiv_rn on the card).
+// The two explicit FMAs are part of the division, not contractions of the
+// DCT's multiplies and adds, which stay separately rounded.  A quant entry
+// outside 1..255 has r = 0 in the table and keeps __ddiv_rn.
+//
 // For each coefficient j: acc = 0; acc = acc + x[c] * w[c][j] for
 // c = 0..K-1, one rounded multiply then one rounded add
 // (ops/dct.py::dct2_exact); then acc * scale[j], / quant[j], and a
@@ -35,6 +45,45 @@ __device__ __forceinline__ void load_block(const T* p, long long pitch,
 #pragma unroll
         for (int c = 0; c < B; c++)
             x[r * B + c] = __dsub_rn((double)p[r * pitch + c], 128.0);
+}
+
+// K1's loader: the B x B block at p, one vector load a row (B samples of
+// 1 or 2 bytes: 4, 8 or 16 bytes), each sample biased by -128 in integer
+// arithmetic and converted once; the value equals load_block's.  Rows
+// must be aligned to their own size (the wrapper checks the base; W % B
+// == 0 does the rest).
+template <int Bytes> struct VecOf;
+template <> struct VecOf<4> { using type = uint32_t; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<16> { using type = uint4; };
+
+template <int B, class T>
+__device__ __forceinline__ void load_block_vec(const T* p, long long pitch,
+                                               double* x) {
+    constexpr int kBytes = B * (int)sizeof(T);
+    constexpr int kWords = kBytes / 4;
+    using Vec = typename VecOf<kBytes>::type;
+#pragma unroll
+    for (int r = 0; r < B; r++) {
+        const Vec v = *reinterpret_cast<const Vec*>(p + r * pitch);
+        uint32_t w[kWords];
+        if constexpr (kWords == 1) {
+            w[0] = v;
+        } else if constexpr (kWords == 2) {
+            w[0] = v.x; w[1] = v.y;
+        } else {
+            w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+        }
+#pragma unroll
+        for (int c = 0; c < B; c++) {
+            int s;
+            if constexpr (sizeof(T) == 1)
+                s = (int)((w[c / 4] >> (8 * (c % 4))) & 0xFFu);
+            else
+                s = (int)(int16_t)(w[c / 2] >> (16 * (c % 2)));
+            x[r * B + c] = __int2double_rn(s - 128);
+        }
+    }
 }
 
 // Whether a K-coefficient transform keeps its tables in shared memory.
@@ -106,17 +155,27 @@ __device__ __forceinline__ void exact_matvec(const double* x, const double* m,
 }
 
 // The quantized coefficients of x (biased samples) under weights w,
-// scale and quant.
+// scale and quant.  With recip (K1), entries with a nonzero reciprocal
+// divide through it (see Division above); without, all by __ddiv_rn.
 template <int K>
 __device__ __forceinline__ void dct_quantize(const double* x, const double* w,
                                              const double* scale,
-                                             const double* quant, int* q) {
+                                             const double* quant, int* q,
+                                             const double* recip = nullptr) {
     double acc[K];
     exact_matvec<K>(x, w, acc);
 #pragma unroll
     for (int j = 0; j < K; j++) {
         const double y = __dmul_rn(acc[j], scale[j]);
-        const double z = __ddiv_rn(y, quant[j]);
+        double z;
+        if (recip != nullptr && recip[j] != 0.0) {  // warp-uniform
+            const double r = recip[j];
+            const double z0 = __dmul_rn(y, r);
+            const double e = __fma_rn(-z0, quant[j], y);
+            z = __fma_rn(e, r, z0);
+        } else {
+            z = __ddiv_rn(y, quant[j]);
+        }
         const double t = trunc(z);
         const double d = __dsub_rn(z, t);
         const double r = (d >= 0.5 || d <= -0.5)

@@ -35,17 +35,24 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_U64 = ctypes.c_ulonglong
+_K4_TAIL = [_I64, _P, _I64, _P, _I64, _P, _P, _P, _P]  # start_bit .. stream
 SIGNATURES = {
-    "ie_encode_locals": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _I32, _I32,
-                         _P, _P, _P, _P],
+    "ie_encode_locals": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _I32,
+                         _I32, _P, _P, _P, _P],
     "ie_quantize_image": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P],
     "ie_recon_step": [_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P],
     "ie_motion_search": [_P, _P, _I64, _I32, _I32, _I32, _P, _P],
     "ie_predict": [_P, _P, _I64, _I32, _I32, _P, _P],
     "ie_pack_locals": [_P, _P, _I64, _I32, _P, _P, _I64, _P],
-    "ie_pack_records": [_P, _P, _I64, _I32, _P, _P, _I64, _P],
     "ie_pack_threads": [],
+    "ie_pack_tile": [],
+    "ie_pack_records": [_P, _P, _I64, _I32, *_K4_TAIL],
+    "ie_pack_payload": [_P, _I64, _I64, _P, _P, *_K4_TAIL],
+    "ie_pack_coeffs": [_P, _I64, _I64, _I64, _I32, _P, _I64, _I32, _I32,
+                       _I32, _I32, *_K4_TAIL],
     "ie_byte_histogram": [_P, _I64, _P, _P, _P],
+    "ie_div_sweep": [_P, _I64, _I64, _I32, _U64, _P, _P],
 }
 
 _LOCK = threading.Lock()
@@ -95,10 +102,10 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for cmd, p, out in zip(cmds, procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
-                               f"{' '.join(cmd)}\n{out}")
+    failed = [f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}"
+              for cmd, p, out in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return outs
 
 

@@ -10,7 +10,10 @@ stream.  The input is u8 pixels, or int16 video samples: frames stacked as
 cur - pred.  ``lw`` follows from the dtype: u8 takes ``frontend_lw``,
 int16 the residual range's ``video_lw``.  A record longer than lw words
 is refused, not truncated: an overflow flag comes back with the records
-and turns the stream's total into -1, on which the host raises.
+and turns the stream's total into -1, on which the host raises.  K1
+divides by a quant entry through its reciprocal (:func:`reciprocals`),
+which gives the correctly rounded quotient for the integers 1..255
+(:func:`division_sweep` checks it on the card).
 
 K5, :func:`quantize_image`, is the counterpart of
 imageencoder_tpu/ops/pallas_kernels.py::dct_quantize: the same transform
@@ -135,6 +138,16 @@ def _quant_vec(quant, block_size: int, device, zigzag: bool) -> torch.Tensor:
     return device_constant(q, device)
 
 
+def reciprocals(quant) -> np.ndarray:
+    """K1's division table, f64 in the quant's shape: RN(1 / q) for an
+    entry q that is an integer in 1..255, through which K1 divides by q
+    exactly (csrc/transform.cuh); 0 for any other entry, which K1 divides
+    by __ddiv_rn."""
+    q = np.asarray(quant, np.float64)
+    exact = (q >= 1.0) & (q <= 255.0) & (q == np.floor(q))
+    return np.where(exact, 1.0 / np.where(exact, q, 1.0), 0.0)
+
+
 def _blocks(img: torch.Tensor, block_size: int) -> torch.Tensor:
     """[H, W] -> [N, B*B] row-major blocks in row-major block order."""
     b = block_size
@@ -232,10 +245,12 @@ def encode_locals(img: torch.Tensor, quant, block_size: int = 4,
     _check_kernel_block(block_size, "K1")
     dev = img.device
     build.require(img, "img", img.dtype, 2, dev)  # device and layout
+    build.require_aligned(img, "img")  # K1 loads a row as one vector
     h, w = img.shape
     lw = record_words(img.dtype, block_size, norm)
     wz, scale_z = _device_tables(block_size, norm, dev, True)
     quant_z = _quant_vec(quant, block_size, dev, True)
+    recip_z = _quant_vec(reciprocals(quant), block_size, dev, True)
     n = (h // block_size) * (w // block_size)
     out_words = torch.empty((n, lw), dtype=torch.int32, device=dev)
     out_lens = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -244,14 +259,38 @@ def encode_locals(img: torch.Tensor, quant, block_size: int = 4,
         code = build.library().ie_encode_locals(
             img.data_ptr(), INPUT_DTYPES[img.dtype], h, w, block_size,
             wz.data_ptr(), scale_z.data_ptr(), quant_z.data_ptr(),
-            int(use_rle), lw, out_words.data_ptr(), out_lens.data_ptr(),
-            overflow.data_ptr(), build.stream_ptr(dev))
+            recip_z.data_ptr(), int(use_rle), lw, out_words.data_ptr(),
+            out_lens.data_ptr(), overflow.data_ptr(), build.stream_ptr(dev))
     build.check(code, "ie_encode_locals")
     encode_locals.launches += 1
     return out_words, out_lens, overflow
 
 
 encode_locals.launches = 0
+
+
+def division_sweep(device, k_max: int, n_random: int,
+                   seed: int = 0) -> dict:
+    """Run K1's reciprocal division beside __ddiv_rn on the card
+    (csrc/division.cu) for every quant q in 1..255: around k*q, (k + 1/2)*q
+    and (k + 1/4)*q for |k| <= k_max, 8 ulps each way, and n_random seeded
+    random y.  Returns {"mismatches", "checks", "y", "q"} (y, q: one
+    mismatching pair, if any).  Needs a CUDA device: the division's CPU
+    counterpart is tests/test_torch_division.py."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the division sweep runs on a CUDA device")
+    recip = torch.from_numpy(reciprocals(np.arange(256))).to(dev)
+    out = torch.zeros(4, dtype=torch.int64, device=dev)
+    max_exp = int(np.ceil(np.log2((k_max + 1) * 255.0))) + 2
+    with torch.cuda.device(dev):
+        code = build.library().ie_div_sweep(
+            recip.data_ptr(), k_max, n_random, max_exp, seed, out.data_ptr(),
+            build.stream_ptr(dev))
+    build.check(code, "ie_div_sweep")
+    bad, checks, y_bits, q = out.tolist()
+    y = float(np.array([y_bits], np.int64).view(np.float64)[0])
+    return {"mismatches": bad, "checks": checks, "y": y, "q": q}
 
 
 def refuse_overflow(total_bits: torch.Tensor,

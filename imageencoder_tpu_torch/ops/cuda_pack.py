@@ -1,19 +1,27 @@
-"""K2 and K4: the bitstream packer, one kernel with two front ends.
+"""K2 and K4: the bitstream packers.
 
 The counterpart of imageencoder_tpu/ops/pallas_pack.py:
 
   * :func:`pack_locals` (K2, pack_locals_pallas) concatenates register
     files and bit lengths from the encode front end (ops/cuda_encode.py);
-  * :func:`pack_records` (K4, pack_records_pallas) concatenates [N, F]
-    field tensors of (value, nbits) pairs, fields at most 16 bits wide.
+  * K4 (pack_records_pallas) is one single-pass kernel with three front
+    ends, each of which reads its records' fields where they already are:
+    :func:`pack_records` [N, F] field tensors of (value, nbits) pairs,
+    fields at most 16 bits wide; :func:`pack_payload` the Huffman payload,
+    each stream byte replaced by its code (huffman._device_stages
+    .pack_payload); :func:`pack_coeffs` a recon video's motion-vector and
+    block records from its coefficient tensor (pipeline.fields_from_coeffs
+    and the vector fields, then the pack).
 
-Both return (words int32 [n_words], total_bits int64 0-d tensor, start_bit
-included); the words are the u32 stream, MSB-first, zero past the end.
-``prefix`` words, the header or dict bits that lie before ``start_bit``,
-are written into the output buffer before the kernel ORs the records in.
-On a CUDA tensor the wrappers launch csrc/pack.cu; on a CPU tensor they run
-the plain packer of ops/device_pack.py.  The total and every start stay on
-the device: nothing waits on the host.
+All return (words int32 [n_words], total_bits int64 0-d tensor, start_bit
+included); the words are the u32 stream, MSB-first.  ``prefix`` words,
+the header or dict bits that lie before ``start_bit``, are OR'd into the
+first words.  On a CPU tensor the wrappers run the plain versions, which
+return zeros past the stream.  On a CUDA tensor they launch csrc/pack.cu:
+K2 zeroes its buffer, K4 writes the stream's words up to its last one and
+leaves the rest of the buffer as allocated (:func:`stream_words` is the
+part that is defined).  The total and every start stay on the device:
+nothing waits on the host.
 """
 
 from __future__ import annotations
@@ -21,11 +29,12 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
-from . import device_pack
+from . import cuda_encode, device_pack, rle
+from .zigzag import zigzag_order
 
 
 def _block_starts(lens: torch.Tensor, start_bit: int):
-    """Absolute start bit of each kernel block of records, and the total:
+    """Absolute start bit of each K2 block of records, and the total:
     per-block sums of the record lengths through torch.cumsum in int64."""
     threads = build.library().ie_pack_threads()
     n = lens.shape[0]
@@ -37,12 +46,12 @@ def _block_starts(lens: torch.Tensor, start_bit: int):
     return starts, start_bit + sums.sum()
 
 
-def _output(n_words: int, prefix, device) -> torch.Tensor:
-    out = torch.zeros(n_words, dtype=torch.int32, device=device)
-    if prefix is not None:
-        m = min(prefix.shape[0], n_words)
-        out[:m] = prefix[:m]
-    return out
+def stream_words(words: torch.Tensor, total_bits) -> torch.Tensor:
+    """The words that hold a stream of ``total_bits`` bits (0 for a
+    refused one): the part of a pack's output that every version defines.
+    Reads the total on the host."""
+    total = max(int(total_bits), 0)
+    return words[:(total + 31) // 32]
 
 
 def pack_locals_plain(local, lens, start_bit: int, n_words: int,
@@ -50,12 +59,6 @@ def pack_locals_plain(local, lens, start_bit: int, n_words: int,
     """The plain version of K2, on any device."""
     return device_pack.merge_records(device_pack.as_uint(local), lens,
                                      start_bit, n_words, prefix)
-
-
-def pack_records_plain(vals, nbits, start_bit: int, n_words: int,
-                       prefix=None):
-    """The plain version of K4, on any device."""
-    return device_pack.pack_blocks(vals, nbits, start_bit, n_words, prefix)
 
 
 def pack_locals(local: torch.Tensor, lens: torch.Tensor, start_bit: int,
@@ -70,7 +73,10 @@ def pack_locals(local: torch.Tensor, lens: torch.Tensor, start_bit: int,
     if lens.shape[0] != n:
         raise ValueError(f"lens has {lens.shape[0]} records, local {n}")
     starts, total = _block_starts(lens, start_bit)
-    out = _output(n_words, prefix, dev)
+    out = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    if prefix is not None:
+        m = min(prefix.shape[0], n_words)
+        out[:m] = prefix[:m]
     with torch.cuda.device(dev):
         code = build.library().ie_pack_locals(
             local.data_ptr(), lens.data_ptr(), n, lw, starts.data_ptr(),
@@ -83,9 +89,39 @@ def pack_locals(local: torch.Tensor, lens: torch.Tensor, start_bit: int,
 pack_locals.launches = 0
 
 
+def _k4(entry: str, n_records: int, start_bit: int, n_words: int, prefix,
+        dev, *head):
+    """Launch a K4 front end: allocates its output (not zeroed), its
+    zeroed scratch and its edges, and returns (words, total_bits)."""
+    lib = build.library()
+    n_tiles = -(-n_records // lib.ie_pack_tile())
+    scratch = torch.zeros(3 + n_tiles, dtype=torch.int64, device=dev)
+    edges = torch.empty(max(2 * n_tiles, 1), dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    out = torch.empty(n_words, dtype=torch.int32, device=dev)
+    prefix_ptr, prefix_words = None, 0
+    if prefix is not None:
+        build.require(prefix, "prefix", torch.int32, 1, dev)
+        prefix_ptr, prefix_words = prefix.data_ptr(), prefix.shape[0]
+    with torch.cuda.device(dev):
+        code = getattr(lib, entry)(
+            *head, start_bit, prefix_ptr, prefix_words, out.data_ptr(),
+            n_words, scratch.data_ptr(), edges.data_ptr(), total.data_ptr(),
+            build.stream_ptr(dev))
+    build.check(code, entry)
+    return out, total.reshape(())
+
+
+def pack_records_plain(vals, nbits, start_bit: int, n_words: int,
+                       prefix=None):
+    """The plain version of K4 pack_records, on any device."""
+    return device_pack.pack_blocks(vals, nbits, start_bit, n_words, prefix)
+
+
 def pack_records(vals: torch.Tensor, nbits: torch.Tensor, start_bit: int,
                  n_words: int, prefix: torch.Tensor | None = None):
-    """Pack [N, F] int32 fields (values, widths <= 16; width 0 = skip)."""
+    """Pack [N, F] int32 fields (values, widths 0..16; width 0 = skip).
+    On the card a width outside 0..16 makes the total -1."""
     if vals.device.type == "cpu":
         return pack_records_plain(vals, nbits, start_bit, n_words, prefix)
     dev = vals.device
@@ -95,15 +131,157 @@ def pack_records(vals: torch.Tensor, nbits: torch.Tensor, start_bit: int,
         raise ValueError(f"nbits {tuple(nbits.shape)} != vals "
                          f"{tuple(vals.shape)}")
     n, f = vals.shape
-    starts, total = _block_starts(nbits.sum(dim=1), start_bit)
-    out = _output(n_words, prefix, dev)
-    with torch.cuda.device(dev):
-        code = build.library().ie_pack_records(
-            vals.data_ptr(), nbits.data_ptr(), n, f, starts.data_ptr(),
-            out.data_ptr(), n_words, build.stream_ptr(dev))
-    build.check(code, "ie_pack_records")
+    got = _k4("ie_pack_records", n, start_bit, n_words, prefix, dev,
+              vals.data_ptr(), nbits.data_ptr(), n, f)
     pack_records.launches += 1
-    return out, total
+    return got
 
 
 pack_records.launches = 0
+
+
+def payload_fields(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,
+                   code_l: torch.Tensor):
+    """The Huffman payload as pack_records records: each of the first
+    ``nbytes`` bytes replaced by its (code, length), 16 bytes per record;
+    bytes past the stream get length 0.  Returns (vals, nbits) int32
+    [ceil(4W/16), 16]."""
+    data = device_pack.words_to_u8(words)
+    n_lanes = data.shape[0]
+    idx = torch.arange(n_lanes, device=words.device)
+    vals = code_w[data].to(torch.int32)
+    nbits = torch.where(idx < nbytes, code_l[data], 0).to(torch.int32)
+    rows = -(-n_lanes // 16)
+    pad = rows * 16 - n_lanes
+    vals = torch.nn.functional.pad(vals, (0, pad)).reshape(rows, 16)
+    nbits = torch.nn.functional.pad(nbits, (0, pad)).reshape(rows, 16)
+    return vals.contiguous(), nbits.contiguous()
+
+
+def pack_payload_plain(words, nbytes: int, code_w, code_l, start_bit: int,
+                       n_words: int, prefix=None):
+    """The plain version of K4 pack_payload, on any device."""
+    vals, nbits = payload_fields(words, nbytes, code_w, code_l)
+    return pack_records_plain(vals, nbits, start_bit, n_words, prefix)
+
+
+def pack_payload(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,
+                 code_l: torch.Tensor, start_bit: int, n_words: int,
+                 prefix: torch.Tensor | None = None):
+    """Pack the Huffman payload of the inner stream ``words`` (int32 [W],
+    u32 bits): each of its first ``nbytes`` bytes, in stream order,
+    replaced by its code ``code_w[byte]`` of ``code_l[byte]`` bits (int32
+    [256], lengths at most 16), 16 bytes a record, after ``start_bit``."""
+    if words.device.type == "cpu":
+        return pack_payload_plain(words, nbytes, code_w, code_l, start_bit,
+                                  n_words, prefix)
+    dev = words.device
+    build.require(words, "words", torch.int32, 1, dev)
+    build.require_aligned(words, "words")
+    for name, t in (("code_w", code_w), ("code_l", code_l)):
+        build.require(t, name, torch.int32, 1, dev)
+        if t.shape[0] != 256:
+            raise ValueError(f"{name}: expected 256 entries, got "
+                             f"{t.shape[0]}")
+    got = _k4("ie_pack_payload", -(-words.shape[0] // 4), start_bit, n_words,
+              prefix, dev, words.data_ptr(), words.shape[0], nbytes,
+              code_w.data_ptr(), code_l.data_ptr())
+    pack_payload.launches += 1
+    return got
+
+
+pack_payload.launches = 0
+
+
+def coeff_fields(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
+                 mvec_nbits: int, block_size: int, use_rle: bool):
+    """A recon video's records as pack_records fields, in stream order:
+    per frame, its macroblocks' vector records (x, y at mvec_nbits bits
+    each on a P-frame, zero width on an I-frame), then its blocks' records
+    (rle.block_stats and block_fields of the zig-zag coefficients).
+
+    coeffs: int32 [F, H, W], coefficients in place; mvecs: int32
+    [P, n_macro, 2], the P-frames' (f % gop != 0) vectors in order.
+    Returns (vals, nbits) int32 [F * (n_macro + n_micro), B*B + 2].
+    """
+    f, h, w = coeffs.shape
+    b = block_size
+    k = b * b
+    dev = coeffs.device
+    n_micro = (h // b) * (w // b)
+    n_macro = mvecs.shape[1]
+    zz = cuda_encode.device_constant(zigzag_order(b), dev)
+    czz = cuda_encode._blocks(coeffs.reshape(f * h, w), b)[:, zz]
+    bv, bb = rle.block_fields(czz, rle.block_stats(czz, use_rle), use_rle)
+    mv = torch.zeros((f, n_macro, k + 2), dtype=torch.int32, device=dev)
+    mb = torch.zeros_like(mv)
+    p_idx = [fi for fi in range(f) if fi % gop]
+    if p_idx and n_macro:
+        pi = torch.tensor(p_idx, device=dev)
+        mv[pi, :, :2] = mvecs.to(torch.int32)
+        mb[pi, :, :2] = mvec_nbits
+    vals = torch.cat([mv, bv.to(torch.int32).view(f, n_micro, k + 2)],
+                     dim=1).reshape(-1, k + 2)
+    nbits = torch.cat([mb, bb.to(torch.int32).view(f, n_micro, k + 2)],
+                      dim=1).reshape(-1, k + 2)
+    return vals, nbits
+
+
+def pack_coeffs_plain(coeffs, mvecs, gop: int, mvec_nbits: int,
+                      block_size: int, use_rle: bool, lw: int,
+                      start_bit: int, n_words: int, prefix=None):
+    """The plain version of K4 pack_coeffs, on any device: the fields of
+    :func:`coeff_fields`, packed; total -1 where a record is longer than
+    lw words."""
+    vals, nbits = coeff_fields(coeffs, mvecs, gop, mvec_nbits, block_size,
+                               use_rle)
+    words, total = pack_records_plain(vals, nbits, start_bit, n_words,
+                                      prefix)
+    refused = (nbits.to(torch.int64).sum(dim=1) > 32 * lw).any()
+    return words, torch.where(refused, -1, total)
+
+
+def pack_coeffs(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
+                mvec_nbits: int, block_size: int, use_rle: bool, lw: int,
+                start_bit: int, n_words: int,
+                prefix: torch.Tensor | None = None):
+    """Pack a recon video's records (see :func:`coeff_fields`) straight
+    from its coefficients int32 [F, H, W] and vectors int32 [P, n_macro,
+    2].  A block record longer than ``lw`` words (coefficients outside the
+    bound that sized it) is refused: the total is -1, on which the host
+    raises (device_pack.host_total)."""
+    if coeffs.dim() != 3 or mvecs.dim() != 3 or mvecs.shape[2] != 2:
+        raise ValueError(f"expected coeffs [F, H, W] and mvecs [P, n, 2], "
+                         f"got {tuple(coeffs.shape)} and "
+                         f"{tuple(mvecs.shape)}")
+    f, h, w = coeffs.shape
+    n_p = sum(1 for fi in range(f) if fi % gop)
+    if mvecs.shape[0] != n_p:
+        raise ValueError(f"mvecs has {mvecs.shape[0]} frames, the video "
+                         f"{n_p} P-frames")
+    if coeffs.device.type == "cpu":
+        return pack_coeffs_plain(coeffs, mvecs, gop, mvec_nbits, block_size,
+                                 use_rle, lw, start_bit, n_words, prefix)
+    if block_size not in (4, 8):
+        raise ValueError(f"pack_coeffs takes 4x4 or 8x8 blocks, not "
+                         f"{block_size}x{block_size}")
+    dev = coeffs.device
+    build.require(coeffs, "coeffs", torch.int32, 3, dev)
+    build.require_aligned(coeffs, "coeffs")
+    if h % block_size or w % block_size or w % 4:
+        raise ValueError(f"frames {h}x{w} do not tile into "
+                         f"{block_size}-pixel blocks")
+    mvecs = mvecs.to(torch.int32).contiguous()
+    build.require(mvecs, "mvecs", torch.int32, 3, dev)
+    if mvecs.numel():
+        build.require_aligned(mvecs, "mvecs", 8)
+    n_macro = mvecs.shape[1]
+    n_records = f * (n_macro + (h // block_size) * (w // block_size))
+    got = _k4("ie_pack_coeffs", n_records, start_bit, n_words, prefix, dev,
+              coeffs.data_ptr(), f, h, w, block_size, mvecs.data_ptr(),
+              n_macro, gop, mvec_nbits, int(use_rle), lw)
+    pack_coeffs.launches += 1
+    return got
+
+
+pack_coeffs.launches = 0

@@ -14,7 +14,8 @@ serialized dict.  There is no native path.
 
 The device half keeps the inner stream on the device: the host reads the
 histogram (in ``meta``, or from K3) once, decides the fallback-if-bigger
-from it, and then reads the final words once.  K4 packs the payload.
+from it, and then reads the final words once.  K4's pack_payload front
+end packs the payload from the inner stream's words.
 """
 
 from __future__ import annotations
@@ -26,8 +27,7 @@ import torch
 
 from . import cuda_kernels, cuda_pack
 from .bitpack import pack_fields
-from .device_pack import (bytes_to_words, host_total, stream_bytes,
-                          words_to_u8)
+from .device_pack import bytes_to_words, host_total, stream_bytes
 
 KEY_BITS = 8
 MAX_CODE_LEN = 15  # must fit the 4-bit dict header field
@@ -171,24 +171,6 @@ def _fallback(inner: bytes) -> bytes:
     return pack_fields(vals, nbits, pad_to_bytes=len(inner) + 1)[0]
 
 
-def payload_fields(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,
-                   code_l: torch.Tensor):
-    """The Huffman payload as K4 records: each of the first ``nbytes``
-    bytes replaced by its (code, length), 16 bytes per record; bytes past
-    the stream get length 0.  Returns (vals, nbits) int32 [ceil(4W/16), 16].
-    """
-    data = words_to_u8(words)
-    n_lanes = data.shape[0]
-    idx = torch.arange(n_lanes, device=words.device)
-    vals = code_w[data].to(torch.int32)
-    nbits = torch.where(idx < nbytes, code_l[data], 0).to(torch.int32)
-    rows = -(-n_lanes // 16)
-    pad = rows * 16 - n_lanes
-    vals = torch.nn.functional.pad(vals, (0, pad)).reshape(rows, 16)
-    nbits = torch.nn.functional.pad(nbits, (0, pad)).reshape(rows, 16)
-    return vals.contiguous(), nbits.contiguous()
-
-
 def payload_words(n_word_lanes: int) -> int:
     """Output words of the payload pack for a W-word inner buffer."""
     return (4 * n_word_lanes * MAX_CODE_LEN) // 32 + DICT_WORDS + 8
@@ -199,12 +181,11 @@ def pack_payload(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,
                  dict_words: torch.Tensor):
     """Replace each of the first ``nbytes`` bytes by its code and pack the
     codes after the dict (start_bit = dict bits), with the dict words in
-    the first DICT_WORDS words (K4).
+    the first DICT_WORDS words (K4 pack_payload).
 
     Returns (words int32 [(4W * 15) // 32 + DICT_WORDS + 8], total_bits).
     """
-    vals, nbits = payload_fields(words, nbytes, code_w, code_l)
-    return cuda_pack.pack_records(vals, nbits, start_bit,
+    return cuda_pack.pack_payload(words, nbytes, code_w, code_l, start_bit,
                                   payload_words(words.shape[0]),
                                   prefix=dict_words)
 
@@ -230,8 +211,8 @@ def dict_tensors(built, device):
     dbuf[:len(dict_stream)] = np.frombuffer(dict_stream, dtype=np.uint8)
     dict_words = torch.from_numpy(
         dbuf.view(">u4").astype(np.uint32).view(np.int32)).to(device)
-    return (torch.as_tensor(code_words.astype(np.int64), device=device),
-            torch.as_tensor(lengths.astype(np.int64), device=device),
+    return (torch.as_tensor(code_words.astype(np.int32), device=device),
+            torch.as_tensor(lengths.astype(np.int32), device=device),
             dict_words, w.position)
 
 

@@ -31,19 +31,19 @@ K5's transform into the frame's coefficients and reconstructs the frame
 (dequantize, the exact-order f64 IDCT, +128, + prediction, clamp,
 truncate to u8) as the next carry.  An I-frame goes through K5 alone and
 resets the carry to its raw pixels (Frame.cpp:130-159 never reconstructs
-it).  After the loop the wire fields of every frame are built at once, K4
-pack_records packs them, and K3 takes the histogram.
+it).  After the loop K4's pack_coeffs front end packs every frame's
+vector and block records straight from the coefficients and the vectors,
+and K3 takes the histogram.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import cuda_encode, cuda_motion, cuda_pack, rle
+from . import cuda_encode, cuda_motion, cuda_pack
 from .device_pack import as_int32, packed_words_bound
 from .motion import MACRO
 from .pipeline import stream_byte_histogram
-from .zigzag import zigzag_order
 
 
 def _p_frames(n_frames: int, gop: int) -> list[int]:
@@ -120,7 +120,6 @@ def make_encode_video_packed_recon(gop: int, merange: int, mvec_nbits: int,
     """The recon-reference device encoder (see the module docstring)."""
     b = block_size
     k = b * b
-    zz = zigzag_order(b)
 
     def encode_video_packed(frames, quant, start_bit: int, header_words):
         f, h, w = frames.shape
@@ -143,24 +142,14 @@ def make_encode_video_packed_recon(gop: int, merange: int, mvec_nbits: int,
                                               out=coeffs[fi])
             mvecs.append(mvec[0])
 
-        # The fields of every frame at once, in stream order: per frame,
-        # its vector records (zero width on I-frames), then its blocks.
-        zz_t = cuda_encode.device_constant(zz, dev)
-        czz = cuda_encode._blocks(coeffs.reshape(f * h, w), b)[:, zz_t]
-        bv, bb = rle.block_fields(czz, rle.block_stats(czz, use_rle),
-                                  use_rle)
-        mv = torch.zeros((f, n_macro, k + 2), dtype=torch.int32, device=dev)
-        mb = torch.zeros_like(mv)
-        if p_idx:
-            pi = torch.tensor(p_idx, device=dev)
-            mv[pi, :, :2] = torch.stack(mvecs)
-            mb[pi, :, :2] = mvec_nbits
-        vals = torch.cat([mv, bv.to(torch.int32).view(f, n_micro, k + 2)],
-                         dim=1).reshape(-1, k + 2)
-        nbits = torch.cat([mb, bb.to(torch.int32).view(f, n_micro, k + 2)],
-                          dim=1).reshape(-1, k + 2)
-        words, total = cuda_pack.pack_records(
-            vals, nbits, start_bit, packed_words_bound(vals.shape[0], k + 2),
+        # Every frame's records, in stream order, straight from the
+        # coefficients and the vectors: one K4 launch, no fields tensor.
+        mv = (torch.stack(mvecs) if mvecs else
+              torch.zeros((0, n_macro, 2), dtype=torch.int32, device=dev))
+        words, total = cuda_pack.pack_coeffs(
+            coeffs, mv, gop, mvec_nbits, b, use_rle,
+            cuda_encode.video_lw(b, norm), start_bit,
+            packed_words_bound(f * (n_macro + n_micro), k + 2),
             prefix=header_words)
         return _finish(words, total, with_hist)
 

@@ -48,6 +48,10 @@ def image(h: int, w: int, seed: int) -> np.ndarray:
 def quant_for(b: int, kind: str = "jpeg") -> np.ndarray:
     if kind == "ones":
         return np.ones((b, b))
+    if kind == "wide":  # entries past 255 and off the integers: __ddiv_rn
+        q = quant_for(b)
+        q[0, 1], q[1, 0], q[b - 1, b - 1] = 300.0, 1000.0, 2.5
+        return q
     if b == 4:
         return np.array(JPEG4, np.float64)
     i, j = np.indices((b, b))
@@ -60,6 +64,8 @@ def quant_for(b: int, kind: str = "jpeg") -> np.ndarray:
     (64, 64, 4, "reference", True, "ones"),
     (64, 64, 8, "ortho", True, "jpeg"),
     (64, 64, 8, "reference", False, "ones"),
+    (64, 96, 4, "reference", True, "wide"),
+    (64, 64, 8, "ortho", False, "wide"),
 ])
 def test_encode_locals_kernel_equals_plain(dev, h, w, b, norm, use_rle,
                                            qkind):
@@ -93,9 +99,80 @@ def test_pack_records_kernel_equals_plain(dev, n, f, start, nw):
     vals = torch.from_numpy(rng.integers(-(2 ** 15), 2 ** 15, (n, f))
                             .astype(np.int32))
     nbits, vals = nbits.to(dev), vals.to(dev)
+    before = cuda_pack.pack_records.launches
     got = cuda_pack.pack_records(vals, nbits, start, nw)
     want = cuda_pack.pack_records_plain(vals, nbits, start, nw)
-    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    assert cuda_pack.pack_records.launches == before + 1
+    assert int(got[1]) == int(want[1])
+    # K4 defines the words up to the stream's last; the plain version
+    # zeroes the rest of the buffer.
+    assert torch.equal(cuda_pack.stream_words(*got),
+                       cuda_pack.stream_words(*want))
+
+
+@pytest.mark.parametrize("n_words,nbytes,start", [
+    (4096, 4 * 4096 - 3, 700), (1027, 4 * 1027, 0), (5, 9, 37),
+    (300000, 4 * 250000 + 1, 2047)])
+def test_pack_payload_kernel_equals_plain(dev, n_words, nbytes, start):
+    rng = np.random.default_rng(n_words)
+    words = torch.from_numpy((rng.integers(0, 2 ** 32, n_words,
+                                           dtype=np.uint64) & 0x0F1F3F7F)
+                             .astype(np.uint32).view(np.int32)).to(dev)
+    code_l = torch.from_numpy(rng.integers(0, 16, 256).astype(np.int32))
+    code_w = torch.from_numpy(rng.integers(0, 2 ** 15, 256)
+                              .astype(np.int32))
+    code_l, code_w = code_l.to(dev), code_w.to(dev)
+    prefix = torch.full((start // 32 + 1,), -1, dtype=torch.int32,
+                        device=dev)
+    prefix[-1] = -(1 << (32 - start % 32)) if start % 32 else 0
+    nw = 4 * n_words * 15 // 32 + 300
+    before = cuda_pack.pack_payload.launches
+    got = cuda_pack.pack_payload(words, nbytes, code_w, code_l, start, nw,
+                                 prefix)
+    want = cuda_pack.pack_payload_plain(words, nbytes, code_w, code_l,
+                                        start, nw, prefix)
+    assert cuda_pack.pack_payload.launches == before + 1
+    assert int(got[1]) == int(want[1])
+    assert torch.equal(cuda_pack.stream_words(*got),
+                       cuda_pack.stream_words(*want))
+
+
+@pytest.mark.parametrize("b,use_rle,gop,h,w,n", [
+    (4, True, 4, 720, 1280, 9), (8, True, 3, 64, 96, 7),
+    (8, False, 2, 48, 64, 4), (4, False, 1, 32, 48, 3)])
+def test_pack_coeffs_kernel_equals_plain(dev, b, use_rle, gop, h, w, n):
+    """Recon records straight from coefficients, 4x4 and 8x8 blocks, RLE
+    on and off, all-I videos; coefficients up to the residual bound."""
+    rng = np.random.default_rng(h + b)
+    mag = 2 ** (cuda_encode.coeff_bound_bits_residual(b, "reference") - 1)
+    coeffs = (rng.integers(-mag, mag, (n, h, w))
+              * (rng.random((n, h, w)) < 0.2)).astype(np.int32)
+    n_p = sum(1 for f in range(n) if f % gop)
+    n_macro = (h // 16) * (w // 16) if n_p else 0
+    mvecs = rng.integers(-16, 17, (n_p, n_macro, 2)).astype(np.int32)
+    c, m = torch.from_numpy(coeffs).to(dev), torch.from_numpy(mvecs).to(dev)
+    lw = cuda_encode.video_lw(b, "reference")
+    nw = device_pack.packed_words_bound(n * (n_macro + h * w // (b * b)),
+                                        b * b + 2)
+    hdr = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    args = (c, m, gop, 6, b, use_rle, lw, 91, nw, hdr)
+    before = cuda_pack.pack_coeffs.launches
+    got = cuda_pack.pack_coeffs(*args)
+    want = cuda_pack.pack_coeffs_plain(*args)
+    assert cuda_pack.pack_coeffs.launches == before + 1
+    assert int(got[1]) == int(want[1]) > 91
+    assert torch.equal(cuda_pack.stream_words(*got),
+                       cuda_pack.stream_words(*want))
+    c[n - 1, :b, :b] = 2 ** 20  # a record past lw words: refused
+    assert int(cuda_pack.pack_coeffs(*args)[1]) == -1
+
+
+def test_division_sweep_finds_no_mismatch(dev):
+    """K1's reciprocal division equals __ddiv_rn for every q in 1..255 (a
+    short sweep; chip_smoke.py runs the full one)."""
+    got = cuda_encode.division_sweep(dev, 300, 100000, seed=5)
+    assert got["checks"] == 255 * (601 * 51 + 100000)
+    assert got["mismatches"] == 0, got
 
 
 @pytest.mark.parametrize("nwords,total_bits", [

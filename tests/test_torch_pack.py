@@ -6,7 +6,9 @@ the wrappers run their plain versions.
     pallas_pack.pack_locals_pallas(..., interpret=True);
   * pack_records is bit-equal to pack_records_pallas(..., interpret=True)
     and to device_pack.pack_blocks_device(method="scatter");
-  * the Huffman payload pack equals huffman._device_stages().pack_payload.
+  * the Huffman payload pack equals huffman._device_stages().pack_payload,
+    through huffman.pack_payload and through K4's pack_payload front end
+    (cuda_pack.pack_payload) at stream ends inside a record and a word.
 """
 
 import numpy as np
@@ -160,3 +162,40 @@ def test_pack_payload_matches_device_stages():
     assert int(got_t) == int(want_t)
     np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
                                   np.asarray(want_w))
+
+
+@pytest.mark.parametrize("n_words,nbytes", [
+    (1024, 1024 * 4), (1027, 4 * 1027 - 5), (600, 1), (64, 37)])
+def test_pack_payload_front_end_matches_device_stages(n_words, nbytes):
+    """K4's pack_payload (here its plain version) equals the JAX package's
+    payload stage bit for bit, words past nbytes ignored, W not a multiple
+    of the 4-word record."""
+    rng = np.random.default_rng(n_words)
+    words = (rng.integers(0, 2 ** 32, n_words, dtype=np.uint64)
+             & 0x3F1FFFF7).astype(np.uint32)
+    data = words.astype(">u4").tobytes()[:nbytes]
+    freqs = np.bincount(np.frombuffer(data, np.uint8), minlength=256)
+    freqs[[0, 7]] += 1  # at least two symbols
+    built = _dict_and_codes(freqs)
+    code_w, code_l, dict_words, dict_bits = huffman.dict_tensors(
+        built, torch.device("cpu"))
+    assert code_w.dtype == code_l.dtype == torch.int32
+
+    _, jax_pack_payload, _ = _device_stages()
+    want_w, want_t = jax_pack_payload(
+        jnp.asarray(words), np.int32(nbytes),
+        jnp.asarray(built[1].astype(np.uint32)),
+        jnp.asarray(built[2].astype(np.int32)), np.int32(dict_bits),
+        jnp.asarray(dict_words.numpy().view(np.uint32)))
+    nw = huffman.payload_words(n_words)
+    before = cuda_pack.pack_payload.launches
+    got_w, got_t = cuda_pack.pack_payload(
+        torch.from_numpy(words.view(np.int32)), nbytes, code_w, code_l,
+        dict_bits, nw, prefix=dict_words)
+    assert cuda_pack.pack_payload.launches == before  # CPU: plain version
+    assert int(got_t) == int(want_t)
+    np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
+                                  np.asarray(want_w))
+    np.testing.assert_array_equal(
+        cuda_pack.stream_words(got_w, got_t).numpy().view(np.uint32),
+        np.asarray(want_w)[:(int(want_t) + 31) // 32])

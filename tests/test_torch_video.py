@@ -14,6 +14,10 @@ every kernel wrapper runs its plain version.
   * the reconstruction, and the fused recon step's plain version
     (residual, K5, reconstruction), equal runtime/native.py::
     idct_recon_exact_native;
+  * K4's pack_coeffs front end (its plain version here) equals the JAX
+    package's recon fields (pipeline.fields_from_coeffs and the vector
+    fields of video_pipeline.py:353-362) packed by
+    device_pack.pack_blocks_device, bit for bit;
   * encode_video(device="cpu") equals imageencoder_tpu's
     encode_video(backend="numpy") byte for byte, raw and recon reference,
     Huffman on and off, gop 1/3/4, RLE off, 40 frames (chunked) and an
@@ -36,6 +40,8 @@ from imageencoder_tpu.ops import bitpack
 from imageencoder_tpu.ops import rle as jax_rle
 from imageencoder_tpu.ops.dct import (_inv_weights, dct_matrix,
                                       forward_transform)
+from imageencoder_tpu.ops.device_pack import pack_blocks_device
+from imageencoder_tpu.ops.pipeline import fields_from_coeffs
 from imageencoder_tpu.ops.blockify import blockify
 from imageencoder_tpu.ops.pallas_encode import frontend_lw, video_lw
 from imageencoder_tpu.ops.pallas_kernels import dct_quantize
@@ -43,7 +49,8 @@ from imageencoder_tpu.ops.zigzag import zigzag_order
 from imageencoder_tpu.runtime.native import idct_recon_exact_native
 from imageencoder_tpu.utils.quant import QuantMatrix
 import imageencoder_tpu_torch
-from imageencoder_tpu_torch.ops import cuda_encode, device_pack, pipeline
+from imageencoder_tpu_torch.ops import (cuda_encode, cuda_pack, device_pack,
+                                        pipeline)
 
 from tests.test_video_parity import make_video
 
@@ -213,6 +220,90 @@ def test_reconstruction_equals_host_engine():
                                        _inv_weights(4, "reference"), q, pred,
                                        h, w)
         np.testing.assert_array_equal(srec.numpy(), want)
+
+
+def recon_records(b: int, n: int, gop: int, seed: int):
+    """Seeded coefficients int32 [n, 32, 48] (mostly zero, some blocks
+    ending in a nonzero after a zero: the trailing-strip quirk) and the
+    P-frames' vectors int32 [P, 6, 2] (none when every frame is an
+    I-frame, as the recon encoder passes them)."""
+    rng = np.random.default_rng(seed)
+    h, w = 32, 48
+    mag = 2 ** (cuda_encode.coeff_bound_bits_residual(b, "reference") - 1)
+    coeffs = (rng.integers(-mag, mag, (n, h, w))
+              * (rng.random((n, h, w)) < 0.3)).astype(np.int32)
+    coeffs[:, b - 1::b, b - 1::b] = rng.integers(1, 9, (n, h // b, w // b))
+    n_p = sum(1 for f in range(n) if f % gop)
+    n_macro = (h // 16) * (w // 16) if n_p else 0
+    mvecs = rng.integers(-16, 17, (n_p, n_macro, 2)).astype(np.int32)
+    return coeffs, mvecs
+
+
+def jax_recon_pack(coeffs, mvecs, gop, mvec_nbits, b, use_rle, start, nw,
+                   prefix):
+    """The JAX package's recon records (video_pipeline.py:334, 353-362)
+    packed by pack_blocks_device, with the prefix OR'd in."""
+    n, h, w = coeffs.shape
+    k = b * b
+    n_macro = mvecs.shape[1]
+    czz = (coeffs.reshape(n, h // b, b, w // b, b).transpose(0, 1, 3, 2, 4)
+           .reshape(-1, k)[:, zigzag_order(b)])
+    bv, bb = fields_from_coeffs(jnp.asarray(czz), use_rle)
+    bv = np.asarray(bv).reshape(n, -1, k + 2)
+    bb = np.asarray(bb).reshape(n, -1, k + 2)
+    mv = np.zeros((n, n_macro, k + 2), np.int32)
+    mb = np.zeros_like(mv)
+    p_idx = [f for f in range(n) if f % gop]
+    mv[p_idx, :, :2] = mvecs & ((1 << mvec_nbits) - 1)
+    mb[p_idx, :, :2] = mvec_nbits
+    vals = np.concatenate([mv, bv], axis=1).reshape(-1, k + 2)
+    nbits = np.concatenate([mb, bb], axis=1).reshape(-1, k + 2)
+    words, total = pack_blocks_device(jnp.asarray(vals), jnp.asarray(nbits),
+                                      jnp.int32(start), nw)
+    words = np.asarray(words).copy()
+    words[:len(prefix)] |= prefix
+    return words, int(total)
+
+
+@pytest.mark.parametrize("b,use_rle,gop,n", [
+    (4, True, 3, 5), (4, False, 2, 4), (8, True, 3, 4), (8, False, 2, 3),
+    (4, True, 1, 3)])
+def test_pack_coeffs_equals_jax_fields_and_pack(b, use_rle, gop, n):
+    coeffs, mvecs = recon_records(b, n, gop, 10 * b + gop)
+    mvec_nbits = 6
+    k = b * b
+    rows = n * (mvecs.shape[1] + (32 // b) * (48 // b))
+    nw = device_pack.packed_words_bound(rows, k + 2)
+    prefix = np.random.default_rng(n).integers(0, 2 ** 32, 3,
+                                               dtype=np.uint64)
+    prefix = prefix.astype(np.uint32)
+    prefix[2] &= 0xFFFFFF00  # the prefix ends at bit 88
+    want_w, want_t = jax_recon_pack(coeffs, mvecs, gop, mvec_nbits, b,
+                                    use_rle, 88, nw, prefix)
+    lw = cuda_encode.video_lw(b, "reference")
+    before = cuda_pack.pack_coeffs.launches
+    got_w, got_t = cuda_pack.pack_coeffs(
+        torch.from_numpy(coeffs), torch.from_numpy(mvecs), gop, mvec_nbits,
+        b, use_rle, lw, 88, nw, prefix=torch.from_numpy(prefix.view(np.int32)))
+    assert cuda_pack.pack_coeffs.launches == before  # CPU: plain version
+    assert int(got_t) == want_t
+    np.testing.assert_array_equal(got_w.numpy().view(np.uint32), want_w)
+
+
+def test_pack_coeffs_refuses_records_past_lw():
+    coeffs, mvecs = recon_records(4, 2, 2, 3)
+    coeffs[1, 4, 8] = 2 ** 20  # 22-bit coefficients: 378 bits > 7 words
+    lw = cuda_encode.video_lw(4, "reference")
+    _, total = cuda_pack.pack_coeffs(torch.from_numpy(coeffs),
+                                     torch.from_numpy(mvecs), 2, 6, 4, True,
+                                     lw, 0, 10000)
+    assert int(total) == -1
+    with pytest.raises(ValueError, match="register file"):
+        device_pack.host_total(total)
+    with pytest.raises(ValueError, match="P-frames"):
+        cuda_pack.pack_coeffs(torch.from_numpy(coeffs),
+                              torch.from_numpy(mvecs[:0]), 2, 6, 4, True,
+                              lw, 0, 10000)
 
 
 CASES = [  # w, h, frames, gop, merange, rle, huffman, ref_mode
