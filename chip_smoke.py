@@ -18,14 +18,19 @@ reference.  Phases, each of which raises on failure:
      4096x912 image (233,472 blocks) for K1 encode_locals (u8 pixels), K2
      pack_locals, K3 byte_histogram and K4 pack_payload (the Huffman
      payload); encode_video at 1280x720, 25 frames, gop 4, merange 16,
-     Huffman on, with the raw reference for K6 motion_search, K7 predict,
-     K1 on the int16 residual stack, K2, K3 and K4 pack_payload; and with
-     the recon reference for every K5 quantize_image (I-frames), K5
-     recon_step (the fused P-frame step), K6 and K7 call, K3, K4
-     pack_coeffs (the records from the coefficients) and K4 pack_payload;
-     K4 pack_records, which no path runs, on the recon records as fields
-     built by the plain glue.  K4's words are compared up to the stream's
-     last word, which is all the kernel defines.  K3 is also timed against
+     Huffman on, with the raw reference for K6+K7 search_residual (the
+     search with the prediction as its epilogue, the whole video in, held
+     against the plain search, prediction and residual), K1 on the int16
+     residual stack, K2 with its vector source, K3 and K4 pack_payload;
+     and with the recon reference for every K5 quantize_image (I-frames),
+     K5 recon_step (the fused P-frame step) and K6+K7 search_predict call,
+     K3, K4 pack_coeffs (the records from the coefficients) and K4
+     pack_payload; the kernels no path runs on inputs taken from those
+     calls: K6 motion_search and K7 predict (the search and the prediction
+     alone) on the frames and the vectors of both video paths, K4
+     pack_records on the recon records as fields built by the plain glue.
+     The packers' words are compared up to the stream's last word, which
+     is all the kernels define.  K3 is also timed against
      torch.bincount over the same stream bytes, the one PyTorch call that
      computes its function;
   3. drive each path with every kernel's launch count set to 0 just
@@ -33,7 +38,8 @@ reference.  Phases, each of which raises on failure:
      seeded 4096x912 and 3840x2160 images with Huffman on and off and on
      a small noise image that takes the raw-copy fallback; encode_video at
      720p25 with Huffman on and off, raw and recon.  Every kernel a path
-     runs must have been launched at least once in that path's run;
+     runs must have been launched at least once in that path's run, and
+     neither video path may launch K6 or K7 alone;
   4. hold every image stream from phase 3, and video streams of both
      references at 320x176 with 8 frames (gop 4, merange 16, Huffman on and
      off), against the port's plain path, device="cpu", byte for byte.
@@ -48,24 +54,26 @@ reference.  Phases, each of which raises on failure:
   6. time, inputs resident on the device: the device encode, the Huffman
      stage, the whole encode_image and the host-to-device copy of the
      image; for video, the whole encode_video of frames on the device, the
-     device window (K6 + K7 + K1 + K2 + K3, or per frame K6 + K7 + the
+     device window (K6+K7 + K1 + K2 + K3, or per frame K6+K7 and the
      recon step (K5 on I-frames) and then K4 pack_coeffs + K3, until meta
      is ready),
      the Huffman stage and the copy of the frames;
   7. profile a few calls of each path and print the device time per call
      by operation and the device operations per call: where the device
-     time goes.
+     time goes.  A video profile with a row of K7 alone, or a raw one with
+     a scan row (a cumsum of record lengths), fails.
 
 Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
 ``stage_ms`` is everything the wrapper runs on the device (the kernel and
-its glue: scratch zeroing, index and cumsum ops);
+its glue: scratch zeroing);
 ``call_ms`` and ``plain_call_ms`` are CUDA-event times of back-to-back
 calls, which include the wrappers' glue and launch overhead.
 ``bound_ms`` is the larger of the HBM floor (the bytes the function must
 move at 3.35 TB/s) and the operation floor (f64 transforms: their
 separately rounded f64 ops at 64 an SM a clock; K6: its byte SADs, 4 to a
-__vsadu4 lane op at 64 int32 ops an SM a clock), both at the H100 SXM's
+__vsadu4 lane op at 64 int32 ops an SM a clock; the fused kernels the
+same), both at the H100 SXM's
 132 SMs and 1.98 GHz boost clock.  ``library_ms`` is the profiler's
 device time of one PyTorch call computing the same function, where one
 exists (K3: torch.bincount), else null.
@@ -104,13 +112,13 @@ ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "stage_ms", "call_ms",
 DIV_RANDOM = 10_000_000  # random y of the division sweep, each over q 1..255
 VIDEO_PROFILE_CALLS = 3
 KERNELS = {  # name: (wrapper's module, wrapper, plain version,
-    #                 CUDA kernel symbol, source, the TPU kernel replaced)
+    #                 CUDA kernel symbol(s), source, the TPU kernel replaced)
     "K1 encode_locals": ("cuda_encode", "encode_locals",
                          "encode_locals_plain", "encode_locals_kernel",
                          "imageencoder_tpu_torch/csrc/encode.cu",
                          "imageencoder_tpu/ops/pallas_encode.py:130"),
     "K2 pack_locals": ("cuda_pack", "pack_locals", "pack_locals_plain",
-                       "pack_locals_kernel",
+                       ("tile_sums_kernel", "pack_known_kernel"),
                        "imageencoder_tpu_torch/csrc/pack.cu",
                        "imageencoder_tpu/ops/pallas_pack.py:256"),
     "K3 byte_histogram": ("cuda_kernels", "byte_histogram",
@@ -144,19 +152,33 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
     "K7 predict": ("cuda_motion", "predict", "predict_plain",
                    "predict_kernel", "imageencoder_tpu_torch/csrc/motion.cu",
                    "imageencoder_tpu/ops/pallas_motion.py:160"),
+    # The search with the prediction as its epilogue, one launch for both
+    # TPU kernels (pallas_motion.py:38 and :160).
+    "K6+K7 search_predict": ("cuda_motion", "search_predict",
+                             "search_predict_plain", "motion_search_kernel",
+                             "imageencoder_tpu_torch/csrc/motion.cu",
+                             "imageencoder_tpu/ops/pallas_motion.py:38"),
+    "K6+K7 search_residual": ("cuda_motion", "search_residual",
+                              "search_residual_plain",
+                              "motion_search_kernel",
+                              "imageencoder_tpu_torch/csrc/motion.cu",
+                              "imageencoder_tpu/ops/pallas_motion.py:38"),
 }
 PATHS = {  # path: the kernels it runs
     "image": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
               "K4 pack_payload"),
     "video raw": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
-                  "K4 pack_payload", "K6 motion_search", "K7 predict"),
+                  "K4 pack_payload", "K6+K7 search_residual"),
     "video recon": ("K3 byte_histogram", "K4 pack_coeffs", "K4 pack_payload",
-                    "K5 quantize_image", "K5 recon_step", "K6 motion_search",
-                    "K7 predict"),
+                    "K5 quantize_image", "K5 recon_step",
+                    "K6+K7 search_predict"),
 }
-# K4's output is defined up to the stream's last word (the plain versions
-# zero the rest of the buffer, the kernel leaves it): compare that part.
-STREAM_OUT = ("K4 pack_records", "K4 pack_payload", "K4 pack_coeffs")
+ALONE = ("K6 motion_search", "K7 predict")  # no video path launches these
+# A packer's output is defined up to the stream's last word (the plain
+# versions zero the rest of the buffer, the kernels leave it): compare
+# that part.
+STREAM_OUT = ("K2 pack_locals", "K4 pack_records", "K4 pack_payload",
+              "K4 pack_coeffs")
 
 
 def synthetic(h: int, w: int, seed: int):
@@ -267,22 +289,29 @@ def device_rows(fn, reps: int, counts: dict | None = None):
     return rows, wall_ms
 
 
-def profiled_ms(fn, symbol: str | None = None, reps: int = 20,
-                tries: int = 3) -> float:
+def profiled_ms(fn, symbol=None, reps: int = 20, tries: int = 3) -> float:
     """Device milliseconds per call of fn() from torch.profiler: the
-    kernels whose name contains ``symbol``, or all device work.  The
+    kernels whose name contains ``symbol`` (or one of them, for a tuple:
+    a wrapper of several launches), or all device work.  The
     profiler now and then returns a run without its device records; such
-    a run is profiled again, up to ``tries`` times in all."""
-    for _ in range(tries):
+    a run is profiled again after a pause, up to ``tries`` times in all;
+    if none has them, the time is the CUDA-event time of the whole call,
+    run back to back, and a line says so."""
+    symbols = as_tuple(symbol) if symbol else ()
+    for attempt in range(tries):
         rows, _ = device_rows(fn, reps)
         us = sum(t for key, t in rows.items()
-                 if symbol is None or symbol in key)
+                 if not symbols or any(sym in key for sym in symbols))
         if us > 0.0:
             return us / 1e3
         print(f"profiler: no device records for {symbol or 'the call'}; "
               f"profiling again", flush=True)
-    raise AssertionError(f"the profiler saw no device time for "
-                         f"{symbol or 'the call'} in {tries} runs")
+        time.sleep(0.25 * (attempt + 1))
+    ms = cuda_ms(fn, reps)
+    print(f"profiler: no device records for {symbol or 'the call'} in "
+          f"{tries} runs; timed the whole call with CUDA events instead, "
+          f"{ms:.4f} ms", flush=True)
+    return ms
 
 
 def quantiles(samples) -> tuple[float, float]:
@@ -388,10 +417,14 @@ def operations(name: str, args: tuple) -> tuple[float, float]:
         blocks = args[0].numel() // (b * b)
         return (blocks * f64_ops_per_block(b * b, name == "K5 recon_step"),
                 F64_OPS_PER_S)
-    if name == "K6 motion_search":
+    if name in ("K6 motion_search", "K6+K7 search_predict",
+                "K6+K7 search_residual"):
         # 9 candidates on the first level, 8 on each further one (the
-        # centre's SAD is the previous level's best).
+        # centre's SAD is the previous level's best); of a whole video
+        # only the P-frames are searched.
         f, h, w = args[0].shape
+        if name == "K6+K7 search_residual":
+            f = len(module("cuda_motion").p_frames(f, args[1]))
         levels = len(search_steps(args[2]))
         candidates = 9 + 8 * (levels - 1) if levels else 0
         byte_sads = (f * (h // MACRO) * (w // MACRO) * candidates
@@ -427,12 +460,14 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     kernel_call, plain_call = calls_of(name, args, kwargs)
     err, got = held_equal(name, args, kwargs)
     # The bytes the kernel itself must move: its tensor inputs, and its
-    # outputs up to the stream's end where the output is a stream.  K4
+    # outputs up to the stream's end where the output is a stream.  K2
+    # reads the register files, the lengths and, for a video, the vectors.  K4
     # pack_records reads a record's values only where the record is not
     # empty; pack_payload reads the nbytes stream bytes, its two tables
     # and the dict; pack_coeffs 4 bytes a coefficient and the vectors.
     if name == "K2 pack_locals":
-        nbytes = tensor_bytes(args[:2]) + (int(got[1]) + 7) // 8
+        nbytes = (tensor_bytes(args[:2]) + tensor_bytes([kwargs.get("mvecs")])
+                  + (int(got[1]) + 7) // 8)
     elif name == "K4 pack_records":
         live = int((args[1].sum(dim=1) > 0).sum())
         nbytes = (tensor_bytes(args[1:2]) + 4 * args[0].shape[1] * live
@@ -445,7 +480,8 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
         nbytes = tensor_bytes(args[:2]) + (int(got[1]) + 7) // 8
     elif name == "K3 byte_histogram":
         nbytes = (int(args[1]) + 7) // 8
-    elif name in ("K6 motion_search", "K7 predict", "K5 recon_step"):
+    elif name in ("K6 motion_search", "K7 predict", "K5 recon_step",
+                  "K6+K7 search_predict"):
         nbytes = tensor_bytes(args[:2]) + tensor_bytes(got)
     else:
         nbytes = tensor_bytes(args[:1]) + tensor_bytes(got)
@@ -501,6 +537,11 @@ def phase_of_path(path: str, wrappers: dict, drive) -> dict:
         if counts[name] < 1:
             raise AssertionError(f"{name} was not launched on the {path} "
                                  f"path")
+    for name in ALONE:
+        if counts[name]:
+            raise AssertionError(f"{name} was launched {counts[name]} times "
+                                 f"on the {path} path: the search's epilogue "
+                                 f"takes its place there")
     print(f"{path} path launches: " + ", ".join(
         f"{name} {counts[name]}" for name in KERNELS), flush=True)
     return counts
@@ -579,11 +620,15 @@ def time_video(frames_np, quant, ref_mode: str, dev) -> None:
           f"median {h2d[0]:.3f} ms, p90 {h2d[1]:.3f} ms", flush=True)
 
 
-def print_profile(label: str, fn, calls: int) -> None:
-    """Phase 6: device time per call by operation, and the number of
-    device operations (kernels and copies) per call."""
+def print_profile(label: str, fn, calls: int, absent: tuple = ()) -> None:
+    """Phase 7: device time per call by operation, and the number of
+    device operations (kernels and copies) per call.  Fails if a device
+    row's name contains one of ``absent``."""
     counts = {}
     by_op, wall_ms = device_rows(fn, calls, counts)
+    for key in by_op:
+        if any(a.lower() in key.lower() for a in absent):
+            raise AssertionError(f"{label}: the profile has a row {key!r}")
     busy_us = sum(by_op.values())
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
     print(f"profile of {calls} {label} calls: device busy {busy_us:.1f} us "
@@ -653,18 +698,31 @@ def main() -> None:
         if len(calls[name]) != 1:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"raw encode_video, expected 1")
-    for name in ("K6 motion_search", "K7 predict"):
-        rows[name] = check_kernel(name, *calls[name][0])
+    fused = "K6+K7 search_residual"
+    rows[fused] = check_kernel(fused, *calls[fused][0])
+    # The search and the prediction alone, which no path runs, on the same
+    # frames: each P-frame against the frame before it, and the vectors the
+    # fused kernel found.
+    (fr, gop, merange), _ = calls[fused][0]
+    pi = torch.tensor(module("cuda_motion").p_frames(fr.shape[0], gop),
+                      device=fr.device)
+    cur, ref = fr.index_select(0, pi), fr.index_select(0, pi - 1)
+    found = module("cuda_motion").search_residual(fr, gop, merange)[0]
+    rows["K6 motion_search"] = check_kernel("K6 motion_search",
+                                            (cur, ref, merange), {})
+    rows["K7 predict"] = check_kernel("K7 predict", (ref, found), {})
     for name in PATHS["image"]:  # the same kernels at the video's shapes
         beside(rows[name], "video_raw", check_kernel(name, *calls[name][0]))
-    del calls
+    if calls["K2 pack_locals"][0][1].get("mvecs") is None:
+        raise AssertionError("the raw path gave K2 no vectors")
+    del calls, fr, pi, cur, ref, found
 
     with captured_calls() as calls:
         encode_video(vdata, vw, vh, "recon", True)
     n_p = sum(1 for f in range(vn) if f % GOP)
     for name, want in (("K5 quantize_image", vn - n_p),
-                       ("K5 recon_step", n_p), ("K6 motion_search", n_p),
-                       ("K7 predict", n_p), ("K3 byte_histogram", 1),
+                       ("K5 recon_step", n_p), ("K6+K7 search_predict", n_p),
+                       ("K3 byte_histogram", 1),
                        ("K4 pack_coeffs", 1), ("K4 pack_payload", 1)):
         if len(calls[name]) != want:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
@@ -680,9 +738,14 @@ def main() -> None:
     cur, pred, *rest = step_args
     beside(rows["K5 quantize_image"], "p_frame_residual", check_kernel(
         "K5 quantize_image", (cur.to(torch.int16) - pred, *rest), {}))
-    for key, name in (("video_recon", "K6 motion_search"),
-                      ("video_recon", "K7 predict")):
-        beside(rows[name], key, check_kernel(name, *calls[name][0]))
+    fused = "K6+K7 search_predict"
+    rows[fused] = check_kernel(fused, *calls[fused][0])
+    (cur, ref, merange), _ = calls[fused][0]
+    found = module("cuda_motion").search_predict(cur, ref, merange)[0]
+    beside(rows["K6 motion_search"], "video_recon", check_kernel(
+        "K6 motion_search", (cur, ref, merange), {}))
+    beside(rows["K7 predict"], "video_recon", check_kernel(
+        "K7 predict", (ref, found), {}))
     beside(rows["K3 byte_histogram"], "video_recon",
            check_kernel("K3 byte_histogram", *calls["K3 byte_histogram"][0]))
     beside(rows["K4 pack_payload"], "video_recon",
@@ -698,9 +761,10 @@ def main() -> None:
     rows["K4 pack_records"] = check_kernel(
         "K4 pack_records", (vals, nbits, start, n_words), kw)
     print(f"recon encode_video: all {vn - n_p} K5, {n_p} recon step, {n_p} "
-          f"K6, {n_p} K7, 1 K3, 1 K4 pack_coeffs and 1 K4 pack_payload calls "
-          f"bit-equal to their plain versions", flush=True)
-    del calls, step_args, cur, pred, rest, coeffs, mvecs, vals, nbits
+          f"K6+K7 search_predict, 1 K3, 1 K4 pack_coeffs and 1 K4 "
+          f"pack_payload calls bit-equal to their plain versions", flush=True)
+    del calls, step_args, cur, pred, rest, coeffs, mvecs, vals, nbits, ref
+    del found
 
     # ---- 3. each path, counts from 0 ----
     # No full-size image compresses too little for the dict (the records'
@@ -842,12 +906,13 @@ def main() -> None:
                   lambda: port.encode_image(img_d, quant, use_huffman=True,
                                             device="cuda"), PROFILE_CALLS)
     fr_d = torch.from_numpy(vframes).to(dev)
-    for mode in ("raw", "recon"):
+    for mode, absent in (("raw", ("predict_kernel", "scan")),
+                         ("recon", ("predict_kernel",))):
         print_profile(
             f"encode_video {mode} at {vw}x{vh}x{vn}",
             lambda mode=mode: encode_frames(
                 fr_d, vw, vh, quant, True, GOP, MERANGE, use_huffman=True,
-                ref_mode=mode, device=dev), VIDEO_PROFILE_CALLS)
+                ref_mode=mode, device=dev), VIDEO_PROFILE_CALLS, absent)
 
     print(json.dumps({"kernels": [rows[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

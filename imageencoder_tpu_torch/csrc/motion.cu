@@ -44,11 +44,25 @@
 // K7 predict replaces imageencoder_tpu/ops/pallas_motion.py (_predict_call,
 // reached through predict_translate_pallas), which on the TPU builds the
 // prediction as masked translations to avoid gathers.  Here it is the
-// gather itself: one thread copies one 16-byte macroblock row from the
-// clamped window, ref[py + r, px .. px + 15] with px = clip(bx + mx, 0,
-// W - 16), py = clip(by + my, 0, H - 16) (ops/motion.py::predict_image).
+// gather itself, ref[py + r, px .. px + 15] with px = clip(bx + mx, 0,
+// W - 16), py = clip(by + my, 0, H - 16) (ops/motion.py::predict_image),
+// and on the encode paths it is not a launch of its own: when the descent
+// ends, the warp that searched a macroblock still has the block's pixels in
+// registers and its CTA the reference window in shared memory, so the
+// search's epilogue reads the winning window once more and writes one of
+//   * the predicted block, u8 (search_predict: the recon path, whose next
+//     launch forms the residual itself); or
+//   * the int16 residual cur - pred into the stack [F*H, W] that K1 reads
+//     (search_residual: the raw path).  There the kernel takes the whole
+//     video: frame f is searched in frame f - 1, and a GOP's first frame,
+//     which has no reference, is written as its pixels, so no torch op
+//     selects frames, converts them or scatters the residual.
+// predict_kernel, K7 alone with the vectors given, stays for a decoder,
+// which has vectors and no search: one thread copies one 16-byte
+// macroblock row through aligned word loads and a funnel shift.
 // Bound on this card: HBM bytes, one read of the reference and one write
-// of the prediction.
+// of the prediction (the fused kernels: the frames read, the vectors and
+// the prediction or the residual written).
 #include <algorithm>
 #include <cstdint>
 
@@ -111,11 +125,32 @@ __device__ __forceinline__ uint32_t window_bytes(const uint32_t* win, int i,
     return sh ? __funnelshift_r(lo, __ldg(win + i + 1), sh) : lo;
 }
 
-// grid: (ceil(nbx / kSearchWarps), nby, F).
-template <bool kSmem>
+// What the search writes besides the vectors.
+constexpr int kVectors = 0;   // nothing: K6 alone
+constexpr int kPredict = 1;   // the predicted block, u8
+constexpr int kResidual = 2;  // cur - pred, int16; intra frames as pixels
+
+// Four pixels less four predicted ones as int16, two to a word.
+__device__ __forceinline__ uint2 residual4(uint32_t cur, uint32_t pred) {
+    int d[4];
+#pragma unroll
+    for (int k = 0; k < 4; k++)
+        d[k] = (int)((cur >> (8 * k)) & 0xFFu)
+               - (int)((pred >> (8 * k)) & 0xFFu);
+    return make_uint2(((uint32_t)d[0] & 0xFFFFu) | ((uint32_t)d[1] << 16),
+                      ((uint32_t)d[2] & 0xFFFFu) | ((uint32_t)d[3] << 16));
+}
+
+// grid: (ceil(nbx / kSearchWarps), nby, F).  Frame f of cur is searched in
+// frame f of ref.  With gop > 0 (kResidual) cur is a whole video and ref
+// the same video one frame back: frame f with f % gop == 0 is intra, not
+// searched, and the vectors of the others are stored densely, in order.
+// `out` is the prediction u8 [F, H, W] or the residual int16 [F*H, W].
+template <bool kSmem, int kOut>
 __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
         const uint8_t* __restrict__ cur, const uint8_t* __restrict__ ref,
-        int h, int w, int merange, int32_t* __restrict__ mvec) {
+        int h, int w, int merange, int gop, int32_t* __restrict__ mvec,
+        void* __restrict__ out) {
     extern __shared__ uint4 window_smem[];
 
     const int nbx = w / kMacro;
@@ -127,6 +162,23 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
     const int by = blockIdx.y * kMacro;
     const long long f = blockIdx.z;
     const long long plane = (long long)h * w;
+    const int c = lane & 3;
+    const int r = lane >> 2;
+    long long fv = f;  // the frame's place among the vectors
+    if constexpr (kOut == kResidual) {
+        if (gop > 0 && f % gop == 0) {  // intra: the pixels, no search
+            if (mbx >= nbx) return;
+            const long long at = f * plane + (long long)(by + r) * w
+                                 + mbx * kMacro + 4 * c;
+            int16_t* o = static_cast<int16_t*>(out) + at;
+            *reinterpret_cast<uint2*>(o) = residual4(__ldg(
+                reinterpret_cast<const uint32_t*>(cur + at)), 0u);
+            *reinterpret_cast<uint2*>(o + 8LL * w) = residual4(__ldg(
+                reinterpret_cast<const uint32_t*>(cur + at + 8LL * w)), 0u);
+            return;
+        }
+        if (gop > 0) fv = f - f / gop - 1;
+    }
 
     // The window: rows y0 .. y0 + wh - 1, columns xa .. xa + width - 1,
     // xa the 16-byte aligned column at or before the leftmost reachable.
@@ -159,8 +211,6 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
 
     // Lane l: column word c = l % 4 of rows r and r + 8, r = l / 4.
     const int bx = mbx * kMacro;
-    const int c = lane & 3;
-    const int r = lane >> 2;
     const uint8_t* cp = cur + f * plane + (long long)(by + r) * w + bx + 4 * c;
     const uint32_t cur0 = __ldg(reinterpret_cast<const uint32_t*>(cp));
     const uint32_t cur1 = __ldg(reinterpret_cast<const uint32_t*>(
@@ -216,9 +266,29 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
     }
     if (lane == 0) {
         const long long mb = (long long)blockIdx.y * nbx + mbx;
-        int32_t* o = mvec + (f * (long long)nbx * (h / kMacro) + mb) * 2;
+        int32_t* o = mvec + (fv * (long long)nbx * (h / kMacro) + mb) * 2;
         o[0] = offx;
         o[1] = offy;
+    }
+    if constexpr (kOut != kVectors) {
+        // The winning window, clamped as every candidate was: this lane's
+        // words of rows r and r + 8 once more, and out they go.
+        const int px = clampi(bx + offx, 0, w - kMacro);
+        const int py = clampi(by + offy, 0, h - kMacro);
+        const int i = (py - y0 + r) * pitch_w + ((px - xa + 4 * c) >> 2);
+        const unsigned sh = 8u * (unsigned)(px & 3);
+        const uint32_t p0 = window_bytes<kSmem>(win, i, sh);
+        const uint32_t p1 = window_bytes<kSmem>(win, i + row8_w, sh);
+        const long long at = f * plane + (long long)(by + r) * w + bx + 4 * c;
+        if constexpr (kOut == kPredict) {
+            uint8_t* o = static_cast<uint8_t*>(out) + at;
+            *reinterpret_cast<uint32_t*>(o) = p0;
+            *reinterpret_cast<uint32_t*>(o + 8LL * w) = p1;
+        } else {
+            int16_t* o = static_cast<int16_t*>(out) + at;
+            *reinterpret_cast<uint2*>(o) = residual4(cur0, p0);
+            *reinterpret_cast<uint2*>(o + 8LL * w) = residual4(cur1, p1);
+        }
     }
 }
 
@@ -237,27 +307,29 @@ __global__ void __launch_bounds__(kPredictThreads) predict_kernel(
     const int32_t* mv = mvec + (f * (long long)(nbx * (h / kMacro)) + mb) * 2;
     const int px = clampi(mbx * kMacro + mv[0], 0, w - kMacro);
     const int py = clampi((y / kMacro) * kMacro + mv[1], 0, h - kMacro);
-    const uint8_t* src = ref + (f * h + py + y % kMacro) * (long long)w + px;
+    // The row's 16 bytes start px & 3 bytes into an aligned word (rows
+    // start at multiples of 16 bytes): 4 words, and a fifth only where the
+    // bytes straddle it, so no read passes the frame's end.
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(
+        ref + (f * h + py + y % kMacro) * (long long)w) + (px >> 2);
+    const unsigned sh = 8u * (unsigned)(px & 3);
+    uint32_t s[5];
+#pragma unroll
+    for (int k = 0; k < 4; k++) s[k] = __ldg(src + k);
+    s[4] = sh ? __ldg(src + 4) : 0u;
     uint32_t v[4];
 #pragma unroll
-    for (int k = 0; k < 4; k++)
-        v[k] = (uint32_t)src[4 * k] | ((uint32_t)src[4 * k + 1] << 8)
-             | ((uint32_t)src[4 * k + 2] << 16)
-             | ((uint32_t)src[4 * k + 3] << 24);
+    for (int k = 0; k < 4; k++) v[k] = __funnelshift_r(s[k], s[k + 1], sh);
     // The row starts at a multiple of 16 bytes: w % 16 == 0 and the
     // wrapper allocates pred.
     *(uint4*)(pred + fy * w + mbx * kMacro) = make_uint4(v[0], v[1], v[2],
                                                          v[3]);
 }
 
-}  // namespace
-
-// cur, ref: u8 [F, H, W] (frame f of cur searched in frame f of ref), both
-// 16-byte aligned; H, W multiples of 16; mvec: i32 [F, (H/16)*(W/16), 2]
-// as (x, y).
-extern "C" int ie_motion_search(const void* cur, const void* ref,
-                                long long n_frames, int h, int w,
-                                int merange, void* mvec, void* stream) {
+template <int kOut>
+int launch_search(const uint8_t* cur, const uint8_t* ref, long long n_frames,
+                  int h, int w, int merange, int gop, int32_t* mvec,
+                  void* out, cudaStream_t s) {
     const int nbx = w / kMacro;
     const int nby = h / kMacro;
     if (n_frames <= 0 || nbx <= 0 || nby <= 0)
@@ -272,21 +344,58 @@ extern "C" int ie_motion_search(const void* cur, const void* ref,
     const long long bytes = (width + 16) * rows + 16;  // + a word of slack
     const dim3 grid((unsigned)((nbx + kSearchWarps - 1) / kSearchWarps),
                     (unsigned)nby, (unsigned)n_frames);
-    cudaStream_t s = (cudaStream_t)stream;
-    const auto* c = (const uint8_t*)cur;
-    const auto* r = (const uint8_t*)ref;
-    auto* o = (int32_t*)mvec;
     if (bytes <= kWindowSmemMax)
-        motion_search_kernel<true><<<grid, kSearchThreads, (size_t)bytes, s>>>(
-            c, r, h, w, merange, o);
+        motion_search_kernel<true, kOut>
+            <<<grid, kSearchThreads, (size_t)bytes, s>>>(
+                cur, ref, h, w, merange, gop, mvec, out);
     else
-        motion_search_kernel<false><<<grid, kSearchThreads, 0, s>>>(
-            c, r, h, w, merange, o);
+        motion_search_kernel<false, kOut><<<grid, kSearchThreads, 0, s>>>(
+            cur, ref, h, w, merange, gop, mvec, out);
     return (int)cudaGetLastError();
 }
 
-// ref: u8 [F, H, W]; mvec: i32 [F, (H/16)*(W/16), 2]; pred: u8 [F, H, W],
-// 16-byte aligned.
+}  // namespace
+
+// cur, ref: u8 [F, H, W] (frame f of cur searched in frame f of ref), both
+// 16-byte aligned; H, W multiples of 16; mvec: i32 [F, (H/16)*(W/16), 2]
+// as (x, y).
+extern "C" int ie_motion_search(const void* cur, const void* ref,
+                                long long n_frames, int h, int w,
+                                int merange, void* mvec, void* stream) {
+    return launch_search<kVectors>(
+        (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange, 0,
+        (int32_t*)mvec, nullptr, (cudaStream_t)stream);
+}
+
+// As ie_motion_search, and pred: u8 [F, H, W], 4-byte aligned: every
+// macroblock's window at its vector.
+extern "C" int ie_search_predict(const void* cur, const void* ref,
+                                 long long n_frames, int h, int w,
+                                 int merange, void* mvec, void* pred,
+                                 void* stream) {
+    return launch_search<kPredict>(
+        (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange, 0,
+        (int32_t*)mvec, pred, (cudaStream_t)stream);
+}
+
+// frames: u8 [F, H, W], 16-byte aligned, a video of GOPs of `gop` >= 1
+// frames: frame f with f % gop != 0 is searched in frame f - 1.  mvec: i32
+// [P, (H/16)*(W/16), 2], the searched frames' vectors in order; residual:
+// i16 [F*H, W], 8-byte aligned: cur - pred on the searched frames' rows,
+// the pixels on the others'.
+extern "C" int ie_search_residual(const void* frames, long long n_frames,
+                                  int h, int w, int merange, int gop,
+                                  void* mvec, void* residual, void* stream) {
+    if (gop < 1) return (int)cudaErrorInvalidValue;
+    const auto* cur = (const uint8_t*)frames;
+    // Frame 0 is intra, so frame -1 is never read.
+    return launch_search<kResidual>(
+        cur, cur - (long long)h * w, n_frames, h, w, merange, gop,
+        (int32_t*)mvec, residual, (cudaStream_t)stream);
+}
+
+// mvec: i32 [F, (H/16)*(W/16), 2]; ref and pred: u8 [F, H, W], 16-byte
+// aligned.
 extern "C" int ie_predict(const void* ref, const void* mvec,
                           long long n_frames, int h, int w, void* pred,
                           void* stream) {

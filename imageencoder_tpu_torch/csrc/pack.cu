@@ -6,12 +6,20 @@
 // K2, pack_locals, replaces imageencoder_tpu/ops/pallas_pack.py
 // _pack_locals_call (reached through pack_locals_pallas): a record is a
 // register file of lw words plus a bit length, as K1 (encode.cu) writes
-// it.  One thread per record; the record's start is an int64 exclusive
-// scan of the lengths: a shared-memory block scan on top of per-block
-// starts that the wrapper takes from torch.cumsum.  Each record is
-// funnel-shifted by start & 31 and OR'd in at word start >> 5 with
-// atomicOr: records' bits never overlap, so the OR equals the serial
-// writer.  Bound: HBM bytes (28 read per 4x4 record, about 4 written).
+// it, or a P-frame macroblock's vector pair, built in registers from the
+// vectors; the front end (LocalsFront) yields both in stream order, so no
+// copy merges them first.  A record's length costs 4 bytes to read, so K2
+// is reduce, then scan, in two launches and nothing else: the first sums
+// the lengths of each tile, and of each group of 8 tiles; in the second
+// every CTA adds up the sums before its own (the groups before its group,
+// the tiles before it there: a few hundred values in L2), so it knows its
+// start before it begins and waits for no other CTA.  It composes its
+// words in shared memory and stores them 16 bytes at a time.  A word that
+// tiles share is written once, whole, by the tile that holds its first
+// bit: that tile reads on past its last record for the bits the word
+// still lacks.  No global atomic, no zeroed buffer, no scratch to clear.
+// Bound: HBM bytes (the register files and lengths read, about 4 bytes a
+// record written).
 //
 // K4 replaces pallas_pack.py _pack_call (reached through
 // pack_records_pallas and device_pack.pack_blocks_device): one
@@ -42,40 +50,6 @@
 #include "records.cuh"
 
 namespace {
-
-constexpr int kPackThreads = 256;
-
-struct StreamSink {
-    uint32_t* out;
-    long long base;
-    long long n_words;
-    __device__ __forceinline__ void operator()(int k, uint32_t w) const {
-        const long long i = base + k;
-        if (w != 0u && i < n_words) atomicOr(out + i, w);
-    }
-};
-
-__global__ void __launch_bounds__(kPackThreads) pack_locals_kernel(
-        const uint32_t* __restrict__ local, const int32_t* __restrict__ lens,
-        long long n, int lw, const long long* __restrict__ block_start,
-        uint32_t* __restrict__ out, long long n_words) {
-    __shared__ long long warp_sums[32];
-    const long long i = blockIdx.x * (long long)kPackThreads + threadIdx.x;
-    const long long len = i < n ? (long long)lens[i] : 0;
-    const long long start =
-        block_start[blockIdx.x] + ie::block_exclusive_scan(len, warp_sums);
-    if (i >= n || len == 0) return;
-    const int s = (int)(start & 31);
-    const StreamSink sink{out, start >> 5, n_words};
-    const uint32_t* row = local + i * lw;
-    const int touched = (int)((s + len + 31) >> 5);
-    uint32_t prev = 0u;
-    for (int k = 0; k < touched; k++) {
-        const uint32_t cur = k < lw ? row[k] : 0u;
-        sink(k, s ? ((cur >> s) | (prev << (32 - s))) : cur);
-        prev = cur;
-    }
-}
 
 // ---- K4: one single-pass packer, three front ends ----
 
@@ -603,26 +577,463 @@ PackOut pack_out(long long n, long long start_bit, const void* prefix,
     return a;
 }
 
-}  // namespace
+// ---- K2: reduce, then pack with every tile's start known ----
 
-extern "C" int ie_pack_threads() { return kPackThreads; }
+// K2's records in stream order.  Without vectors (n_macro == 0) record i
+// is block i: register file local[i], lw words MSB-first, of lens[i] bits
+// (bits past the length are zero).  With them the stream is a video's: per
+// frame f, n_macro vector records (x then y, nbits two's-complement bits
+// each, from mvecs[p] of the p-th P-frame; empty on an I-frame, f % gop ==
+// 0), then the frame's n_micro block records.  A block record longer than
+// its register file (K1 refused it) or of negative length is refused.  A
+// thread walks consecutive records with a cursor, so it divides once.
+// kVec false compiles the vector records out: a thread's loads then
+// depend on nothing but its first record's number.
+template <bool kVec>
+struct LocalsFront {
+    struct State {
+        const uint32_t* row;  // a block record's register file, or null
+        uint32_t w0, w1;      // the record's first two words
+        int len;
+    };
+    struct Cursor {
+        unsigned fi, j;  // frame, record in the frame (with vectors)
+        unsigned b;      // block (without)
+        unsigned pf;     // the frame's place among the P-frames
+        bool live;       // a P-frame: its vector records hold bits
+    };
+    const uint32_t* local;
+    const int32_t* lens;
+    int lw;
+    const int32_t* mvecs;
+    unsigned n_macro, n_micro;
+    int gop, nbits;
+
+    __device__ __forceinline__ void enter_frame(Cursor& c) const {
+        const unsigned g = c.fi / (unsigned)gop;
+        c.live = c.fi != g * (unsigned)gop;
+        c.pf = c.fi - g - 1u;
+    }
+
+    __device__ __forceinline__ Cursor at(long long i) const {
+        Cursor c{};
+        c.b = (unsigned)i;
+        if (kVec && n_macro) {
+            const unsigned per = n_macro + n_micro;
+            c.fi = (unsigned)i / per;
+            c.j = (unsigned)i - c.fi * per;
+            enter_frame(c);
+        }
+        return c;
+    }
+
+    // The record at the cursor into st (with kWords its first two words
+    // too) and the cursor one on.  Returns the length as stored, not yet
+    // checked (see refused): nothing here waits for a load, so the loads
+    // of a thread's consecutive records are in flight together.
+    template <bool kWords>
+    __device__ __forceinline__ int next(Cursor& c, State& st) const {
+        unsigned b = c.b++;
+        if (kVec && n_macro) {
+            const unsigned j = c.j;
+            const bool live = c.live;
+            const unsigned at = c.pf * n_macro + j;
+            b = c.fi * n_micro + (j - n_macro);
+            if (++c.j == n_macro + n_micro) {
+                c.j = 0u;
+                c.fi++;
+                enter_frame(c);
+            }
+            if (j < n_macro) {
+                st.row = nullptr;
+                st.w0 = st.w1 = 0u;
+                if (!live) return st.len = 0;
+                const int2 v = __ldg(reinterpret_cast<const int2*>(mvecs)
+                                     + at);
+                const uint32_t m = (1u << nbits) - 1u;
+                st.w0 = (((uint32_t)v.x & m) << (32 - nbits))
+                        | (((uint32_t)v.y & m) << (32 - 2 * nbits));
+                return st.len = 2 * nbits;
+            }
+        }
+        st.row = local + (long long)b * lw;
+        st.len = __ldg(lens + b);
+        if (kWords) {
+            st.w0 = __ldg(st.row);
+            st.w1 = lw > 1 ? __ldg(st.row + 1) : 0u;
+        }
+        return st.len;
+    }
+
+    // A length no record may have: negative, or past the register file.
+    __device__ __forceinline__ bool refused(int len) const {
+        return len < 0 || len > 32 * lw;
+    }
+
+    // Record i into st and its length, -1 where it is refused.
+    __device__ __forceinline__ long long length(long long i,
+                                                State& st) const {
+        Cursor c = at(i);
+        const int len = next<true>(c, st);
+        return refused(len) ? -1 : len;
+    }
+
+    // The first record at or after i that may hold bits: past an I-frame's
+    // run of empty vector records in one step.
+    __device__ __forceinline__ long long skip_empty(long long i) const {
+        if (!kVec || !n_macro) return i;
+        const Cursor c = at(i);
+        return (c.j < n_macro && !c.live)
+            ? (long long)c.fi * (n_macro + n_micro) + n_macro : i;
+    }
+
+    // The record's words, shifted to start `lead` bits into the first,
+    // handed to sink(k, word) for k = 0 .. touched - 1.
+    template <class Sink>
+    __device__ __forceinline__ void emit_words(const State& st, int lead,
+                                               const Sink& sink) const {
+        const int own = (st.len + 31) >> 5;
+        const int touched = (lead + st.len + 31) >> 5;
+        uint32_t prev = 0u;
+        for (int k = 0; k < touched; k++) {
+            const uint32_t cur = k >= own ? 0u : k == 0 ? st.w0
+                : k == 1 ? st.w1 : __ldg(st.row + k);
+            sink(k, __funnelshift_r(cur, prev, lead));
+            prev = cur;
+        }
+    }
+};
+
+// A record's words into the words a tile owns, span[0 .. nspan): words
+// outside them belong to a neighbouring tile and are dropped.  The
+// record's first and last word may be shared with its neighbours
+// (shared-memory atomicOr); the interior ones are its alone.
+struct OwnedSink {
+    uint32_t* span;
+    int base;
+    int last;
+    int nspan;
+    __device__ __forceinline__ void operator()(int k, uint32_t w) const {
+        const int i = base + k;
+        if ((unsigned)i >= (unsigned)nspan) return;
+        if (k == 0 || k == last) {
+            if (w != 0u) atomicOr(span + i, w);
+        } else {
+            span[i] = w;
+        }
+    }
+};
+
+// Record `st` of `len` > 0 bits at stream bit `pos` into the owned words.
+template <class Front>
+__device__ __forceinline__ void emit_owned(
+        const Front& fe, const typename Front::State& st, int len,
+        long long pos, long long w0, uint32_t* span, int nspan) {
+    const int lead = (int)(pos & 31);
+    fe.emit_words(st, lead, OwnedSink{span, (int)((pos >> 5) - w0),
+                                      ((lead + len + 31) >> 5) - 1, nspan});
+}
+
+// One scan-free pack's outputs.  sums: i64 [n_tiles + ceil(n_tiles /
+// kWarps)], tile t's bits and then each group of kWarps tiles', or -1
+// where one holds a refused record; total: i64 [1].
+struct KnownOut {
+    long long n;  // records
+    long long n_tiles;
+    long long start_bit;
+    const uint32_t* prefix;
+    long long prefix_words;
+    uint32_t* out;
+    long long n_words;
+    long long* sums;
+    long long* total;
+
+    __device__ __forceinline__ uint32_t prefix_word(long long w) const {
+        return w < prefix_words ? prefix[w] : 0u;
+    }
+};
+
+constexpr int kWarps = kTile / 32;
+
+// Launch 1: the bits of each tile of kTile * ITEMS records, a warp a
+// tile and kWarps tiles (a group) a CTA: tile t's into sums[t], group g's
+// into sums[n_tiles + g]; -1 for one that holds a refused record.  grid:
+// ceil(n_tiles / kWarps).
+template <int ITEMS, class Front>
+__global__ void __launch_bounds__(kTile) tile_sums_kernel(Front fe,
+                                                          KnownOut a) {
+    constexpr int kPerLane = kWarps * ITEMS;  // kTile * ITEMS / 32
+    __shared__ long long warp_sum[kWarps];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const long long t = (long long)blockIdx.x * kWarps + warp;
+    const long long first = (t * 32 + lane) * kPerLane;
+    typename Front::Cursor c = fe.at(first);
+    int len[kPerLane];
+#pragma unroll
+    for (int r = 0; r < kPerLane; r++) {
+        typename Front::State st;
+        len[r] = first + r < a.n ? fe.template next<false>(c, st) : 0;
+    }
+    int sum = 0;  // a tile's bits fit: kTile * ITEMS records of <= 32 * lw
+    int bad = 0;
+#pragma unroll
+    for (int r = 0; r < kPerLane; r++)
+        if (fe.refused(len[r])) bad = 1; else sum += len[r];
+    sum = __reduce_add_sync(0xffffffffu, sum);
+    bad = __any_sync(0xffffffffu, bad);
+    const long long tile = bad ? -1 : sum;
+    if (lane == 0) {
+        if (t < a.n_tiles) a.sums[t] = tile;
+        warp_sum[warp] = tile;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        long long group = 0;
+        for (int k = 0; k < kWarps; k++)
+            group = (group < 0 || warp_sum[k] < 0) ? -1 : group + warp_sum[k];
+        a.sums[a.n_tiles + blockIdx.x] = group;
+    }
+}
+
+// Launch 2: tile t of kTile * ITEMS records, each thread ITEMS consecutive
+// ones.  The tile starts at start_bit plus the sums before it and owns the
+// words whose first bit lies in its bits (tile 0 also the word that holds
+// start_bit and the prefix words before it).  Its records go into those
+// words in shared memory; the bits its last word lacks come from the
+// records that follow, read by warp 0; then the words leave, the prefix
+// OR'd in.  A tile with a refused record writes nothing and the last tile
+// reports the total as -1.  Everything a thread reads up front (its
+// records' lengths and first two words, the sums) is asked for before the
+// one barrier that the starts need, so a CTA waits for memory once; a
+// record's further words are read as it is emitted.  grid: n_tiles.
+template <int ITEMS, class Front>
+__global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
+                                                           KnownOut a) {
+    constexpr long long kRecords = (long long)kTile * ITEMS;
+    extern __shared__ __align__(16) uint32_t span[];
+    __shared__ long long warp_before[kWarps];
+    __shared__ int warp_bits[kWarps];
+    __shared__ int warp_bad[kWarps];
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const long long t = blockIdx.x;
+
+    const long long first = t * kRecords + (long long)tid * ITEMS;
+    typename Front::Cursor c = fe.at(first);
+    typename Front::State rec[ITEMS];
+    int lens[ITEMS];
+#pragma unroll
+    for (int r = 0; r < ITEMS; r++)
+        lens[r] = first + r < a.n ? fe.template next<true>(c, rec[r]) : 0;
+
+    // The bits before this tile: the groups before its own, then the
+    // tiles before it in its group.
+    const long long mine = a.sums[t];
+    const long long group = t / kWarps;
+    long long before = 0;
+    int bad = 0;
+    for (long long u = tid; u < group + t % kWarps; u += kTile) {
+        const long long v =
+            a.sums[u < group ? a.n_tiles + u : group * kWarps + u - group];
+        if (v < 0) bad = 1; else before += v;
+    }
+    int sum = 0;
+#pragma unroll
+    for (int r = 0; r < ITEMS; r++) {
+        if (mine < 0) lens[r] = 0;  // a tile with a refused record
+        sum += lens[r];  // else every length is one a record may have
+    }
+    // At most ceil((31 + bits) / 32) + 1 words are owned.
+    const int cover = (int)((max(mine, 0ll) + 62) >> 5) + 1;
+    for (int k = tid; k < cover; k += kTile) span[k] = 0u;
+
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        before += __shfl_xor_sync(0xffffffffu, before, o);
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 31) warp_bits[warp] = incl;
+    if (lane == 0) {
+        warp_before[warp] = before;
+        warp_bad[warp] = bad;
+    }
+    __syncthreads();
+    long long s0 = a.start_bit;
+    int excl = incl - sum;
+    bad = 0;
+#pragma unroll
+    for (int k = 0; k < kWarps; k++) {
+        s0 += warp_before[k];
+        bad |= warp_bad[k];
+        if (k < warp) excl += warp_bits[k];
+    }
+    const long long s1 = s0 + max(mine, 0ll);
+    if (t == a.n_tiles - 1 && tid == 0)
+        *a.total = (bad || mine < 0) ? -1 : s1;
+    const long long w0 = t == 0 ? a.start_bit >> 5 : (s0 + 31) >> 5;
+    const long long w1 = (s1 + 31) >> 5;
+    const int nspan = (int)(w1 - w0);
+
+    long long rs = s0 + excl;
+#pragma unroll
+    for (int r = 0; r < ITEMS; r++) {
+        if (lens[r] > 0)
+            emit_owned(fe, rec[r], lens[r], rs, w0, span, nspan);
+        rs += lens[r];
+    }
+
+    // The last word's bits past this tile's end, from the records that
+    // follow, 32 at a time; only their parts of that word land.
+    const int need = (int)(32 * w1 - s1);
+    if (tid < 32 && nspan > 0 && need > 0) {
+        long long i = min((t + 1) * kRecords, a.n);
+        int got = 0;
+        while (got < need && i < a.n) {
+            i = fe.skip_empty(i);
+            typename Front::State so;
+            const int len = i + tid < a.n
+                ? max((int)fe.length(i + tid, so), 0) : 0;
+            int upto = len;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int up = __shfl_up_sync(0xffffffffu, upto, o);
+                if (tid >= o) upto += up;
+            }
+            const int at = got + upto - len;
+            if (len > 0 && at < need)
+                emit_owned(fe, so, len, s1 + at, w0, span, nspan);
+            got += __shfl_sync(0xffffffffu, upto, 31);
+            i += 32;
+        }
+    }
+    __syncthreads();
+
+    const long long hi = min(w1, a.n_words);
+    if (w0 < hi) {
+        const long long a0 = min((w0 + 3) & ~3ll, hi);
+        const long long a1 = a0 + ((hi - a0) & ~3ll);
+        if (tid < a0 - w0)
+            a.out[w0 + tid] = span[tid] | a.prefix_word(w0 + tid);
+        if (tid < hi - a1)
+            a.out[a1 + tid] = span[a1 + tid - w0] | a.prefix_word(a1 + tid);
+        for (long long v = a0 + 4 * tid; v < a1; v += 4 * kTile) {
+            const uint32_t* sp = span + (v - w0);
+            *reinterpret_cast<uint4*>(a.out + v) = make_uint4(
+                sp[0] | a.prefix_word(v), sp[1] | a.prefix_word(v + 1),
+                sp[2] | a.prefix_word(v + 2), sp[3] | a.prefix_word(v + 3));
+        }
+    }
+    if (t == 0) {
+        const long long head = min(a.start_bit >> 5, a.n_words);
+        for (long long w = tid; w < head; w += kTile)
+            a.out[w] = a.prefix_word(w);
+    }
+}
+
+// K2's front end from its entry point's arguments, and the number of
+// records into *n; false where they are not a stream K2 takes.
+bool locals_front(const void* local, const void* lens, long long n_blocks,
+                  int lw, const void* mvecs, long long n_frames,
+                  long long n_macro, int gop, int mvec_nbits,
+                  LocalsFront<true>* fe, long long* n) {
+    if (lw < 1 || n_blocks < 0) return false;
+    *fe = LocalsFront<true>{};
+    fe->local = (const uint32_t*)local;
+    fe->lens = (const int32_t*)lens;
+    fe->lw = lw;
+    *n = n_blocks;
+    if (n_macro > 0) {
+        if (n_frames < 1 || n_blocks % n_frames || gop < 1 || mvec_nbits < 1
+            || mvec_nbits > 16 || n_macro >= (1ll << 31))
+            return false;
+        fe->mvecs = (const int32_t*)mvecs;
+        fe->n_macro = (unsigned)n_macro;
+        fe->n_micro = (unsigned)(n_blocks / n_frames);
+        fe->gop = gop;
+        fe->nbits = mvec_nbits;
+        *n += n_frames * n_macro;
+    }
+    return *n < (1ll << 31);
+}
+
+// Records a thread of K2's pack takes: a tile's words (kTile * items * lw
+// and three of slack) stay within 16 KB of shared memory where they can;
+// 4 a thread measured slower, the CTAs being fewer and longer.
+int locals_items(int lw) { return lw <= 8 ? 2 : 1; }
+
+template <int ITEMS, bool kVec>
+int launch_locals(const LocalsFront<kVec>& fe, KnownOut a, cudaStream_t s) {
+    const long long records = (long long)kTile * ITEMS;
+    a.n_tiles = std::max(1ll, (a.n + records - 1) / records);
+    const size_t smem = (size_t)(records * fe.lw + 3) * sizeof(uint32_t);
+    auto* kernel = pack_known_kernel<ITEMS, LocalsFront<kVec>>;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const long long groups = (a.n_tiles + kWarps - 1) / kWarps;
+    tile_sums_kernel<ITEMS><<<(unsigned)groups, kTile, 0, s>>>(fe, a);
+    kernel<<<(unsigned)a.n_tiles, kTile, smem, s>>>(fe, a);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" const char* ie_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// local: u32 [N, lw]; lens: i32 [N]; block_start: i64 [ceil(N / 256)], the
-// absolute start bit of each block of 256 records; out: u32 [n_words],
-// zeroed or pre-filled with bits that lie before start_bit.
+// K2.  local: u32 [n_blocks, lw]; lens: i32 [n_blocks]; mvecs: i32
+// [P, n_macro, 2], 8-byte aligned, the P-frames' vectors in order, with
+// n_frames frames in GOPs of gop and mvec_nbits (1..16) bits a component,
+// or n_macro == 0 for block records alone (see LocalsFront).  start_bit,
+// prefix, out and total as for K4 below, out not zeroed; sums: i64
+// [ie_pack_locals_scratch(records, lw)], scratch that needs no clearing.
+// Fewer than 2^31 records.
+extern "C" int ie_pack_locals_scratch(long long n_records, int lw) {
+    const long long records = (long long)kTile * locals_items(lw);
+    const long long tiles = std::max(1ll, (n_records + records - 1) / records);
+    return (int)(tiles + (tiles + kWarps - 1) / kWarps);
+}
+
 extern "C" int ie_pack_locals(const void* local, const void* lens,
-                              long long n, int lw, const void* block_start,
-                              void* out, long long n_words, void* stream) {
-    if (n <= 0) return (int)cudaGetLastError();
-    const unsigned grid = (unsigned)((n + kPackThreads - 1) / kPackThreads);
-    pack_locals_kernel<<<grid, kPackThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)local, (const int32_t*)lens, n, lw,
-        (const long long*)block_start, (uint32_t*)out, n_words);
-    return (int)cudaGetLastError();
+                              long long n_blocks, int lw, const void* mvecs,
+                              long long n_frames, long long n_macro, int gop,
+                              int mvec_nbits, long long start_bit,
+                              const void* prefix, long long prefix_words,
+                              void* out, long long n_words, void* sums,
+                              void* total, void* stream) {
+    LocalsFront<true> fe;
+    KnownOut a{};
+    if (!locals_front(local, lens, n_blocks, lw, mvecs, n_frames, n_macro,
+                      gop, mvec_nbits, &fe, &a.n))
+        return (int)cudaErrorInvalidValue;
+    a.start_bit = start_bit;
+    a.prefix = (const uint32_t*)prefix;
+    a.prefix_words = prefix ? prefix_words : 0;
+    a.out = (uint32_t*)out;
+    a.n_words = n_words;
+    a.sums = (long long*)sums;
+    a.total = (long long*)total;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int items = locals_items(lw);
+    if (fe.n_macro)
+        return items == 2 ? launch_locals<2>(fe, a, s)
+                          : launch_locals<1>(fe, a, s);
+    LocalsFront<false> blocks{};  // the image path: no vector records
+    blocks.local = fe.local;
+    blocks.lens = fe.lens;
+    blocks.lw = lw;
+    return items == 2 ? launch_locals<2>(blocks, a, s)
+                      : launch_locals<1>(blocks, a, s);
 }
 
 // The K4 entry points share their tail: start_bit; prefix, u32

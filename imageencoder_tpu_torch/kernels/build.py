@@ -43,9 +43,12 @@ SIGNATURES = {
     "ie_quantize_image": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P],
     "ie_recon_step": [_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P],
     "ie_motion_search": [_P, _P, _I64, _I32, _I32, _I32, _P, _P],
+    "ie_search_predict": [_P, _P, _I64, _I32, _I32, _I32, _P, _P, _P],
+    "ie_search_residual": [_P, _I64, _I32, _I32, _I32, _I32, _P, _P, _P],
     "ie_predict": [_P, _P, _I64, _I32, _I32, _P, _P],
-    "ie_pack_locals": [_P, _P, _I64, _I32, _P, _P, _I64, _P],
-    "ie_pack_threads": [],
+    "ie_pack_locals": [_P, _P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _I64,
+                       _P, _I64, _P, _I64, _P, _P, _P],
+    "ie_pack_locals_scratch": [_I64, _I32],
     "ie_pack_tile": [],
     "ie_pack_records": [_P, _P, _I64, _I32, *_K4_TAIL],
     "ie_pack_payload": [_P, _I64, _I64, _P, _P, *_K4_TAIL],

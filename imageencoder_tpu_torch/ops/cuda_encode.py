@@ -9,8 +9,8 @@ stream.  The input is u8 pixels, or int16 video samples: frames stacked as
 [F*H, W], I-frame rows holding pixels and P-frame rows the residual
 cur - pred.  ``lw`` follows from the dtype: u8 takes ``frontend_lw``,
 int16 the residual range's ``video_lw``.  A record longer than lw words
-is refused, not truncated: an overflow flag comes back with the records
-and turns the stream's total into -1, on which the host raises.  K1
+is refused, not truncated: an overflow flag comes back with the records,
+and K2 turns the stream's total into -1, on which the host raises.  K1
 divides by a quant entry through its reciprocal (:func:`reciprocals`),
 which gives the correctly rounded quotient for the integers 1..255
 (:func:`division_sweep` checks it on the card).
@@ -234,8 +234,9 @@ def encode_locals(img: torch.Tensor, quant, block_size: int = 4,
 
     overflow is 1 where a record is longer than lw words (an input outside
     its dtype's bound); that record is refused, not truncated.  The flag
-    stays on the device: :func:`refuse_overflow` carries it into the
-    stream's total, which the host reads anyway.
+    stays on the device; K2 (cuda_pack.pack_locals) refuses the same
+    record and reports the stream's total as -1, which the host reads
+    anyway.
 
     A CPU tensor runs the plain version; a CUDA tensor launches K1.
     """
@@ -291,14 +292,6 @@ def division_sweep(device, k_max: int, n_random: int,
     bad, checks, y_bits, q = out.tolist()
     y = float(np.array([y_bits], np.int64).view(np.float64)[0])
     return {"mismatches": bad, "checks": checks, "y": y, "q": q}
-
-
-def refuse_overflow(total_bits: torch.Tensor,
-                    overflow: torch.Tensor) -> torch.Tensor:
-    """The stream's total bits, or -1 where K1 refused a record: the host
-    raises on it where it reads the total (device_pack.host_total), so the
-    check adds no wait of its own."""
-    return torch.where(overflow.reshape(()) != 0, -1, total_bits)
 
 
 def quantize_image_plain(img: torch.Tensor, quant, block_size: int = 4,

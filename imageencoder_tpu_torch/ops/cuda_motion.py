@@ -2,13 +2,21 @@
 
 The counterparts of imageencoder_tpu/ops/pallas_motion.py (sad_maps_pallas
 with the descent of video_pipeline.sad_motion_search, and
-predict_translate_pallas).  On a CUDA tensor :func:`motion_search` and
-:func:`predict` launch csrc/motion.cu; on a CPU tensor they run the plain
-versions of ops/motion.py.  K6 searches each macroblock directly and
-builds no SAD maps; the vectors equal the plain descent's bit for bit.
-K6 reads the frames as 32-bit words and 16-byte vectors, so their data
-must start 16-byte aligned: frames of a contiguous [F, H, W] tensor with
-H * W a multiple of 256 do.
+predict_translate_pallas).  On a CUDA tensor the wrappers launch
+csrc/motion.cu; on a CPU tensor they run the plain versions of
+ops/motion.py.  K6 searches each macroblock directly and builds no SAD
+maps; the vectors equal the plain descent's bit for bit.
+
+The encode paths run the search with the prediction as its epilogue, one
+launch for both kernels: :func:`search_predict` (the recon path: vectors
+and the predicted frame) and :func:`search_residual` (the raw path: a
+whole video in, its vectors and the int16 residual stack that K1 reads
+out).  :func:`motion_search` (K6 alone) and :func:`predict` (K7 alone,
+the vectors given: what a decoder has) stay beside them.
+
+The kernels read the frames as 32-bit words and 16-byte vectors, so their
+data must start 16-byte aligned: frames of a contiguous [F, H, W] tensor
+with H * W a multiple of 256 do.
 """
 
 from __future__ import annotations
@@ -16,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
-from .motion import MACRO, motion_search_plain, predict_plain  # noqa: F401
+from .motion import (MACRO, motion_search_plain, p_frames,  # noqa: F401
+                     predict_plain)
 
 
 def _check_frames(x: torch.Tensor, name: str) -> None:
@@ -29,23 +38,34 @@ def _check_frames(x: torch.Tensor, name: str) -> None:
                          f"{MACRO}-pixel macroblock")
 
 
-def motion_search(cur: torch.Tensor, ref: torch.Tensor,
-                  merange: int) -> torch.Tensor:
-    """2D-log search of every macroblock of cur[f] in ref[f]: u8 [F, H, W]
-    each -> int32 [F, Nmb, 2] vectors as (x, y)."""
+def _check_pair(cur: torch.Tensor, ref: torch.Tensor) -> None:
+    """What the search takes: cur and ref u8 [F, H, W] of one shape, and
+    on the card contiguous and 16-byte aligned."""
     _check_frames(cur, "cur")
     if ref.shape != cur.shape:
         raise ValueError(f"ref {tuple(ref.shape)} != cur {tuple(cur.shape)}")
     if cur.device.type == "cpu":
+        return
+    for name, x in (("cur", cur), ("ref", ref)):
+        build.require(x, name, torch.uint8, 3, cur.device)
+        build.require_aligned(x, name)
+
+
+def _vectors(n_frames: int, h: int, w: int, dev) -> torch.Tensor:
+    return torch.empty((n_frames, (h // MACRO) * (w // MACRO), 2),
+                       dtype=torch.int32, device=dev)
+
+
+def motion_search(cur: torch.Tensor, ref: torch.Tensor,
+                  merange: int) -> torch.Tensor:
+    """2D-log search of every macroblock of cur[f] in ref[f]: u8 [F, H, W]
+    each -> int32 [F, Nmb, 2] vectors as (x, y)."""
+    _check_pair(cur, ref)
+    if cur.device.type == "cpu":
         return motion_search_plain(cur, ref, merange)
     dev = cur.device
-    build.require(cur, "cur", torch.uint8, 3, dev)
-    build.require(ref, "ref", torch.uint8, 3, dev)
-    build.require_aligned(cur, "cur")
-    build.require_aligned(ref, "ref")
     f, h, w = cur.shape
-    out = torch.empty((f, (h // MACRO) * (w // MACRO), 2), dtype=torch.int32,
-                      device=dev)
+    out = _vectors(f, h, w, dev)
     with torch.cuda.device(dev):
         code = build.library().ie_motion_search(
             cur.data_ptr(), ref.data_ptr(), f, h, w, int(merange),
@@ -71,6 +91,7 @@ def predict(ref: torch.Tensor, mvec: torch.Tensor) -> torch.Tensor:
         return predict_plain(ref, mvec)
     dev = ref.device
     build.require(ref, "ref", torch.uint8, 3, dev)
+    build.require_aligned(ref, "ref")
     build.require(mvec, "mvec", torch.int32, 3, dev)
     out = torch.empty_like(ref)
     with torch.cuda.device(dev):
@@ -83,3 +104,80 @@ def predict(ref: torch.Tensor, mvec: torch.Tensor) -> torch.Tensor:
 
 
 predict.launches = 0
+
+
+def search_predict_plain(cur: torch.Tensor, ref: torch.Tensor,
+                         merange: int):
+    """The plain version of :func:`search_predict`, on any device: the
+    plain search, then the plain prediction at its vectors."""
+    mvec = motion_search_plain(cur, ref, merange)
+    return mvec, predict_plain(ref, mvec)
+
+
+def search_predict(cur: torch.Tensor, ref: torch.Tensor, merange: int):
+    """K6 with K7 as its epilogue: cur, ref u8 [F, H, W] -> (int32
+    [F, Nmb, 2] vectors, u8 [F, H, W] prediction of cur[f] from ref[f] at
+    them), in one launch."""
+    _check_pair(cur, ref)
+    if cur.device.type == "cpu":
+        return search_predict_plain(cur, ref, merange)
+    dev = cur.device
+    f, h, w = cur.shape
+    mvec = _vectors(f, h, w, dev)
+    pred = torch.empty_like(cur)
+    with torch.cuda.device(dev):
+        code = build.library().ie_search_predict(
+            cur.data_ptr(), ref.data_ptr(), f, h, w, int(merange),
+            mvec.data_ptr(), pred.data_ptr(), build.stream_ptr(dev))
+    build.check(code, "ie_search_predict")
+    search_predict.launches += 1
+    return mvec, pred
+
+
+search_predict.launches = 0
+
+
+def search_residual_plain(frames: torch.Tensor, gop: int, merange: int):
+    """The plain version of :func:`search_residual`, on any device: the
+    P-frames selected, searched in and predicted from the frames before
+    them, and cur - pred put on their rows of the int16 stack."""
+    f, h, w = frames.shape
+    x = frames.to(torch.int16)
+    p_idx = p_frames(f, gop)
+    if not p_idx:
+        return _vectors(0, h, w, frames.device), x.reshape(f * h, w)
+    pi = torch.tensor(p_idx, device=frames.device)
+    cur = frames.index_select(0, pi)
+    ref = frames.index_select(0, pi - 1)
+    mvec, pred = search_predict_plain(cur, ref, merange)
+    x.index_copy_(0, pi, cur.to(torch.int16) - pred)
+    return mvec, x.reshape(f * h, w)
+
+
+def search_residual(frames: torch.Tensor, gop: int, merange: int):
+    """The raw-reference front of a video, in one launch: frames u8
+    [F, H, W] in GOPs of ``gop`` -> (int32 [P, Nmb, 2] vectors of the P
+    frames (f % gop != 0), each searched in the raw frame before it, and
+    the int16 [F*H, W] stack K1 reads: the pixels on an I-frame's rows,
+    cur - pred on a P-frame's)."""
+    _check_frames(frames, "frames")
+    if gop < 1:
+        raise ValueError(f"gop must be at least 1, got {gop}")
+    if frames.device.type == "cpu":
+        return search_residual_plain(frames, gop, merange)
+    dev = frames.device
+    build.require(frames, "frames", torch.uint8, 3, dev)
+    build.require_aligned(frames, "frames")
+    f, h, w = frames.shape
+    mvec = _vectors(len(p_frames(f, gop)), h, w, dev)
+    stack = torch.empty((f * h, w), dtype=torch.int16, device=dev)
+    with torch.cuda.device(dev):
+        code = build.library().ie_search_residual(
+            frames.data_ptr(), f, h, w, int(merange), int(gop),
+            mvec.data_ptr(), stack.data_ptr(), build.stream_ptr(dev))
+    build.check(code, "ie_search_residual")
+    search_residual.launches += 1
+    return mvec, stack
+
+
+search_residual.launches = 0

@@ -3,7 +3,9 @@
 The counterpart of imageencoder_tpu/ops/pallas_pack.py:
 
   * :func:`pack_locals` (K2, pack_locals_pallas) concatenates register
-    files and bit lengths from the encode front end (ops/cuda_encode.py);
+    files and bit lengths from the encode front end (ops/cuda_encode.py)
+    and, for a video, each P-frame's motion-vector records before the
+    frame's blocks, read from the vectors where they lie;
   * K4 (pack_records_pallas) is one single-pass kernel with three front
     ends, each of which reads its records' fields where they already are:
     :func:`pack_records` [N, F] field tensors of (value, nbits) pairs,
@@ -14,14 +16,15 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
     and the vector fields, then the pack).
 
 All return (words int32 [n_words], total_bits int64 0-d tensor, start_bit
-included); the words are the u32 stream, MSB-first.  ``prefix`` words,
-the header or dict bits that lie before ``start_bit``, are OR'd into the
-first words.  On a CPU tensor the wrappers run the plain versions, which
-return zeros past the stream.  On a CUDA tensor they launch csrc/pack.cu:
-K2 zeroes its buffer, K4 writes the stream's words up to its last one and
-leaves the rest of the buffer as allocated (:func:`stream_words` is the
-part that is defined).  The total and every start stay on the device:
-nothing waits on the host.
+included, -1 where a record was refused); the words are the u32 stream,
+MSB-first.  ``prefix`` words, the header or dict bits that lie before
+``start_bit``, are OR'd into the first words.  On a CPU tensor the
+wrappers run the plain versions, which return zeros past the stream.  On
+a CUDA tensor they launch csrc/pack.cu, which writes the stream's words up
+to its last one and leaves the rest of the buffer as allocated
+(:func:`stream_words` is the part that is defined).  The wrappers run
+nothing on the device but their kernels (K4 also clears its scratch), and
+the total and every start stay there: nothing waits on the host.
 """
 
 from __future__ import annotations
@@ -30,20 +33,8 @@ import torch
 
 from ..kernels import build
 from . import cuda_encode, device_pack, rle
+from .motion import p_frames
 from .zigzag import zigzag_order
-
-
-def _block_starts(lens: torch.Tensor, start_bit: int):
-    """Absolute start bit of each K2 block of records, and the total:
-    per-block sums of the record lengths through torch.cumsum in int64."""
-    threads = build.library().ie_pack_threads()
-    n = lens.shape[0]
-    g = -(-n // threads)
-    padded = torch.zeros(g * threads, dtype=torch.int64, device=lens.device)
-    padded[:n] = lens
-    sums = padded.view(g, threads).sum(dim=1)
-    starts = start_bit + torch.cumsum(sums, dim=0) - sums
-    return starts, start_bit + sums.sum()
 
 
 def stream_words(words: torch.Tensor, total_bits) -> torch.Tensor:
@@ -54,36 +45,120 @@ def stream_words(words: torch.Tensor, total_bits) -> torch.Tensor:
     return words[:(total + 31) // 32]
 
 
+def mvec_words(mvec: torch.Tensor, mvec_nbits: int) -> torch.Tensor:
+    """Motion vectors int32 [..., 2] -> their record as one MSB-first word
+    (int32 bits): x then y, mvec_nbits two's-complement bits each
+    (pallas_encode.py::mvec_locals)."""
+    nb = mvec_nbits
+    m = mvec.to(torch.int64) & ((1 << nb) - 1)
+    return device_pack.as_int32((m[..., 0] << (32 - nb))
+                                | (m[..., 1] << (32 - 2 * nb)))
+
+
+def merged_locals(local, lens, mvecs, n_frames: int, gop: int,
+                  mvec_nbits: int):
+    """A video's records in stream order as one register-file tensor:
+    per frame, its macroblocks' vector records (one word each; zero length
+    on an I-frame, f % gop == 0), then its block records.  local int32
+    [F * n_micro, lw], lens int32 [F * n_micro], mvecs int32
+    [P, n_macro, 2] -> (int32 [F * (n_macro + n_micro), lw], int32 [...])."""
+    f = n_frames
+    dev = local.device
+    lw = local.shape[1]
+    n_macro = mvecs.shape[1]
+    mlocal = torch.zeros((f, n_macro, lw), dtype=torch.int32, device=dev)
+    mlens = torch.zeros((f, n_macro), dtype=torch.int32, device=dev)
+    p_idx = p_frames(f, gop)
+    if p_idx and n_macro:
+        pi = torch.tensor(p_idx, device=dev)
+        mlocal[pi, :, 0] = mvec_words(mvecs, mvec_nbits)
+        mlens[pi] = 2 * mvec_nbits
+    merged = torch.cat([mlocal, local.view(f, -1, lw)], dim=1)
+    merged_lens = torch.cat([mlens, lens.view(f, -1)], dim=1)
+    return merged.reshape(-1, lw), merged_lens.reshape(-1)
+
+
 def pack_locals_plain(local, lens, start_bit: int, n_words: int,
-                      prefix=None):
-    """The plain version of K2, on any device."""
-    return device_pack.merge_records(device_pack.as_uint(local), lens,
-                                     start_bit, n_words, prefix)
+                      prefix=None, mvecs=None, n_frames: int = 1,
+                      gop: int = 1, mvec_nbits: int = 0):
+    """The plain version of K2, on any device: the vector records, where
+    given, merged in by copies (:func:`merged_locals`), then the plain
+    packer; total -1 where a record is longer than its register file."""
+    refused = ((lens < 0) | (lens > 32 * local.shape[1])).any()
+    if mvecs is not None:
+        local, lens = merged_locals(local, lens, mvecs, n_frames, gop,
+                                    mvec_nbits)
+    words, total = device_pack.merge_records(
+        device_pack.as_uint(local), lens, start_bit, n_words, prefix)
+    return words, torch.where(refused, -1, total)
+
+
+def _check_vectors(local, mvecs, n_frames: int, gop: int,
+                   mvec_nbits: int) -> None:
+    if mvecs.dim() != 3 or mvecs.shape[2] != 2:
+        raise ValueError(f"mvecs: expected [P, n_macro, 2], got "
+                         f"{tuple(mvecs.shape)}")
+    if gop < 1:
+        raise ValueError(f"gop must be at least 1, got {gop}")
+    n_p = len(p_frames(n_frames, gop))
+    if mvecs.shape[0] != n_p:
+        raise ValueError(f"mvecs has {mvecs.shape[0]} frames, a video of "
+                         f"{n_frames} frames in GOPs of {gop} has {n_p} "
+                         f"P-frames")
+    if n_frames < 1 or local.shape[0] % n_frames:
+        raise ValueError(f"{local.shape[0]} block records do not split "
+                         f"into {n_frames} frames")
+    if mvecs.shape[1] and not 1 <= mvec_nbits <= 16:
+        raise ValueError(f"mvec_nbits must be 1..16, got {mvec_nbits}")
 
 
 def pack_locals(local: torch.Tensor, lens: torch.Tensor, start_bit: int,
-                n_words: int, prefix: torch.Tensor | None = None):
-    """Pack register files int32 [N, lw] with bit lengths int32 [N]."""
+                n_words: int, prefix: torch.Tensor | None = None,
+                mvecs: torch.Tensor | None = None, n_frames: int = 1,
+                gop: int = 1, mvec_nbits: int = 0):
+    """Pack register files int32 [N, lw] with bit lengths int32 [N].
+
+    With ``mvecs`` (int32 [P, n_macro, 2]) the records are a video's, of
+    ``n_frames`` frames in GOPs of ``gop``: each P-frame's (f % gop != 0)
+    n_macro vector records, x then y at ``mvec_nbits`` bits each, go
+    before the frame's N / n_frames block records.  A record longer than
+    its register file (one K1 refused) makes the total -1."""
+    if local.dim() != 2 or lens.shape != local.shape[:1]:
+        raise ValueError(f"expected local [N, lw] and lens [N], got "
+                         f"{tuple(local.shape)} and {tuple(lens.shape)}")
+    if mvecs is not None:
+        _check_vectors(local, mvecs, n_frames, gop, mvec_nbits)
     if local.device.type == "cpu":
-        return pack_locals_plain(local, lens, start_bit, n_words, prefix)
+        return pack_locals_plain(local, lens, start_bit, n_words, prefix,
+                                 mvecs, n_frames, gop, mvec_nbits)
     dev = local.device
     build.require(local, "local", torch.int32, 2, dev)
     build.require(lens, "lens", torch.int32, 1, dev)
     n, lw = local.shape
-    if lens.shape[0] != n:
-        raise ValueError(f"lens has {lens.shape[0]} records, local {n}")
-    starts, total = _block_starts(lens, start_bit)
-    out = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    n_macro, mvec_ptr = 0, None
+    if mvecs is not None and mvecs.shape[1]:
+        build.require(mvecs, "mvecs", torch.int32, 3, dev)
+        if mvecs.numel():
+            build.require_aligned(mvecs, "mvecs", 8)
+        n_macro, mvec_ptr = mvecs.shape[1], mvecs.data_ptr()
+    prefix_ptr, prefix_words = None, 0
     if prefix is not None:
-        m = min(prefix.shape[0], n_words)
-        out[:m] = prefix[:m]
+        build.require(prefix, "prefix", torch.int32, 1, dev)
+        prefix_ptr, prefix_words = prefix.data_ptr(), prefix.shape[0]
+    lib = build.library()
+    sums = torch.empty(lib.ie_pack_locals_scratch(n + n_frames * n_macro, lw),
+                       dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    out = torch.empty(n_words, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        code = build.library().ie_pack_locals(
-            local.data_ptr(), lens.data_ptr(), n, lw, starts.data_ptr(),
-            out.data_ptr(), n_words, build.stream_ptr(dev))
+        code = lib.ie_pack_locals(
+            local.data_ptr(), lens.data_ptr(), n, lw, mvec_ptr, n_frames,
+            n_macro, gop, mvec_nbits, start_bit, prefix_ptr, prefix_words,
+            out.data_ptr(), n_words, sums.data_ptr(), total.data_ptr(),
+            build.stream_ptr(dev))
     build.check(code, "ie_pack_locals")
     pack_locals.launches += 1
-    return out, total
+    return out, total.reshape(())
 
 
 pack_locals.launches = 0
@@ -215,7 +290,7 @@ def coeff_fields(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
     bv, bb = rle.block_fields(czz, rle.block_stats(czz, use_rle), use_rle)
     mv = torch.zeros((f, n_macro, k + 2), dtype=torch.int32, device=dev)
     mb = torch.zeros_like(mv)
-    p_idx = [fi for fi in range(f) if fi % gop]
+    p_idx = p_frames(f, gop)
     if p_idx and n_macro:
         pi = torch.tensor(p_idx, device=dev)
         mv[pi, :, :2] = mvecs.to(torch.int32)
@@ -255,7 +330,7 @@ def pack_coeffs(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
                          f"got {tuple(coeffs.shape)} and "
                          f"{tuple(mvecs.shape)}")
     f, h, w = coeffs.shape
-    n_p = sum(1 for fi in range(f) if fi % gop)
+    n_p = len(p_frames(f, gop))
     if mvecs.shape[0] != n_p:
         raise ValueError(f"mvecs has {mvecs.shape[0]} frames, the video "
                          f"{n_p} P-frames")

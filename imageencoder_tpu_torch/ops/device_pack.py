@@ -86,7 +86,7 @@ def words_to_numpy(words: torch.Tensor) -> np.ndarray:
 
 def host_total(total_bits) -> int:
     """A stream's total bits as a host int.  Raises on -1, the total of an
-    encode whose K1 refused a record (cuda_encode.refuse_overflow)."""
+    encode with a refused record (cuda_pack.pack_locals, pack_coeffs)."""
     total = int(total_bits)
     if total < 0:
         raise ValueError("a block record is longer than its register file "

@@ -37,6 +37,11 @@ MER_SIGNS = np.array([(0, 0), (1, 0), (1, 1), (0, 1), (-1, 1),
                       (-1, 0), (-1, -1), (0, -1), (1, -1)], dtype=np.int32)
 
 
+def p_frames(n_frames: int, gop: int) -> list[int]:
+    """Indices of a video's P-frames: every frame but each GOP's first."""
+    return [f for f in range(n_frames) if f % gop]
+
+
 def search_steps(merange: int) -> list[int]:
     """Per-level step sizes: merange//2, //4, ... 1 (algo.cpp:119-139)."""
     steps = []

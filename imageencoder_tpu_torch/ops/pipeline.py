@@ -32,16 +32,15 @@ def make_encode_packed(block_size: int = 4, use_rle: bool = True,
                        norm: str = "reference"):
     """f(img u8 [H, W], quant [B, B], start_bit, header_words int32 [64])
     -> (words int32 [9N + 64], total_bits int64 0-d tensor, -1 where K1
-    refused a record)."""
+    refused a record: K2 refuses it too)."""
     k = block_size * block_size
 
     def encode_packed(img, quant, start_bit: int, header_words):
-        local, lens, overflow = cuda_encode.encode_locals(
-            img, quant, block_size, use_rle, norm)
-        words, total = cuda_pack.pack_locals(
+        local, lens, _ = cuda_encode.encode_locals(img, quant, block_size,
+                                                   use_rle, norm)
+        return cuda_pack.pack_locals(
             local, lens, start_bit,
             packed_words_bound(local.shape[0], k + 2), prefix=header_words)
-        return words, cuda_encode.refuse_overflow(total, overflow)
 
     return encode_packed
 

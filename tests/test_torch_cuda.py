@@ -79,6 +79,28 @@ def test_encode_locals_kernel_equals_plain(dev, h, w, b, norm, use_rle,
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def dirtied(dev, n_words: int) -> None:
+    """Fill a buffer of n_words with ones and free it, so that the next
+    torch.empty of that size most likely gets the same memory back: a
+    pack that depended on its output being zero would then show."""
+    torch.full((n_words,), -1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+
+
+def held_pack_locals(dev, *args, **kwargs):
+    """K2 against its plain version over the stream's words (K2 leaves
+    the rest of its buffer as allocated); returns the total."""
+    dirtied(dev, args[3])
+    before = cuda_pack.pack_locals.launches
+    got = cuda_pack.pack_locals(*args, **kwargs)
+    assert cuda_pack.pack_locals.launches == before + 1
+    want = cuda_pack.pack_locals_plain(*args, **kwargs)
+    assert int(got[1]) == int(want[1])
+    assert torch.equal(cuda_pack.stream_words(*got),
+                       cuda_pack.stream_words(*want))
+    return int(got[1])
+
+
 @pytest.mark.parametrize("start", [0, 37, 2047])
 def test_pack_locals_kernel_equals_plain(dev, start):
     img = torch.from_numpy(image(128, 64, 5)).to(dev)
@@ -86,9 +108,86 @@ def test_pack_locals_kernel_equals_plain(dev, start):
     nw = local.shape[0] * 9 + 64
     prefix = torch.full((2,), -1, dtype=torch.int32, device=dev)
     prefix = prefix if start >= 64 else None
-    got = cuda_pack.pack_locals(local, lens, start, nw, prefix)
-    want = cuda_pack.pack_locals_plain(local, lens, start, nw, prefix)
-    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    assert held_pack_locals(dev, local, lens, start, nw, prefix) > start
+
+
+def random_locals(dev, n: int, lw: int, seed: int, zero_share: float = 0.2):
+    """Register files of random bits, zero past each record's length, as
+    K1 leaves them; a share of the records empty."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 32 * lw + 1, n)
+    lens[rng.random(n) < zero_share] = 0
+    bits = rng.integers(0, 2, (n, 32 * lw), dtype=np.uint8)
+    bits[np.arange(32 * lw)[None, :] >= lens[:, None]] = 0
+    local = np.packbits(bits, axis=1).view(">u4").astype(np.uint32)
+    return (torch.from_numpy(local.view(np.int32)).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("n,lw,start,zero_share", [
+    (1, 6, 0, 0.0),            # one record
+    (1, 7, 45, 1.0),           # one empty record: the stream is its prefix
+    (5000, 6, 37, 0.2),        # empty records among the others
+    (5000, 7, 64, 0.97),       # runs of empty records longer than a warp
+    (3000, 12, 5, 0.1),        # 2 records a thread
+    (700, 30, 2047, 0.1),      # 1 record a thread
+    (0, 6, 70, 0.0),           # no record at all
+])
+def test_pack_locals_kernel_on_any_records(dev, n, lw, start, zero_share):
+    local, lens = random_locals(dev, n, lw, n + lw, zero_share)
+    prefix = torch.full((start // 32 + 1,), -1, dtype=torch.int32,
+                        device=dev)
+    prefix[-1] = -(1 << (32 - start % 32)) if start % 32 else 0
+    nw = n * lw + start // 32 + 2
+    total = held_pack_locals(dev, local, lens, start, nw, prefix)
+    assert total == start + int(lens.sum())
+
+
+@pytest.mark.parametrize("start", [0, 19, 64])
+def test_pack_locals_stream_ends_on_a_word_boundary(dev, start):
+    """The last record is sized so that the stream ends at a multiple of
+    32 bits, and the words past it stay as allocated."""
+    local, lens = random_locals(dev, 2100, 7, start, 0.1)
+    short = (start + int(lens[:-1].sum())) % 32
+    lens[-1] = 32 * 3 - short
+    local[-1] = -1
+    local[-1, 3:] = 0
+    local[-1, 2] = -(1 << short) if short else -1
+    total = held_pack_locals(dev, local, lens, start, 2100 * 7 + 3)
+    assert total % 32 == 0
+
+
+def test_pack_locals_refuses_records_past_lw(dev):
+    local, lens = random_locals(dev, 3000, 6, 3)
+    lens[1500] = 32 * 6 + 1
+    got = cuda_pack.pack_locals(local, lens, 0, 3000 * 6 + 1)
+    want = cuda_pack.pack_locals_plain(local, lens, 0, 3000 * 6 + 1)
+    assert int(got[1]) == int(want[1]) == -1
+    with pytest.raises(ValueError, match="register file"):
+        device_pack.host_total(got[1])
+
+
+@pytest.mark.parametrize("h,w,n,gop,nb,lw", [
+    (720, 1280, 3, 2, 6, 7),   # an I-frame's 3600 empty records in a row
+    (64, 96, 9, 4, 6, 7), (48, 64, 5, 1, 6, 6), (32, 32, 7, 3, 16, 27),
+    (64, 64, 6, 8, 2, 7)])
+def test_pack_locals_kernel_with_vectors_equals_plain(dev, h, w, n, gop, nb,
+                                                      lw):
+    """The video's two record sources in stream order: the kernel reads
+    the vectors where they lie, the plain version merges copies."""
+    n_micro = (h // 4) * (w // 4)
+    local, lens = random_locals(dev, n * n_micro, lw, h + n, 0.05)
+    n_p = sum(1 for f in range(n) if f % gop)
+    n_macro = (h // 16) * (w // 16)
+    rng = np.random.default_rng(gop)
+    mvecs = torch.from_numpy(rng.integers(-2 ** (nb - 1), 2 ** (nb - 1),
+                                          (n_p, n_macro, 2))
+                             .astype(np.int32)).to(dev)
+    hdr = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    nw = (n * n_micro) * lw + n * n_macro + 8
+    total = held_pack_locals(dev, local, lens, 96, nw, hdr, mvecs=mvecs,
+                             n_frames=n, gop=gop, mvec_nbits=nb)
+    assert total == 96 + int(lens.sum()) + n_p * n_macro * 2 * nb
 
 
 @pytest.mark.parametrize("n,f,start,nw", [
@@ -265,6 +364,51 @@ def test_motion_kernels_equal_plain(dev, h, w, merange):
     for vec in (mv, far):  # found vectors, and windows against the borders
         assert torch.equal(cuda_motion.predict(ref, vec),
                            cuda_motion.predict_plain(ref, vec))
+    # The search with the prediction as its epilogue: both fused kernels.
+    before = (cuda_motion.search_predict.launches,
+              cuda_motion.search_residual.launches)
+    got_mv, got_pred = cuda_motion.search_predict(cur, ref, merange)
+    assert torch.equal(got_mv, mv)
+    assert torch.equal(got_pred, cuda_motion.predict_plain(ref, mv))
+    for gop in (1, 2, 3, 5):
+        got = cuda_motion.search_residual(frames, gop, merange)
+        want = cuda_motion.search_residual_plain(frames, gop, merange)
+        assert got[0].shape == want[0].shape and got[1].dtype == torch.int16
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (cuda_motion.search_predict.launches,
+            cuda_motion.search_residual.launches) == (before[0] + 1,
+                                                      before[1] + 4)
+
+
+@pytest.mark.parametrize("merange", [16, 128])
+def test_fused_search_at_720p_with_clamping_vectors(dev, merange):
+    """The fused kernels at 1280x720, with the window in shared memory
+    (merange 16) and past its 48 KB, read from global memory (merange 128:
+    416 x 270 bytes).  The content wraps around the frame as it moves, so
+    blocks at the borders find their match outside; played forwards and
+    backwards, as it is and mirrored, vectors clamp at all four edges."""
+    from imageencoder_tpu_torch.ops.motion import MACRO, macro_origins
+
+    h, w = 720, 1280
+    frames = torch.from_numpy(video_frames(w, h, 2, merange)).to(dev)
+    bx, by = macro_origins(h, w, dev)
+    edges = torch.zeros(4, dtype=torch.bool, device=dev)
+    for video in (frames, frames.flip(0), frames.flip(2),
+                  frames.flip(0).flip(2)):
+        video = video.contiguous()
+        cur, ref = video[1:2], video[0:1]
+        mv, pred = cuda_motion.search_predict(cur, ref, merange)
+        want_mv, want_pred = cuda_motion.search_predict_plain(cur, ref,
+                                                              merange)
+        assert torch.equal(mv, want_mv) and torch.equal(pred, want_pred)
+        px, py = bx + mv[0, :, 0], by + mv[0, :, 1]
+        edges |= torch.stack([(px < 0).any(), (px > w - MACRO).any(),
+                              (py < 0).any(), (py > h - MACRO).any()])
+        got = cuda_motion.search_residual(video, 2, merange)
+        assert torch.equal(got[0], want_mv)
+        assert torch.equal(got[1][:h], video[0].to(torch.int16))
+        assert torch.equal(got[1][h:], cur[0].to(torch.int16) - want_pred[0])
+    assert edges.all(), edges
 
 
 @pytest.mark.parametrize("b,norm,kind", [

@@ -9,7 +9,13 @@ versions.
     through the Pallas kernels in interpret mode and through the lax.scan
     maps, and the host engine's ops/motion.find_motion / predict_image,
     bit for bit: merange 1 (no levels), frames wider than 2048 px, and
-    motion pushed against every border.
+    motion pushed against every border;
+  * the plain versions of the fused wrappers (the search with the
+    prediction as its epilogue): search_predict equals sad_motion_search's
+    vectors and prediction, and search_residual the vectors, and the
+    residual cur - pred, of a whole video's P-frames against the frames
+    before them, with the I-frames' pixels on their rows: gop 1 (no
+    P-frame), a last GOP cut short, vectors that clamp at all four edges.
 
 Inputs are seeded numpy frames.
 """
@@ -146,3 +152,76 @@ def test_wrappers_on_cpu_run_the_plain_versions():
         cuda_motion.motion_search(c[:, :20], r[:, :20], 8)
     with pytest.raises(ValueError, match="mvec"):
         cuda_motion.predict(r, mv[:, :1])
+
+
+def wrapping_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """8x8 random blocks moving by (2, 3) pixels a frame and wrapping
+    around the frame, plus noise (bench.py's video content): blocks at the
+    borders find their match outside the frame."""
+    rng = np.random.default_rng(seed)
+    base = np.kron(rng.integers(0, 256, (h // 8, w // 8)), np.ones((8, 8)))
+    return np.stack([np.clip(np.roll(base, (f * 2, f * 3), (0, 1))
+                             + rng.normal(0, 3, base.shape), 0, 255)
+                     .astype(np.uint8) for f in range(n)])
+
+
+def test_fused_plain_versions_clamp_at_every_edge(monkeypatch):
+    """The content played forwards and backwards, as it is and mirrored:
+    vectors point out of the frame at all four edges, and the fused
+    wrappers' vectors, prediction and residual equal the JAX package's."""
+    h, w, merange = 96, 128, 16
+    frames = wrapping_frames(2, h, w, 16)
+    monkeypatch.setattr(jax_vp, "_SAD_MAPS_MODE", "scan")
+    edges = np.zeros(4, bool)
+    by, bx = np.mgrid[0:h:16, 0:w:16]
+    for video in (frames, frames[::-1], frames[:, :, ::-1],
+                  frames[::-1, :, ::-1]):
+        video = np.ascontiguousarray(video)
+        cur, ref = cur_ref(video)
+        off, pred = jax_vp.sad_motion_search(jnp.asarray(cur),
+                                             jnp.asarray(ref), merange)
+        off, pred = np.asarray(off), np.asarray(pred)
+        mv, gp = cuda_motion.search_predict(torch.from_numpy(cur),
+                                            torch.from_numpy(ref), merange)
+        np.testing.assert_array_equal(mv.numpy(), off)
+        np.testing.assert_array_equal(gp.numpy(), pred)
+        px, py = bx.ravel() + off[0, :, 0], by.ravel() + off[0, :, 1]
+        edges |= [(px < 0).any(), (px > w - 16).any(), (py < 0).any(),
+                  (py > h - 16).any()]
+        mv2, stack = cuda_motion.search_residual(torch.from_numpy(video), 2,
+                                                 merange)
+        np.testing.assert_array_equal(mv2.numpy(), off)
+        assert stack.dtype == torch.int16 and stack.shape == (2 * h, w)
+        np.testing.assert_array_equal(stack[:h].numpy(), video[0])
+        np.testing.assert_array_equal(
+            stack[h:].numpy(), cur[0].astype(np.int16) - pred[0])
+    assert edges.all(), edges
+
+
+@pytest.mark.parametrize("n,gop", [(5, 1), (6, 4), (3, 3), (7, 2), (1, 4)])
+def test_search_residual_equals_jax_per_p_frame(monkeypatch, n, gop):
+    """A whole video in: every P-frame's vectors and residual against the
+    frame before it, the I-frames' pixels in between; no P-frame at gop 1
+    and in a one-frame video, a second GOP of 2 frames at (6, 4)."""
+    h, w, merange = 32, 48, 8
+    frames = moving_frames(n, h, w, 10 * n + gop)
+    monkeypatch.setattr(jax_vp, "_SAD_MAPS_MODE", "scan")
+    before = cuda_motion.search_residual.launches
+    mv, stack = cuda_motion.search_residual(torch.from_numpy(frames), gop,
+                                            merange)
+    assert cuda_motion.search_residual.launches == before  # CPU: plain
+    p_idx = [f for f in range(n) if f % gop]
+    assert cuda_motion.p_frames(n, gop) == p_idx
+    assert mv.dtype == torch.int32 and mv.shape == (len(p_idx), 6, 2)
+    stack = stack.numpy().reshape(n, h, w)
+    if p_idx:
+        off, pred = jax_vp.sad_motion_search(
+            jnp.asarray(frames[p_idx]),
+            jnp.asarray(frames[[f - 1 for f in p_idx]]), merange)
+        np.testing.assert_array_equal(mv.numpy(), np.asarray(off))
+        np.testing.assert_array_equal(
+            stack[p_idx], frames[p_idx].astype(np.int16) - np.asarray(pred))
+    i_idx = [f for f in range(n) if f % gop == 0]
+    np.testing.assert_array_equal(stack[i_idx], frames[i_idx])
+    with pytest.raises(ValueError, match="gop"):
+        cuda_motion.search_residual(torch.from_numpy(frames), 0, merange)

@@ -3,7 +3,10 @@ packer (ops/device_pack.py) against the JAX package, on the CPU, where
 the wrappers run their plain versions.
 
   * pack_locals on the TPU front end's own register files is bit-equal to
-    pallas_pack.pack_locals_pallas(..., interpret=True);
+    pallas_pack.pack_locals_pallas(..., interpret=True), alone and with a
+    video's vector records merged in as the JAX package merges them
+    (pallas_encode.mvec_locals and interleave_video_locals); a record
+    longer than its register file is refused;
   * pack_records is bit-equal to pack_records_pallas(..., interpret=True)
     and to device_pack.pack_blocks_device(method="scatter");
   * the Huffman payload pack equals huffman._device_stages().pack_payload,
@@ -21,7 +24,9 @@ from imageencoder_tpu.ops.device_pack import (_local_words,
                                               pack_blocks_device,
                                               packed_words_bound)
 from imageencoder_tpu.ops.huffman import _device_stages, _dict_and_codes
-from imageencoder_tpu.ops.pallas_encode import encode_locals, frontend_lw
+from imageencoder_tpu.ops.pallas_encode import (encode_locals, frontend_lw,
+                                                interleave_video_locals,
+                                                mvec_locals)
 from imageencoder_tpu.ops.pallas_pack import (pack_locals_pallas,
                                               pack_records_pallas)
 from imageencoder_tpu_torch.ops import cuda_pack, device_pack, huffman
@@ -63,6 +68,61 @@ def test_pack_locals_matches_pallas(tpu_locals, start):
     assert int(got_t) == int(want_t)
     np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
                                   np.asarray(want_w))
+
+
+@pytest.mark.parametrize("n_frames,gop,nb,start", [
+    (2, 2, 6, 37), (4, 3, 6, 0), (4, 1, 6, 2047), (3, 4, 2, 64),
+    (6, 2, 16, 95)])
+def test_pack_locals_with_vectors_matches_pallas(tpu_locals, n_frames, gop,
+                                                 nb, start):
+    """The 96 block records as a video of n_frames frames, 5 vector
+    records before each frame's blocks: gop 1 (no P-frame), a last GOP
+    cut short, 16-bit components that fill the record's word."""
+    locs, local, lens, lw, n = tpu_locals
+    n_macro = 5
+    rng = np.random.default_rng(n_frames + gop)
+    mvec = rng.integers(-2 ** (nb - 1), 2 ** (nb - 1),
+                        (n_frames, n_macro, 2)).astype(np.int32)
+    is_i = np.arange(n_frames) % gop == 0
+    ml = mvec_locals(jnp.asarray(mvec), jnp.asarray(is_i), nb,
+                     locs.shape[0], lw)
+    merged = interleave_video_locals(locs[:, :n], ml, n_frames)
+    nw = packed_words_bound(n + n_frames * n_macro, 18)
+    want_w, want_t = pack_locals_pallas(merged, lw, jnp.int32(start), nw,
+                                        interpret=True)
+    before = cuda_pack.pack_locals.launches
+    got_w, got_t = cuda_pack.pack_locals(
+        local, lens, start, nw, mvecs=torch.from_numpy(mvec[~is_i]),
+        n_frames=n_frames, gop=gop, mvec_nbits=nb)
+    assert cuda_pack.pack_locals.launches == before  # CPU: plain version
+    assert int(got_t) == int(want_t)
+    assert int(got_t) == (start + int(lens.sum())
+                          + int((~is_i).sum()) * n_macro * 2 * nb)
+    np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
+                                  np.asarray(want_w))
+
+
+def test_pack_locals_refuses_and_checks_its_records(tpu_locals):
+    _, local, lens, lw, n = tpu_locals
+    long = lens.clone()
+    long[7] = 32 * lw + 1  # as K1 leaves a record it refused
+    _, total = cuda_pack.pack_locals(local, long, 0, 9 * n)
+    assert int(total) == -1
+    with pytest.raises(ValueError, match="register file"):
+        device_pack.host_total(total)
+    mvecs = torch.zeros((1, 5, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="P-frames"):
+        cuda_pack.pack_locals(local, lens, 0, 9 * n, mvecs=mvecs,
+                              n_frames=4, gop=2, mvec_nbits=6)
+    with pytest.raises(ValueError, match="split"):
+        cuda_pack.pack_locals(local, lens, 0, 9 * n,
+                              mvecs=mvecs.expand(4, 5, 2), n_frames=5, gop=5,
+                              mvec_nbits=6)
+    with pytest.raises(ValueError, match="mvec_nbits"):
+        cuda_pack.pack_locals(local, lens, 0, 9 * n, mvecs=mvecs,
+                              n_frames=2, gop=2, mvec_nbits=17)
+    with pytest.raises(ValueError, match="lens"):
+        cuda_pack.pack_locals(local, lens[:-1], 0, 9 * n)
 
 
 def test_pack_records_matches_pallas():

@@ -318,6 +318,10 @@ CASES = [  # w, h, frames, gop, merange, rle, huffman, ref_mode
     (64, 32, 40, 4, 16, True, True, "raw"),  # chunked: 32 + 8 frames
     (64, 32, 40, 3, 4, True, False, "recon"),
     (32, 32, 6, 4, 1, True, True, "raw"),    # merange 1: zero vectors
+    (48, 32, 5, 1, 16, True, True, "raw"),   # gop 1: no P-frame
+    (48, 32, 3, 8, 8, True, False, "raw"),   # the only GOP cut short
+    (48, 32, 3, 8, 8, True, True, "recon"),
+    (64, 32, 35, 32, 4, True, False, "raw"),  # chunks of 32: a GOP of 3
 ]
 
 
