@@ -16,33 +16,45 @@ reference.  Phases, each of which raises on failure:
      of each path, and hold every kernel the path runs against its plain
      PyTorch version on those CUDA tensors, bit-equal: encode_image on a
      4096x912 image (233,472 blocks) for K1 encode_locals (u8 pixels), K2
-     pack_locals, K3 byte_histogram and K4 pack_payload (the Huffman
-     payload); encode_video at 1280x720, 25 frames, gop 4, merange 16,
-     Huffman on, with the raw reference for K6+K7 search_residual (the
-     search with the prediction as its epilogue, the whole video in, held
-     against the plain search, prediction and residual), K1 on the int16
-     residual stack, K2 with its vector source, K3 and K4 pack_payload;
-     and with the recon reference for every K5 quantize_image (I-frames),
-     K5 recon_step (the fused P-frame step) and K6+K7 search_predict call,
-     K3, K4 pack_coeffs (the records from the coefficients) and K4
-     pack_payload; the kernels no path runs on inputs taken from those
-     calls: K6 motion_search and K7 predict (the search and the prediction
-     alone) on the frames and the vectors of both video paths, K4
-     pack_records on the recon records as fields built by the plain glue.
-     The packers' words are compared up to the stream's last word, which
-     is all the kernels define.  K3 is also timed against
-     torch.bincount over the same stream bytes, the one PyTorch call that
-     computes its function;
+     pack_locals+hist (K2 with K3 folded in: the stream and its byte
+     histogram), the Huffman dict kernel (csrc/huffman.cu: the codes, the
+     dict and the totals from the histogram) and K4 pack_payload (the
+     Huffman payload under the dict's table), K2 pack_locals alone on the
+     same records; the dict kernel also on the histogram of a small noise
+     image that takes the raw-copy fallback; encode_video at 1280x720, 25
+     frames, gop 4, merange 16, Huffman on, with the raw reference for
+     K6+K7 search_residual (the search with the prediction as its
+     epilogue, the whole video in, held against the plain search,
+     prediction and residual), K1 on the int16 residual stack, K2 with its
+     vector source (with and without the histogram), the dict and K4
+     pack_payload; and with the recon reference for every K5
+     quantize_image (I-frames), K5 recon_step (the fused P-frame step) and
+     K6+K7 search_predict call, K4 pack_coeffs+hist (the records from the
+     coefficients, and their byte histogram), pack_coeffs alone, the dict
+     and K4 pack_payload; encode_video at 320x176 with 40 frames, which
+     goes in two chunks spliced on the host, for K3 byte_histogram alone
+     (the only path left that runs it) and the dict on its histogram; the
+     kernels no path runs on inputs taken from those calls: K6
+     motion_search and K7 predict (the search and the prediction alone) on
+     the frames and the vectors of both video paths, K4 pack_records on
+     the recon records as fields built by the plain glue.  The packers'
+     words are compared up to the stream's last word, which is all the
+     kernels define.  K3 is also timed against torch.bincount over the
+     same stream bytes, the one PyTorch call that computes its function;
   3. drive each path with every kernel's launch count set to 0 just
      before it and read just after: encode_image(..., device="cuda") on
      seeded 4096x912 and 3840x2160 images with Huffman on and off and on
      a small noise image that takes the raw-copy fallback; encode_video at
-     720p25 with Huffman on and off, raw and recon.  Every kernel a path
-     runs must have been launched at least once in that path's run, and
-     neither video path may launch K6 or K7 alone;
-  4. hold every image stream from phase 3, and video streams of both
+     720p25 with Huffman on and off, raw and recon; and the 40-frame video.
+     Every kernel a path runs must have been launched at least once in
+     that path's run, no path but the long video's may launch K3, and
+     neither video path may launch K6 or K7 alone.  One encode_image with
+     Huffman on must launch K1, K2+hist, the dict and K4 pack_payload once
+     each and nothing else;
+  4. hold every image stream from phase 3, video streams of both
      references at 320x176 with 8 frames (gop 4, merange 16, Huffman on and
-     off), against the port's plain path, device="cpu", byte for byte.
+     off), and the 40-frame video's, against the port's plain path,
+     device="cpu", byte for byte.
      That path is the one tests/test_torch_image.py and
      tests/test_torch_video.py hold byte-equal to the JAX package's host
      engine; tests/test_torch_cuda.py holds the card's full-size image and
@@ -52,16 +64,20 @@ reference.  Phases, each of which raises on failure:
      within the residual coefficient bound (8 ulps each way) and for 10^7
      seeded random y (csrc/division.cu); any mismatch fails;
   6. time, inputs resident on the device: the device encode, the Huffman
-     stage, the whole encode_image and the host-to-device copy of the
-     image; for video, the whole encode_video of frames on the device, the
-     device window (K6+K7 + K1 + K2 + K3, or per frame K6+K7 and the
-     recon step (K5 on I-frames) and then K4 pack_coeffs + K3, until meta
-     is ready),
+     stage (the dict kernel, K4 pack_payload, the one wait and the copies),
+     the whole encode_image and the host-to-device copy of the image; for
+     video, the whole encode_video of frames on the device, the device
+     window (K6+K7 + K1 + K2, or per frame K6+K7 and the recon step (K5 on
+     I-frames) and then K4 pack_coeffs, until the histogram is counted),
      the Huffman stage and the copy of the frames;
   7. profile a few calls of each path and print the device time per call
      by operation and the device operations per call: where the device
      time goes.  A video profile with a row of K7 alone, or a raw one with
-     a scan row (a cumsum of record lengths), fails.
+     a scan row (a cumsum of record lengths), fails.  For each Huffman-on
+     path, the device-to-host copies a call (profiler rows) and the host's
+     waits for the device a call (PyTorch's sync debug mode counts each
+     one): one of each is the stream's own copy, and the path fails with
+     more than one wait before it.
 
 Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
@@ -76,7 +92,10 @@ __vsadu4 lane op at 64 int32 ops an SM a clock; the fused kernels the
 same), both at the H100 SXM's
 132 SMs and 1.98 GHz boost clock.  ``library_ms`` is the profiler's
 device time of one PyTorch call computing the same function, where one
-exists (K3: torch.bincount), else null.
+exists (K3: torch.bincount), else null.  The dict kernel's bound counts
+its bytes (the histogram in, the table out); its time is the latency of
+a serial merge, which no bound of bytes or operations at the card's peak
+rates describes.
 
 Output: the card's name and power limit on an early line, one JSON line
 {"kernels": [...]} before the last, and last
@@ -98,6 +117,7 @@ QUANT = [[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
 SHAPES = ((912, 4096), (2160, 3840))  # (H, W): ex4's geometry, 4K UHD
 VIDEO = (1280, 720, 25)  # W, H, frames: bench.py's video size
 VIDEO_SMALL = (320, 176, 8)  # held against the plain path on the host
+VIDEO_LONG = (320, 176, 40)  # two chunks: K3 on the spliced stream
 GOP, MERANGE = 4, 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SMS, BOOST_HZ = 132, 1.98e9  # H100 SXM
@@ -121,10 +141,22 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                        ("tile_sums_kernel", "pack_known_kernel"),
                        "imageencoder_tpu_torch/csrc/pack.cu",
                        "imageencoder_tpu/ops/pallas_pack.py:256"),
+    # K2 with K3 folded in: the two launches count the stream's bytes.
+    "K2 pack_locals+hist": ("cuda_pack", "pack_locals_hist",
+                            "pack_locals_hist_plain",
+                            ("tile_sums_kernel", "pack_known_kernel"),
+                            "imageencoder_tpu_torch/csrc/pack.cu",
+                            "imageencoder_tpu/ops/pallas_pack.py:256"),
     "K3 byte_histogram": ("cuda_kernels", "byte_histogram",
                           "byte_histogram_plain", "byte_histogram_kernel",
                           "imageencoder_tpu_torch/csrc/histogram.cu",
                           "imageencoder_tpu/ops/pallas_kernels.py:37"),
+    # No TPU kernel: the host dict build between K3 and K4 in the JAX
+    # package (its _dict_and_codes), now a kernel.
+    "Huffman dict": ("huffman", "build_dict", "build_dict_plain",
+                     "huffman_dict_kernel",
+                     "imageencoder_tpu_torch/csrc/huffman.cu",
+                     "imageencoder_tpu/ops/huffman.py:194"),
     "K4 pack_records": ("cuda_pack", "pack_records", "pack_records_plain",
                         "pack_records_kernel",
                         "imageencoder_tpu_torch/csrc/pack.cu",
@@ -137,6 +169,10 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                        "pack_coeffs_kernel",
                        "imageencoder_tpu_torch/csrc/pack.cu",
                        "imageencoder_tpu/ops/pallas_pack.py:55"),
+    "K4 pack_coeffs+hist": ("cuda_pack", "pack_coeffs_hist",
+                            "pack_coeffs_hist_plain", "pack_coeffs_kernel",
+                            "imageencoder_tpu_torch/csrc/pack.cu",
+                            "imageencoder_tpu/ops/pallas_pack.py:55"),
     "K5 quantize_image": ("cuda_encode", "quantize_image",
                           "quantize_image_plain", "quantize_image_kernel",
                           "imageencoder_tpu_torch/csrc/transform.cu",
@@ -164,21 +200,27 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                               "imageencoder_tpu_torch/csrc/motion.cu",
                               "imageencoder_tpu/ops/pallas_motion.py:38"),
 }
-PATHS = {  # path: the kernels it runs
-    "image": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
-              "K4 pack_payload"),
-    "video raw": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
-                  "K4 pack_payload", "K6+K7 search_residual"),
-    "video recon": ("K3 byte_histogram", "K4 pack_coeffs", "K4 pack_payload",
-                    "K5 quantize_image", "K5 recon_step",
+PATHS = {  # path: the kernels it runs (Huffman on and off)
+    "image": ("K1 encode_locals", "K2 pack_locals", "K2 pack_locals+hist",
+              "Huffman dict", "K4 pack_payload"),
+    "video raw": ("K1 encode_locals", "K2 pack_locals", "K2 pack_locals+hist",
+                  "Huffman dict", "K4 pack_payload", "K6+K7 search_residual"),
+    "video recon": ("K4 pack_coeffs", "K4 pack_coeffs+hist", "Huffman dict",
+                    "K4 pack_payload", "K5 quantize_image", "K5 recon_step",
                     "K6+K7 search_predict"),
+    "video long": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
+                   "Huffman dict", "K4 pack_payload",
+                   "K6+K7 search_residual"),
 }
 ALONE = ("K6 motion_search", "K7 predict")  # no video path launches these
 # A packer's output is defined up to the stream's last word (the plain
 # versions zero the rest of the buffer, the kernels leave it): compare
 # that part.
-STREAM_OUT = ("K2 pack_locals", "K4 pack_records", "K4 pack_payload",
-              "K4 pack_coeffs")
+STREAM_OUT = ("K2 pack_locals", "K2 pack_locals+hist", "K4 pack_records",
+              "K4 pack_payload", "K4 pack_coeffs", "K4 pack_coeffs+hist")
+# One encode_image with Huffman on launches these once each, and no other.
+IMAGE_CALL = ("K1 encode_locals", "K2 pack_locals+hist", "Huffman dict",
+              "K4 pack_payload")
 
 
 def synthetic(h: int, w: int, seed: int):
@@ -388,8 +430,8 @@ def held_equal(name: str, args: tuple, kwargs: dict):
     if name in STREAM_OUT:
         from imageencoder_tpu_torch.ops.cuda_pack import stream_words
 
-        got = (stream_words(*got), got[1])
-        want = (stream_words(*want), want[1])
+        got = (stream_words(*got[:2]), *got[1:])
+        want = (stream_words(*want[:2]), *want[1:])
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain "
@@ -463,21 +505,28 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     # outputs up to the stream's end where the output is a stream.  K2
     # reads the register files, the lengths and, for a video, the vectors.  K4
     # pack_records reads a record's values only where the record is not
-    # empty; pack_payload reads the nbytes stream bytes, its two tables
-    # and the dict; pack_coeffs 4 bytes a coefficient and the vectors.
-    if name == "K2 pack_locals":
+    # empty; pack_payload reads the nbytes stream bytes and the dict's
+    # table; pack_coeffs 4 bytes a coefficient and the vectors.  A packer
+    # with the histogram also writes its 256 bins.  The dict kernel reads
+    # the histogram and the total and writes the table.
+    hist_bytes = 1024 if name.endswith("+hist") else 0
+    if name in ("K2 pack_locals", "K2 pack_locals+hist"):
         nbytes = (tensor_bytes(args[:2]) + tensor_bytes([kwargs.get("mvecs")])
-                  + (int(got[1]) + 7) // 8)
+                  + (int(got[1]) + 7) // 8 + hist_bytes)
     elif name == "K4 pack_records":
         live = int((args[1].sum(dim=1) > 0).sum())
         nbytes = (tensor_bytes(args[1:2]) + 4 * args[0].shape[1] * live
                   + (int(got[1]) + 7) // 8)
     elif name == "K4 pack_payload":
-        prefix = kwargs.get("prefix", args[6] if len(args) > 6 else None)
-        nbytes = (args[1] + tensor_bytes(args[2:4]) + tensor_bytes([prefix])
+        from imageencoder_tpu_torch.ops.dict_table import fields
+
+        nbytes = (fields(args[1])["nbytes"] + tensor_bytes(args[1:2])
                   + (int(got[1]) + 7) // 8)
-    elif name == "K4 pack_coeffs":
-        nbytes = tensor_bytes(args[:2]) + (int(got[1]) + 7) // 8
+    elif name in ("K4 pack_coeffs", "K4 pack_coeffs+hist"):
+        nbytes = (tensor_bytes(args[:2]) + (int(got[1]) + 7) // 8
+                  + hist_bytes)
+    elif name == "Huffman dict":
+        nbytes = 1024 + 8 + tensor_bytes(got)
     elif name == "K3 byte_histogram":
         nbytes = (int(args[1]) + 7) // 8
     elif name in ("K6 motion_search", "K7 predict", "K5 recon_step",
@@ -522,9 +571,9 @@ def beside(row: dict, key: str, other: dict) -> None:
     row[key] = {k: other[k] for k in ROW_KEYS}
 
 
-def phase_of_path(path: str, wrappers: dict, drive) -> dict:
-    """Drive one path with every launch count at 0 just before it; return
-    the counts just after, and fail if a kernel of the path is at 0."""
+def launches_of(wrappers: dict, drive) -> dict:
+    """Every wrapper's launches in drive(): the counts set to 0 just
+    before it, read just after."""
     import torch
 
     torch.cuda.synchronize()
@@ -532,11 +581,21 @@ def phase_of_path(path: str, wrappers: dict, drive) -> dict:
         fn.launches = 0
     drive()
     torch.cuda.synchronize()
-    counts = {name: fn.launches for name, fn in wrappers.items()}
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def phase_of_path(path: str, wrappers: dict, drive) -> dict:
+    """Drive one path with every launch count at 0 just before it; return
+    the counts just after, and fail if a kernel of the path is at 0, or if
+    a path other than the long video's launches K3."""
+    counts = launches_of(wrappers, drive)
     for name in PATHS[path]:
         if counts[name] < 1:
             raise AssertionError(f"{name} was not launched on the {path} "
                                  f"path")
+    if "K3 byte_histogram" not in PATHS[path] and counts["K3 byte_histogram"]:
+        raise AssertionError(f"K3 was launched on the {path} path: its "
+                             f"packers count the histogram")
     for name in ALONE:
         if counts[name]:
             raise AssertionError(f"{name} was launched {counts[name]} times "
@@ -557,7 +616,7 @@ def time_video(frames_np, quant, ref_mode: str, dev) -> None:
                                                      video_header)
     from imageencoder_tpu_torch.models.video import VideoParams, mvec_bits
     from imageencoder_tpu_torch.ops.device_pack import header_to_words
-    from imageencoder_tpu_torch.ops.huffman import huffman_encode_from_meta
+    from imageencoder_tpu_torch.ops.huffman import huffman_encode_from_hist
     from imageencoder_tpu_torch.ops.video_pipeline import (
         make_encode_video_packed, make_encode_video_packed_recon)
 
@@ -582,8 +641,7 @@ def time_video(frames_np, quant, ref_mode: str, dev) -> None:
     enc = factory(GOP, MERANGE, mvec_bits(MERANGE), 4, True, "reference",
                   with_hist=True)
     qf = quant.as_float()
-    words, meta = enc(fr_d, qf, writer.position, hdr)
-    meta = meta.cpu().numpy()
+    packed = enc(fr_d, qf, writer.position, hdr)
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True))
           for _ in range(VIDEO_SAMPLES)]
@@ -598,8 +656,9 @@ def time_video(frames_np, quant, ref_mode: str, dev) -> None:
 
     t = []
     for _ in range(VIDEO_SAMPLES):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        huffman_encode_from_meta(words, meta)
+        huffman_encode_from_hist(*packed)
         t.append(time.perf_counter() - t0)
     huff = quantiles(t)
 
@@ -613,17 +672,51 @@ def time_video(frames_np, quant, ref_mode: str, dev) -> None:
     print(f"video {ref_mode} {w}x{h}x{n}: encode_video of frames on the "
           f"device, Huffman on: median {e2e[0]:.3f} ms, p90 {e2e[1]:.3f} ms "
           f"(n={VIDEO_SAMPLES}; {mpix / e2e[0] * 1e3:.1f} Mpix/s); device "
-          f"window until meta median {window[0]:.3f} ms, p90 "
+          f"window until the histogram median {window[0]:.3f} ms, p90 "
           f"{window[1]:.3f} ms ({mpix / window[0] * 1e3:.1f} Mpix/s), of "
-          f"which device busy {busy:.3f} ms; Huffman stage median "
-          f"{huff[0]:.3f} ms, p90 {huff[1]:.3f} ms; H2D copy of the frames "
+          f"which device busy {busy:.3f} ms; Huffman stage (dict, payload, "
+          f"the wait and the copies) median {huff[0]:.3f} ms, p90 "
+          f"{huff[1]:.3f} ms; H2D copy of the frames "
           f"median {h2d[0]:.3f} ms, p90 {h2d[1]:.3f} ms", flush=True)
 
 
+def host_waits(fn, calls: int):
+    """The host's waits for the device in each of ``calls`` calls of fn():
+    PyTorch's sync debug mode warns at each (a copy to pageable memory, a
+    stream's synchronize, a read of a device scalar), and the warnings
+    are counted, with the line of Python that waited.  The kernels' C
+    entry points never wait.  Returns (waits of each call, {line: waits in
+    all})."""
+    import collections
+    import os
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per_call, where = [], collections.Counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for _ in range(calls):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+            waits = [w for w in caught if "synchroniz" in str(w.message)]
+            per_call.append(len(waits))
+            where.update(f"{os.path.basename(w.filename)}:{w.lineno}"
+                         for w in waits)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return per_call, dict(where)
+
+
 def print_profile(label: str, fn, calls: int, absent: tuple = ()) -> None:
-    """Phase 7: device time per call by operation, and the number of
-    device operations (kernels and copies) per call.  Fails if a device
-    row's name contains one of ``absent``."""
+    """Phase 7: device time per call by operation, the number of device
+    operations (kernels and copies) per call, the device-to-host copies
+    and the host's waits per call.  Fails if a device row's name contains
+    one of ``absent``, or if the host waits more than once before the
+    stream's own copy."""
     counts = {}
     by_op, wall_ms = device_rows(fn, calls, counts)
     for key in by_op:
@@ -631,12 +724,23 @@ def print_profile(label: str, fn, calls: int, absent: tuple = ()) -> None:
             raise AssertionError(f"{label}: the profile has a row {key!r}")
     busy_us = sum(by_op.values())
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
+    d2h = sum(n for key, n in counts.items() if "DtoH" in key)
+    per_call, where = host_waits(fn, calls)
+    waits = sorted(per_call)[len(per_call) // 2]
     print(f"profile of {calls} {label} calls: device busy {busy_us:.1f} us "
           f"of {wall_ms * 1e3:.1f} us wall per call, "
           f"{sum(counts.values()):.0f} device operations per call; top "
           f"device items per call: " + "; ".join(
               f"{key[:60]} {us:.1f} us ({counts[key]:.0f}x)"
               for key, us in top), flush=True)
+    print(f"{label}: {d2h:.0f} device-to-host copies and {waits:.0f} host "
+          f"waits for the device a call (profiler; sync debug mode); before "
+          f"the stream's own copy: {d2h - 1:.0f} copies, {waits - 1:.0f} "
+          f"waits (median of the calls; each call's waits {per_call}, by "
+          f"line {where})", flush=True)
+    if waits != 2:
+        raise AssertionError(f"{label}: {waits} host waits a call, expected "
+                             f"the fields' and the stream's copy's")
 
 
 def main() -> None:
@@ -650,7 +754,7 @@ def main() -> None:
     from imageencoder_tpu_torch.kernels import build
     from imageencoder_tpu_torch.models.image import stream_header
     from imageencoder_tpu_torch.models.video import encode_frames
-    from imageencoder_tpu_torch.ops.huffman import huffman_encode_from_meta
+    from imageencoder_tpu_torch.ops.huffman import huffman_encode_from_hist
     from imageencoder_tpu_torch.ops.pipeline import make_encode_packed_hist
     from imageencoder_tpu_torch.utils.device import gpu_identity
 
@@ -680,21 +784,40 @@ def main() -> None:
                                  device=device)
 
     # ---- 2. each kernel against its plain version, main-path inputs ----
+    # No full-size image compresses too little for the dict (the records'
+    # headers skew the byte histogram), so the raw-copy fallback runs on a
+    # small noise image.
     images = [synthetic(h, w, 2 + i) for i, (h, w) in enumerate(SHAPES)]
+    noise = np.random.default_rng(9).integers(0, 256, (128, 256),
+                                              dtype=np.uint8)
+    q_ones = port.QuantMatrix(np.ones((4, 4), dtype=np.uint32))
     with captured_calls() as calls:
         port.encode_image(images[0], quant, use_rle=True, use_huffman=True,
                           device="cuda")
     rows = {}
-    for name in PATHS["image"]:
+    for name in IMAGE_CALL:
         if len(calls[name]) != 1:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"encode_image, expected 1")
         rows[name] = check_kernel(name, *calls[name][0])
+    # K2 without the histogram (Huffman off) on the same records.
+    rows["K2 pack_locals"] = check_kernel("K2 pack_locals",
+                                          *calls["K2 pack_locals+hist"][0])
+    del calls
+    with captured_calls() as calls:
+        fallback = port.encode_image(noise, q_ones, use_rle=True,
+                                     use_huffman=True, device="cuda")
+    if fallback[0] & 0x80 or len(calls["Huffman dict"]) != 1:
+        raise AssertionError("the noise image did not take the fallback "
+                             "through one dict launch")
+    beside(rows["Huffman dict"], "fallback_image",
+           check_kernel("Huffman dict", *calls["Huffman dict"][0]))
     del calls
 
     with captured_calls() as calls:
         encode_video(vdata, vw, vh, "raw", True)
-    for name in PATHS["video raw"]:
+    for name in ("K1 encode_locals", "K2 pack_locals+hist", "Huffman dict",
+                 "K4 pack_payload", "K6+K7 search_residual"):
         if len(calls[name]) != 1:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"raw encode_video, expected 1")
@@ -711,9 +834,11 @@ def main() -> None:
     rows["K6 motion_search"] = check_kernel("K6 motion_search",
                                             (cur, ref, merange), {})
     rows["K7 predict"] = check_kernel("K7 predict", (ref, found), {})
-    for name in PATHS["image"]:  # the same kernels at the video's shapes
+    for name in IMAGE_CALL:  # the same kernels at the video's shapes
         beside(rows[name], "video_raw", check_kernel(name, *calls[name][0]))
-    if calls["K2 pack_locals"][0][1].get("mvecs") is None:
+    beside(rows["K2 pack_locals"], "video_raw", check_kernel(
+        "K2 pack_locals", *calls["K2 pack_locals+hist"][0]))
+    if calls["K2 pack_locals+hist"][0][1].get("mvecs") is None:
         raise AssertionError("the raw path gave K2 no vectors")
     del calls, fr, pi, cur, ref, found
 
@@ -722,8 +847,8 @@ def main() -> None:
     n_p = sum(1 for f in range(vn) if f % GOP)
     for name, want in (("K5 quantize_image", vn - n_p),
                        ("K5 recon_step", n_p), ("K6+K7 search_predict", n_p),
-                       ("K3 byte_histogram", 1),
-                       ("K4 pack_coeffs", 1), ("K4 pack_payload", 1)):
+                       ("K4 pack_coeffs+hist", 1), ("Huffman dict", 1),
+                       ("K4 pack_payload", 1)):
         if len(calls[name]) != want:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"recon encode_video, expected {want}")
@@ -746,37 +871,52 @@ def main() -> None:
         "K6 motion_search", (cur, ref, merange), {}))
     beside(rows["K7 predict"], "video_recon", check_kernel(
         "K7 predict", (ref, found), {}))
-    beside(rows["K3 byte_histogram"], "video_recon",
-           check_kernel("K3 byte_histogram", *calls["K3 byte_histogram"][0]))
-    beside(rows["K4 pack_payload"], "video_recon",
-           check_kernel("K4 pack_payload", *calls["K4 pack_payload"][0]))
-    rows["K4 pack_coeffs"] = check_kernel("K4 pack_coeffs",
-                                          *calls["K4 pack_coeffs"][0])
+    for name in ("Huffman dict", "K4 pack_payload"):
+        beside(rows[name], "video_recon", check_kernel(name, *calls[name][0]))
+    coeffs_call = calls["K4 pack_coeffs+hist"][0]
+    rows["K4 pack_coeffs+hist"] = check_kernel("K4 pack_coeffs+hist",
+                                               *coeffs_call)
+    rows["K4 pack_coeffs"] = check_kernel("K4 pack_coeffs", *coeffs_call)
     # The generic front end on the same records, as [N, F] fields built by
     # the plain glue from the captured coefficients and vectors.
-    (coeffs, mvecs, gop, nb, b, rle, _lw, start, n_words), kw = \
-        calls["K4 pack_coeffs"][0]
+    (coeffs, mvecs, gop, nb, b, rle, _lw, start, n_words), kw = coeffs_call
     vals, nbits = module("cuda_pack").coeff_fields(coeffs, mvecs, gop, nb, b,
                                                    rle)
     rows["K4 pack_records"] = check_kernel(
         "K4 pack_records", (vals, nbits, start, n_words), kw)
     print(f"recon encode_video: all {vn - n_p} K5, {n_p} recon step, {n_p} "
-          f"K6+K7 search_predict, 1 K3, 1 K4 pack_coeffs and 1 K4 "
+          f"K6+K7 search_predict, 1 K4 pack_coeffs+hist, 1 dict and 1 K4 "
           f"pack_payload calls bit-equal to their plain versions", flush=True)
     del calls, step_args, cur, pred, rest, coeffs, mvecs, vals, nbits, ref
-    del found
+    del found, coeffs_call
+
+    # K3 alone runs where a stream arrives packed: the chunks of a video
+    # longer than 32 frames, spliced on the host.
+    lw_, lh_, ln_ = VIDEO_LONG
+    long_data = yuv420(video_frames(lw_, lh_, ln_, 3))
+    with captured_calls() as calls:
+        encode_video(long_data, lw_, lh_, "raw", True)
+    for name in ("K3 byte_histogram", "Huffman dict", "K4 pack_payload"):
+        if len(calls[name]) != 1:
+            raise AssertionError(f"{name}: {len(calls[name])} calls in one "
+                                 f"{ln_}-frame encode_video, expected 1")
+    rows["K3 byte_histogram"] = check_kernel("K3 byte_histogram",
+                                             *calls["K3 byte_histogram"][0])
+    beside(rows["Huffman dict"], "video_long",
+           check_kernel("Huffman dict", *calls["Huffman dict"][0]))
+    del calls
 
     # ---- 3. each path, counts from 0 ----
-    # No full-size image compresses too little for the dict (the records'
-    # headers skew the byte histogram), so the raw-copy fallback runs on a
-    # small noise image.
-    noise = np.random.default_rng(9).integers(0, 256, (128, 256),
-                                              dtype=np.uint8)
-    q_ones = port.QuantMatrix(np.ones((4, 4), dtype=np.uint32))
     cases = ([(im, quant, True) for im in images]
              + [(images[0], quant, False), (noise, q_ones, True)])
     wrappers = {name: getattr(module(mod_name), attr)
                 for name, (mod_name, attr, *_) in KERNELS.items()}
+    one = launches_of(wrappers, lambda: port.encode_image(
+        images[0], quant, use_rle=True, use_huffman=True, device="cuda"))
+    if any(one[name] != (name in IMAGE_CALL) for name in KERNELS):
+        raise AssertionError(f"one encode_image launched {one}")
+    print("one encode_image, Huffman on: " + ", ".join(
+        f"{name} {one[name]}" for name in KERNELS), flush=True)
     streams = []
     counts = [phase_of_path("image", wrappers, lambda: streams.extend(
         port.encode_image(im, q, use_rle=True, use_huffman=huff,
@@ -787,13 +927,16 @@ def main() -> None:
             f"video {mode}", wrappers, lambda mode=mode: video_streams.update(
                 {(mode, huff): encode_video(vdata, vw, vh, mode, huff)
                  for huff in (True, False)})))
+    counts.append(phase_of_path(
+        "video long", wrappers, lambda: video_streams.update(
+            {("long", True): encode_video(long_data, lw_, lh_, "raw",
+                                          True)})))
     for name in KERNELS:
         rows[name]["launches"] = sum(c[name] for c in counts)
     for (mode, huff), got in video_streams.items():
         if huff and not got[0] & 0x80:
             raise AssertionError(f"video {mode}: took the raw-copy fallback")
-        print(f"video {mode} {vw}x{vh}x{vn} huffman={huff}: {len(got)} "
-              f"bytes", flush=True)
+        print(f"video {mode} huffman={huff}: {len(got)} bytes", flush=True)
 
     # ---- 4. every stream against the port's plain path on the host ----
     for (im, q, huff), got in zip(cases, streams):
@@ -827,6 +970,15 @@ def main() -> None:
                                      f"{len(want)} bytes)")
             print(f"{label}: {len(got)} bytes, byte-identical to the plain "
                   f"path on the host ({plain_s:.2f} s there)", flush=True)
+    label = f"video raw {lw_}x{lh_}x{ln_} huffman=True (two chunks, K3)"
+    t0 = time.perf_counter()
+    want = encode_video(long_data, lw_, lh_, "raw", True, device="cpu")
+    plain_s = time.perf_counter() - t0
+    if video_streams[("long", True)] != want:
+        raise AssertionError(f"{label}: the card's stream differs from the "
+                             f"plain path's")
+    print(f"{label}: {len(want)} bytes, byte-identical to the plain path on "
+          f"the host ({plain_s:.2f} s there)", flush=True)
 
     # ---- 5. K1's division beside __ddiv_rn ----
     from imageencoder_tpu_torch.ops.cuda_encode import (
@@ -862,8 +1014,7 @@ def main() -> None:
         sb, hdr = stream_header(quant, True, ww, hh, True, dev)
         qf = quant.as_float()
         enc = make_encode_packed_hist(4, True, "reference")
-        words, meta = enc(img_d, qf, sb, hdr)
-        meta = meta.cpu().numpy()
+        packed = enc(img_d, qf, sb, hdr)
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(SAMPLES)]
         for start, end in ev:
@@ -876,8 +1027,9 @@ def main() -> None:
 
         t = []
         for _ in range(SAMPLES):
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            huffman_encode_from_meta(words, meta)
+            huffman_encode_from_hist(*packed)
             t.append(time.perf_counter() - t0)
         huff = quantiles(t)
 
@@ -887,11 +1039,12 @@ def main() -> None:
             port.encode_image(img_d, quant, use_huffman=True, device="cuda")
             t.append(time.perf_counter() - t0)
         e2e = quantiles(t)
-        print(f"{ww}x{hh}: device encode K1+K2+K3 median {dev_enc[0]:.4f} "
-              f"ms, p90 {dev_enc[1]:.4f} ms (n={SAMPLES}; "
+        print(f"{ww}x{hh}: device encode K1+K2 (with the histogram) median "
+              f"{dev_enc[0]:.4f} ms, p90 {dev_enc[1]:.4f} ms (n={SAMPLES}; "
               f"{mpix / dev_enc[0] * 1e3:.1f} Mpix/s), of which device busy "
-              f"{busy:.4f} ms; Huffman stage (huffman_encode_from_meta) "
-              f"median {huff[0]:.3f} ms, p90 {huff[1]:.3f} ms; encode_image "
+              f"{busy:.4f} ms; Huffman stage (huffman_encode_from_hist: the "
+              f"dict, K4, the wait and the copies) median {huff[0]:.3f} ms, "
+              f"p90 {huff[1]:.3f} ms; encode_image "
               f"with Huffman, image on device: median {e2e[0]:.3f} ms, p90 "
               f"{e2e[1]:.3f} ms (n={SAMPLES}; "
               f"{mpix / e2e[0] * 1e3:.1f} Mpix/s); H2D copy median "

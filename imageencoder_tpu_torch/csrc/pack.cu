@@ -18,6 +18,11 @@
 // tiles share is written once, whole, by the tile that holds its first
 // bit: that tile reads on past its last record for the bits the word
 // still lacks.  No global atomic, no zeroed buffer, no scratch to clear.
+// With a histogram buffer (the image and raw video paths, Huffman on) it
+// also takes K3's place, imageencoder_tpu/ops/pallas_kernels.py _hist_call:
+// launch 1 zeroes the 256 bins, and launch 2 counts the bytes of exactly
+// the words it stores (per-warp bins in shared memory, one global atomicAdd
+// a nonzero bin a CTA), so no launch reads the stream again.
 // Bound: HBM bytes (the register files and lengths read, about 4 bytes a
 // record written).
 //
@@ -32,6 +37,12 @@
 //                 from the coefficient tensor and the vectors.
 // Bound: HBM bytes.  pack_payload reads 1 byte per coded byte and the
 // payload, pack_coeffs 4 bytes per coefficient; both write the stream.
+// pack_payload reads its codes, the dict, its start bit and its byte count
+// from the dict kernel's table (huffman.cu, dict_table.cuh), so its tiles
+// are bounded by the bytes coded, not by the worst-case word buffer.
+// pack_coeffs can count the byte histogram of the stream it writes (K3 folded
+// in, as in K2): each word where it is stored, the words tiles share at the
+// final merge, where they are whole and the total is known.
 // The design keeps everything else on chip: the scan is one pass
 // (decoupled look-back over tiles taken in order); a tile's words are
 // composed in shared memory and leave by 16-byte stores; the words tiles
@@ -47,6 +58,7 @@
 #include <cuda_runtime.h>
 
 #include "bits.cuh"
+#include "dict_table.cuh"
 #include "records.cuh"
 
 namespace {
@@ -81,10 +93,38 @@ __device__ __forceinline__ void st_release(unsigned long long* p,
                  :: "l"(p), "l"(v) : "memory");
 }
 
+// Counts the bytes of word w, the stream's bytes b0 .. b0 + 3, that lie
+// before byte `end`, into the shared bins.
+__device__ __forceinline__ void count_bytes(int* bins, uint32_t w,
+                                            long long b0, long long end) {
+#pragma unroll
+    for (int j = 0; j < 4; j++)
+        if (b0 + j < end) atomicAdd(bins + ((w >> (24 - 8 * j)) & 0xFFu), 1);
+}
+
+// Zeroes kWarps sets of 256 bins (a warp's own), or adds them up and into
+// the global histogram, a nonzero bin an atomicAdd.
+template <int kWarpsHist>
+__device__ __forceinline__ void zero_bins(int* bins) {
+    for (int k = threadIdx.x; k < kWarpsHist * 256; k += blockDim.x)
+        bins[k] = 0;
+}
+
+template <int kWarpsHist>
+__device__ __forceinline__ void flush_bins(const int* bins, int32_t* hist) {
+    for (int k = threadIdx.x; k < 256; k += blockDim.x) {
+        int c = 0;
+#pragma unroll
+        for (int w = 0; w < kWarpsHist; w++) c += bins[w * 256 + k];
+        if (c) atomicAdd(hist + k, c);
+    }
+}
+
 // One pack's outputs and scratch.  scratch: u64 words zeroed by the
 // caller, [0] the tile counter, [1] tiles done, [2] the error flag, [3 + t]
 // tile t's status (flag | value); edges: u64 [2 * n_tiles], each tile's
-// first and last span word as ((word + 1) << 32) | bits, 0 for none.
+// first and last span word as ((word + 1) << 32) | bits, 0 for none; hist:
+// i32 [256], zeroed, the stream's byte histogram (with kHist).
 struct PackOut {
     long long n;  // records
     long long n_tiles;
@@ -96,6 +136,7 @@ struct PackOut {
     unsigned long long* scratch;
     unsigned long long* edges;
     long long* total;
+    int32_t* hist;
     int span_words;       // capacity of the shared span
     int max_record_bits;  // longer records are refused
 
@@ -188,19 +229,25 @@ __device__ __forceinline__ long long look_back(unsigned long long* status,
 // of a shared word ORs in the later tiles' parts of it and stores it, once.
 // No word of the output is written twice or by an atomic, and nothing of
 // it is zeroed first: the words past the stream's last word are left as
-// they were.
-template <int ITEMS, class Front>
+// they were.  With kHist each word's bytes are counted where it is stored,
+// and the CTA's counts leave for a.hist at the end.
+template <int ITEMS, class Front, bool kHist = false>
 __device__ __forceinline__ void pack_tiles(const Front& fe,
                                            const PackOut& a) {
     constexpr long long kRecords = (long long)kTile * ITEMS;
+    constexpr int kWarps = kTile / 32;
+    constexpr long long kAll = 1ll << 62;  // no byte of the word is past the end
     extern __shared__ __align__(16) uint32_t span[];
     __shared__ long long warp_sums[32];
     __shared__ long long s_tile, s_agg, s_excl;
+    __shared__ int bins[kHist ? kWarps * 256 : 1];  // a warp's own 256
     unsigned long long* counter = a.scratch;
     unsigned long long* done = a.scratch + 1;
     unsigned long long* err = a.scratch + 2;
     unsigned long long* status = a.scratch + 3;
     const int tid = threadIdx.x;
+    int* my_bins = bins + (kHist ? (tid >> 5) * 256 : 0);
+    if (kHist) zero_bins<kWarps>(bins);
 
     for (;;) {
         // Take a tile only when about to pack it: a later tile's look-back
@@ -266,18 +313,32 @@ __device__ __forceinline__ void pack_tiles(const Front& fe,
             if (lo < hi) {
                 const long long a0 = min((lo + 3) & ~3ll, hi);
                 const long long a1 = a0 + ((hi - a0) & ~3ll);
-                if (tid < a0 - lo)
-                    a.out[lo + tid] =
+                // Interior words: every byte lies inside the stream.
+                if (tid < a0 - lo) {
+                    const uint32_t w =
                         span[lo + tid - f] | a.prefix_word(lo + tid);
-                if (tid < hi - a1)
-                    a.out[a1 + tid] =
+                    a.out[lo + tid] = w;
+                    if (kHist) count_bytes(my_bins, w, 4 * (lo + tid), kAll);
+                }
+                if (tid < hi - a1) {
+                    const uint32_t w =
                         span[a1 + tid - f] | a.prefix_word(a1 + tid);
+                    a.out[a1 + tid] = w;
+                    if (kHist) count_bytes(my_bins, w, 4 * (a1 + tid), kAll);
+                }
                 for (long long v = a0 + 4 * tid; v < a1; v += 4 * kTile) {
                     const uint32_t* sp = span + (v - f);
-                    *reinterpret_cast<uint4*>(a.out + v) = make_uint4(
+                    const uint4 q = make_uint4(
                         sp[0] | a.prefix_word(v), sp[1] | a.prefix_word(v + 1),
                         sp[2] | a.prefix_word(v + 2),
                         sp[3] | a.prefix_word(v + 3));
+                    *reinterpret_cast<uint4*>(a.out + v) = q;
+                    if (kHist) {
+                        count_bytes(my_bins, q.x, 4 * v, kAll);
+                        count_bytes(my_bins, q.y, 4 * v + 4, kAll);
+                        count_bytes(my_bins, q.z, 4 * v + 8, kAll);
+                        count_bytes(my_bins, q.w, 4 * v + 12, kAll);
+                    }
                 }
             }
         }
@@ -292,6 +353,17 @@ __device__ __forceinline__ void pack_tiles(const Front& fe,
         }
     }
 
+    // The grid is sized by the most records there can be (pack_payload's by
+    // its worst-case buffer): a CTA past the words the final merge writes
+    // has nothing to wait for, and leaves instead of polling the counter.
+    if (blockIdx.x != 0 && (long long)blockIdx.x * kTile
+                               >= max(2 * a.n_tiles, a.start_bit >> 5)) {
+        if (kHist) {
+            __syncthreads();
+            flush_bins<kWarps>(bins, a.hist);
+        }
+        return;
+    }
     // Every tile has been taken by a running CTA: wait for all of them.
     if (tid == 0)
         while (ld_acquire(done) < (unsigned long long)a.n_tiles)
@@ -317,15 +389,29 @@ __device__ __forceinline__ void pack_tiles(const Front& fe,
                 break;
             v |= (uint32_t)ld_relaxed(a.edges + 2 * t2);
         }
-        if (w < a.n_words) a.out[w] = v;
+        if (w < a.n_words) {
+            a.out[w] = v;
+            if (kHist) count_bytes(my_bins, v, 4 * w, (total + 7) >> 3);
+        }
     }
     const long long head = min(a.start_bit >> 5, a.n_words);
-    for (long long w = g; w < head; w += stride) a.out[w] = a.prefix_word(w);
+    for (long long w = g; w < head; w += stride) {
+        a.out[w] = a.prefix_word(w);
+        if (kHist) count_bytes(my_bins, a.prefix_word(w), 4 * w, kAll);
+    }
     if (g == 0) {
         // An empty stream that starts inside a word: that word is prefix.
-        if (total == a.start_bit && (a.start_bit & 31) && head < a.n_words)
+        if (total == a.start_bit && (a.start_bit & 31) && head < a.n_words) {
             a.out[head] = a.prefix_word(head);
+            if (kHist)
+                count_bytes(my_bins, a.prefix_word(head), 4 * head,
+                            (total + 7) >> 3);
+        }
         *a.total = ld_acquire(err) ? -1 : total;
+    }
+    if (kHist) {
+        __syncthreads();
+        flush_bins<kWarps>(bins, a.hist);
     }
 }
 
@@ -498,20 +584,32 @@ __global__ void __launch_bounds__(kTile) pack_records_kernel(
     pack_tiles<RecordsFront::kItems>(fe, a);
 }
 
+// The codes, the dict words, the start bit (the dict's bits) and the bytes
+// to code come from the dict kernel's table; every CTA sizes the pack from
+// the byte count alike, and one with no tile to take leaves at once.
 __global__ void __launch_bounds__(kTile) pack_payload_kernel(
-        const uint32_t* __restrict__ words, long long n_in, long long nbytes,
-        const int32_t* __restrict__ code_w, const int32_t* __restrict__ code_l,
-        PackOut a) {
+        const uint32_t* __restrict__ words, long long n_in,
+        const int32_t* __restrict__ table, PackOut a) {
+    constexpr long long kRecords = (long long)kTile * PayloadFront::kItems;
     __shared__ uint32_t tab[256];
     for (int k = threadIdx.x; k < 256; k += kTile)
-        tab[k] = ((uint32_t)min(max(code_l[k], 0), 0xFFFF) << 16)
-                 | ((uint32_t)code_w[k] & 0xFFFFu);
+        tab[k] = ((uint32_t)min(max(table[ie::kTableCodeL + k], 0), 0xFFFF)
+                  << 16)
+                 | ((uint32_t)table[ie::kTableCodeW + k] & 0xFFFFu);
+    const long long* meta =
+        reinterpret_cast<const long long*>(table + ie::kTableMeta);
+    const long long nbytes = min(meta[ie::kMetaNbytes], 4 * n_in);
+    a.start_bit = meta[ie::kMetaDictBits];
+    a.prefix = reinterpret_cast<const uint32_t*>(table + ie::kTableDict);
+    a.prefix_words = ie::kDictWords;
+    a.n = (nbytes + 15) / 16;
+    a.n_tiles = (a.n + kRecords - 1) / kRecords;
     __syncthreads();
     const PayloadFront fe{words, n_in, nbytes, tab};
     pack_tiles<PayloadFront::kItems>(fe, a);
 }
 
-template <int B>
+template <int B, bool kHist>
 __global__ void __launch_bounds__(kTile) pack_coeffs_kernel(
         const int32_t* __restrict__ coeffs, long long height, long long width,
         const int32_t* __restrict__ mvecs, long long n_macro, int gop,
@@ -527,7 +625,7 @@ __global__ void __launch_bounds__(kTile) pack_coeffs_kernel(
     fe.gop = gop;
     fe.mvec_nbits = mvec_nbits;
     fe.use_rle = use_rle;
-    pack_tiles<CoeffsFront<B>::kItems>(fe, a);
+    pack_tiles<CoeffsFront<B>::kItems, CoeffsFront<B>, kHist>(fe, a);
 }
 
 // Fills in the launch-side fields of PackOut for tiles of kTile * items
@@ -563,7 +661,8 @@ int launch_pack(void (*kernel)(P...), int items, PackOut a,
 
 PackOut pack_out(long long n, long long start_bit, const void* prefix,
                  long long prefix_words, void* out, long long n_words,
-                 void* scratch, void* edges, void* total) {
+                 void* scratch, void* edges, void* total,
+                 void* hist = nullptr) {
     PackOut a{};
     a.n = n;
     a.start_bit = start_bit;
@@ -574,6 +673,7 @@ PackOut pack_out(long long n, long long start_bit, const void* prefix,
     a.scratch = (unsigned long long*)scratch;
     a.edges = (unsigned long long*)edges;
     a.total = (long long*)total;
+    a.hist = (int32_t*)hist;
     return a;
 }
 
@@ -736,7 +836,8 @@ __device__ __forceinline__ void emit_owned(
 
 // One scan-free pack's outputs.  sums: i64 [n_tiles + ceil(n_tiles /
 // kWarps)], tile t's bits and then each group of kWarps tiles', or -1
-// where one holds a refused record; total: i64 [1].
+// where one holds a refused record; total: i64 [1]; hist: i32 [256], the
+// stream's byte histogram, or null.
 struct KnownOut {
     long long n;  // records
     long long n_tiles;
@@ -747,6 +848,7 @@ struct KnownOut {
     long long n_words;
     long long* sums;
     long long* total;
+    int32_t* hist;
 
     __device__ __forceinline__ uint32_t prefix_word(long long w) const {
         return w < prefix_words ? prefix[w] : 0u;
@@ -757,7 +859,8 @@ constexpr int kWarps = kTile / 32;
 
 // Launch 1: the bits of each tile of kTile * ITEMS records, a warp a
 // tile and kWarps tiles (a group) a CTA: tile t's into sums[t], group g's
-// into sums[n_tiles + g]; -1 for one that holds a refused record.  grid:
+// into sums[n_tiles + g]; -1 for one that holds a refused record.  CTA 0
+// also zeroes the histogram that launch 2 counts into.  grid:
 // ceil(n_tiles / kWarps).
 template <int ITEMS, class Front>
 __global__ void __launch_bounds__(kTile) tile_sums_kernel(Front fe,
@@ -767,6 +870,7 @@ __global__ void __launch_bounds__(kTile) tile_sums_kernel(Front fe,
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const long long t = (long long)blockIdx.x * kWarps + warp;
+    if (a.hist && blockIdx.x == 0) a.hist[threadIdx.x] = 0;  // kTile == 256
     const long long first = (t * 32 + lane) * kPerLane;
     typename Front::Cursor c = fe.at(first);
     int len[kPerLane];
@@ -806,19 +910,27 @@ __global__ void __launch_bounds__(kTile) tile_sums_kernel(Front fe,
 // reports the total as -1.  Everything a thread reads up front (its
 // records' lengths and first two words, the sums) is asked for before the
 // one barrier that the starts need, so a CTA waits for memory once; a
-// record's further words are read as it is emitted.  grid: n_tiles.
-template <int ITEMS, class Front>
+// record's further words are read as it is emitted.  With kHist the bytes
+// of every word it stores are counted (the stream's end, where it lies in
+// the tile's last word, is where warp 0's reach past the tile runs out of
+// records) and added to a.hist.  grid: n_tiles.
+template <int ITEMS, class Front, bool kHist>
 __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
                                                            KnownOut a) {
     constexpr long long kRecords = (long long)kTile * ITEMS;
+    constexpr long long kAll = 1ll << 62;  // no byte of the word is past the end
     extern __shared__ __align__(16) uint32_t span[];
     __shared__ long long warp_before[kWarps];
     __shared__ int warp_bits[kWarps];
     __shared__ int warp_bad[kWarps];
+    __shared__ int bins[kHist ? kWarps * 256 : 1];  // a warp's own 256
+    __shared__ long long s_end;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
     const long long t = blockIdx.x;
+    int* my_bins = bins + (kHist ? warp * 256 : 0);
+    if (kHist) zero_bins<kWarps>(bins);
 
     const long long first = t * kRecords + (long long)tid * ITEMS;
     typename Front::Cursor c = fe.at(first);
@@ -890,8 +1002,10 @@ __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
     }
 
     // The last word's bits past this tile's end, from the records that
-    // follow, 32 at a time; only their parts of that word land.
+    // follow, 32 at a time; only their parts of that word land.  Where they
+    // run out first, the stream ends in this word, at s1 + got.
     const int need = (int)(32 * w1 - s1);
+    if (kHist && tid == 0) s_end = kAll;
     if (tid < 32 && nspan > 0 && need > 0) {
         long long i = min((t + 1) * kRecords, a.n);
         int got = 0;
@@ -912,28 +1026,49 @@ __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
             got += __shfl_sync(0xffffffffu, upto, 31);
             i += 32;
         }
+        if (kHist && tid == 0 && got < need) s_end = (s1 + got + 7) >> 3;
     }
     __syncthreads();
 
     const long long hi = min(w1, a.n_words);
+    const long long end = kHist ? s_end : kAll;  // the stream's end byte
     if (w0 < hi) {
         const long long a0 = min((w0 + 3) & ~3ll, hi);
         const long long a1 = a0 + ((hi - a0) & ~3ll);
-        if (tid < a0 - w0)
-            a.out[w0 + tid] = span[tid] | a.prefix_word(w0 + tid);
-        if (tid < hi - a1)
-            a.out[a1 + tid] = span[a1 + tid - w0] | a.prefix_word(a1 + tid);
+        if (tid < a0 - w0) {
+            const uint32_t w = span[tid] | a.prefix_word(w0 + tid);
+            a.out[w0 + tid] = w;
+            if (kHist) count_bytes(my_bins, w, 4 * (w0 + tid), end);
+        }
+        if (tid < hi - a1) {
+            const uint32_t w = span[a1 + tid - w0] | a.prefix_word(a1 + tid);
+            a.out[a1 + tid] = w;
+            if (kHist) count_bytes(my_bins, w, 4 * (a1 + tid), end);
+        }
         for (long long v = a0 + 4 * tid; v < a1; v += 4 * kTile) {
             const uint32_t* sp = span + (v - w0);
-            *reinterpret_cast<uint4*>(a.out + v) = make_uint4(
+            const uint4 q = make_uint4(
                 sp[0] | a.prefix_word(v), sp[1] | a.prefix_word(v + 1),
                 sp[2] | a.prefix_word(v + 2), sp[3] | a.prefix_word(v + 3));
+            *reinterpret_cast<uint4*>(a.out + v) = q;
+            if (kHist) {
+                count_bytes(my_bins, q.x, 4 * v, end);
+                count_bytes(my_bins, q.y, 4 * v + 4, end);
+                count_bytes(my_bins, q.z, 4 * v + 8, end);
+                count_bytes(my_bins, q.w, 4 * v + 12, end);
+            }
         }
     }
     if (t == 0) {
         const long long head = min(a.start_bit >> 5, a.n_words);
-        for (long long w = tid; w < head; w += kTile)
+        for (long long w = tid; w < head; w += kTile) {
             a.out[w] = a.prefix_word(w);
+            if (kHist) count_bytes(my_bins, a.prefix_word(w), 4 * w, kAll);
+        }
+    }
+    if (kHist) {
+        __syncthreads();
+        flush_bins<kWarps>(bins, a.hist);
     }
 }
 
@@ -973,7 +1108,8 @@ int launch_locals(const LocalsFront<kVec>& fe, KnownOut a, cudaStream_t s) {
     const long long records = (long long)kTile * ITEMS;
     a.n_tiles = std::max(1ll, (a.n + records - 1) / records);
     const size_t smem = (size_t)(records * fe.lw + 3) * sizeof(uint32_t);
-    auto* kernel = pack_known_kernel<ITEMS, LocalsFront<kVec>>;
+    auto* kernel = a.hist ? pack_known_kernel<ITEMS, LocalsFront<kVec>, true>
+                          : pack_known_kernel<ITEMS, LocalsFront<kVec>, false>;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -996,8 +1132,9 @@ extern "C" const char* ie_error_string(int code) {
 // n_frames frames in GOPs of gop and mvec_nbits (1..16) bits a component,
 // or n_macro == 0 for block records alone (see LocalsFront).  start_bit,
 // prefix, out and total as for K4 below, out not zeroed; sums: i64
-// [ie_pack_locals_scratch(records, lw)], scratch that needs no clearing.
-// Fewer than 2^31 records.
+// [ie_pack_locals_scratch(records, lw)], scratch that needs no clearing;
+// hist: i32 [256], not zeroed, receives the stream's byte histogram, or
+// null.  Fewer than 2^31 records.
 extern "C" int ie_pack_locals_scratch(long long n_records, int lw) {
     const long long records = (long long)kTile * locals_items(lw);
     const long long tiles = std::max(1ll, (n_records + records - 1) / records);
@@ -1010,7 +1147,7 @@ extern "C" int ie_pack_locals(const void* local, const void* lens,
                               int mvec_nbits, long long start_bit,
                               const void* prefix, long long prefix_words,
                               void* out, long long n_words, void* sums,
-                              void* total, void* stream) {
+                              void* total, void* hist, void* stream) {
     LocalsFront<true> fe;
     KnownOut a{};
     if (!locals_front(local, lens, n_blocks, lw, mvecs, n_frames, n_macro,
@@ -1023,6 +1160,7 @@ extern "C" int ie_pack_locals(const void* local, const void* lens,
     a.n_words = n_words;
     a.sums = (long long*)sums;
     a.total = (long long*)total;
+    a.hist = (int32_t*)hist;
     cudaStream_t s = (cudaStream_t)stream;
     const int items = locals_items(lw);
     if (fe.n_macro)
@@ -1036,7 +1174,8 @@ extern "C" int ie_pack_locals(const void* local, const void* lens,
                       : launch_locals<1>(blocks, a, s);
 }
 
-// The K4 entry points share their tail: start_bit; prefix, u32
+// The K4 entry points share their tail (pack_payload takes its start_bit
+// and prefix from its table): start_bit; prefix, u32
 // [prefix_words] OR'd into the first words (the header or dict; may be
 // null); out, u32 [n_words], 16-byte aligned, not zeroed: the stream's
 // words are written up to its last, the rest is left as it was; scratch,
@@ -1060,28 +1199,29 @@ extern "C" int ie_pack_records(const void* vals, const void* nbits,
                        (const int32_t*)nbits, f);
 }
 
-// words: u32 [n_in], 16-byte aligned, the inner stream; its first nbytes
-// bytes are coded; code_w, code_l: i32 [256], codes and lengths (<= 16).
-// Records are 16 bytes: ceil(n_in / 4) of them.
+// words: u32 [n_in], 16-byte aligned, the inner stream; table: i32
+// [ie_dict_table_words()], the dict kernel's output (dict_table.cuh): the
+// codes and lengths (<= 16) of the bytes, the dict words OR'd in before the
+// start bit (the dict's bits), and the number of the stream's bytes to
+// code.  Records are 16 bytes: scratch and edges are sized for
+// ceil(n_in / 4) of them, the pack takes the byte count's.  No start_bit or
+// prefix argument: both come from the table.
 extern "C" int ie_pack_payload(const void* words, long long n_in,
-                               long long nbytes, const void* code_w,
-                               const void* code_l, long long start_bit,
-                               const void* prefix, long long prefix_words,
-                               void* out, long long n_words, void* scratch,
-                               void* edges, void* total, void* stream) {
-    const PackOut a = pack_out((n_in + 3) / 4, start_bit, prefix,
-                               prefix_words, out, n_words, scratch, edges,
-                               total);
+                               const void* table, void* out,
+                               long long n_words, void* scratch, void* edges,
+                               void* total, void* stream) {
+    const PackOut a = pack_out((n_in + 3) / 4, 0, nullptr, 0, out, n_words,
+                               scratch, edges, total);
     return launch_pack(pack_payload_kernel, PayloadFront::kItems, a,
                        16ll * 16, (cudaStream_t)stream,
-                       (const uint32_t*)words, n_in, nbytes,
-                       (const int32_t*)code_w, (const int32_t*)code_l);
+                       (const uint32_t*)words, n_in, (const int32_t*)table);
 }
 
 // coeffs: i32 [F, H, W], 16-byte aligned, W % 4 == 0; mvecs: i32
 // [P, n_macro, 2], 8-byte aligned, the vectors of the P-frames (f % gop !=
 // 0) in order; a block record longer than lw words is refused.  Records:
-// F * (n_macro + (H / B) * (W / B)).
+// F * (n_macro + (H / B) * (W / B)).  hist: i32 [256], zeroed (the tail of
+// the scratch serves), receives the stream's byte histogram, or null.
 extern "C" int ie_pack_coeffs(const void* coeffs, long long frames,
                               long long height, long long width,
                               int block_size, const void* mvecs,
@@ -1089,23 +1229,32 @@ extern "C" int ie_pack_coeffs(const void* coeffs, long long frames,
                               int use_rle, int lw, long long start_bit,
                               const void* prefix, long long prefix_words,
                               void* out, long long n_words, void* scratch,
-                              void* edges, void* total, void* stream) {
+                              void* edges, void* total, void* hist,
+                              void* stream) {
     if ((block_size != 4 && block_size != 8) || width % 4 || gop < 1)
         return (int)cudaErrorInvalidValue;
     const long long per_frame =
         n_macro + (height / block_size) * (width / block_size);
     const PackOut a = pack_out(frames * per_frame, start_bit, prefix,
                                prefix_words, out, n_words, scratch, edges,
-                               total);
+                               total, hist);
     const long long bits = std::max(32ll * lw, 2ll * mvec_nbits);
     cudaStream_t s = (cudaStream_t)stream;
     const auto* c = (const int32_t*)coeffs;
     const auto* m = (const int32_t*)mvecs;
     if (block_size == 4)
-        return launch_pack(pack_coeffs_kernel<4>, CoeffsFront<4>::kItems, a,
-                           bits, s, c, height, width, m, n_macro, gop,
-                           mvec_nbits, use_rle);
-    return launch_pack(pack_coeffs_kernel<8>, CoeffsFront<8>::kItems, a, bits,
-                       s, c, height, width, m, n_macro, gop, mvec_nbits,
-                       use_rle);
+        return hist ? launch_pack(pack_coeffs_kernel<4, true>,
+                                  CoeffsFront<4>::kItems, a, bits, s, c,
+                                  height, width, m, n_macro, gop, mvec_nbits,
+                                  use_rle)
+                    : launch_pack(pack_coeffs_kernel<4, false>,
+                                  CoeffsFront<4>::kItems, a, bits, s, c,
+                                  height, width, m, n_macro, gop, mvec_nbits,
+                                  use_rle);
+    return hist ? launch_pack(pack_coeffs_kernel<8, true>,
+                              CoeffsFront<8>::kItems, a, bits, s, c, height,
+                              width, m, n_macro, gop, mvec_nbits, use_rle)
+                : launch_pack(pack_coeffs_kernel<8, false>,
+                              CoeffsFront<8>::kItems, a, bits, s, c, height,
+                              width, m, n_macro, gop, mvec_nbits, use_rle);
 }

@@ -36,7 +36,9 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _U64 = ctypes.c_ulonglong
-_K4_TAIL = [_I64, _P, _I64, _P, _I64, _P, _P, _P, _P]  # start_bit .. stream
+# start_bit, prefix, prefix_words, out, n_words, scratch, edges, total,
+# stream
+_K4_TAIL = [_I64, _P, _I64, _P, _I64, _P, _P, _P, _P]
 SIGNATURES = {
     "ie_encode_locals": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _I32,
                          _I32, _P, _P, _P, _P],
@@ -47,14 +49,16 @@ SIGNATURES = {
     "ie_search_residual": [_P, _I64, _I32, _I32, _I32, _I32, _P, _P, _P],
     "ie_predict": [_P, _P, _I64, _I32, _I32, _P, _P],
     "ie_pack_locals": [_P, _P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _I64,
-                       _P, _I64, _P, _I64, _P, _P, _P],
+                       _P, _I64, _P, _I64, _P, _P, _P, _P],
     "ie_pack_locals_scratch": [_I64, _I32],
     "ie_pack_tile": [],
     "ie_pack_records": [_P, _P, _I64, _I32, *_K4_TAIL],
-    "ie_pack_payload": [_P, _I64, _I64, _P, _P, *_K4_TAIL],
+    "ie_pack_payload": [_P, _I64, _P, *_K4_TAIL[3:]],
     "ie_pack_coeffs": [_P, _I64, _I64, _I64, _I32, _P, _I64, _I32, _I32,
-                       _I32, _I32, *_K4_TAIL],
+                       _I32, _I32, *_K4_TAIL[:-1], _P, _P],
     "ie_byte_histogram": [_P, _I64, _P, _P, _P],
+    "ie_huffman_dict": [_P, _P, _P, _P],
+    "ie_dict_table_words": [],
     "ie_div_sweep": [_P, _I64, _I64, _I32, _U64, _P, _P],
 }
 

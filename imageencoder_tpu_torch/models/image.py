@@ -3,8 +3,9 @@
 The counterpart of imageencoder_tpu/models/image.py::encode_image with
 backend="jax" (models/image.py:73-113).  The host writes the header bits
 exactly as the JAX package does (models/headers.py); the device runs the
-transform, the pack and the histogram (ops/pipeline.py) and, with Huffman,
-the payload pack (ops/huffman.py).  Decoding stays on the JAX package's
+transform and the pack, which with Huffman counts the byte histogram
+(ops/pipeline.py), then the dict and the payload pack (ops/huffman.py),
+and the host waits once before it copies the stream.  Decoding stays on the JAX package's
 host engine: imageencoder_tpu.decode_image(backend="fast") reads these
 streams.
 """
@@ -15,8 +16,9 @@ import numpy as np
 import torch
 
 from ..ops.bitpack import BitWriter
-from ..ops.device_pack import header_to_words, host_total, stream_bytes
-from ..ops.huffman import huffman_encode_from_meta
+from ..ops.device_pack import (header_to_words, host_total, stream_bytes,
+                               to_device)
+from ..ops.huffman import huffman_encode_from_hist
 from ..ops.pipeline import make_encode_packed, make_encode_packed_hist
 from ..utils import profiling
 from ..utils.device import resolve_device
@@ -35,8 +37,8 @@ def stream_header(quant: QuantMatrix, use_rle: bool, w: int, h: int,
     if not use_huffman:
         writer.put_bit(0)  # no-Huffman flag leads the stream directly
     write_image_header(writer, quant, use_rle, w, h)
-    header = torch.from_numpy(
-        header_to_words(writer.getvalue()).view(np.int32)).to(device)
+    header = to_device(header_to_words(writer.getvalue()).view(np.int32),
+                       device)
     return writer.position, header
 
 
@@ -67,11 +69,9 @@ def encode_image(img, quant: QuantMatrix, use_rle: bool = True,
 
     if use_huffman:
         with profiling.stage("device encode+pack+hist"):
-            words, meta = make_encode_packed_hist(block_size, use_rle,
-                                                  norm)(*args)
-            meta = meta.cpu().numpy()
+            got = make_encode_packed_hist(block_size, use_rle, norm)(*args)
         with profiling.stage("huffman"):
-            return huffman_encode_from_meta(words, meta)
+            return huffman_encode_from_hist(*got)
     with profiling.stage("device encode+pack"):
         words, total = make_encode_packed(block_size, use_rle, norm)(*args)
         return stream_bytes(words, host_total(total))

@@ -4,9 +4,10 @@ The counterpart of imageencoder_tpu/models/video.py::encode_video with
 backend="jax" (models/video.py:223-328): the same signature, header and
 semantics, and streams byte-identical to its backend="numpy".  The host
 writes the header bits exactly as the JAX package does
-(models/headers.py); the device runs the motion search, the transform,
-the pack and the histogram (ops/video_pipeline.py) and, with Huffman, the
-payload pack (ops/huffman.py).  Decoding stays on the JAX package's host
+(models/headers.py); the device runs the motion search, the transform
+and the pack, which with Huffman counts the byte histogram
+(ops/video_pipeline.py), then the dict and the payload pack
+(ops/huffman.py).  Decoding stays on the JAX package's host
 engine: imageencoder_tpu.models.video.decode_video(backend="fast") reads
 these streams.
 """
@@ -18,8 +19,9 @@ import torch
 
 from ..ops import bitpack
 from ..ops.bitpack import BitWriter
-from ..ops.device_pack import header_to_words, host_total, stream_bytes
-from ..ops.huffman import huffman_encode, huffman_encode_from_meta
+from ..ops.device_pack import (header_to_words, host_total, stream_bytes,
+                               to_device)
+from ..ops.huffman import huffman_encode, huffman_encode_from_hist
 from ..ops.motion import MACRO
 from ..ops.video_pipeline import (make_encode_video_packed,
                                   make_encode_video_packed_recon)
@@ -124,18 +126,19 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
     if n_frames <= MAX_FRAMES_PER_CALL:
         fn = factory(gop, merange, mb, block_size, use_rle, norm,
                      with_hist=use_huffman)
-        header = torch.from_numpy(
-            header_to_words(writer.getvalue()).view(np.int32)).to(dev)
+        header = to_device(header_to_words(writer.getvalue()).view(np.int32),
+                           dev)
         with profiling.stage("device video encode"):
-            words, out = fn(frames, qf, writer.position, header)
+            got = fn(frames, qf, writer.position, header)
         if use_huffman:
             with profiling.stage("huffman"):
-                return huffman_encode_from_meta(words, out.cpu().numpy())
-        return stream_bytes(words, host_total(out))
+                return huffman_encode_from_hist(*got)
+        words, total = got
+        return stream_bytes(words, host_total(total))
 
     # Long videos: GOP-aligned chunks (GOPs are independent) encoded at bit
     # 0 and spliced after the header on the host, then Huffman over the
-    # whole stream on ``dev`` (K3 and K4 on a card).
+    # whole stream on ``dev`` (K3, the dict kernel and K4 on a card).
     chunk = max(gop, (MAX_FRAMES_PER_CALL // gop) * gop)
     fn = factory(gop, merange, mb, block_size, use_rle, norm)
     segments = [(writer.getvalue(), writer.position)]

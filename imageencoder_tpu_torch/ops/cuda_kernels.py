@@ -1,9 +1,13 @@
 """K3: the byte histogram of a packed word stream.
 
 The counterpart of imageencoder_tpu/ops/pallas_kernels.py's
-byte_histogram (the tile DCT there, K5, is not ported yet).  Bytes are
-taken in stream order, ``w>>24, w>>16, w>>8, w&0xFF``, and only the first
-``ceil(total_bits / 8)`` count.  ``total_bits`` is a tensor on the words'
+byte_histogram (the tile DCT there, K5, is ops/cuda_encode.py's
+quantize_image).  Bytes are taken in stream order, ``w>>24, w>>16, w>>8,
+w&0xFF``, and only the first ``ceil(total_bits / 8)`` count.  The encode
+paths count their histogram in the packer that writes the stream
+(ops/cuda_pack.py, ``pack_locals_hist`` and ``pack_coeffs_hist``); this
+kernel runs for a stream that arrives packed (the spliced chunks of a
+long video, a header-only stream), and its plain version is theirs.  ``total_bits`` is a tensor on the words'
 device, so on the card the histogram follows the pack with nothing waiting
 on the host.  On a CUDA tensor :func:`byte_histogram` launches
 csrc/histogram.cu; on a CPU tensor it runs the plain version.

@@ -6,17 +6,23 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
     files and bit lengths from the encode front end (ops/cuda_encode.py)
     and, for a video, each P-frame's motion-vector records before the
     frame's blocks, read from the vectors where they lie;
+    :func:`pack_locals_hist` also counts the byte histogram of the stream
+    it writes (K3, pallas_kernels.byte_histogram, folded in);
   * K4 (pack_records_pallas) is one single-pass kernel with three front
     ends, each of which reads its records' fields where they already are:
     :func:`pack_records` [N, F] field tensors of (value, nbits) pairs,
     fields at most 16 bits wide; :func:`pack_payload` the Huffman payload,
     each stream byte replaced by its code (huffman._device_stages
-    .pack_payload); :func:`pack_coeffs` a recon video's motion-vector and
-    block records from its coefficient tensor (pipeline.fields_from_coeffs
-    and the vector fields, then the pack).
+    .pack_payload), under the dict kernel's table (ops/dict_table.py);
+    :func:`pack_coeffs` a recon video's motion-vector and block records
+    from its coefficient tensor (pipeline.fields_from_coeffs and the
+    vector fields, then the pack), and :func:`pack_coeffs_hist` the same
+    with the stream's byte histogram.
 
 All return (words int32 [n_words], total_bits int64 0-d tensor, start_bit
-included, -1 where a record was refused); the words are the u32 stream,
+included, -1 where a record was refused), the ``_hist`` ones also the
+histogram int32 [256] of the stream's first ceil(total_bits / 8) bytes
+(undefined for a refused stream); the words are the u32 stream,
 MSB-first.  ``prefix`` words, the header or dict bits that lie before
 ``start_bit``, are OR'd into the first words.  On a CPU tensor the
 wrappers run the plain versions, which return zeros past the stream.  On
@@ -32,9 +38,12 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
-from . import cuda_encode, device_pack, rle
+from . import cuda_encode, device_pack, dict_table, rle
+from .cuda_kernels import byte_histogram_plain
 from .motion import p_frames
 from .zigzag import zigzag_order
+
+HIST_SLOTS = 128  # int64 words of K4's zeroed scratch that hold 256 bins
 
 
 def stream_words(words: torch.Tensor, total_bits) -> torch.Tensor:
@@ -93,6 +102,13 @@ def pack_locals_plain(local, lens, start_bit: int, n_words: int,
     return words, torch.where(refused, -1, total)
 
 
+def pack_locals_hist_plain(*args, **kwargs):
+    """The plain version of K2 with its histogram: the plain pack, then
+    K3's plain version over the stream it wrote."""
+    words, total = pack_locals_plain(*args, **kwargs)
+    return words, total, byte_histogram_plain(words, total)
+
+
 def _check_vectors(local, mvecs, n_frames: int, gop: int,
                    mvec_nbits: int) -> None:
     if mvecs.dim() != 3 or mvecs.shape[2] != 2:
@@ -123,14 +139,41 @@ def pack_locals(local: torch.Tensor, lens: torch.Tensor, start_bit: int,
     n_macro vector records, x then y at ``mvec_nbits`` bits each, go
     before the frame's N / n_frames block records.  A record longer than
     its register file (one K1 refused) makes the total -1."""
+    return _pack_locals(pack_locals, False, local, lens, start_bit, n_words,
+                        prefix, mvecs, n_frames, gop, mvec_nbits)
+
+
+pack_locals.launches = 0
+
+
+def pack_locals_hist(local: torch.Tensor, lens: torch.Tensor,
+                     start_bit: int, n_words: int,
+                     prefix: torch.Tensor | None = None,
+                     mvecs: torch.Tensor | None = None, n_frames: int = 1,
+                     gop: int = 1, mvec_nbits: int = 0):
+    """:func:`pack_locals` that also counts the byte histogram of the
+    stream it writes, in the same two launches: (words, total_bits, hist
+    int32 [256])."""
+    return _pack_locals(pack_locals_hist, True, local, lens, start_bit,
+                        n_words, prefix, mvecs, n_frames, gop, mvec_nbits)
+
+
+pack_locals_hist.launches = 0
+
+
+def _pack_locals(counter, hist: bool, local, lens, start_bit: int,
+                 n_words: int, prefix, mvecs, n_frames: int, gop: int,
+                 mvec_nbits: int):
+    """K2 with or without the histogram; a launch counts on ``counter``."""
     if local.dim() != 2 or lens.shape != local.shape[:1]:
         raise ValueError(f"expected local [N, lw] and lens [N], got "
                          f"{tuple(local.shape)} and {tuple(lens.shape)}")
     if mvecs is not None:
         _check_vectors(local, mvecs, n_frames, gop, mvec_nbits)
     if local.device.type == "cpu":
-        return pack_locals_plain(local, lens, start_bit, n_words, prefix,
-                                 mvecs, n_frames, gop, mvec_nbits)
+        plain = pack_locals_hist_plain if hist else pack_locals_plain
+        return plain(local, lens, start_bit, n_words, prefix, mvecs,
+                     n_frames, gop, mvec_nbits)
     dev = local.device
     build.require(local, "local", torch.int32, 2, dev)
     build.require(lens, "lens", torch.int32, 1, dev)
@@ -150,41 +193,48 @@ def pack_locals(local: torch.Tensor, lens: torch.Tensor, start_bit: int,
                        dtype=torch.int64, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
     out = torch.empty(n_words, dtype=torch.int32, device=dev)
+    bins = torch.empty(256, dtype=torch.int32, device=dev) if hist else None
     with torch.cuda.device(dev):
         code = lib.ie_pack_locals(
             local.data_ptr(), lens.data_ptr(), n, lw, mvec_ptr, n_frames,
             n_macro, gop, mvec_nbits, start_bit, prefix_ptr, prefix_words,
             out.data_ptr(), n_words, sums.data_ptr(), total.data_ptr(),
-            build.stream_ptr(dev))
+            bins.data_ptr() if hist else None, build.stream_ptr(dev))
     build.check(code, "ie_pack_locals")
-    pack_locals.launches += 1
-    return out, total.reshape(())
+    counter.launches += 1
+    return (out, total.reshape(())) + ((bins,) if hist else ())
 
 
-pack_locals.launches = 0
+def _prefix(prefix, dev):
+    """(pointer, words) of the prefix a K4 front end ORs in, or (None, 0)."""
+    if prefix is None:
+        return None, 0
+    build.require(prefix, "prefix", torch.int32, 1, dev)
+    return prefix.data_ptr(), prefix.shape[0]
 
 
-def _k4(entry: str, n_records: int, start_bit: int, n_words: int, prefix,
-        dev, *head):
-    """Launch a K4 front end: allocates its output (not zeroed), its
-    zeroed scratch and its edges, and returns (words, total_bits)."""
+def _k4(entry: str, n_records: int, n_words: int, dev, args: tuple,
+        hist: bool | None = None):
+    """Launch a K4 front end on ``args`` (its arguments before ``out``):
+    allocates its output (not zeroed), its zeroed scratch and its edges,
+    and returns (words, total_bits).  An entry that takes a histogram
+    (``hist`` not None) gets its bins in the scratch's zeroed tail where
+    ``hist`` is true, and they are returned too; else a null pointer."""
     lib = build.library()
     n_tiles = -(-n_records // lib.ie_pack_tile())
-    scratch = torch.zeros(3 + n_tiles, dtype=torch.int64, device=dev)
+    scratch = torch.zeros(3 + n_tiles + (HIST_SLOTS if hist else 0),
+                          dtype=torch.int64, device=dev)
     edges = torch.empty(max(2 * n_tiles, 1), dtype=torch.int64, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
     out = torch.empty(n_words, dtype=torch.int32, device=dev)
-    prefix_ptr, prefix_words = None, 0
-    if prefix is not None:
-        build.require(prefix, "prefix", torch.int32, 1, dev)
-        prefix_ptr, prefix_words = prefix.data_ptr(), prefix.shape[0]
+    bins = scratch[3 + n_tiles:].view(torch.int32) if hist else None
+    tail = () if hist is None else (bins.data_ptr() if hist else None,)
     with torch.cuda.device(dev):
         code = getattr(lib, entry)(
-            *head, start_bit, prefix_ptr, prefix_words, out.data_ptr(),
-            n_words, scratch.data_ptr(), edges.data_ptr(), total.data_ptr(),
-            build.stream_ptr(dev))
+            *args, out.data_ptr(), n_words, scratch.data_ptr(),
+            edges.data_ptr(), total.data_ptr(), *tail, build.stream_ptr(dev))
     build.check(code, entry)
-    return out, total.reshape(())
+    return (out, total.reshape(())) + ((bins,) if hist else ())
 
 
 def pack_records_plain(vals, nbits, start_bit: int, n_words: int,
@@ -206,8 +256,9 @@ def pack_records(vals: torch.Tensor, nbits: torch.Tensor, start_bit: int,
         raise ValueError(f"nbits {tuple(nbits.shape)} != vals "
                          f"{tuple(vals.shape)}")
     n, f = vals.shape
-    got = _k4("ie_pack_records", n, start_bit, n_words, prefix, dev,
-              vals.data_ptr(), nbits.data_ptr(), n, f)
+    got = _k4("ie_pack_records", n, n_words, dev,
+              (vals.data_ptr(), nbits.data_ptr(), n, f, start_bit,
+               *_prefix(prefix, dev)))
     pack_records.launches += 1
     return got
 
@@ -233,34 +284,37 @@ def payload_fields(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,
     return vals.contiguous(), nbits.contiguous()
 
 
-def pack_payload_plain(words, nbytes: int, code_w, code_l, start_bit: int,
-                       n_words: int, prefix=None):
-    """The plain version of K4 pack_payload, on any device."""
-    vals, nbits = payload_fields(words, nbytes, code_w, code_l)
-    return pack_records_plain(vals, nbits, start_bit, n_words, prefix)
+def pack_payload_plain(words, table, n_words: int):
+    """The plain version of K4 pack_payload, on any device (it reads the
+    table's fields on the host)."""
+    t = dict_table
+    meta = t.fields(table)
+    nbytes = min(meta["nbytes"], 4 * words.shape[0])
+    vals, nbits = payload_fields(words, nbytes, table[t.CODE_W:t.CODE_W + 256],
+                                 table[t.CODE_L:t.CODE_L + 256])
+    return pack_records_plain(vals, nbits, meta["dict_bits"], n_words,
+                              table[t.DICT:t.DICT + t.DICT_WORDS])
 
 
-def pack_payload(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,
-                 code_l: torch.Tensor, start_bit: int, n_words: int,
-                 prefix: torch.Tensor | None = None):
+def pack_payload(words: torch.Tensor, table: torch.Tensor, n_words: int):
     """Pack the Huffman payload of the inner stream ``words`` (int32 [W],
-    u32 bits): each of its first ``nbytes`` bytes, in stream order,
-    replaced by its code ``code_w[byte]`` of ``code_l[byte]`` bits (int32
-    [256], lengths at most 16), 16 bytes a record, after ``start_bit``."""
+    u32 bits) under the dict kernel's ``table`` (ops/dict_table.py): each
+    of the stream's first ``nbytes`` bytes (a field of the table), in
+    stream order, replaced by its code of the table (lengths at most 16),
+    16 bytes a record, after the dict's bits, the dict's words OR'd into
+    the first words.  Nothing of the table is read on the host."""
     if words.device.type == "cpu":
-        return pack_payload_plain(words, nbytes, code_w, code_l, start_bit,
-                                  n_words, prefix)
+        return pack_payload_plain(words, table, n_words)
     dev = words.device
     build.require(words, "words", torch.int32, 1, dev)
     build.require_aligned(words, "words")
-    for name, t in (("code_w", code_w), ("code_l", code_l)):
-        build.require(t, name, torch.int32, 1, dev)
-        if t.shape[0] != 256:
-            raise ValueError(f"{name}: expected 256 entries, got "
-                             f"{t.shape[0]}")
-    got = _k4("ie_pack_payload", -(-words.shape[0] // 4), start_bit, n_words,
-              prefix, dev, words.data_ptr(), words.shape[0], nbytes,
-              code_w.data_ptr(), code_l.data_ptr())
+    build.require(table, "table", torch.int32, 1, dev)
+    build.require_aligned(table, "table", 8)
+    if table.shape[0] != dict_table.TABLE_WORDS:
+        raise ValueError(f"table: expected {dict_table.TABLE_WORDS} words, "
+                         f"got {table.shape[0]}")
+    got = _k4("ie_pack_payload", -(-words.shape[0] // 4), n_words, dev,
+              (words.data_ptr(), words.shape[0], table.data_ptr()))
     pack_payload.launches += 1
     return got
 
@@ -316,6 +370,13 @@ def pack_coeffs_plain(coeffs, mvecs, gop: int, mvec_nbits: int,
     return words, torch.where(refused, -1, total)
 
 
+def pack_coeffs_hist_plain(*args, **kwargs):
+    """The plain version of K4 pack_coeffs with its histogram: the plain
+    pack, then K3's plain version over the stream it wrote."""
+    words, total = pack_coeffs_plain(*args, **kwargs)
+    return words, total, byte_histogram_plain(words, total)
+
+
 def pack_coeffs(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
                 mvec_nbits: int, block_size: int, use_rle: bool, lw: int,
                 start_bit: int, n_words: int,
@@ -325,6 +386,33 @@ def pack_coeffs(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
     2].  A block record longer than ``lw`` words (coefficients outside the
     bound that sized it) is refused: the total is -1, on which the host
     raises (device_pack.host_total)."""
+    return _pack_coeffs(pack_coeffs, False, coeffs, mvecs, gop, mvec_nbits,
+                        block_size, use_rle, lw, start_bit, n_words, prefix)
+
+
+pack_coeffs.launches = 0
+
+
+def pack_coeffs_hist(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
+                     mvec_nbits: int, block_size: int, use_rle: bool,
+                     lw: int, start_bit: int, n_words: int,
+                     prefix: torch.Tensor | None = None):
+    """:func:`pack_coeffs` that also counts the byte histogram of the
+    stream it writes, in the same launch: (words, total_bits, hist int32
+    [256])."""
+    return _pack_coeffs(pack_coeffs_hist, True, coeffs, mvecs, gop,
+                        mvec_nbits, block_size, use_rle, lw, start_bit,
+                        n_words, prefix)
+
+
+pack_coeffs_hist.launches = 0
+
+
+def _pack_coeffs(counter, hist: bool, coeffs, mvecs, gop: int,
+                 mvec_nbits: int, block_size: int, use_rle: bool, lw: int,
+                 start_bit: int, n_words: int, prefix):
+    """K4 pack_coeffs with or without the histogram; a launch counts on
+    ``counter``."""
     if coeffs.dim() != 3 or mvecs.dim() != 3 or mvecs.shape[2] != 2:
         raise ValueError(f"expected coeffs [F, H, W] and mvecs [P, n, 2], "
                          f"got {tuple(coeffs.shape)} and "
@@ -335,8 +423,9 @@ def pack_coeffs(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
         raise ValueError(f"mvecs has {mvecs.shape[0]} frames, the video "
                          f"{n_p} P-frames")
     if coeffs.device.type == "cpu":
-        return pack_coeffs_plain(coeffs, mvecs, gop, mvec_nbits, block_size,
-                                 use_rle, lw, start_bit, n_words, prefix)
+        plain = pack_coeffs_hist_plain if hist else pack_coeffs_plain
+        return plain(coeffs, mvecs, gop, mvec_nbits, block_size, use_rle, lw,
+                     start_bit, n_words, prefix)
     if block_size not in (4, 8):
         raise ValueError(f"pack_coeffs takes 4x4 or 8x8 blocks, not "
                          f"{block_size}x{block_size}")
@@ -352,11 +441,9 @@ def pack_coeffs(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
         build.require_aligned(mvecs, "mvecs", 8)
     n_macro = mvecs.shape[1]
     n_records = f * (n_macro + (h // block_size) * (w // block_size))
-    got = _k4("ie_pack_coeffs", n_records, start_bit, n_words, prefix, dev,
-              coeffs.data_ptr(), f, h, w, block_size, mvecs.data_ptr(),
-              n_macro, gop, mvec_nbits, int(use_rle), lw)
-    pack_coeffs.launches += 1
+    got = _k4("ie_pack_coeffs", n_records, n_words, dev,
+              (coeffs.data_ptr(), f, h, w, block_size, mvecs.data_ptr(),
+               n_macro, gop, mvec_nbits, int(use_rle), lw, start_bit,
+               *_prefix(prefix, dev)), hist)
+    counter.launches += 1
     return got
-
-
-pack_coeffs.launches = 0

@@ -79,6 +79,16 @@ def as_uint(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  To a card it goes through
+    pinned memory by a copy that does not wait for the device (PyTorch's
+    pinned-memory allocator keeps the block until the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:
     """Stream words (int32 bit patterns, any device) -> host uint32."""
     return words.cpu().numpy().view(np.uint32)

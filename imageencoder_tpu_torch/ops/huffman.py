@@ -10,12 +10,18 @@ MSB-first.  When that is not smaller than the input, the stream is
 The host half is the port's copy of the JAX package's: a deterministic
 tree build (heap ties broken by frequency, then first symbol), code
 lengths limited to 15 bits (JPEG-style adjust), canonical codes and the
-serialized dict.  There is no native path.
+serialized dict.  There is no native path.  It is the plain version of the
+dict kernel (:func:`build_dict_plain`) and the encode of a CPU tensor.
 
-The device half keeps the inner stream on the device: the host reads the
-histogram (in ``meta``, or from K3) once, decides the fallback-if-bigger
-from it, and then reads the final words once.  K4's pack_payload front
-end packs the payload from the inner stream's words.
+The device half keeps the stream on the device until its final copy.  The
+byte histogram comes from the packer that wrote the inner stream (K2 or K4
+pack_coeffs, with K3 folded in; ops/cuda_pack.py), or from K3 for a stream
+that arrives packed; the dict kernel (csrc/huffman.cu, :func:`build_dict`)
+turns it into the dict table (ops/dict_table.py): codes, dict words, the
+out total and the fallback flag; K4's pack_payload front end packs the
+payload under the table.  Then the host waits once, for the table's totals
+(one small pinned copy), and copies the final words, or on the fallback
+flag the inner words, in one exact-size copy.
 """
 
 from __future__ import annotations
@@ -25,14 +31,15 @@ import heapq
 import numpy as np
 import torch
 
-from . import cuda_kernels, cuda_pack
+from ..kernels import build
+from . import cuda_kernels, cuda_pack, dict_table
 from .bitpack import pack_fields
-from .device_pack import bytes_to_words, host_total, stream_bytes
+from .device_pack import bytes_to_words, host_total, stream_bytes, to_device
 
 KEY_BITS = 8
 MAX_CODE_LEN = 15  # must fit the 4-bit dict header field
 MAX_GROUP = 127  # must fit the 7-bit group length field
-DICT_WORDS = 256  # dict upper bound: ~6.1k bits for all 256 symbols
+DICT_WORDS = dict_table.DICT_WORDS
 
 
 def code_lengths(freqs: np.ndarray) -> np.ndarray:
@@ -176,103 +183,115 @@ def payload_words(n_word_lanes: int) -> int:
     return (4 * n_word_lanes * MAX_CODE_LEN) // 32 + DICT_WORDS + 8
 
 
-def pack_payload(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,
-                 code_l: torch.Tensor, start_bit: int,
-                 dict_words: torch.Tensor):
-    """Replace each of the first ``nbytes`` bytes by its code and pack the
-    codes after the dict (start_bit = dict bits), with the dict words in
-    the first DICT_WORDS words (K4 pack_payload).
-
-    Returns (words int32 [(4W * 15) // 32 + DICT_WORDS + 8], total_bits).
-    """
-    return cuda_pack.pack_payload(words, nbytes, code_w, code_l, start_bit,
-                                  payload_words(words.shape[0]),
-                                  prefix=dict_words)
-
-
-def bucket_words(words: torch.Tensor, inner_bytes: int) -> torch.Tensor:
-    """Trim the worst-case pack buffer to a power-of-two bucket of words
-    (imageencoder_tpu huffman.py:561-566): the payload pack's work scales
-    with the buffer, not the stream."""
-    need = (inner_bytes + 3) // 4
-    bucket = 1024
-    while bucket < need:
-        bucket *= 2
-    return words[:bucket] if bucket < words.shape[0] else words
-
-
-def dict_tensors(built, device):
-    """(code_w, code_l, dict_words, dict_bits) on ``device`` for a dict
-    built by ``_dict_and_codes``: the per-byte codes and lengths, the
-    serialized dict as DICT_WORDS stream words, and its length in bits."""
-    w, code_words, lengths = built
-    dict_stream = w.getvalue()
-    dbuf = np.zeros(DICT_WORDS * 4, dtype=np.uint8)
-    dbuf[:len(dict_stream)] = np.frombuffer(dict_stream, dtype=np.uint8)
-    dict_words = torch.from_numpy(
-        dbuf.view(">u4").astype(np.uint32).view(np.int32)).to(device)
-    return (torch.as_tensor(code_words.astype(np.int32), device=device),
-            torch.as_tensor(lengths.astype(np.int32), device=device),
-            dict_words, w.position)
-
-
-def _encode_with_dict(words: torch.Tensor, inner_bytes: int, built):
-    """Pack the payload under a built dict; returns (out words, out_total)
-    still on the device."""
-    code_w, code_l, dict_words, dict_bits = dict_tensors(built, words.device)
-    return pack_payload(words, inner_bytes, code_w, code_l, dict_bits,
-                        dict_words)
-
-
-def huffman_encode_from_meta(words: torch.Tensor, meta) -> bytes:
-    """Final stream from the (words, meta) pair of
-    ops/pipeline.make_encode_packed_hist, with meta already on the host
-    (meta[0] total_bits, meta[1:] the byte histogram).
-
-    The compressed size is dict_bits + freqs . code_lengths, known on the
-    host before any packing, so the fallback-if-bigger is decided first;
-    then the payload pack runs on the device and its words come back in
-    one exact-size copy.
-    """
-    meta = np.asarray(meta)
-    total_bits = host_total(meta[0])
-    freqs = meta[1:]
-    inner_bytes = (total_bits + 7) // 8
-    built = _dict_and_codes(freqs)
+def build_dict_plain(hist: torch.Tensor,
+                     total_bits: torch.Tensor) -> torch.Tensor:
+    """The plain version of the dict kernel, on any device: the table
+    (ops/dict_table.py) of :func:`_dict_and_codes` on the histogram
+    ``hist`` (any integer dtype, [256]) of an inner stream of
+    ``total_bits`` bits (-1 for a refused stream: no dict)."""
+    freqs = hist.cpu().numpy().astype(np.int64)
+    total = int(total_bits)
+    zeros = np.zeros(256, np.int64)
+    built = _dict_and_codes(freqs) if total >= 0 else None
     if built is None:
-        return _fallback(stream_bytes(words, total_bits))
-    w, _, lengths = built
-    out_total = w.position + int(freqs.astype(np.int64) @ lengths)
-    if inner_bytes < (out_total + 7) // 8:
-        return _fallback(stream_bytes(words, total_bits))
-    out, _ = _encode_with_dict(bucket_words(words, inner_bytes), inner_bytes,
-                               built)
-    return stream_bytes(out, out_total)
+        # Fewer than 2 byte values, or the length limit failed: no dict.
+        error = total >= 0 and int((freqs > 0).sum()) >= 2
+        return dict_table.make_table(zeros, zeros, zeros, hist.device,
+                                     inner_bits=total, fallback=1,
+                                     error=int(error))
+    w, code_words, lengths = built
+    dbuf = np.zeros(DICT_WORDS * 4, dtype=np.uint8)
+    dict_stream = w.getvalue()
+    dbuf[:len(dict_stream)] = np.frombuffer(dict_stream, dtype=np.uint8)
+    out_total = w.position + int(freqs @ lengths.astype(np.int64))
+    inner_bytes = (total + 7) // 8
+    fallback = inner_bytes < (out_total + 7) // 8
+    return dict_table.make_table(
+        code_words, lengths, dbuf.view(">u4").astype(np.uint32), hist.device,
+        dict_bits=w.position, out_total=out_total, inner_bits=total,
+        fallback=int(fallback), nbytes=0 if fallback else inner_bytes)
+
+
+def build_dict(hist: torch.Tensor, total_bits: torch.Tensor) -> torch.Tensor:
+    """The dict table (ops/dict_table.py) of an inner stream's byte
+    histogram int32 [256] and its length in bits (an integer tensor of
+    one element on the same device).  On a card one launch of
+    csrc/huffman.cu, and nothing is read on the host."""
+    if hist.device.type == "cpu":
+        return build_dict_plain(hist, total_bits)
+    dev = hist.device
+    build.require(hist, "hist", torch.int32, 1, dev)
+    if hist.shape[0] != 256:
+        raise ValueError(f"hist: expected 256 bins, got {hist.shape[0]}")
+    total = total_bits.reshape(1).to(torch.int64).contiguous()
+    build.require(total, "total_bits", torch.int64, 1, dev)
+    lib = build.library()
+    if lib.ie_dict_table_words() != dict_table.TABLE_WORDS:
+        raise RuntimeError("csrc/dict_table.cuh and ops/dict_table.py "
+                           "disagree on the table's size")
+    table = torch.empty(dict_table.TABLE_WORDS, dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        code = lib.ie_huffman_dict(hist.data_ptr(), total.data_ptr(),
+                                   table.data_ptr(), build.stream_ptr(dev))
+    build.check(code, "ie_huffman_dict")
+    build_dict.launches += 1
+    return table
+
+
+build_dict.launches = 0
+
+
+def read_fields(table: torch.Tensor) -> dict:
+    """The table's fields on the host.  On a card one copy into pinned
+    memory and the one wait for the device before the stream's copy."""
+    meta = dict_table.meta(table)
+    if meta.device.type == "cuda":
+        host = torch.empty(meta.shape, dtype=meta.dtype, pin_memory=True)
+        host.copy_(meta, non_blocking=True)
+        torch.cuda.current_stream(meta.device).synchronize()
+        meta = host
+    return dict(zip(dict_table.META_FIELDS, meta.tolist()))
+
+
+def huffman_encode_from_hist(words: torch.Tensor, total_bits: torch.Tensor,
+                             hist: torch.Tensor) -> bytes:
+    """Final stream of an inner stream on the device: its words, its
+    length in bits and its byte histogram, as the packers with a histogram
+    return them (ops/pipeline.make_encode_packed_hist,
+    ops/video_pipeline).
+
+    The dict and the payload pack follow on the device with nothing read
+    between them; the compressed size, and so the fallback-if-bigger, is
+    known from the histogram alone.  Then the host reads the table's
+    totals and one exact-size copy of the final (or, on the fallback, the
+    inner) words.
+    """
+    table = build_dict(hist, total_bits)
+    out, _ = cuda_pack.pack_payload(words, table,
+                                    payload_words(words.shape[0]))
+    meta = read_fields(table)
+    inner_bits = host_total(meta["inner_bits"])
+    if meta["error"]:
+        raise RuntimeError("the Huffman code-length limit found no valid "
+                           "code profile for this histogram")
+    if meta["fallback"]:
+        return _fallback(stream_bytes(words, inner_bits))
+    return stream_bytes(out, meta["out_total"])
 
 
 def huffman_encode_device(words: torch.Tensor, total_bits: int) -> bytes:
-    """Huffman over a packed inner stream that has no histogram yet: runs
-    K3 itself (one more round trip than :func:`huffman_encode_from_meta`).
-    """
-    inner_bytes = (int(total_bits) + 7) // 8
-    words = bucket_words(words, inner_bytes)
-    total = torch.tensor([int(total_bits)], dtype=torch.int64,
-                         device=words.device)
-    freqs = cuda_kernels.byte_histogram(words, total).cpu().numpy()
-    built = _dict_and_codes(freqs)
-    if built is None:
-        return _fallback(stream_bytes(words, int(total_bits)))
-    out, out_total = _encode_with_dict(words, inner_bytes, built)
-    out_total = int(out_total)
-    if inner_bytes < (out_total + 7) // 8:
-        return _fallback(stream_bytes(words, int(total_bits)))
-    return stream_bytes(out, out_total)
+    """Huffman over a packed inner stream that has no histogram yet: K3
+    counts it, then :func:`huffman_encode_from_hist`."""
+    total = to_device(np.array([int(total_bits)], np.int64), words.device)
+    return huffman_encode_from_hist(
+        words, total, cuda_kernels.byte_histogram(words, total))
 
 
 def huffman_encode(inner: bytes, device) -> bytes:
     """Huffman over a whole-byte inner stream held on the host (the
     spliced chunks of a long video, a header-only stream): its words go to
-    ``device`` and through :func:`huffman_encode_device`, so on a card K3
-    and K4 run and on the CPU their plain versions."""
-    words = torch.from_numpy(bytes_to_words(inner)).to(device)
+    ``device`` and through :func:`huffman_encode_device`, so on a card K3,
+    the dict kernel and K4 run and on the CPU their plain versions."""
+    words = to_device(bytes_to_words(inner), device)
     return huffman_encode_device(words, 8 * len(inner))

@@ -4,15 +4,16 @@ The counterpart of imageencoder_tpu/ops/video_pipeline.py's
 make_encode_video_packed (ref_mode="raw") and
 make_encode_video_packed_recon (ref_mode="recon").  Both return a function
 f(frames u8 [F, H, W], quant [B, B], start_bit, header_words int32
-[HEADER_WORDS]) -> (words, total_bits), or (words, meta int32 [257]) with
-the byte histogram.  The header words are OR'd into the first words, so
+[HEADER_WORDS]) -> (words, total_bits), or (words, total_bits, hist int32
+[256]) with the byte histogram, which the packer counts as it writes the
+stream (K3 folded into K2 or K4 pack_coeffs).  The header words are OR'd into the first words, so
 the words are the complete inner stream.  Stream order per frame
 (Frame.cpp:194-242): a P-frame's motion vectors, 2 x mvec_nbits signed
 bits per macroblock in row-major order, then its residual blocks; an
 I-frame's pixel blocks alone.
 
 Raw reference (every P-frame predicted from the raw frame before it), no
-frame-to-frame carry, so the whole video is one pass of five launches and
+frame-to-frame carry, so the whole video is one pass of four launches and
 no torch op between them:
 
     K6+K7 search_residual (ops/cuda_motion.py)  the whole video in: the P
@@ -20,8 +21,8 @@ no torch op between them:
        I rows, cur - pred on P rows
     K1 encode_locals  (ops/cuda_encode.py)   one launch, register files
     K2 pack_locals    (ops/cuda_pack.py)     two launches: the stream
-       words, each P-frame's vector records read from the vectors
-    K3 byte_histogram (ops/cuda_kernels.py)  Huffman statistics
+       words, each P-frame's vector records read from the vectors, and
+       with the histogram the stream's byte counts
 
 Recon reference (every P-frame predicted from the reconstruction of the
 frame before it) carries the reconstruction from frame to frame, so a
@@ -34,8 +35,8 @@ IDCT, +128, + prediction, clamp, truncate to u8) as the next carry.  An
 I-frame goes through K5 alone and resets the carry to its raw pixels
 (Frame.cpp:130-159 never reconstructs it).  After the loop K4's
 pack_coeffs front end packs every frame's vector and block records
-straight from the coefficients and the vectors, and K3 takes the
-histogram.
+straight from the coefficients and the vectors, and with the
+histogram counts the stream's bytes as it stores them.
 """
 
 from __future__ import annotations
@@ -45,14 +46,6 @@ import torch
 from . import cuda_encode, cuda_motion, cuda_pack
 from .device_pack import packed_words_bound
 from .motion import MACRO
-from .pipeline import stream_byte_histogram
-
-
-def _finish(words, total, with_hist: bool):
-    if with_hist:
-        return words, stream_byte_histogram(words, total)
-    return words, total
-
 
 def make_encode_video_packed(gop: int, merange: int, mvec_nbits: int,
                              block_size: int = 4, use_rle: bool = True,
@@ -75,11 +68,11 @@ def make_encode_video_packed(gop: int, merange: int, mvec_nbits: int,
         # makes K2's total -1.
         n_macro = 0 if mvecs is None else mvecs.shape[1]
         n_rows = local.shape[0] + f * n_macro
-        words, total = cuda_pack.pack_locals(
-            local, lens, start_bit, packed_words_bound(n_rows, k + 2),
-            prefix=header_words, mvecs=mvecs, n_frames=f, gop=gop,
-            mvec_nbits=mvec_nbits)
-        return _finish(words, total, with_hist)
+        pack = cuda_pack.pack_locals_hist if with_hist else \
+            cuda_pack.pack_locals
+        return pack(local, lens, start_bit, packed_words_bound(n_rows, k + 2),
+                    prefix=header_words, mvecs=mvecs, n_frames=f, gop=gop,
+                    mvec_nbits=mvec_nbits)
 
     return encode_video_packed
 
@@ -117,11 +110,11 @@ def make_encode_video_packed_recon(gop: int, merange: int, mvec_nbits: int,
         # coefficients and the vectors: one K4 launch, no fields tensor.
         mv = (torch.stack(mvecs) if mvecs else
               torch.zeros((0, n_macro, 2), dtype=torch.int32, device=dev))
-        words, total = cuda_pack.pack_coeffs(
-            coeffs, mv, gop, mvec_nbits, b, use_rle,
-            cuda_encode.video_lw(b, norm), start_bit,
-            packed_words_bound(f * (n_macro + n_micro), k + 2),
-            prefix=header_words)
-        return _finish(words, total, with_hist)
+        pack = cuda_pack.pack_coeffs_hist if with_hist else \
+            cuda_pack.pack_coeffs
+        return pack(coeffs, mv, gop, mvec_nbits, b, use_rle,
+                    cuda_encode.video_lw(b, norm), start_bit,
+                    packed_words_bound(f * (n_macro + n_micro), k + 2),
+                    prefix=header_words)
 
     return encode_video_packed

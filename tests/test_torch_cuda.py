@@ -22,7 +22,10 @@ from imageencoder_tpu.utils.quant import QuantMatrix
 from imageencoder_tpu_torch import quant_from_numpy
 from imageencoder_tpu_torch.ops import (cuda_encode, cuda_kernels,
                                         cuda_motion, cuda_pack, device_pack,
-                                        pipeline)
+                                        dict_table, huffman, pipeline)
+
+from test_torch_huffman import (KINDS, histogram,  # tests/ is on the path
+                                random_histogram)
 
 pytestmark = pytest.mark.cuda
 
@@ -217,19 +220,17 @@ def test_pack_payload_kernel_equals_plain(dev, n_words, nbytes, start):
     words = torch.from_numpy((rng.integers(0, 2 ** 32, n_words,
                                            dtype=np.uint64) & 0x0F1F3F7F)
                              .astype(np.uint32).view(np.int32)).to(dev)
-    code_l = torch.from_numpy(rng.integers(0, 16, 256).astype(np.int32))
-    code_w = torch.from_numpy(rng.integers(0, 2 ** 15, 256)
-                              .astype(np.int32))
-    code_l, code_w = code_l.to(dev), code_w.to(dev)
-    prefix = torch.full((start // 32 + 1,), -1, dtype=torch.int32,
-                        device=dev)
-    prefix[-1] = -(1 << (32 - start % 32)) if start % 32 else 0
+    code_l = rng.integers(0, 16, 256)
+    code_w = rng.integers(0, 2 ** 15, 256)
+    prefix = np.zeros(256, np.int64)  # the dict words: ones up to start
+    prefix[:start // 32] = -1
+    prefix[start // 32] = -(1 << (32 - start % 32)) if start % 32 else 0
+    table = dict_table.make_table(code_w, code_l, prefix, dev,
+                                  dict_bits=start, nbytes=nbytes)
     nw = 4 * n_words * 15 // 32 + 300
     before = cuda_pack.pack_payload.launches
-    got = cuda_pack.pack_payload(words, nbytes, code_w, code_l, start, nw,
-                                 prefix)
-    want = cuda_pack.pack_payload_plain(words, nbytes, code_w, code_l,
-                                        start, nw, prefix)
+    got = cuda_pack.pack_payload(words, table, nw)
+    want = cuda_pack.pack_payload_plain(words, table, nw)
     assert cuda_pack.pack_payload.launches == before + 1
     assert int(got[1]) == int(want[1])
     assert torch.equal(cuda_pack.stream_words(*got),
@@ -536,3 +537,236 @@ def test_video_720p25_equals_host_engine_and_decodes(dev, ref_mode):
     y = np.frombuffer(dec, np.uint8).reshape(n, -1)[:, :w * h]
     mse = ((y.astype(np.float64) - frames.reshape(n, -1)) ** 2).mean()
     assert 10 * np.log10(255 ** 2 / mse) > 28
+
+
+def held_dict(hist, total):
+    """The dict kernel against its plain version: the whole table, bit for
+    bit; returns its fields."""
+    before = huffman.build_dict.launches
+    got = huffman.build_dict(hist, total)
+    assert huffman.build_dict.launches == before + 1
+    want = huffman.build_dict_plain(hist, total)
+    assert torch.equal(got, want), (dict_table.fields(got),
+                                    dict_table.fields(want))
+    return dict_table.fields(got)
+
+
+@pytest.mark.parametrize("kind,seed", [
+    (k, s) for k, s in KINDS if k not in ("geometric", "two")] + [
+    ("two", 7)])
+def test_dict_kernel_equals_plain(dev, kind, seed):
+    """Ties, fibonacci counts past the 15-bit limit, geometric counts up to
+    2^30, uniform, two, one and no symbol, all 256 equal; each with a
+    total that ends inside a byte, and a refused stream's total."""
+    freqs = histogram(kind, seed)
+    if kind == "two":
+        freqs[200] = 10 ** 8  # an int32 histogram
+    hist = torch.from_numpy(freqs.astype(np.int32)).to(dev)
+    inner_bytes = int(freqs.sum())
+    for total in (8 * inner_bytes, 8 * inner_bytes - 5, -1):
+        if total < -1:
+            continue
+        got = held_dict(hist, torch.tensor(total, device=dev))
+        assert got["inner_bits"] == total
+
+
+def test_dict_kernel_on_random_histograms(dev):
+    """300 seeded histograms, tie-heavy and skewed, sparse and full: the
+    two-queue merge builds the heap's tree on each."""
+    for seed in range(300):
+        freqs = random_histogram(seed)
+        hist = torch.from_numpy(freqs.astype(np.int32)).to(dev)
+        held_dict(hist, torch.tensor(8 * int(freqs.sum()), device=dev))
+
+
+def test_dict_kernel_on_every_group_size(dev):
+    """Every byte value present, counts that give one long group (more than
+    127 codes of one length: two group headers) and single-code groups."""
+    for counts in (np.full(256, 1000), np.r_[np.full(200, 10), 2 ** np.arange(
+            56) % 100003 + 1], np.arange(1, 257) ** 3):
+        hist = torch.from_numpy(np.asarray(counts).astype(np.int32)).to(dev)
+        held_dict(hist, torch.tensor(8 * int(np.sum(counts)) + 9,
+                                     device=dev))
+
+
+@pytest.mark.parametrize("path", ["image", "raw", "recon"])
+def test_dict_kernel_on_full_size_histograms(dev, path):
+    """The histograms of the full-size image and the 720p25 raw and recon
+    streams, as the packers count them."""
+    quant = np.array(JPEG4, np.float64)
+    hdr = torch.zeros(64, dtype=torch.int32, device=dev)
+    if path == "image":
+        img = torch.from_numpy(image(912, 4096, 5008)).to(dev)
+        got = pipeline.make_encode_packed_hist()(img, quant, 70, hdr)
+    else:
+        from imageencoder_tpu_torch.ops import video_pipeline
+
+        frames = torch.from_numpy(video_frames(1280, 720, 25, 0)).to(dev)
+        make = (video_pipeline.make_encode_video_packed if path == "raw"
+                else video_pipeline.make_encode_video_packed_recon)
+        got = make(4, 16, 6, with_hist=True)(frames, quant, 90, hdr)
+    words, total, hist = got
+    assert torch.equal(hist, cuda_kernels.byte_histogram_plain(words, total))
+    fields = held_dict(hist, total)
+    assert fields["fallback"] == 0 and fields["nbytes"] > 10 ** 6
+
+
+def held_hist_pack(wrapper, plain, *args, **kwargs):
+    """A packer with its histogram against its plain version: total, the
+    stream's words and the histogram; returns the total."""
+    before = wrapper.launches
+    got = wrapper(*args, **kwargs)
+    assert wrapper.launches == before + 1
+    want = plain(*args, **kwargs)
+    assert int(got[1]) == int(want[1])
+    assert torch.equal(cuda_pack.stream_words(*got[:2]),
+                       cuda_pack.stream_words(*want[:2]))
+    assert torch.equal(got[2], want[2])
+    return int(got[1])
+
+
+@pytest.mark.parametrize("n,lw,start,zero_share", [
+    (1, 6, 0, 0.0), (1, 7, 45, 1.0), (5000, 6, 37, 0.2), (5000, 7, 64, 0.97),
+    (3000, 12, 5, 0.1), (700, 30, 2047, 0.1), (0, 6, 70, 0.0)])
+def test_pack_locals_hist_kernel_equals_plain(dev, n, lw, start, zero_share):
+    """K2 with its histogram on the records of the K2 tests: one record,
+    an empty one, runs of empty records longer than a warp, 1 and 2
+    records a thread, no record; the prefix words counted too."""
+    local, lens = random_locals(dev, n, lw, n + lw, zero_share)
+    prefix = torch.full((start // 32 + 1,), -1, dtype=torch.int32,
+                        device=dev)
+    prefix[-1] = -(1 << (32 - start % 32)) if start % 32 else 0
+    dirtied(dev, n * lw + start // 32 + 2)
+    total = held_hist_pack(cuda_pack.pack_locals_hist,
+                           cuda_pack.pack_locals_hist_plain, local, lens,
+                           start, n * lw + start // 32 + 2, prefix)
+    assert total == start + int(lens.sum())
+
+
+@pytest.mark.parametrize("start", [0, 19, 64])
+def test_pack_locals_hist_stream_ends_on_a_word_boundary(dev, start):
+    local, lens = random_locals(dev, 2100, 7, start, 0.1)
+    short = (start + int(lens[:-1].sum())) % 32
+    lens[-1] = 32 * 3 - short
+    local[-1] = -1
+    local[-1, 3:] = 0
+    local[-1, 2] = -(1 << short) if short else -1
+    total = held_hist_pack(cuda_pack.pack_locals_hist,
+                           cuda_pack.pack_locals_hist_plain, local, lens,
+                           start, 2100 * 7 + 3)
+    assert total % 32 == 0
+
+
+@pytest.mark.parametrize("h,w,n,gop,nb,lw", [
+    (720, 1280, 3, 2, 6, 7), (64, 96, 9, 4, 6, 7), (32, 32, 7, 3, 16, 27)])
+def test_pack_locals_hist_kernel_with_vectors_equals_plain(dev, h, w, n, gop,
+                                                           nb, lw):
+    n_micro = (h // 4) * (w // 4)
+    local, lens = random_locals(dev, n * n_micro, lw, h + n, 0.05)
+    n_p = sum(1 for f in range(n) if f % gop)
+    n_macro = (h // 16) * (w // 16)
+    rng = np.random.default_rng(gop)
+    mvecs = torch.from_numpy(rng.integers(-2 ** (nb - 1), 2 ** (nb - 1),
+                                          (n_p, n_macro, 2))
+                             .astype(np.int32)).to(dev)
+    hdr = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    nw = (n * n_micro) * lw + n * n_macro + 8
+    held_hist_pack(cuda_pack.pack_locals_hist,
+                   cuda_pack.pack_locals_hist_plain, local, lens, 83, nw, hdr,
+                   mvecs=mvecs, n_frames=n, gop=gop, mvec_nbits=nb)
+
+
+@pytest.mark.parametrize("b,use_rle,gop,h,w,n,start", [
+    (4, True, 4, 720, 1280, 9, 91), (8, True, 3, 64, 96, 7, 64),
+    (4, False, 1, 32, 48, 3, 7), (4, True, 2, 16, 16, 1, 96)])
+def test_pack_coeffs_hist_kernel_equals_plain(dev, b, use_rle, gop, h, w, n,
+                                              start):
+    rng = np.random.default_rng(h + b)
+    mag = 2 ** (cuda_encode.coeff_bound_bits_residual(b, "reference") - 1)
+    coeffs = (rng.integers(-mag, mag, (n, h, w))
+              * (rng.random((n, h, w)) < 0.2)).astype(np.int32)
+    n_p = sum(1 for f in range(n) if f % gop)
+    n_macro = (h // 16) * (w // 16) if n_p else 0
+    mvecs = rng.integers(-16, 17, (n_p, n_macro, 2)).astype(np.int32)
+    c, m = torch.from_numpy(coeffs).to(dev), torch.from_numpy(mvecs).to(dev)
+    lw = cuda_encode.video_lw(b, "reference")
+    nw = device_pack.packed_words_bound(n * (n_macro + h * w // (b * b)),
+                                        b * b + 2)
+    hdr = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    held_hist_pack(cuda_pack.pack_coeffs_hist,
+                   cuda_pack.pack_coeffs_hist_plain, c, m, gop, 6, b, use_rle,
+                   lw, start, nw, hdr)
+
+
+def test_pack_coeffs_hist_on_a_stream_that_ends_on_a_word(dev):
+    """One all-zero 4x4 block record is 7 bits with RLE: a start of
+    32 * k - 7 ends the stream on a word boundary."""
+    c = torch.zeros((1, 4, 4), dtype=torch.int32, device=dev)
+    m = torch.zeros((0, 0, 2), dtype=torch.int32, device=dev)
+    lw = cuda_encode.video_lw(4, "reference")
+    plain = cuda_pack.pack_coeffs_plain(c, m, 1, 6, 4, True, lw, 0, 8)
+    bits = int(plain[1])
+    for start in (64 - bits, 65 - bits, 0):
+        total = held_hist_pack(cuda_pack.pack_coeffs_hist,
+                               cuda_pack.pack_coeffs_hist_plain, c, m, 1, 6,
+                               4, True, lw, start, 8)
+        assert total == start + bits
+
+
+def test_no_card_path_builds_the_dict_on_the_host(dev, monkeypatch):
+    """With the host dict made to raise, every Huffman path on the card
+    still runs and equals the host engine: image, fallback image, raw and
+    recon video, and a 40-frame video (K3 on the spliced chunks)."""
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    q_ones = QuantMatrix(np.ones((4, 4), np.uint32))
+    noise = np.random.default_rng(9).integers(0, 256, (128, 256), np.uint8)
+    img = image(96, 128, 3)
+    w, h = 64, 48
+    short = video_frames(w, h, 6, 2)
+    long = video_frames(w, h, 40, 3)
+    want = [imageencoder_tpu.encode_image(img, quant, use_huffman=True,
+                                          backend="numpy"),
+            imageencoder_tpu.encode_image(noise, q_ones, use_huffman=True,
+                                          backend="numpy")]
+    videos = [(short, "raw"), (short, "recon"), (long, "raw")]
+    data = [b"".join(f.tobytes() + bytes(w * h // 2) for f in fr)
+            for fr, _ in videos]
+    want += [bytes(host_video.encode_video(
+        d, w, h, quant, True, 3, 8, use_huffman=True, backend="numpy",
+        ref_mode=mode)) for d, (_, mode) in zip(data, videos)]
+
+    def host_dict(freqs):
+        raise AssertionError("the host dict ran on a card path")
+
+    monkeypatch.setattr(huffman, "_dict_and_codes", host_dict)
+    got = [imageencoder_tpu_torch.encode_image(
+        im, quant_from_numpy(q.matrix), use_huffman=True, device=dev)
+        for im, q in ((img, quant), (noise, q_ones))]
+    got += [imageencoder_tpu_torch.encode_video(
+        d, w, h, quant_from_numpy(quant.matrix), True, 3, 8,
+        use_huffman=True, ref_mode=mode, device=dev)
+        for d, (_, mode) in zip(data, videos)]
+    assert got == want
+    assert not got[1][0] & 0x80  # the fallback image took the fallback
+
+
+@pytest.mark.parametrize("use_huffman", [True, False])
+def test_sizes_no_multiple_of_16_equal_host_engine(dev, use_huffman):
+    """encode_image at 20x24 and the all-I video at 36x20, whole paths on
+    the card."""
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    img = image(20, 24, 1)
+    assert imageencoder_tpu_torch.encode_image(
+        img, quant_from_numpy(quant.matrix), use_huffman=use_huffman,
+        device=dev) == imageencoder_tpu.encode_image(
+        img, quant, use_huffman=use_huffman, backend="numpy")
+    w, h, n = 36, 20, 4
+    frames = np.random.default_rng(4).integers(0, 256, (n, h, w), np.uint8)
+    data = b"".join(f.tobytes() + bytes(w * h // 2) for f in frames)
+    for mode in ("raw", "recon"):
+        assert imageencoder_tpu_torch.encode_video(
+            data, w, h, quant_from_numpy(quant.matrix), True, 1, 8,
+            use_huffman=use_huffman, ref_mode=mode,
+            device=dev) == bytes(host_video.encode_video(
+                data, w, h, quant, True, 1, 8, use_huffman=use_huffman,
+                backend="numpy", ref_mode=mode))

@@ -10,8 +10,11 @@ the wrappers run their plain versions.
   * pack_records is bit-equal to pack_records_pallas(..., interpret=True)
     and to device_pack.pack_blocks_device(method="scatter");
   * the Huffman payload pack equals huffman._device_stages().pack_payload,
-    through huffman.pack_payload and through K4's pack_payload front end
-    (cuda_pack.pack_payload) at stream ends inside a record and a word.
+    through K4's pack_payload front end (cuda_pack.pack_payload) under the
+    dict table at stream ends inside a record and a word;
+  * K2 and K4 pack_coeffs with the histogram (pack_locals_hist,
+    pack_coeffs_hist) count what pipeline.stream_byte_histogram counts on
+    the stream they write, ending inside a word or on a word boundary.
 """
 
 import numpy as np
@@ -23,13 +26,15 @@ import torch
 from imageencoder_tpu.ops.device_pack import (_local_words,
                                               pack_blocks_device,
                                               packed_words_bound)
+from imageencoder_tpu.ops import pipeline as jax_pipeline
 from imageencoder_tpu.ops.huffman import _device_stages, _dict_and_codes
 from imageencoder_tpu.ops.pallas_encode import (encode_locals, frontend_lw,
                                                 interleave_video_locals,
                                                 mvec_locals)
 from imageencoder_tpu.ops.pallas_pack import (pack_locals_pallas,
                                               pack_records_pallas)
-from imageencoder_tpu_torch.ops import cuda_pack, device_pack, huffman
+from imageencoder_tpu_torch.ops import (cuda_encode, cuda_pack, device_pack,
+                                        dict_table, huffman)
 
 JPEG4 = np.array([[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
                   [14, 17, 22, 29]], np.float32)
@@ -199,27 +204,44 @@ def test_uint32_round_trip_through_int32():
                                   x.numpy().astype(np.uint32))
 
 
+def jax_payload(freqs, nbytes: int):
+    """The JAX package's dict for ``freqs`` as a dict table that codes
+    ``nbytes`` bytes, and the dict arguments of its payload stage."""
+    w, code_words, lengths = _dict_and_codes(freqs)
+    stream = w.getvalue()
+    buf = np.zeros(4 * dict_table.DICT_WORDS, np.uint8)
+    buf[:len(stream)] = np.frombuffer(stream, np.uint8)
+    dict_words = buf.view(">u4").astype(np.uint32)
+    table = dict_table.make_table(code_words, lengths, dict_words, "cpu",
+                                  dict_bits=w.position, nbytes=nbytes)
+    return table, (jnp.asarray(code_words.astype(np.uint32)),
+                   jnp.asarray(lengths.astype(np.int32)),
+                   np.int32(w.position), jnp.asarray(dict_words))
+
+
 def test_pack_payload_matches_device_stages():
+    """The dict's plain version and K4's pack_payload (plain here) under
+    its table equal the JAX package's dict and payload stage."""
     rng = np.random.default_rng(12)
     words = (rng.integers(0, 2 ** 32, 1024, dtype=np.uint64)
              & 0xF0F0FFFF).astype(np.uint32)
     nbytes = 1024 * 4 - 3
     data = words.astype(">u4").tobytes()[:nbytes]
     freqs = np.bincount(np.frombuffer(data, np.uint8), minlength=256)
-    built = _dict_and_codes(freqs)
-    code_w, code_l, dict_words, dict_bits = huffman.dict_tensors(
-        built, torch.device("cpu"))
+    table = huffman.build_dict_plain(torch.from_numpy(freqs),
+                                     torch.tensor(8 * nbytes - 2))
+    assert dict_table.fields(table)["nbytes"] == nbytes
+    want_table, dict_args = jax_payload(freqs, nbytes)
+    assert torch.equal(table[:dict_table.META],
+                       want_table[:dict_table.META])
 
     _, jax_pack_payload, _ = _device_stages()
-    want_w, want_t = jax_pack_payload(
-        jnp.asarray(words), np.int32(nbytes),
-        jnp.asarray(built[1].astype(np.uint32)),
-        jnp.asarray(built[2].astype(np.int32)), np.int32(dict_bits),
-        jnp.asarray(dict_words.numpy().view(np.uint32)))
-    got_w, got_t = huffman.pack_payload(
-        torch.from_numpy(words.view(np.int32)), nbytes, code_w, code_l,
-        dict_bits, dict_words)
-    assert int(got_t) == int(want_t)
+    want_w, want_t = jax_pack_payload(jnp.asarray(words), np.int32(nbytes),
+                                      *dict_args)
+    got_w, got_t = cuda_pack.pack_payload(
+        torch.from_numpy(words.view(np.int32)), table,
+        huffman.payload_words(1024))
+    assert int(got_t) == int(want_t) == dict_table.fields(table)["out_total"]
     np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
                                   np.asarray(want_w))
 
@@ -229,29 +251,23 @@ def test_pack_payload_matches_device_stages():
 def test_pack_payload_front_end_matches_device_stages(n_words, nbytes):
     """K4's pack_payload (here its plain version) equals the JAX package's
     payload stage bit for bit, words past nbytes ignored, W not a multiple
-    of the 4-word record."""
+    of the 4-word record; the byte count and the start bit come from the
+    table."""
     rng = np.random.default_rng(n_words)
     words = (rng.integers(0, 2 ** 32, n_words, dtype=np.uint64)
              & 0x3F1FFFF7).astype(np.uint32)
     data = words.astype(">u4").tobytes()[:nbytes]
     freqs = np.bincount(np.frombuffer(data, np.uint8), minlength=256)
     freqs[[0, 7]] += 1  # at least two symbols
-    built = _dict_and_codes(freqs)
-    code_w, code_l, dict_words, dict_bits = huffman.dict_tensors(
-        built, torch.device("cpu"))
-    assert code_w.dtype == code_l.dtype == torch.int32
+    table, dict_args = jax_payload(freqs, nbytes)
 
     _, jax_pack_payload, _ = _device_stages()
-    want_w, want_t = jax_pack_payload(
-        jnp.asarray(words), np.int32(nbytes),
-        jnp.asarray(built[1].astype(np.uint32)),
-        jnp.asarray(built[2].astype(np.int32)), np.int32(dict_bits),
-        jnp.asarray(dict_words.numpy().view(np.uint32)))
+    want_w, want_t = jax_pack_payload(jnp.asarray(words), np.int32(nbytes),
+                                      *dict_args)
     nw = huffman.payload_words(n_words)
     before = cuda_pack.pack_payload.launches
     got_w, got_t = cuda_pack.pack_payload(
-        torch.from_numpy(words.view(np.int32)), nbytes, code_w, code_l,
-        dict_bits, nw, prefix=dict_words)
+        torch.from_numpy(words.view(np.int32)), table, nw)
     assert cuda_pack.pack_payload.launches == before  # CPU: plain version
     assert int(got_t) == int(want_t)
     np.testing.assert_array_equal(got_w.numpy().view(np.uint32),
@@ -259,3 +275,56 @@ def test_pack_payload_front_end_matches_device_stages(n_words, nbytes):
     np.testing.assert_array_equal(
         cuda_pack.stream_words(got_w, got_t).numpy().view(np.uint32),
         np.asarray(want_w)[:(int(want_t) + 31) // 32])
+
+
+def held_histogram(words, total, hist):
+    """The packer's histogram against the JAX package's
+    stream_byte_histogram of the stream it wrote."""
+    want = np.asarray(jax_pipeline.stream_byte_histogram(
+        jnp.asarray(words.numpy().view(np.uint32)), jnp.int32(int(total))))
+    assert want[0] == int(total)
+    assert hist.dtype == torch.int32 and hist.shape == (256,)
+    np.testing.assert_array_equal(hist.numpy(), want[1:])
+
+
+@pytest.mark.parametrize("end", ["inside a word", "on a word boundary"])
+@pytest.mark.parametrize("with_vectors", [False, True])
+def test_pack_locals_hist_matches_stream_byte_histogram(tpu_locals, end,
+                                                        with_vectors):
+    """K2 with its histogram (here its plain version) on the TPU front
+    end's register files, alone and with a video's vector records."""
+    _, local, lens, _, n = tpu_locals
+    kwargs, bits = {}, int(lens.sum())
+    if with_vectors:  # 4 frames of 24 blocks, 5 vectors each, gop 2
+        mvecs = np.random.default_rng(5).integers(-32, 32, (2, 5, 2))
+        kwargs = dict(mvecs=torch.from_numpy(mvecs.astype(np.int32)),
+                      n_frames=4, gop=2, mvec_nbits=6)
+        bits += 2 * 5 * 12
+    start = 37 if end == "inside a word" else (32 - bits % 32) % 32 + 64
+    if end == "inside a word" and (start + bits) % 32 == 0:
+        start += 1
+    nw = packed_words_bound(n + 20, 18)
+    words, total, hist = cuda_pack.pack_locals_hist(local, lens, start, nw,
+                                                    **kwargs)
+    assert int(total) == start + bits
+    assert (int(total) % 32 == 0) == (end == "on a word boundary")
+    held_histogram(words, total, hist)
+
+
+@pytest.mark.parametrize("b,start", [(4, 0), (4, 45), (8, 96)])
+def test_pack_coeffs_hist_matches_stream_byte_histogram(b, start):
+    """K4 pack_coeffs with its histogram (here its plain version) on a
+    recon video's coefficients and vectors."""
+    rng = np.random.default_rng(b + start)
+    n, h, w, gop = 4, 32, 48, 3
+    coeffs = (rng.integers(-60, 60, (n, h, w))
+              * (rng.random((n, h, w)) < 0.25)).astype(np.int32)
+    n_macro = (h // 16) * (w // 16)
+    mvecs = rng.integers(-8, 9, (2, n_macro, 2)).astype(np.int32)
+    lw = cuda_encode.video_lw(b, "reference")
+    nw = packed_words_bound(n * (n_macro + h * w // (b * b)), b * b + 2)
+    words, total, hist = cuda_pack.pack_coeffs_hist(
+        torch.from_numpy(coeffs), torch.from_numpy(mvecs), gop, 6, b, True,
+        lw, start, nw)
+    assert int(total) > start
+    held_histogram(words, total, hist)

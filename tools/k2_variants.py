@@ -172,10 +172,11 @@ def pack_locals_lookback(local, lens, start_bit, n_words, prefix=None,
     n, lw = local.shape
     n_macro = 0 if mvecs is None else mvecs.shape[1]
     return cuda_pack._k4(
-        "ie_pack_locals_lookback", n + n_frames * n_macro, start_bit,
-        n_words, prefix, local.device, local.data_ptr(), lens.data_ptr(), n,
-        lw, mvecs.data_ptr() if n_macro else None, n_frames, n_macro, gop,
-        mvec_nbits)
+        "ie_pack_locals_lookback", n + n_frames * n_macro, n_words,
+        local.device, (local.data_ptr(), lens.data_ptr(), n, lw,
+                       mvecs.data_ptr() if n_macro else None, n_frames,
+                       n_macro, gop, mvec_nbits, start_bit,
+                       *cuda_pack._prefix(prefix, local.device)))
 
 
 def main() -> None:
@@ -208,7 +209,8 @@ def main() -> None:
                 use_huffman=True, ref_mode="raw", device="cuda"))):
         with cs.captured_calls() as calls:
             drive()
-        inputs[label] = calls["K2 pack_locals"][0]
+        # The main paths count the histogram too; K2 alone on its inputs.
+        inputs[label] = calls["K2 pack_locals+hist"][0]
 
     out = {"gpu": gpu_identity(), "reps": reps, "inputs": {}}
     with tempfile.TemporaryDirectory() as tmp:

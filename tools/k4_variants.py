@@ -125,8 +125,10 @@ def main() -> None:
                           use_huffman=True, ref_mode="recon", device="cuda")
     inputs = {"pack_payload image": ("K4 pack_payload",
                                      calls["K4 pack_payload"][0]),
+              # The recon path counts the histogram too; K4 alone on its
+              # inputs.
               "pack_coeffs recon": ("K4 pack_coeffs",
-                                    calls["K4 pack_coeffs"][0])}
+                                    calls["K4 pack_coeffs+hist"][0])}
 
     out = {"gpu": gpu_identity(), "reps": reps, "inputs": {}}
     with tempfile.TemporaryDirectory() as tmp:
