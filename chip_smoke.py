@@ -6,9 +6,10 @@
 It needs one CUDA card (an H100: the kernels are built for sm_90a), nvcc,
 and this checkout.  It imports only the port, which stands alone: JAX and
 the JAX package (imageencoder_tpu) are blocked before anything is
-imported.  It drives three paths: the image encode (encode_image), and
-the video encode (encode_video) with the raw and with the recon motion
-reference.  Phases, each of which raises on failure:
+imported.  It drives four paths: the image encode (encode_image), the
+video encode (encode_video) with the raw and with the recon motion
+reference, and the image decode (decode_image).  Phases, each of which
+raises on failure:
 
   1. build the kernels in imageencoder_tpu_torch/csrc with nvcc, one
      process per source, all started together;
@@ -37,7 +38,11 @@ reference.  Phases, each of which raises on failure:
      kernels no path runs on inputs taken from those calls: K6
      motion_search and K7 predict (the search and the prediction alone) on
      the frames and the vectors of both video paths, K4 pack_records on
-     the recon records as fields built by the plain glue.  The packers'
+     the recon records as fields built by the plain glue; decode_image of
+     the 4096x912 Huffman stream written on the card for D1
+     huffman_decode, D2 walk_offsets and D3 decode_blocks (D1's payload
+     compared up to its byte count), and for D1 and D2 the chunks their
+     true chain walked whole.  The packers'
      words are compared up to the stream's last word, which is all the
      kernels define.  K3 is also timed against torch.bincount over the
      same stream bytes, the one PyTorch call that computes its function;
@@ -45,13 +50,17 @@ reference.  Phases, each of which raises on failure:
      before it and read just after: encode_image(..., device="cuda") on
      seeded 4096x912 and 3840x2160 images with Huffman on and off and on
      a small noise image that takes the raw-copy fallback; encode_video at
-     720p25 with Huffman on and off, raw and recon; and the 40-frame video.
+     720p25 with Huffman on and off, raw and recon; the 40-frame video;
+     and decode_image(..., device="cuda") of every image stream.
      Every kernel a path runs must have been launched at least once in
      that path's run, no path but the long video's may launch K3, and
      neither video path may launch K6 or K7 alone.  One encode_image with
      Huffman on must launch K1, K2+hist, the dict and K4 pack_payload once
-     each and nothing else;
-  4. hold every image stream from phase 3, video streams of both
+     each and nothing else.  No encode path may launch D1-D3, and the
+     decode path launches nothing else: D1 once a Huffman stream, D2 and
+     D3 once a stream;
+  4. hold every image stream from phase 3, and its pixels decoded on the
+     card, video streams of both
      references at 320x176 with 8 frames (gop 4, merange 16, Huffman on and
      off), and the 40-frame video's, against the port's plain path,
      device="cpu", byte for byte.
@@ -69,7 +78,10 @@ reference.  Phases, each of which raises on failure:
      video, the whole encode_video of frames on the device, the device
      window (K6+K7 + K1 + K2, or per frame K6+K7 and the recon step (K5 on
      I-frames) and then K4 pack_coeffs, until the histogram is counted),
-     the Huffman stage and the copy of the frames;
+     the Huffman stage and the copy of the frames; for the decode of the
+     4096x912 and 3840x2160 Huffman streams, the host's parse, the
+     stream's upload, the device window (D1-D3) and the whole decode_image
+     until its pixels are ready;
   7. profile a few calls of each path and print the device time per call
      by operation and the device operations per call: where the device
      time goes.  A video profile with a row of K7 alone, or a raw one with
@@ -77,7 +89,8 @@ reference.  Phases, each of which raises on failure:
      path, the device-to-host copies a call (profiler rows) and the host's
      waits for the device a call (PyTorch's sync debug mode counts each
      one): one of each is the stream's own copy, and the path fails with
-     more than one wait before it.
+     more than one wait before it.  A decode_image that waits on the
+     device at all fails: it leaves its pixels there.
 
 Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
@@ -95,7 +108,10 @@ device time of one PyTorch call computing the same function, where one
 exists (K3: torch.bincount), else null.  The dict kernel's bound counts
 its bytes (the histogram in, the table out); its time is the latency of
 a serial merge, which no bound of bytes or operations at the card's peak
-rates describes.
+rates describes.  D1 counts the stream and its decode table in and the
+payload out; D2 the payload in and 16 bytes a record out; D3 the larger
+of its f64 ops (544 a 4x4 block) and its bytes (the payload, the
+records, the pixels).
 
 Output: the card's name and power limit on an early line, one JSON line
 {"kernels": [...]} before the last, and last
@@ -199,6 +215,24 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                               "motion_search_kernel",
                               "imageencoder_tpu_torch/csrc/motion.cu",
                               "imageencoder_tpu/ops/pallas_motion.py:38"),
+    # The decode: no TPU kernel; each replaces the JAX package's host
+    # function of its native engine (four launches for D1 and D2: walk,
+    # check, stitch, emit).
+    "D1 huffman_decode": ("cuda_decode", "huffman_decode",
+                          "huffman_decode_plain",
+                          ("huffman_walk_kernel", "huffman_check_kernel",
+                           "huffman_stitch_kernel", "huffman_emit_kernel"),
+                          "imageencoder_tpu_torch/csrc/huffman_decode.cu",
+                          "imageencoder_tpu/runtime/native/runtime.cpp:1227"),
+    "D2 walk_offsets": ("cuda_decode", "walk_offsets", "walk_offsets_plain",
+                        ("offset_walk_kernel", "offset_check_kernel",
+                         "offset_stitch_kernel", "offset_emit_kernel"),
+                        "imageencoder_tpu_torch/csrc/walk.cu",
+                        "imageencoder_tpu/runtime/native/runtime.cpp:956"),
+    "D3 decode_blocks": ("cuda_decode", "decode_blocks",
+                         "decode_blocks_plain", "decode_blocks_kernel",
+                         "imageencoder_tpu_torch/csrc/decode.cu",
+                         "imageencoder_tpu/runtime/native/runtime.cpp:2219"),
 }
 PATHS = {  # path: the kernels it runs (Huffman on and off)
     "image": ("K1 encode_locals", "K2 pack_locals", "K2 pack_locals+hist",
@@ -211,7 +245,10 @@ PATHS = {  # path: the kernels it runs (Huffman on and off)
     "video long": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
                    "Huffman dict", "K4 pack_payload",
                    "K6+K7 search_residual"),
+    "image decode": ("D1 huffman_decode", "D2 walk_offsets",
+                     "D3 decode_blocks"),
 }
+DECODE = PATHS["image decode"]  # no other path launches these
 ALONE = ("K6 motion_search", "K7 predict")  # no video path launches these
 # A packer's output is defined up to the stream's last word (the plain
 # versions zero the rest of the buffer, the kernels leave it): compare
@@ -221,6 +258,8 @@ STREAM_OUT = ("K2 pack_locals", "K2 pack_locals+hist", "K4 pack_records",
 # One encode_image with Huffman on launches these once each, and no other.
 IMAGE_CALL = ("K1 encode_locals", "K2 pack_locals+hist", "Huffman dict",
               "K4 pack_payload")
+# D1's payload is defined up to its byte count (its second output).
+PAYLOAD_OUT = ("D1 huffman_decode",)
 
 
 def synthetic(h: int, w: int, seed: int):
@@ -432,6 +471,9 @@ def held_equal(name: str, args: tuple, kwargs: dict):
 
         got = (stream_words(*got[:2]), *got[1:])
         want = (stream_words(*want[:2]), *want[1:])
+    if name in PAYLOAD_OUT:
+        got = (got[0][:int(got[1])], got[1])
+        want = (want[0][:int(want[1])], want[1])
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain "
@@ -453,6 +495,11 @@ def operations(name: str, args: tuple) -> tuple[float, float]:
     for the kernels that only move bytes."""
     from imageencoder_tpu_torch.ops.motion import MACRO, search_steps
 
+    if name == "D3 decode_blocks":
+        # The dequantize multiply, the inverse's K*K multiplies and adds
+        # and the + 128 a sample: 544 a 4x4 block.
+        k = args[6] * args[6]
+        return args[2].shape[0] * (2 * k + 2 * k * k), F64_OPS_PER_S
     if name in ("K1 encode_locals", "K5 quantize_image", "K5 recon_step"):
         at = 3 if name == "K5 recon_step" else 2  # the block size argument
         b = args[at] if len(args) > at else 4
@@ -529,6 +576,17 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
         nbytes = 1024 + 8 + tensor_bytes(got)
     elif name == "K3 byte_histogram":
         nbytes = (int(args[1]) + 7) // 8
+    elif name == "D1 huffman_decode":
+        # The stream and its decode table in, the payload and its count
+        # out.
+        nbytes = int(args[1]) + tensor_bytes([args[3]]) + int(got[1]) + 8
+    elif name == "D2 walk_offsets":
+        # The payload in, 16 bytes a record and the end bit out.
+        nbytes = int(args[1]) + 16 * args[3] + 8
+    elif name == "D3 decode_blocks":
+        # The payload, 16 bytes a record and the quant in, the pixels out.
+        nbytes = (int(args[1]) + 16 * args[2].shape[0]
+                  + tensor_bytes([args[5]]) + tensor_bytes(got))
     elif name in ("K6 motion_search", "K7 predict", "K5 recon_step",
                   "K6+K7 search_predict"):
         nbytes = tensor_bytes(args[:2]) + tensor_bytes(got)
@@ -586,13 +644,18 @@ def launches_of(wrappers: dict, drive) -> dict:
 
 def phase_of_path(path: str, wrappers: dict, drive) -> dict:
     """Drive one path with every launch count at 0 just before it; return
-    the counts just after, and fail if a kernel of the path is at 0, or if
-    a path other than the long video's launches K3."""
+    the counts just after, and fail if a kernel of the path is at 0, if a
+    path other than the long video's launches K3, or if a decode kernel
+    runs on an encode path or an encode kernel on the decode path."""
     counts = launches_of(wrappers, drive)
     for name in PATHS[path]:
         if counts[name] < 1:
             raise AssertionError(f"{name} was not launched on the {path} "
                                  f"path")
+    for name in KERNELS:
+        if counts[name] and (name in DECODE) != (path == "image decode"):
+            raise AssertionError(f"{name} was launched {counts[name]} times "
+                                 f"on the {path} path")
     if "K3 byte_histogram" not in PATHS[path] and counts["K3 byte_histogram"]:
         raise AssertionError(f"K3 was launched on the {path} path: its "
                              f"packers count the histogram")
@@ -680,6 +743,59 @@ def time_video(frames_np, quant, ref_mode: str, dev) -> None:
           f"median {h2d[0]:.3f} ms, p90 {h2d[1]:.3f} ms", flush=True)
 
 
+def time_decode(data: bytes, h: int, w: int, dev) -> None:
+    """Phase 6 for the decode of one Huffman stream: the host's parse, the
+    stream's upload, the device window (D1-D3, CUDA events) and the whole
+    decode_image until its pixels are ready."""
+    import torch
+
+    import imageencoder_tpu_torch as port
+    from imageencoder_tpu_torch.models.image import (decode_uploaded,
+                                                     parse_stream, upload)
+
+    mpix = h * w / 1e6
+    t = []
+    for _ in range(SAMPLES):
+        t0 = time.perf_counter()
+        plan = parse_stream(data)
+        t.append(time.perf_counter() - t0)
+    parse = quantiles(t)
+    t = []
+    for _ in range(SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        views = upload(plan, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    up = quantiles(t)
+    decode_uploaded(plan, views)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(SAMPLES)]
+    for start, end in ev:
+        start.record()
+        decode_uploaded(plan, views)
+        end.record()
+    torch.cuda.synchronize()
+    window = quantiles([s.elapsed_time(e) / 1e3 for s, e in ev])
+    busy = profiled_ms(lambda: decode_uploaded(plan, views))
+    t = []
+    for _ in range(SAMPLES):
+        t0 = time.perf_counter()
+        port.decode_image(data, device=dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    e2e = quantiles(t)
+    print(f"{w}x{h} decode, Huffman on ({len(data)} bytes): decode_image "
+          f"until the pixels are ready median {e2e[0]:.3f} ms, p90 "
+          f"{e2e[1]:.3f} ms (n={SAMPLES}; {mpix / e2e[0] * 1e3:.1f} "
+          f"Mpix/s); host parse (dict, table, header, staging) median "
+          f"{parse[0]:.3f} ms, p90 {parse[1]:.3f} ms; upload median "
+          f"{up[0]:.3f} ms, p90 {up[1]:.3f} ms; device window D1-D3 median "
+          f"{window[0]:.4f} ms, p90 {window[1]:.4f} ms "
+          f"({mpix / window[0] * 1e3:.1f} Mpix/s), of which device busy "
+          f"{busy:.4f} ms", flush=True)
+
+
 def host_waits(fn, calls: int):
     """The host's waits for the device in each of ``calls`` calls of fn():
     PyTorch's sync debug mode warns at each (a copy to pageable memory, a
@@ -711,12 +827,15 @@ def host_waits(fn, calls: int):
     return per_call, dict(where)
 
 
-def print_profile(label: str, fn, calls: int, absent: tuple = ()) -> None:
+def print_profile(label: str, fn, calls: int, absent: tuple = (),
+                  waits_wanted: int = 2) -> None:
     """Phase 7: device time per call by operation, the number of device
     operations (kernels and copies) per call, the device-to-host copies
     and the host's waits per call.  Fails if a device row's name contains
-    one of ``absent``, or if the host waits more than once before the
-    stream's own copy."""
+    one of ``absent``, or if the host waits other than ``waits_wanted``
+    times a call: an encode (the median of the calls) for the dict
+    table's totals and at the stream's own copy, a decode (every call: it
+    leaves its pixels on the device) never."""
     counts = {}
     by_op, wall_ms = device_rows(fn, calls, counts)
     for key in by_op:
@@ -734,13 +853,12 @@ def print_profile(label: str, fn, calls: int, absent: tuple = ()) -> None:
               f"{key[:60]} {us:.1f} us ({counts[key]:.0f}x)"
               for key, us in top), flush=True)
     print(f"{label}: {d2h:.0f} device-to-host copies and {waits:.0f} host "
-          f"waits for the device a call (profiler; sync debug mode); before "
-          f"the stream's own copy: {d2h - 1:.0f} copies, {waits - 1:.0f} "
-          f"waits (median of the calls; each call's waits {per_call}, by "
-          f"line {where})", flush=True)
-    if waits != 2:
-        raise AssertionError(f"{label}: {waits} host waits a call, expected "
-                             f"the fields' and the stream's copy's")
+          f"waits for the device a call (profiler; sync debug mode; median "
+          f"of the calls; each call's waits {per_call}, by line {where})",
+          flush=True)
+    if (max(per_call) if waits_wanted == 0 else waits) != waits_wanted:
+        raise AssertionError(f"{label}: {per_call} host waits a call, "
+                             f"expected {waits_wanted}")
 
 
 def main() -> None:
@@ -906,9 +1024,31 @@ def main() -> None:
            check_kernel("Huffman dict", *calls["Huffman dict"][0]))
     del calls
 
+    # The decode of the 4096x912 Huffman stream, written on the card.
+    h_stream = port.encode_image(images[0], quant, use_rle=True,
+                                 use_huffman=True, device="cuda")
+    with captured_calls() as calls:
+        port.decode_image(h_stream, device="cuda")
+    for name in DECODE:
+        if len(calls[name]) != 1:
+            raise AssertionError(f"{name}: {len(calls[name])} calls in one "
+                                 f"decode_image, expected 1")
+        rows[name] = check_kernel(name, *calls[name][0])
+    for name in DECODE[:2]:  # the chains: chunks walked whole
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        args, kwargs = calls[name][0]
+        getattr(module("cuda_decode"), KERNELS[name][1])(
+            *args, **kwargs, stats=stats)
+        chunks, whole = stats.tolist()
+        rows[name].update(chunks=chunks, chunks_walked_whole=whole)
+        print(f"{name}: {chunks} chunks, {whole} walked whole from their "
+              f"true entry", flush=True)
+    del calls
+
     # ---- 3. each path, counts from 0 ----
     cases = ([(im, quant, True) for im in images]
-             + [(images[0], quant, False), (noise, q_ones, True)])
+             + [(im, quant, False) for im in images]
+             + [(noise, q_ones, True)])
     wrappers = {name: getattr(module(mod_name), attr)
                 for name, (mod_name, attr, *_) in KERNELS.items()}
     one = launches_of(wrappers, lambda: port.encode_image(
@@ -931,6 +1071,14 @@ def main() -> None:
         "video long", wrappers, lambda: video_streams.update(
             {("long", True): encode_video(long_data, lw_, lh_, "raw",
                                           True)})))
+    decoded = []
+    counts.append(phase_of_path("image decode", wrappers, lambda: decoded.extend(
+        port.decode_image(s, device="cuda") for s in streams)))
+    n_huff = sum(1 for s in streams if s[0] & 0x80)
+    if tuple(counts[-1][name] for name in DECODE) != (
+            n_huff, len(streams), len(streams)):
+        raise AssertionError(f"{len(streams)} decodes ({n_huff} Huffman) "
+                             f"launched {counts[-1]}")
     for name in KERNELS:
         rows[name]["launches"] = sum(c[name] for c in counts)
     for (mode, huff), got in video_streams.items():
@@ -955,6 +1103,16 @@ def main() -> None:
             raise AssertionError(f"{label}: took the {kind} branch")
         print(f"{label}: {len(got)} bytes ({kind}), byte-identical to the "
               f"plain path on the host ({plain_s:.2f} s there)", flush=True)
+    for (im, q, huff), data, got in zip(cases, streams, decoded):
+        label = f"{im.shape[1]}x{im.shape[0]} huffman={huff}"
+        t0 = time.perf_counter()
+        want = port.decode_image(data, device="cpu")
+        plain_s = time.perf_counter() - t0
+        if got.device != dev or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{label}: the card's decode differs from "
+                                 f"the plain path's")
+        print(f"{label}: decoded on the card, pixel-equal to the plain path "
+              f"on the host ({plain_s:.2f} s there)", flush=True)
     sw, sh, sn = VIDEO_SMALL
     small = yuv420(video_frames(sw, sh, sn, 1))
     for mode in ("raw", "recon"):
@@ -1050,6 +1208,10 @@ def main() -> None:
               f"{mpix / e2e[0] * 1e3:.1f} Mpix/s); H2D copy median "
               f"{h2d[0]:.3f} ms, p90 {h2d[1]:.3f} ms (n={SAMPLES})",
               flush=True)
+    for (hh, ww), im in zip(SHAPES, images):
+        time_decode(port.encode_image(im, quant, use_rle=True,
+                                      use_huffman=True, device="cuda"),
+                    hh, ww, dev)
     for mode in ("raw", "recon"):
         time_video(vframes, quant, mode, dev)
 
@@ -1066,6 +1228,10 @@ def main() -> None:
             lambda mode=mode: encode_frames(
                 fr_d, vw, vh, quant, True, GOP, MERANGE, use_huffman=True,
                 ref_mode=mode, device=dev), VIDEO_PROFILE_CALLS, absent)
+
+    print_profile(f"decode_image at {SHAPES[0][1]}x{SHAPES[0][0]}",
+                  lambda: port.decode_image(h_stream, device="cuda"),
+                  PROFILE_CALLS, waits_wanted=0)
 
     print(json.dumps({"kernels": [rows[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

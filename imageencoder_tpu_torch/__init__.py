@@ -1,5 +1,5 @@
-"""imageencoder_tpu_torch: the codec's device image and video encode on
-PyTorch and CUDA (an NVIDIA H100, sm_90a).
+"""imageencoder_tpu_torch: the codec's device image and video encode and
+image decode on PyTorch and CUDA (an NVIDIA H100, sm_90a).
 
 The port of imageencoder_tpu's JAX/Pallas device layer.  It imports torch
 and never jax, and nothing of imageencoder_tpu: it keeps its own copy of
@@ -11,15 +11,18 @@ Public API:
                       format)
     encode_video      YUV420p video encode on a torch device (raw or recon
                       motion reference)
+    decode_image      still-image decode on a torch device, pixel for pixel
+                      as the JAX package's exact engine
     QuantMatrix       quantization matrices (utils/quant.py)
     quant_from_numpy  a QuantMatrix from a numpy array, such as the matrix
                       of imageencoder_tpu's QuantMatrix
 
-Decode with imageencoder_tpu.decode_image(backend="fast") and
-imageencoder_tpu.models.video.decode_video(backend="fast").
+Videos still decode with the JAX package's
+imageencoder_tpu.models.video.decode_video: the port has no video decode
+yet.
 """
 
-from .models.image import encode_image  # noqa: F401
+from .models.image import decode_image, encode_image  # noqa: F401
 from .models.video import encode_video  # noqa: F401
 from .utils.quant import QuantMatrix, quant_from_numpy  # noqa: F401
 

@@ -60,6 +60,19 @@ SIGNATURES = {
     "ie_huffman_dict": [_P, _P, _P, _P],
     "ie_dict_table_words": [],
     "ie_div_sweep": [_P, _I64, _I64, _I32, _U64, _P, _P],
+    # data, nbytes, start_bit, n_chunks, chunk_bits, table, max_len, out,
+    # cap, count, scratch, stats, stream
+    "ie_huffman_decode": [_P, _P, _I64, _I64, _I32, _P, _I32, _P, _I64, _P,
+                          _P, _P, _P],
+    # data, nbytes, start_bit, n_chunks, chunk_bits, n_blocks, use_rle,
+    # block_size, offs, dbits, counts, end, scratch, stats, stream
+    "ie_walk_offsets": [_P, _P, _I64, _I64, _I32, _I64, _I32, _I32, _P, _P,
+                        _P, _P, _P, _P, _P],
+    "ie_chain_scratch_words": [_I64, _I32],
+    # data, nbytes, offs, dbits, counts, n_blocks, quant, wi, izz,
+    # block_size, width, img, stream
+    "ie_decode_blocks": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I32, _I64,
+                         _P, _P],
 }
 
 _LOCK = threading.Lock()

@@ -7,9 +7,9 @@ writes the header bits exactly as the JAX package does
 (models/headers.py); the device runs the motion search, the transform
 and the pack, which with Huffman counts the byte histogram
 (ops/video_pipeline.py), then the dict and the payload pack
-(ops/huffman.py).  Decoding stays on the JAX package's host
-engine: imageencoder_tpu.models.video.decode_video(backend="fast") reads
-these streams.
+(ops/huffman.py).  Only the video decode still lives in the JAX
+package: imageencoder_tpu.models.video.decode_video(backend="fast") reads
+these streams (the port decodes images, models/image.py::decode_image).
 """
 
 from __future__ import annotations

@@ -2,12 +2,15 @@
 
 The port's copy of what it uses from imageencoder_tpu/ops/bitpack.py: the
 header writer (:class:`BitWriter`), the field packer behind it
-(:func:`pack_fields`) and the bit-granular splice of independently encoded
-chunks (:func:`concat_bit_segments`).  There is no native path.
+(:func:`pack_fields`), the bit-granular splice of independently encoded
+chunks (:func:`concat_bit_segments`), and on the way back the header
+reader (:class:`BitReader`) and the field gather (:func:`read_fields`).
+There is no native path.
 
 Semantics of the reference writer (BitStream.cpp:61-77): values are
 truncated to their field width, bits go MSB-first within each field and
-each byte, and the padding bits of the last byte are zero.
+each byte, and the padding bits of the last byte are zero.  The reader
+reads zeros past the end (BitStream.cpp:14-28).
 """
 
 from __future__ import annotations
@@ -35,6 +38,31 @@ def pack_fields(values, nbits, pad_to_bytes: int | None = None):
         shift = (nbits[live] - 1 - j).astype(np.uint64)
         bitbuf[offsets[live] + j] = (uvals[live] >> shift) & 1
     return np.packbits(bitbuf).tobytes(), total_bits
+
+
+def to_bits(data) -> np.ndarray:
+    """bytes -> uint8 bit vector, MSB-first in each byte."""
+    return np.unpackbits(np.frombuffer(data, dtype=np.uint8))
+
+
+def read_fields(bits: np.ndarray, offsets, nbits) -> np.ndarray:
+    """Unsigned fields gathered from a bit vector: field i is the nbits[i]
+    (at most 32) bits from offsets[i], MSB-first; bits past the end read
+    as 0.  Returns uint32 [M]."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    nbits = np.asarray(nbits, dtype=np.int64)
+    out = np.zeros(offsets.shape, dtype=np.uint32)
+    max_w = int(nbits.max()) if len(nbits) else 0
+    n = len(bits)
+    for j in range(max_w):
+        live = nbits > j
+        pos = offsets[live] + j
+        valid = pos < n
+        bit = np.zeros(pos.shape, dtype=np.uint32)
+        bit[valid] = bits[pos[valid]]
+        shift = (nbits[live] - 1 - j).astype(np.uint32)
+        out[live] |= bit << shift
+    return out
 
 
 def concat_bit_segments(segments) -> bytes:
@@ -71,3 +99,26 @@ class BitWriter:
 
     def getvalue(self) -> bytes:
         return pack_fields(self.values, self.nbits)[0]
+
+
+class BitReader:
+    """Sequential MSB-first reader of bytes (util::BitStreamReader): reads
+    past the end return 0 bits.  A field is read from the bytes that hold
+    it, not a bit at a time."""
+
+    def __init__(self, data, position: int = 0) -> None:
+        self.data = bytes(data)
+        self.position = position
+
+    def get(self, nbits: int) -> int:
+        if nbits <= 0:
+            return 0
+        end = self.position + nbits
+        first, last = self.position >> 3, (end + 7) >> 3
+        window = self.data[first:last]  # short or empty past the end
+        v = int.from_bytes(window, "big") << (8 * (last - first - len(window)))
+        self.position = end
+        return (v >> (8 * last - end)) & ((1 << nbits) - 1)
+
+    def get_bit(self) -> int:
+        return self.get(1)

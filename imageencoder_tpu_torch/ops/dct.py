@@ -14,8 +14,11 @@ with C(0) = 0.5 and C(u) = 1/sqrt(2), correct for 4x4 only; ``norm=
     left to right (algo.cpp:352-355).
 
 The kernels (csrc/transform.cuh) and their plain versions
-(ops/cuda_encode.py, ops/video_pipeline.py) accumulate these weights in
-the reference's order: acc = 0; acc = acc + x[c] * w[c] for c = 0..K-1.
+(ops/cuda_encode.py, ops/video_pipeline.py, ops/cuda_decode.py)
+accumulate these weights in the reference's order: acc = 0; acc = acc +
+x[c] * w[c] for c = 0..K-1.  The decode's host copies are here too:
+:func:`idct2_exact` (the numpy loop), :func:`inverse_transform` and
+:func:`clamp_to_u8`.
 """
 
 from __future__ import annotations
@@ -94,3 +97,33 @@ def _inv_weights(n: int, norm: str) -> np.ndarray:
             cc = c[u] * c[v]
             w[u * n + v] = np.multiply.outer(cc * cos[u, :], cos[v, :]).ravel()
     return w
+
+
+def idct2_exact(coeffs: np.ndarray, norm: str = "reference") -> np.ndarray:
+    """The reference's inverse DCT (algo.cpp:343-363) on f64 [..., B, B]:
+    for each output sample, acc = 0, then acc += y[k] * W[k] for k =
+    0..K-1 in row-major order, one rounded multiply and one rounded add
+    a step."""
+    n = coeffs.shape[-1]
+    w = _inv_weights(n, norm)
+    flat = np.ascontiguousarray(coeffs, dtype=np.float64).reshape(-1, n * n)
+    acc = np.zeros_like(flat)
+    tmp = np.empty_like(flat)
+    for k in range(n * n):
+        np.multiply(flat[:, k, None], w[k][None, :], out=tmp)
+        acc += tmp
+    return acc.reshape(coeffs.shape)
+
+
+def inverse_transform(coeffs, quant, norm: str = "reference") -> np.ndarray:
+    """Quantized coefficients [N, B, B] -> f64 samples, 128 added back and
+    not yet clamped (Block.cpp:163-177): one f64 multiply by the quant
+    entry, then the exact inverse."""
+    y = np.asarray(coeffs).astype(np.float64) * np.asarray(quant, np.float64)
+    return idct2_exact(y, norm) + 128.0
+
+
+def clamp_to_u8(x) -> np.ndarray:
+    """uint8(std::clamp(x, 0., 255.)): C++ truncates a double to uint8,
+    which for values in [0, 255] is the floor (Block.cpp:100-107)."""
+    return np.floor(np.clip(x, 0.0, 255.0)).astype(np.uint8)

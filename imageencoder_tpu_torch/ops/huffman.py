@@ -22,6 +22,15 @@ out total and the fallback flag; K4's pack_payload front end packs the
 payload under the table.  Then the host waits once, for the table's totals
 (one small pinned copy), and copies the final words, or on the fallback
 flag the inner words, in one exact-size copy.
+
+The decode half is the port's copy of the JAX package's host decode:
+:func:`parse_dict_bytes`, :func:`validate_dict_entries` (the Python
+loop; the same rejections as the native validator, the same class) and
+:func:`huffman_decode`, a bit walk to byte alignment and then a byte FSM
+over the code tree, every bit to the end of the buffer.  That is the
+plain version of the decode kernel (ops/cuda_decode.py), which walks the
+same tree through :func:`decode_table`; :func:`head_decode` walks the
+table on the host over the first symbols only, for the image header.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ import torch
 
 from ..kernels import build
 from . import cuda_kernels, cuda_pack, dict_table
-from .bitpack import pack_fields
+from ..utils.exceptions import StreamFormatError
+from .bitpack import BitReader, pack_fields
 from .device_pack import bytes_to_words, host_total, stream_bytes, to_device
 
 KEY_BITS = 8
@@ -295,3 +305,200 @@ def huffman_encode(inner: bytes, device) -> bytes:
     the dict kernel and K4 run and on the CPU their plain versions."""
     words = to_device(bytes_to_words(inner), device)
     return huffman_encode_device(words, 8 * len(inner))
+
+
+# ---- decode ----
+
+
+def parse_dict(reader: BitReader):
+    """Read the dict's groups: [(symbol, word, length)]; empty when the
+    first flag bit is 0."""
+    entries = []
+    while reader.get_bit():
+        seq_len = reader.get(7)
+        bit_len = reader.get(4)
+        for _ in range(seq_len):
+            sym = reader.get(KEY_BITS)
+            word = reader.get(bit_len)
+            entries.append((sym, word, bit_len))
+    return entries
+
+
+def parse_dict_bytes(data: bytes):
+    """(entries, end_bit) of the dict at the head of a Huffman stream.  A
+    dict holds a few hundred bytes at most, so a prefix is read; a dict
+    that runs to the prefix's end is read again from the whole stream."""
+    prefix = data[:65536]
+    reader = BitReader(prefix)
+    entries = parse_dict(reader)
+    if reader.position >= len(prefix) * 8 and len(data) > len(prefix):
+        reader = BitReader(data)
+        entries = parse_dict(reader)
+    return entries, reader.position
+
+
+def validate_dict_entries(entries) -> None:
+    """Raise StreamFormatError on a dict that no code tree represents: a
+    zero-length code (the reference encoder's 4-bit length field wraps 16
+    to 0), a duplicate code, or a code that extends or prefixes another.
+    The port's encoder writes 15-bit length-limited canonical codes and
+    never trips this."""
+    children = [[-1, -1]]
+    leaf = [False]
+    for _sym, word, ln in entries:
+        if ln < 1:
+            raise StreamFormatError(
+                "invalid Huffman dictionary: zero-length code (the "
+                "reference encoder's 4-bit length-field wrap, 16 -> 0)")
+        node = 0
+        for k in range(ln - 1, -1, -1):
+            if leaf[node]:
+                raise StreamFormatError(
+                    "invalid Huffman dictionary: a code extends another "
+                    "(non-prefix; reference length-field wrap or corrupt "
+                    "stream)")
+            bit = (word >> k) & 1
+            if children[node][bit] == -1:
+                children[node][bit] = len(children)
+                children.append([-1, -1])
+                leaf.append(False)
+            node = children[node][bit]
+        if leaf[node] or children[node] != [-1, -1]:
+            raise StreamFormatError(
+                "invalid Huffman dictionary: duplicate code or a code "
+                "that prefixes another (non-prefix dict)")
+        leaf[node] = True
+
+
+def _build_tree(entries):
+    """The code tree as lists: children[node][bit] (-1 where absent) and
+    symbol[node] (-1 for an inner node); the root is node 0."""
+    children = [[-1, -1]]
+    symbol = [-1]
+    for sym, word, ln in entries:
+        node = 0
+        for k in range(ln - 1, -1, -1):
+            bit = (word >> k) & 1
+            if children[node][bit] == -1:
+                children.append([-1, -1])
+                symbol.append(-1)
+                children[node][bit] = len(children) - 1
+            node = children[node][bit]
+        symbol[node] = sym
+    return children, symbol
+
+
+def _tree_step(children, symbol, node: int, bit: int, out: list) -> int:
+    """One bit of the reference walk (Huffman.cpp:376-383): a bit with no
+    child is consumed and the walk restarts at the root; a leaf emits its
+    symbol and restarts there."""
+    nxt = children[node][bit]
+    if nxt == -1:
+        return 0
+    if symbol[nxt] >= 0:
+        out.append(symbol[nxt])
+        return 0
+    return nxt
+
+
+def _build_fsm(children, symbol):
+    """Byte-level FSM over the code tree: for each (node, byte), the node
+    the walk ends at and the symbols it emits."""
+    step = []
+    for state in range(len(children)):
+        row = []
+        for byte in range(256):
+            node, outs = state, []
+            for k in range(7, -1, -1):
+                node = _tree_step(children, symbol, node, (byte >> k) & 1,
+                                  outs)
+            row.append((node, tuple(outs)))
+        step.append(row)
+    return step
+
+
+def decode_payload(data: bytes, start_bit: int, entries) -> bytes:
+    """Every symbol of the bits of ``data`` from ``start_bit`` to the end:
+    a bit walk to byte alignment, then the byte FSM.  The padding bits at
+    the end may decode to symbols; a code the end cuts off emits
+    nothing."""
+    children, symbol = _build_tree(entries)
+    bits = np.unpackbits(np.frombuffer(data, dtype=np.uint8))
+    pos, node, out = start_bit, 0, []
+    while pos % 8 and pos < len(bits):
+        node = _tree_step(children, symbol, node, int(bits[pos]), out)
+        pos += 1
+    fsm = _build_fsm(children, symbol)  # node ids are the FSM's states
+    for byte in data[pos // 8:]:
+        node, outs = fsm[node][byte]
+        out.extend(outs)
+    return bytes(out)
+
+
+def huffman_decode(data: bytes) -> bytes:
+    """Decompress a stream whose first bit is 1 (a dict follows), every
+    bit to the end of the buffer, like the reference (Huffman.cpp:376-383):
+    trailing padding may decode to extra symbols, which the parse after
+    it ignores.  Raises ValueError on a stream without a dict and
+    StreamFormatError on a dict that no code tree represents."""
+    entries, dict_end = parse_dict_bytes(data)
+    if not entries:
+        raise ValueError("huffman_decode called on a stream without a dict")
+    validate_dict_entries(entries)
+    return decode_payload(data, dict_end, entries)
+
+
+TABLE_EMIT = 1 << 12  # decode-table entry: symbol | bits << 8 | emit flag
+
+
+def decode_table(entries):
+    """The decode kernel's form of a validated dict: (table uint16
+    [2**L], L, shortest code length), L the longest code length.  Entry
+    [v] describes the walk from the root over the L-bit window v: it ends
+    at a leaf (symbol | depth << 8 | TABLE_EMIT) or at a bit with no child
+    (depth << 8, that bit included, nothing emitted).  Every inner node
+    lies above depth L, so every window ends within L bits."""
+    children, symbol = _build_tree(entries)
+    lengths = [ln for _, _, ln in entries]
+    max_len = max(lengths)
+    # The walks' window ranges partition [0, 2**L): collect them, then
+    # lay them out in order.
+    starts, sizes, values = [], [], []
+    stack = [(0, 0, 0)]  # node, code, depth
+    while stack:
+        node, code, depth = stack.pop()
+        for bit in (0, 1):
+            child, c2, d2 = children[node][bit], (code << 1) | bit, depth + 1
+            if child != -1 and symbol[child] < 0:
+                stack.append((child, c2, d2))
+                continue
+            starts.append(c2 << (max_len - d2))
+            sizes.append(1 << (max_len - d2))
+            values.append(d2 << 8 if child == -1 else
+                          TABLE_EMIT | (d2 << 8) | symbol[child])
+    order = np.argsort(starts)
+    table = np.repeat(np.asarray(values, np.uint16)[order],
+                      np.asarray(sizes)[order])
+    return table, max_len, min(lengths)
+
+
+def head_decode(data: bytes, start_bit: int, table: np.ndarray,
+                max_len: int, n_symbols: int) -> bytes:
+    """The first ``n_symbols`` symbols (fewer where the stream ends) of the
+    payload from ``start_bit``, walked through :func:`decode_table`'s
+    table on the host: what the decode kernel writes first."""
+    nbits = 8 * len(data)
+    out = bytearray()
+    pos = start_bit
+    mask = (1 << max_len) - 1
+    while len(out) < n_symbols and pos < nbits:
+        byte = pos >> 3
+        window = int.from_bytes(data[byte:byte + 3].ljust(3, b"\0"), "big")
+        e = int(table[(window >> (24 - (pos & 7) - max_len)) & mask])
+        ln = (e >> 8) & 15
+        if pos + ln > nbits:  # a code the end cuts off
+            break
+        pos += ln
+        if e & TABLE_EMIT:
+            out.append(e & 0xFF)
+    return bytes(out)

@@ -1,7 +1,7 @@
 """Quantization matrices and their wire serialization.
 
 The port's copy of imageencoder_tpu/utils/quant.py::QuantMatrix (parity
-with dc::MatrixReader): the wire form is a 5-bit width, then size * size
+with dc::MatrixReader), writer and reader: the wire form is a 5-bit width, then size * size
 unsigned values of that width (MatrixReader.cpp:145-158), the width being
 the largest ffs over the entries (:182-190).
 """
@@ -42,6 +42,13 @@ class QuantMatrix:
         writer.put(SIZE_LEN_BITS, w)
         for v in self.matrix.ravel():
             writer.put(w, int(v))
+
+    @classmethod
+    def from_bitstream(cls, reader, size: int = 4) -> "QuantMatrix":
+        """Read the wire form from a BitReader (MatrixReader.cpp:46-57)."""
+        w = reader.get(SIZE_LEN_BITS)
+        vals = [reader.get(w) for _ in range(size * size)]
+        return cls(np.array(vals, dtype=np.uint32).reshape(size, size))
 
     def as_float(self, dtype=np.float64) -> np.ndarray:
         return self.matrix.astype(dtype)

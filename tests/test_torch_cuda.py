@@ -1,6 +1,6 @@
-"""The port's CUDA kernels against their plain versions, and its
-full-size image and video streams against the JAX package's host engine,
-on the card.
+"""The port's CUDA kernels against their plain versions, its full-size
+image and video streams against the JAX package's host engine, and its
+image decode on the card against the host engine's pixels.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips where
 torch.cuda.is_available() is false.  The file imports no JAX (the machine
@@ -20,12 +20,16 @@ import imageencoder_tpu_torch
 from imageencoder_tpu.models import video as host_video
 from imageencoder_tpu.utils.quant import QuantMatrix
 from imageencoder_tpu_torch import quant_from_numpy
-from imageencoder_tpu_torch.ops import (cuda_encode, cuda_kernels,
-                                        cuda_motion, cuda_pack, device_pack,
-                                        dict_table, huffman, pipeline)
+from imageencoder_tpu_torch.ops import (cuda_decode, cuda_encode,
+                                        cuda_kernels, cuda_motion, cuda_pack,
+                                        device_pack, dict_table, huffman,
+                                        pipeline)
+from imageencoder_tpu_torch.utils.exceptions import StreamFormatError
 
-from test_torch_huffman import (KINDS, histogram,  # tests/ is on the path
-                                random_histogram)
+from test_torch_decode import (STREAMS, d1_args,  # tests/ is on the path
+                               dict_stream, record_stream)
+from test_torch_huffman import (KINDS, histogram, random_histogram)
+from test_torch_image import CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -770,3 +774,180 @@ def test_sizes_no_multiple_of_16_equal_host_engine(dev, use_huffman):
             device=dev) == bytes(host_video.encode_video(
                 data, w, h, quant, True, 1, 8, use_huffman=use_huffman,
                 backend="numpy", ref_mode=mode))
+
+
+# ---- the image decode: D1-D3 ----
+
+DECODE = (cuda_decode.huffman_decode, cuda_decode.walk_offsets,
+          cuda_decode.decode_blocks)
+ENCODE = (cuda_encode.encode_locals, cuda_pack.pack_locals,
+          cuda_pack.pack_locals_hist, huffman.build_dict,
+          cuda_pack.pack_payload)
+
+
+def launch_counts(wrappers):
+    return [fn.launches for fn in wrappers]
+
+
+@pytest.mark.parametrize("h,w,kind,qkind,use_huffman,branch", [
+    (912, 4096, "field", "jpeg", True, "huffman"),  # ex4's geometry
+    (912, 4096, "field", "jpeg", False, "raw"),
+    (2160, 3840, "field", "jpeg", True, "huffman"),  # a 4K UHD frame
+    (2160, 3840, "field", "jpeg", False, "raw"),
+    (128, 256, "noise", "ones", True, "fallback"),
+])
+def test_full_size_round_trip_on_the_card_equals_host_engine(
+        dev, h, w, kind, qkind, use_huffman, branch):
+    """Encode on the card, decode on the card: the pixels equal
+    decode_image(backend="numpy"), and the decode launches D1 (with
+    Huffman), D2 and D3 once each and no encode kernel."""
+    if kind == "noise":
+        img = np.random.default_rng(9).integers(0, 256, (h, w), np.uint8)
+    else:
+        img = image(h, w, h + w)
+    quant = QuantMatrix(quant_for(4, qkind).astype(np.uint32))
+    data = imageencoder_tpu_torch.encode_image(
+        img, quant_from_numpy(quant.matrix), use_huffman=use_huffman,
+        device=dev)
+    flag = bool(data[0] & 0x80)
+    assert branch == ("raw" if not use_huffman else
+                      "huffman" if flag else "fallback")
+    before = launch_counts(DECODE + ENCODE)
+    got = imageencoder_tpu_torch.decode_image(data, device=dev)
+    torch.cuda.synchronize()
+    assert got.device == dev and got.dtype == torch.uint8
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), imageencoder_tpu.decode_image(data,
+                                                          backend="numpy"))
+    after = launch_counts(DECODE + ENCODE)
+    assert [a - b for a, b in zip(after, before)] == (
+        [int(flag), 1, 1] + [0] * len(ENCODE))
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("h,w,use_rle,use_huffman,b,norm", CASES)
+def test_small_decode_on_the_card_equals_host_engine(
+        dev, h, w, use_rle, use_huffman, b, norm, writer):
+    """The CPU tests' cases, b = 8 ortho among them, decoded on the card."""
+    img = image(h, w, h * w)
+    i, j = np.indices((b, b))
+    quant = QuantMatrix(np.array(JPEG4, np.uint32) if b == 4
+                        else (1 + 2 * (i + j)).astype(np.uint32))
+    if writer == "port":
+        data = imageencoder_tpu_torch.encode_image(
+            img, quant_from_numpy(quant.matrix), use_rle=use_rle,
+            use_huffman=use_huffman, norm=norm, block_size=b, device=dev)
+    else:
+        data = imageencoder_tpu.encode_image(
+            img, quant, use_rle=use_rle, use_huffman=use_huffman, norm=norm,
+            backend="numpy", block_size=b)
+    got = imageencoder_tpu_torch.decode_image(data, norm=norm, block_size=b,
+                                              device=dev)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), imageencoder_tpu.decode_image(
+            data, norm=norm, backend="numpy", block_size=b))
+
+
+def test_truncated_stream_decodes_on_the_card_as_on_the_host(dev):
+    """Records past the stream's end read zeros on the card too."""
+    data = imageencoder_tpu.encode_image(
+        image(96, 128, 5), QuantMatrix(np.array(JPEG4, np.uint32)),
+        use_huffman=False, backend="numpy")
+    for cut in (len(data) // 2, 300, 40):
+        got = imageencoder_tpu_torch.decode_image(data[:cut], device=dev)
+        np.testing.assert_array_equal(
+            got.cpu().numpy(),
+            imageencoder_tpu.decode_image(data[:cut], backend="numpy"))
+
+
+def on_dev(args, dev):
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+@pytest.mark.parametrize("chunk_bits", [32, 64, 1024])
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_huffman_decode_kernel_equals_plain(dev, name, chunk_bits):
+    """D1 on streams whose chunks start out of sync (3-bit codes at 32-bit
+    chunks never meet the codeword grid), incomplete trees and padding
+    that decodes to symbols; the stream's buffer holds 0xFF past its byte
+    count, which the kernel must not read."""
+    args = on_dev(d1_args(STREAMS[name], tail=64), dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    before = cuda_decode.huffman_decode.launches
+    out, count = cuda_decode.huffman_decode(*args, chunk_bits=chunk_bits,
+                                            stats=stats)
+    want, want_count = cuda_decode.huffman_decode_plain(*args)
+    assert cuda_decode.huffman_decode.launches == before + 1
+    n = int(want_count)
+    assert int(count) == n
+    assert torch.equal(out[:n], want[:n])
+    chunks, whole = stats.tolist()
+    assert chunks == -(-(8 * len(STREAMS[name]) - args[2]) // chunk_bits)
+    if name == "equal lengths" and chunk_bits == 32:
+        assert whole > 0  # walked whole from the true entry, still equal
+
+
+@pytest.mark.parametrize("kind,use_rle,chunk_bits", [
+    ("zeros", True, 32), ("long", True, 32), ("long", False, 32),
+    ("long", False, 64), ("random", True, 32), ("random", False, 64),
+    ("random", True, 2048), ("corrupt", True, 32), ("corrupt", True, 64),
+])
+def test_walk_offsets_kernel_equals_plain(dev, kind, use_rle, chunk_bits):
+    """D2 on records 4 bits apart, 244- and 259-bit records that keep
+    walkers out of phase, random records and records with counts past
+    B*B, with many small chunks; 0xFF fills the buffer past the byte
+    count, and records past it read zeros."""
+    lead = 5
+    data, n = record_stream(kind, 300, 11, use_rle, lead=lead)
+    payload = torch.tensor(list(data) + [0xFF] * 256, dtype=torch.uint8,
+                           device=dev)
+    nbytes = torch.tensor([len(data)], dtype=torch.int64, device=dev)
+    for n_blocks in (n, n + 40, n // 2):
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        got = cuda_decode.walk_offsets(payload, nbytes, lead, n_blocks,
+                                       use_rle, 4, chunk_bits, stats)
+        want = cuda_decode.walk_offsets_plain(payload, nbytes, lead,
+                                              n_blocks, use_rle, 4)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        if kind == "long" and not use_rle and n_blocks == n:
+            assert stats[1] > 0  # walked whole from the true entry
+
+
+@pytest.mark.parametrize("b,norm,use_rle", [
+    (4, "reference", True), (4, "ortho", False), (8, "ortho", True),
+    (8, "reference", False)])
+def test_decode_blocks_kernel_equals_plain(dev, b, norm, use_rle):
+    """D3 on random records of every width, counts past B*B, and fields
+    past the byte count (the buffer holds 0xFF there): coefficients up to
+    +-16383, so the clamp works both ways."""
+    k, lead = b * b, 9
+    h, w = 4 * b, 16 * b
+    n = (h // b) * (w // b)
+    data, _ = record_stream("corrupt", n, 13, use_rle, k=k, lead=lead)
+    payload = torch.tensor(list(data) + [0xFF] * 512, dtype=torch.uint8,
+                           device=dev)
+    quant = torch.tensor(quant_for(b).ravel(), dtype=torch.float64,
+                         device=dev)
+    for cut in (len(data), 2 * len(data) // 3):
+        nbytes = torch.tensor([cut], dtype=torch.int64, device=dev)
+        offs, dbits, counts, _ = cuda_decode.walk_offsets_plain(
+            payload, nbytes, lead, n, use_rle, b)
+        got = cuda_decode.decode_blocks(payload, nbytes, offs, dbits, counts,
+                                        quant, b, norm, h, w)
+        want = cuda_decode.decode_blocks_plain(payload, nbytes, offs, dbits,
+                                               counts, quant, b, norm, h, w)
+        assert torch.equal(got, want)
+        assert 0 < int((got == 0).sum()) and 0 < int((got == 255).sum())
+
+
+def test_corrupt_dict_raises_before_any_launch(dev):
+    before = launch_counts(DECODE)
+    for entries in ([(1, 0, 1), (2, 1, 2)],  # "0" prefixes "01"
+                    [(1, 1, 2), (2, 1, 2)],  # a duplicate code
+                    [(1, 0, 0), (2, 1, 1)]):  # a zero-length code
+        with pytest.raises(StreamFormatError):
+            imageencoder_tpu_torch.decode_image(dict_stream(entries),
+                                                device=dev)
+    assert launch_counts(DECODE) == before

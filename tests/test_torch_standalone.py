@@ -2,13 +2,18 @@
 package and keeps its own copy of the host code it needs.
 
   * with both ``jax`` and ``imageencoder_tpu`` blocked, a fresh process
-    imports the port and encodes an image and a 40-frame video (raw and
+    imports the port, encodes an image and a 40-frame video (raw and
     recon, Huffman on, so the chunked path runs) byte for byte as this
-    process's ``backend="numpy"`` did;
+    process's ``backend="numpy"`` did, and decodes its image stream (and
+    the stream without Huffman) to this process's
+    ``decode_image(backend="numpy")`` pixels;
   * every copied helper equals its JAX-package original: header bits,
     QuantMatrix serialization, zig-zag, the DCT tables bit for bit, the
     register-file bounds, search steps, motion-vector width, YUV420 split,
-    the bit packers and the Huffman dict;
+    the bit packers and the Huffman dict; and the decode's: the bit
+    reader and field gather, sign extension, the header readers, the
+    dict parse and validation, the Huffman decode, the offset walk, the
+    extraction, the exact inverse, the clamp and deblockify;
   * the port's Python Huffman tree build equals the JAX package's (native)
     code_lengths on seeded histograms with ties and with skew deep enough
     to need the 15-bit length limit.
@@ -24,19 +29,24 @@ import pytest
 
 import imageencoder_tpu
 from imageencoder_tpu.models import headers as jax_headers
+from imageencoder_tpu.models import image as jax_image
 from imageencoder_tpu.models import video as jax_video
 from imageencoder_tpu.ops import bitpack as jax_bitpack
+from imageencoder_tpu.ops import blockify as jax_blockify
 from imageencoder_tpu.ops import dct as jax_dct
 from imageencoder_tpu.ops import device_pack as jax_device_pack
 from imageencoder_tpu.ops import huffman as jax_huffman
 from imageencoder_tpu.ops import motion as jax_motion
 from imageencoder_tpu.ops import pallas_encode as jax_pallas_encode
 from imageencoder_tpu.ops import zigzag as jax_zigzag
+from imageencoder_tpu.utils import bits as jax_bits
+from imageencoder_tpu.utils import exceptions as jax_exceptions
 from imageencoder_tpu.utils.quant import QuantMatrix
 import imageencoder_tpu_torch
-from imageencoder_tpu_torch.models import headers, video
-from imageencoder_tpu_torch.ops import (bitpack, cuda_encode, dct,
+from imageencoder_tpu_torch.models import headers, image, video
+from imageencoder_tpu_torch.ops import (bitpack, blockify, cuda_encode, dct,
                                         device_pack, huffman, motion, zigzag)
+from imageencoder_tpu_torch.utils import bits, exceptions
 
 from tests.test_torch_image import REPO, smooth_image
 from tests.test_torch_video import bench_frames, yuv420
@@ -53,22 +63,29 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked(tmp_path):
     want = {
         "image": imageencoder_tpu.encode_image(img, quant, use_huffman=True,
                                                backend="numpy"),
+        "image raw": imageencoder_tpu.encode_image(
+            img, quant, use_huffman=False, backend="numpy"),
         **{mode: bytes(jax_video.encode_video(
             data, w, h, quant, True, 4, 8, use_huffman=True,
             backend="numpy", ref_mode=mode)) for mode in ("raw", "recon")},
     }
+    pixels = {key: imageencoder_tpu.decode_image(want[key], backend="numpy")
+              for key in ("image", "image raw")}
     case = tmp_path / "case.pkl"
-    case.write_bytes(pickle.dumps((img, data, quant.matrix, want)))
+    case.write_bytes(pickle.dumps((img, data, quant.matrix, want, pixels)))
     code = textwrap.dedent(f"""
         import pickle, sys
         sys.modules["jax"] = None
         sys.modules["imageencoder_tpu"] = None
         import imageencoder_tpu_torch as port
-        img, data, matrix, want = pickle.loads(
+        img, data, matrix, want, pixels = pickle.loads(
             open({str(case)!r}, "rb").read())
         q = port.quant_from_numpy(matrix)
         assert port.encode_image(img, q, use_huffman=True,
                                  device="cpu") == want["image"]
+        for key in ("image", "image raw"):
+            got = port.decode_image(want[key], device="cpu").numpy()
+            assert (got == pixels[key]).all(), key
         for mode in ("raw", "recon"):
             got = port.encode_video(data, {w}, {h}, q, True, 4, 8,
                                     use_huffman=True, ref_mode=mode,
@@ -199,7 +216,87 @@ HELPERS = {
     "huffman fallback": (
         lambda: huffman._fallback(bytes(range(200))),
         lambda: jax_huffman._fallback(bytes(range(200)))),
+    "bit reader": (
+        lambda: _reads(bitpack), lambda: _reads(jax_bitpack)),
+    "read fields and shift signed": (
+        lambda: _fields(bitpack, bits), lambda: _fields(jax_bitpack,
+                                                        jax_bits)),
+    "header readers": (
+        lambda: _headers_back(headers, bitpack),
+        lambda: _headers_back(jax_headers, jax_bitpack)),
+    "dict parse, validation, decode": (
+        lambda: _huffman_back(huffman), lambda: _huffman_back(jax_huffman)),
+    "offset walk and extraction": (
+        lambda: _walk(image), lambda: _walk(jax_image)),
+    "exact inverse and clamp": (
+        lambda: _inverse(dct, blockify), lambda: _inverse(jax_dct,
+                                                          jax_blockify)),
+    "stream errors": (
+        lambda: _errors(exceptions), lambda: _errors(jax_exceptions)),
 }
+
+
+def _reads(mod):
+    data = bytes(range(7, 250, 13))
+    reader = mod.BitReader(data, 5)
+    return [reader.get(n) for n in (0, 1, 7, 15, 31, 3, 20)], reader.position
+
+
+def _fields(mod, mod_bits):
+    bitv = mod.to_bits(bytes(range(1, 200, 7)))
+    raw = mod.read_fields(bitv, [0, 5, 33, 200, 220], [3, 15, 32, 9, 1])
+    return (raw.tolist(),
+            mod_bits.shift_signed(raw, [3, 15, 32, 9, 0]).tolist())
+
+
+def _headers_back(mod, mod_bits):
+    writer = mod_bits.BitWriter()
+    writer.put_bit(0)
+    mod.write_image_header(writer, _quant_of(mod), True, 1280, 720)
+    mod.write_video_params(writer, mod.VideoParams(25, 4, 16))
+    reader = mod_bits.BitReader(writer.getvalue(), 1)
+    q, rle, w, h = mod.read_image_header(reader, 4)
+    p = mod.read_video_params(reader)
+    return (q.matrix.tolist(), rle, w, h, p.frame_count, p.gop, p.merange,
+            reader.position)
+
+
+def _quant_of(mod):
+    if mod is headers:
+        return imageencoder_tpu_torch.quant_from_numpy(JPEG4)
+    return QuantMatrix(JPEG4)
+
+
+def _huffman_back(mod):
+    data = jax_huffman.huffman_encode(bytes(np.minimum(
+        np.random.default_rng(3).geometric(0.1, 500), 255).astype(np.uint8)))
+    entries, end = mod.parse_dict_bytes(data)
+    mod.validate_dict_entries(entries)
+    return entries, end, mod.huffman_decode(data)
+
+
+def _walk(mod):
+    rng = np.random.default_rng(8)
+    data = bytes(rng.integers(0, 256, 300).astype(np.uint8))
+    offs, dbits, counts, end = mod.walk_block_offsets(None, 3, 40, True,
+                                                      packed=data)
+    coeffs, _ = mod.extract_block_coeffs(None, 3, 40, True, packed=data)
+    return (offs.tolist(), dbits.tolist(), counts.tolist(), end,
+            coeffs.tolist())
+
+
+def _inverse(mod, mod_blockify):
+    coeffs = np.random.default_rng(4).integers(-99, 99, (8, 4, 4))
+    px = mod.inverse_transform(coeffs, JPEG4.astype(np.float64))
+    return (px.tobytes(), mod_blockify.deblockify(
+        mod.clamp_to_u8(px), 8, 16).tobytes(),
+        mod.idct2_exact(coeffs.astype(np.float64), "ortho").tobytes())
+
+
+def _errors(mod):
+    err = mod.StreamFormatError("empty stream")
+    return (str(err), isinstance(err, ValueError),
+            isinstance(err, mod.CodecError))
 
 
 @pytest.mark.parametrize("name", list(HELPERS))

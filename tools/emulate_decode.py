@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""Run the decode kernels D1-D3 on the host, with no card and no nvcc.
+
+    python tools/emulate_decode.py
+
+Compiles csrc/huffman_decode.cu, walk.cu and decode.cu with g++ against a
+small emulation of the CUDA they use: every CUDA thread of a block is a
+std::thread, blocks run one after another, __syncthreads is a block
+barrier, ballots and shuffles exchange through a per-warp barrier, and a
+launch `k<<<grid, block, smem, stream>>>(args)` becomes a call that runs
+the grid.  Then it holds each kernel's output against its plain version
+(ops/cuda_decode.py) on streams written by the port's encoder on the CPU
+and on records built to keep speculative walkers out of phase, with many
+small chunks, and prints the chunks each chain walked whole.
+
+It finds compile errors and logic faults before a chip call.  It says
+nothing of speed, of nvcc's own rules, or of races the threads' timing
+hides; the card tests and chip_smoke.py do.  Exit status 1 on a mismatch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+import re
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from imageencoder_tpu_torch import QuantMatrix, encode_image  # noqa: E402
+from imageencoder_tpu_torch.kernels.build import SIGNATURES  # noqa: E402
+from imageencoder_tpu_torch.models import image  # noqa: E402
+from imageencoder_tpu_torch.ops import bitpack, cuda_decode, huffman  # noqa
+from imageencoder_tpu_torch.ops.dct import _inv_weights  # noqa: E402
+from imageencoder_tpu_torch.ops.zigzag import zigzag_order  # noqa: E402
+
+CSRC = REPO / "imageencoder_tpu_torch" / "csrc"
+UNITS = ("huffman_decode.cu", "walk.cu", "decode.cu")
+ENTRY = ("ie_huffman_decode", "ie_walk_offsets", "ie_chain_scratch_words",
+         "ie_decode_blocks")
+
+SHIM = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
+#define __launch_bounds__(...)
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
+inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
+inline double __dsub_rn(double a, double b) { volatile double r = a - b; return r; }
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
+inline double __ddiv_rn(double a, double b) { volatile double r = a / b; return r; }
+inline double __int2double_rn(int a) { return a; }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline long long min(long long a, long long b) { return a < b ? a : b; }
+struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+struct uint4 { unsigned x, y, z, w; };
+struct double2 { double x, y; };
+struct EmuBlock {
+    std::barrier<>* block;
+    std::vector<std::barrier<>*> warp;
+    std::vector<unsigned long long> slot;
+};
+inline EmuBlock* g_emu;
+inline void __syncthreads() { g_emu->block->arrive_and_wait(); }
+template <class T> inline T emu_exchange(T v, int src_of_lane(int, int),
+                                         int arg) {
+    const int t = threadIdx.x, w = t / 32, lane = t % 32;
+    g_emu->warp[w]->arrive_and_wait();
+    unsigned long long u = 0;
+    std::memcpy(&u, &v, sizeof(T));
+    g_emu->slot[t] = u;
+    g_emu->warp[w]->arrive_and_wait();
+    const int src = src_of_lane(lane, arg);
+    T r = v;
+    if (src >= 0) {
+        const unsigned long long x = g_emu->slot[w * 32 + src];
+        std::memcpy(&r, &x, sizeof(T));
+    }
+    g_emu->warp[w]->arrive_and_wait();
+    return r;
+}
+inline int emu_src(int, int src) { return src; }
+inline int emu_up(int lane, int d) { return lane >= d ? lane - d : -1; }
+template <class T> inline T __shfl_sync(unsigned, T v, int src) {
+    return emu_exchange(v, emu_src, src);
+}
+template <class T> inline T __shfl_up_sync(unsigned, T v, int d) {
+    return emu_exchange(v, emu_up, d);
+}
+inline unsigned __ballot_sync(unsigned, bool p) {
+    const int t = threadIdx.x, w = t / 32;
+    g_emu->warp[w]->arrive_and_wait();
+    g_emu->slot[t] = p;
+    g_emu->warp[w]->arrive_and_wait();
+    unsigned r = 0;
+    for (int l = 0; l < 32; l++)
+        if (g_emu->slot[w * 32 + l]) r |= 1u << l;
+    g_emu->warp[w]->arrive_and_wait();
+    return r;
+}
+template <class F>
+inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t,
+                       F f) {
+    blockDim.x = block;
+    gridDim.x = grid;
+    for (unsigned b = 0; b < grid; b++) {
+        std::barrier<> bar(block);
+        EmuBlock eb{&bar, {}, std::vector<unsigned long long>(block)};
+        for (unsigned w = 0; w < (block + 31) / 32; w++)
+            eb.warp.push_back(new std::barrier<>(32));
+        g_emu = &eb;
+        std::vector<std::thread> threads;
+        for (unsigned t = 0; t < block; t++)
+            threads.emplace_back([&, t, b] {
+                threadIdx.x = t;
+                blockIdx.x = b;
+                f();
+            });
+        for (auto& th : threads) th.join();
+        for (auto* p : eb.warp) delete p;
+    }
+}
+"""
+
+LAUNCH = re.compile(r"([\w:]+(?:<\d+>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+
+
+def build(tmp: pathlib.Path) -> ctypes.CDLL:
+    """The three units, launches rewritten, compiled into one library."""
+    (tmp / "cuda_runtime.h").write_text(SHIM)
+    for src in [*CSRC.glob("*.cuh"), *(CSRC / u for u in UNITS)]:
+        text = LAUNCH.sub(lambda m: f"emu_launch({m.group(2)}, [&]{{ "
+                                    f"{m.group(1)}({m.group(3)}); }});",
+                          src.read_text())
+        (tmp / src.name).write_text(text)
+    lib = tmp / "libemu.so"
+    cmd = ["g++", "-std=c++20", "-O1", "-pthread", "-ffp-contract=off",
+           "-fPIC", "-shared", f"-I{tmp}"]
+    for unit in UNITS:
+        cmd += ["-x", "c++", str(tmp / unit)]
+    subprocess.run([*cmd, "-o", str(lib)], check=True)
+    dll = ctypes.CDLL(str(lib))
+    for name in ENTRY:
+        getattr(dll, name).argtypes = SIGNATURES[name]
+        getattr(dll, name).restype = ctypes.c_int
+    return dll
+
+
+def ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def buffer(data: bytes, tail: int) -> np.ndarray:
+    """The bytes and ``tail`` bytes of 0xFF past them: reads past the
+    count must not see them."""
+    return np.frombuffer(data + b"\xff" * tail, np.uint8).copy()
+
+
+def d1(lib, data: bytes, chunk_bits: int):
+    """D1 on a Huffman stream: (equal to the plain decode, stats)."""
+    entries, end = huffman.parse_dict_bytes(data)
+    table, max_len, min_len = huffman.decode_table(entries)
+    cap = cuda_decode.payload_capacity(8 * len(data) - end, min_len)
+    buf, nb = buffer(data, 64), np.array([len(data)], np.int64)
+    n_chunks = cuda_decode._n_chunks(8 * len(buf) - end, chunk_bits)
+    scratch = np.full(lib.ie_chain_scratch_words(n_chunks, chunk_bits), -7,
+                      np.int64)
+    out, count = np.full(cap, 0xEE, np.uint8), np.zeros(1, np.int64)
+    stats = np.zeros(2, np.int64)
+    assert lib.ie_huffman_decode(
+        ptr(buf), ptr(nb), end, n_chunks, chunk_bits, ptr(table), max_len,
+        ptr(out), cap, ptr(count), ptr(scratch), ptr(stats), None) == 0
+    want = huffman.huffman_decode(data)
+    ok = int(count[0]) == len(want) and out[:len(want)].tobytes() == want
+    return ok, stats.tolist(), want
+
+
+def d2(lib, payload: bytes, start: int, n_blocks: int, use_rle: bool,
+       block_size: int, chunk_bits: int):
+    """D2 on a payload: (equal to the plain walk, stats, records)."""
+    buf, nb = buffer(payload, 256), np.array([len(payload)], np.int64)
+    n_chunks = cuda_decode._n_chunks(8 * len(buf) - start, chunk_bits)
+    scratch = np.full(lib.ie_chain_scratch_words(n_chunks, chunk_bits), -7,
+                      np.int64)
+    offs = np.full(n_blocks, -1, np.int64)
+    dbits, counts = (np.full(n_blocks, -1, np.int32) for _ in range(2))
+    end, stats = np.full(1, -1, np.int64), np.zeros(2, np.int64)
+    assert lib.ie_walk_offsets(
+        ptr(buf), ptr(nb), start, n_chunks, chunk_bits, n_blocks,
+        int(use_rle), block_size, ptr(offs), ptr(dbits), ptr(counts),
+        ptr(end), ptr(scratch), ptr(stats), None) == 0
+    want = image.walk_block_offsets(None, start, n_blocks, use_rle,
+                                    block_size, packed=payload)
+    ok = (all(np.array_equal(a, b) for a, b in zip((offs, dbits, counts),
+                                                   want[:3]))
+          and int(end[0]) == want[3])
+    return ok, stats.tolist(), want[:3]
+
+
+def d3(lib, payload: bytes, records, quant: np.ndarray, block_size: int,
+       norm: str, h: int, w: int) -> bool:
+    """D3 on a payload's records: equal to the plain block decode."""
+    buf, nb = buffer(payload, 64), np.array([len(payload)], np.int64)
+    offs, dbits, counts = (np.ascontiguousarray(r) for r in records)
+    wi = np.ascontiguousarray(_inv_weights(block_size, norm))
+    zz = zigzag_order(block_size)
+    izz = np.empty_like(zz)
+    izz[zz] = np.arange(len(zz), dtype=np.int32)
+    q = np.ascontiguousarray(quant, np.float64).reshape(-1)
+    img = np.full((h, w), 0x77, np.uint8)
+    assert lib.ie_decode_blocks(
+        ptr(buf), ptr(nb), ptr(offs), ptr(dbits), ptr(counts), len(offs),
+        ptr(q), ptr(wi), ptr(izz), block_size, w, ptr(img), None) == 0
+    want = cuda_decode.decode_blocks_plain(
+        torch.from_numpy(buf), torch.tensor([len(payload)]),
+        *(torch.from_numpy(r) for r in (offs, dbits, counts)),
+        torch.from_numpy(q), block_size, norm, h, w)
+    return np.array_equal(img, want.numpy())
+
+
+def records(kind: str, n: int, seed: int, use_rle: bool, k: int):
+    """Payload bytes of n block records: "long" (b = 15, count = k: the
+    walkers stay out of phase), "random" (b, count any), "corrupt"
+    (random, some counts past k)."""
+    rng = np.random.default_rng(seed)
+    vals, nb = [0], [3]  # 3 lead bits
+    for i in range(n):
+        b, cnt = (15, k) if kind == "long" else (
+            int(rng.integers(0, 16)), int(rng.integers(0, k + 1)))
+        if kind == "corrupt" and (1 << b) > k + 1 and i % 7 == 3:
+            cnt = int(rng.integers(k + 1, 1 << b))
+        cnt = cnt if use_rle else k
+        vals += [b] + ([cnt] if use_rle else []) + \
+            rng.integers(0, 1 << 15, cnt).tolist()
+        nb += [4] + ([b] if use_rle else []) + [b] * cnt
+    return bitpack.pack_fields(vals, nb)[0]
+
+
+def main() -> int:
+    failed = 0
+
+    def report(label: str, ok: bool, stats=None) -> None:
+        nonlocal failed
+        failed += not ok
+        extra = "" if stats is None else (f" ({stats[0]} chunks, {stats[1]} "
+                                          f"walked whole)")
+        print(f"{'ok  ' if ok else 'FAIL'} {label}{extra}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = build(pathlib.Path(tmp))
+        y, x = np.mgrid[0:96, 0:128].astype(np.float64)
+        rng = np.random.default_rng(0)
+        img = np.clip(128 + 60 * np.sin(x / 9) * np.cos(y / 7)
+                      + rng.normal(0, 6, x.shape), 0, 255).astype(np.uint8)
+        jpeg = np.array([[16, 11, 10, 16], [12, 12, 14, 19],
+                         [14, 13, 16, 24], [14, 17, 22, 29]])
+        for b, norm in ((4, "reference"), (8, "ortho")):
+            q = jpeg if b == 4 else 1 + 2 * np.add.outer(range(8), range(8))
+            for use_rle in (True, False):
+                data = encode_image(img, QuantMatrix(q), use_rle, True, norm,
+                                    b, device="cpu")
+                plan = image.parse_stream(data, b)
+                for chunk in (32, 1024):
+                    ok, stats, payload = d1(lib, data, chunk)
+                    report(f"D1 {b}x{b} rle={use_rle} chunks of {chunk}",
+                           ok, stats)
+                for chunk in (32, 2048):
+                    ok, stats, recs = d2(lib, payload, plan["start"],
+                                         plan["n_blocks"], use_rle, b, chunk)
+                    report(f"D2 {b}x{b} rle={use_rle} chunks of {chunk}",
+                           ok, stats)
+                report(f"D3 {b}x{b} {norm} rle={use_rle}",
+                       d3(lib, payload, recs, q, b, norm, 96, 128))
+        inner = bytes(np.repeat(np.arange(8, dtype=np.uint8) * 17, 50)[
+            rng.permutation(400)])  # every code 3 bits long
+        ok, stats, _ = d1(lib, huffman.huffman_encode(inner, "cpu"), 32)
+        report("D1 3-bit codes, chunks of 32", ok and stats[1] > 0, stats)
+        for kind, use_rle in (("long", True), ("long", False),
+                              ("random", True), ("corrupt", True)):
+            payload = records(kind, 200, 1, use_rle, 16)
+            ok, stats, recs = d2(lib, payload, 3, 232, use_rle, 4, 32)
+            report(f"D2 {kind} records rle={use_rle}, chunks of 32", ok,
+                   stats)
+            report(f"D3 {kind} records, a third cut off", d3(
+                lib, payload[:2 * len(payload) // 3], recs, jpeg, 4,
+                "reference", 32, 116))
+    print("all equal" if not failed else f"{failed} mismatches")
+    return int(failed > 0)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
