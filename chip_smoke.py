@@ -6,10 +6,11 @@
 It needs one CUDA card (an H100: the kernels are built for sm_90a), nvcc,
 and this checkout.  It imports only the port, which stands alone: JAX and
 the JAX package (imageencoder_tpu) are blocked before anything is
-imported.  It drives four paths: the image encode (encode_image), the
+imported.  It drives five paths: the image encode (encode_image), the
 video encode (encode_video) with the raw and with the recon motion
-reference, and the image decode (decode_image).  Phases, each of which
-raises on failure:
+reference, the image decode (decode_image) and the video decode
+(decode_frames and decode_video).  Phases, each of which raises on
+failure:
 
   1. build the kernels in imageencoder_tpu_torch/csrc with nvcc, one
      process per source, all started together;
@@ -42,7 +43,12 @@ raises on failure:
      the 4096x912 Huffman stream written on the card for D1
      huffman_decode, D2 walk_offsets and D3 decode_blocks (D1's payload
      compared up to its byte count), and for D1 and D2 the chunks their
-     true chain walked whole.  The packers'
+     true chain walked whole; decode_frames of the 720p25 raw stream for
+     D1 on a video's payload, D2 walk_video (one chain over the whole
+     video), the vector read, every D3 call (the I-frames, then frame k of
+     every GOP onto its prediction) and every K7 predict call (frame k
+     predicted from frame k - 1 at the vectors read from the stream).
+     The packers'
      words are compared up to the stream's last word, which is all the
      kernels define.  K3 is also timed against torch.bincount over the
      same stream bytes, the one PyTorch call that computes its function;
@@ -51,19 +57,26 @@ raises on failure:
      seeded 4096x912 and 3840x2160 images with Huffman on and off and on
      a small noise image that takes the raw-copy fallback; encode_video at
      720p25 with Huffman on and off, raw and recon; the 40-frame video;
-     and decode_image(..., device="cuda") of every image stream.
-     Every kernel a path runs must have been launched at least once in
-     that path's run, no path but the long video's may launch K3, and
-     neither video path may launch K6 or K7 alone.  One encode_image with
-     Huffman on must launch K1, K2+hist, the dict and K4 pack_payload once
-     each and nothing else.  No encode path may launch D1-D3, and the
-     decode path launches nothing else: D1 once a Huffman stream, D2 and
-     D3 once a stream;
+     decode_image(..., device="cuda") of every image stream; and
+     decode_frames(..., device="cuda") of the four 720p25 streams and the
+     40-frame one.  Every kernel a path runs must have been launched at
+     least once in that path's run, no path but the long video's may
+     launch K3, and no encode path may launch K6 or K7 alone (no path
+     launches K6 alone).  One encode_image with Huffman on must launch K1,
+     K2+hist, the dict and K4 pack_payload once each and nothing else.
+     No encode path may launch a decode kernel, and a decode path
+     launches its own kernels only: the image decode D1 once a Huffman
+     stream, D2 and D3 once a stream; the video decode D1 once a Huffman
+     stream, D2 walk_video and the vector read once a stream, D3 once and
+     K7 alone once less a GOP step (min(gop, frames)): at gop 4, 4 and 3
+     whatever the frame count;
   4. hold every image stream from phase 3, and its pixels decoded on the
      card, video streams of both
      references at 320x176 with 8 frames (gop 4, merange 16, Huffman on and
-     off), and the 40-frame video's, against the port's plain path,
-     device="cpu", byte for byte.
+     off), the 40-frame video's, and the frames phase 3 decoded on the card
+     from the video streams (and those of decode_video with and without
+     motion compensation), against the port's plain path, device="cpu",
+     byte for byte.
      That path is the one tests/test_torch_image.py and
      tests/test_torch_video.py hold byte-equal to the JAX package's host
      engine; tests/test_torch_cuda.py holds the card's full-size image and
@@ -75,6 +88,10 @@ raises on failure:
   6. time, inputs resident on the device: the device encode, the Huffman
      stage (the dict kernel, K4 pack_payload, the one wait and the copies),
      the whole encode_image and the host-to-device copy of the image; for
+     the video decode of the 720p25 raw stream, the host's parse, the
+     stream's upload, the device window (D1, D2, the vector read, D3 and
+     K7), decode_frames until its frames are ready and decode_video with
+     its copy of the YUV420 frames to the host; for
      video, the whole encode_video of frames on the device, the device
      window (K6+K7 + K1 + K2, or per frame K6+K7 and the recon step (K5 on
      I-frames) and then K4 pack_coeffs, until the histogram is counted),
@@ -89,8 +106,9 @@ raises on failure:
      path, the device-to-host copies a call (profiler rows) and the host's
      waits for the device a call (PyTorch's sync debug mode counts each
      one): one of each is the stream's own copy, and the path fails with
-     more than one wait before it.  A decode_image that waits on the
-     device at all fails: it leaves its pixels there.
+     more than one wait before it.  A decode_image or decode_frames that
+     waits on the device at all fails: it leaves its pixels there; a
+     decode_video waits once, for its frames' copy.
 
 Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
@@ -109,9 +127,11 @@ exists (K3: torch.bincount), else null.  The dict kernel's bound counts
 its bytes (the histogram in, the table out); its time is the latency of
 a serial merge, which no bound of bytes or operations at the card's peak
 rates describes.  D1 counts the stream and its decode table in and the
-payload out; D2 the payload in and 16 bytes a record out; D3 the larger
-of its f64 ops (544 a 4x4 block) and its bytes (the payload, the
-records, the pixels).
+payload out; D2 the payload in and 16 bytes a record out (over a video
+also 16 bytes a frame); the vector read the vectors' bits in, 8 bytes a
+frame's start bit and 4 bytes a field out; D3 the larger of its f64 ops
+(544 a 4x4 block, 16 more with a prediction) and its bytes (the fields'
+bits, 16 bytes a record, the prediction, the pixels).
 
 Output: the card's name and power limit on an early line, one JSON line
 {"kernels": [...]} before the last, and last
@@ -233,6 +253,17 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                          "decode_blocks_plain", "decode_blocks_kernel",
                          "imageencoder_tpu_torch/csrc/decode.cu",
                          "imageencoder_tpu/runtime/native/runtime.cpp:2219"),
+    # D2 over a whole video: the host walks each frame from the bit after
+    # the vectors (models/video.py:507-550, runtime.cpp:956 a frame).
+    "D2 walk_video": ("cuda_decode", "walk_video", "walk_video_plain",
+                      ("offset_walk_kernel", "offset_check_kernel",
+                       "offset_stitch_kernel", "offset_emit_kernel"),
+                      "imageencoder_tpu_torch/csrc/walk.cu",
+                      "imageencoder_tpu/runtime/native/runtime.cpp:956"),
+    "vector read": ("cuda_decode", "read_vectors", "read_vectors_plain",
+                    "read_vectors_kernel",
+                    "imageencoder_tpu_torch/csrc/walk.cu",
+                    "imageencoder_tpu/runtime/native/runtime.cpp:1472"),
 }
 PATHS = {  # path: the kernels it runs (Huffman on and off)
     "image": ("K1 encode_locals", "K2 pack_locals", "K2 pack_locals+hist",
@@ -247,9 +278,18 @@ PATHS = {  # path: the kernels it runs (Huffman on and off)
                    "K6+K7 search_residual"),
     "image decode": ("D1 huffman_decode", "D2 walk_offsets",
                      "D3 decode_blocks"),
+    "video decode": ("D1 huffman_decode", "D2 walk_video", "vector read",
+                     "D3 decode_blocks", "K7 predict"),
 }
-DECODE = PATHS["image decode"]  # no other path launches these
-ALONE = ("K6 motion_search", "K7 predict")  # no video path launches these
+DECODE_PATHS = ("image decode", "video decode")
+# No encode path launches these.
+DECODE = ("D1 huffman_decode", "D2 walk_offsets", "D2 walk_video",
+          "vector read", "D3 decode_blocks")
+ALONE = ("K6 motion_search",)  # no path launches it
+# No encode path launches the search or the prediction alone: the
+# search's epilogue takes their place there.  K7 alone runs on the video
+# decode.
+NOT_ON_ENCODE = (*ALONE, "K7 predict")
 # A packer's output is defined up to the stream's last word (the plain
 # versions zero the rest of the buffer, the kernels leave it): compare
 # that part.
@@ -490,16 +530,20 @@ def f64_ops_per_block(k: int, recon: bool) -> int:
     return fwd + (k + 2 * k * k + 2 * k if recon else 0)
 
 
-def operations(name: str, args: tuple) -> tuple[float, float]:
+def operations(name: str, args: tuple,
+               kwargs: dict) -> tuple[float, float]:
     """(ops, ops/s of their type) the function does on these inputs; 0 ops
     for the kernels that only move bytes."""
     from imageencoder_tpu_torch.ops.motion import MACRO, search_steps
 
     if name == "D3 decode_blocks":
         # The dequantize multiply, the inverse's K*K multiplies and adds
-        # and the + 128 a sample: 544 a 4x4 block.
+        # and the + 128 a sample: 544 a 4x4 block; with a prediction one
+        # more add a sample.
         k = args[6] * args[6]
-        return args[2].shape[0] * (2 * k + 2 * k * k), F64_OPS_PER_S
+        pred = kwargs.get("pred") is not None
+        return (args[2].numel() * (2 * k + 2 * k * k + k * pred),
+                F64_OPS_PER_S)
     if name in ("K1 encode_locals", "K5 quantize_image", "K5 recon_step"):
         at = 3 if name == "K5 recon_step" else 2  # the block size argument
         b = args[at] if len(args) > at else 4
@@ -583,16 +627,31 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     elif name == "D2 walk_offsets":
         # The payload in, 16 bytes a record and the end bit out.
         nbytes = int(args[1]) + 16 * args[3] + 8
+    elif name == "D2 walk_video":
+        # The payload in; 16 bytes a record, two start bits a frame and
+        # the end bit out.
+        nbytes = int(args[1]) + 16 * args[3] * args[4] + 16 * args[3] + 8
+    elif name == "vector read":
+        # The P-frames' vector bits and the start bits in, the vectors out.
+        gop, n_macro, mb = args[3:6]
+        n_p = len(module("cuda_motion").p_frames(args[2].shape[0], gop))
+        nbytes = (n_p * 2 * n_macro * mb + 7) // 8 + tensor_bytes(
+            [args[2]]) + tensor_bytes(got)
     elif name == "D3 decode_blocks":
-        # The payload, 16 bytes a record and the quant in, the pixels out.
-        nbytes = (int(args[1]) + 16 * args[2].shape[0]
-                  + tensor_bytes([args[5]]) + tensor_bytes(got))
+        # The records' fields (b bits each, min(count, K) of them), 16
+        # bytes a record, the quant and the prediction in, the pixels out.
+        k = args[6] * args[6]
+        fields = int((args[3].to(torch.int64)
+                      * args[4].clamp(max=k).to(torch.int64)).sum())
+        nbytes = ((fields + 7) // 8 + 16 * args[2].numel()
+                  + tensor_bytes([args[5], kwargs.get("pred")])
+                  + tensor_bytes(got))
     elif name in ("K6 motion_search", "K7 predict", "K5 recon_step",
                   "K6+K7 search_predict"):
         nbytes = tensor_bytes(args[:2]) + tensor_bytes(got)
     else:
         nbytes = tensor_bytes(args[:1]) + tensor_bytes(got)
-    ops, rate = operations(name, args)
+    ops, rate = operations(name, args, kwargs)
     hbm_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / rate * 1e3
     plain_reps = reps_for(plain_call)
@@ -645,21 +704,24 @@ def launches_of(wrappers: dict, drive) -> dict:
 def phase_of_path(path: str, wrappers: dict, drive) -> dict:
     """Drive one path with every launch count at 0 just before it; return
     the counts just after, and fail if a kernel of the path is at 0, if a
-    path other than the long video's launches K3, or if a decode kernel
-    runs on an encode path or an encode kernel on the decode path."""
+    path other than the long video's launches K3, if a decode kernel runs
+    on an encode path or a kernel not its own on a decode path, or if an
+    encode path launches K6 or K7 alone."""
     counts = launches_of(wrappers, drive)
+    decode = path in DECODE_PATHS
     for name in PATHS[path]:
         if counts[name] < 1:
             raise AssertionError(f"{name} was not launched on the {path} "
                                  f"path")
     for name in KERNELS:
-        if counts[name] and (name in DECODE) != (path == "image decode"):
+        if counts[name] and name not in PATHS[path] and (
+                decode or name in DECODE):
             raise AssertionError(f"{name} was launched {counts[name]} times "
                                  f"on the {path} path")
     if "K3 byte_histogram" not in PATHS[path] and counts["K3 byte_histogram"]:
         raise AssertionError(f"K3 was launched on the {path} path: its "
                              f"packers count the histogram")
-    for name in ALONE:
+    for name in () if decode else NOT_ON_ENCODE:
         if counts[name]:
             raise AssertionError(f"{name} was launched {counts[name]} times "
                                  f"on the {path} path: the search's epilogue "
@@ -791,6 +853,71 @@ def time_decode(data: bytes, h: int, w: int, dev) -> None:
           f"Mpix/s); host parse (dict, table, header, staging) median "
           f"{parse[0]:.3f} ms, p90 {parse[1]:.3f} ms; upload median "
           f"{up[0]:.3f} ms, p90 {up[1]:.3f} ms; device window D1-D3 median "
+          f"{window[0]:.4f} ms, p90 {window[1]:.4f} ms "
+          f"({mpix / window[0] * 1e3:.1f} Mpix/s), of which device busy "
+          f"{busy:.4f} ms", flush=True)
+
+
+def time_video_decode(data: bytes, n: int, h: int, w: int, dev) -> None:
+    """Phase 6 for the decode of one video stream: the host's parse, the
+    stream's upload, the device window (D1, D2, the vector read, D3 and K7;
+    CUDA events), decode_frames until its frames are ready, and
+    decode_video with the copy of its YUV420 frames to the host."""
+    import torch
+
+    import imageencoder_tpu_torch as port
+    from imageencoder_tpu_torch.models.image import upload
+    from imageencoder_tpu_torch.models.video import decode_into, plan_video
+
+    mpix = n * h * w / 1e6
+    t = []
+    for _ in range(VIDEO_SAMPLES):
+        t0 = time.perf_counter()
+        plan = plan_video(data)
+        t.append(time.perf_counter() - t0)
+    parse = quantiles(t)
+    t = []
+    for _ in range(VIDEO_SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        views = upload(plan, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    up = quantiles(t)
+    y = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+    decode_into(plan, views, y)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True))
+          for _ in range(VIDEO_SAMPLES)]
+    for start, end in ev:
+        start.record()
+        decode_into(plan, views, y)
+        end.record()
+    torch.cuda.synchronize()
+    window = quantiles([s.elapsed_time(e) / 1e3 for s, e in ev])
+    busy = profiled_ms(lambda: decode_into(plan, views, y),
+                       reps=VIDEO_PROFILE_CALLS)
+    e2e = {}
+    for label, fn in (("decode_frames", lambda: port.decode_frames(
+            data, device=dev)), ("decode_video", lambda: port.decode_video(
+                data, device=dev))):
+        t = []
+        for _ in range(VIDEO_SAMPLES):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        e2e[label] = quantiles(t)
+    f, v = e2e["decode_frames"], e2e["decode_video"]
+    print(f"video decode {w}x{h}x{n}, Huffman on ({len(data)} bytes): "
+          f"decode_video (YUV420 bytes on the host) median {v[0]:.3f} ms, "
+          f"p90 {v[1]:.3f} ms (n={VIDEO_SAMPLES}; "
+          f"{mpix / v[0] * 1e3:.1f} Mpix/s); decode_frames until the "
+          f"frames are ready on the device median {f[0]:.3f} ms, p90 "
+          f"{f[1]:.3f} ms ({mpix / f[0] * 1e3:.1f} Mpix/s); host parse "
+          f"(dict, table, header, staging) median {parse[0]:.3f} ms, p90 "
+          f"{parse[1]:.3f} ms; upload median {up[0]:.3f} ms, p90 "
+          f"{up[1]:.3f} ms; device window (D1, D2, vectors, D3, K7) median "
           f"{window[0]:.4f} ms, p90 {window[1]:.4f} ms "
           f"({mpix / window[0] * 1e3:.1f} Mpix/s), of which device busy "
           f"{busy:.4f} ms", flush=True)
@@ -933,7 +1060,7 @@ def main() -> None:
     del calls
 
     with captured_calls() as calls:
-        encode_video(vdata, vw, vh, "raw", True)
+        raw_stream = encode_video(vdata, vw, vh, "raw", True)
     for name in ("K1 encode_locals", "K2 pack_locals+hist", "Huffman dict",
                  "K4 pack_payload", "K6+K7 search_residual"):
         if len(calls[name]) != 1:
@@ -951,7 +1078,8 @@ def main() -> None:
     found = module("cuda_motion").search_residual(fr, gop, merange)[0]
     rows["K6 motion_search"] = check_kernel("K6 motion_search",
                                             (cur, ref, merange), {})
-    rows["K7 predict"] = check_kernel("K7 predict", (ref, found), {})
+    k7_search = {"video_raw_search": check_kernel("K7 predict",
+                                                  (ref, found), {})}
     for name in IMAGE_CALL:  # the same kernels at the video's shapes
         beside(rows[name], "video_raw", check_kernel(name, *calls[name][0]))
     beside(rows["K2 pack_locals"], "video_raw", check_kernel(
@@ -987,8 +1115,8 @@ def main() -> None:
     found = module("cuda_motion").search_predict(cur, ref, merange)[0]
     beside(rows["K6 motion_search"], "video_recon", check_kernel(
         "K6 motion_search", (cur, ref, merange), {}))
-    beside(rows["K7 predict"], "video_recon", check_kernel(
-        "K7 predict", (ref, found), {}))
+    k7_search["video_recon_search"] = check_kernel("K7 predict",
+                                                   (ref, found), {})
     for name in ("Huffman dict", "K4 pack_payload"):
         beside(rows[name], "video_recon", check_kernel(name, *calls[name][0]))
     coeffs_call = calls["K4 pack_coeffs+hist"][0]
@@ -1029,12 +1157,12 @@ def main() -> None:
                                  use_huffman=True, device="cuda")
     with captured_calls() as calls:
         port.decode_image(h_stream, device="cuda")
-    for name in DECODE:
+    for name in PATHS["image decode"]:
         if len(calls[name]) != 1:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"decode_image, expected 1")
         rows[name] = check_kernel(name, *calls[name][0])
-    for name in DECODE[:2]:  # the chains: chunks walked whole
+    for name in PATHS["image decode"][:2]:  # the chains: chunks walked whole
         stats = torch.zeros(2, dtype=torch.int64, device=dev)
         args, kwargs = calls[name][0]
         getattr(module("cuda_decode"), KERNELS[name][1])(
@@ -1044,6 +1172,39 @@ def main() -> None:
         print(f"{name}: {chunks} chunks, {whole} walked whole from their "
               f"true entry", flush=True)
     del calls
+
+    # The decode of the 720p25 raw stream: K7 alone on its first path.
+    with captured_calls() as calls:
+        port.decode_frames(raw_stream, device="cuda")
+    steps = min(GOP, vn)
+    for name, want in (("D1 huffman_decode", 1), ("D2 walk_video", 1),
+                       ("vector read", 1), ("D3 decode_blocks", steps),
+                       ("K7 predict", steps - 1)):
+        if len(calls[name]) != want:
+            raise AssertionError(f"{name}: {len(calls[name])} calls in one "
+                                 f"decode_frames, expected {want}")
+        for args, kwargs in calls[name][1:]:
+            held_equal(name, args, kwargs)
+    beside(rows["D1 huffman_decode"], "video",
+           check_kernel("D1 huffman_decode", *calls["D1 huffman_decode"][0]))
+    for name in ("D2 walk_video", "vector read", "K7 predict"):
+        rows[name] = check_kernel(name, *calls[name][0])
+    for key, row in k7_search.items():
+        beside(rows["K7 predict"], key, row)
+    beside(rows["D3 decode_blocks"], "video_i_frames",
+           check_kernel("D3 decode_blocks", *calls["D3 decode_blocks"][0]))
+    beside(rows["D3 decode_blocks"], "video_p_frames",
+           check_kernel("D3 decode_blocks", *calls["D3 decode_blocks"][1]))
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    args, kwargs = calls["D2 walk_video"][0]
+    module("cuda_decode").walk_video(*args, **kwargs, stats=stats)
+    chunks, whole = stats.tolist()
+    rows["D2 walk_video"].update(chunks=chunks, chunks_walked_whole=whole)
+    print(f"decode_frames {vw}x{vh}x{vn}: every D1, D2 walk_video, vector "
+          f"read, D3 ({steps}) and K7 ({steps - 1}) call bit-equal to its "
+          f"plain version; D2 walk_video: {chunks} chunks, {whole} walked "
+          f"whole from their true entry", flush=True)
+    del calls, k7_search
 
     # ---- 3. each path, counts from 0 ----
     cases = ([(im, quant, True) for im in images]
@@ -1075,10 +1236,22 @@ def main() -> None:
     counts.append(phase_of_path("image decode", wrappers, lambda: decoded.extend(
         port.decode_image(s, device="cuda") for s in streams)))
     n_huff = sum(1 for s in streams if s[0] & 0x80)
-    if tuple(counts[-1][name] for name in DECODE) != (
+    if tuple(counts[-1][name] for name in PATHS["image decode"]) != (
             n_huff, len(streams), len(streams)):
         raise AssertionError(f"{len(streams)} decodes ({n_huff} Huffman) "
                              f"launched {counts[-1]}")
+    decoded_videos = {}
+    counts.append(phase_of_path(
+        "video decode", wrappers, lambda: decoded_videos.update(
+            {key: port.decode_frames(s, device="cuda")
+             for key, s in video_streams.items()})))
+    want = [sum(1 for s in video_streams.values() if s[0] & 0x80),
+            len(video_streams), len(video_streams),
+            GOP * len(video_streams), (GOP - 1) * len(video_streams)]
+    got = [counts[-1][name] for name in PATHS["video decode"]]
+    if got != want:  # 4 D3 and 3 K7 a stream at 25 and at 40 frames
+        raise AssertionError(f"{len(video_streams)} video decodes launched "
+                             f"{got}, expected {want}")
     for name in KERNELS:
         rows[name]["launches"] = sum(c[name] for c in counts)
     for (mode, huff), got in video_streams.items():
@@ -1128,6 +1301,29 @@ def main() -> None:
                                      f"{len(want)} bytes)")
             print(f"{label}: {len(got)} bytes, byte-identical to the plain "
                   f"path on the host ({plain_s:.2f} s there)", flush=True)
+    for (mode, huff), data in video_streams.items():
+        label = f"video decode {mode} huffman={huff}"
+        t0 = time.perf_counter()
+        want = port.decode_frames(data, device="cpu")
+        plain_s = time.perf_counter() - t0
+        got = decoded_videos[(mode, huff)]
+        if got.device != dev or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{label}: the card's frames differ from "
+                                 f"the plain path's")
+        print(f"{label}: {tuple(got.shape)} frames decoded on the card, "
+              f"equal to the plain path on the host ({plain_s:.2f} s there)",
+              flush=True)
+    for motioncomp in (True, False):
+        label = f"decode_video raw motioncomp={motioncomp}"
+        got = port.decode_video(raw_stream, motioncomp, device="cuda")
+        t0 = time.perf_counter()
+        want = port.decode_video(raw_stream, motioncomp, device="cpu")
+        plain_s = time.perf_counter() - t0
+        if got[0] != want[0] or got[2] != want[2]:
+            raise AssertionError(f"{label}: the card's YUV420 bytes differ "
+                                 f"from the plain path's")
+        print(f"{label}: {len(got[0])} bytes, equal to the plain path on "
+              f"the host ({plain_s:.2f} s there)", flush=True)
     label = f"video raw {lw_}x{lh_}x{ln_} huffman=True (two chunks, K3)"
     t0 = time.perf_counter()
     want = encode_video(long_data, lw_, lh_, "raw", True, device="cpu")
@@ -1214,6 +1410,7 @@ def main() -> None:
                     hh, ww, dev)
     for mode in ("raw", "recon"):
         time_video(vframes, quant, mode, dev)
+    time_video_decode(raw_stream, vn, vh, vw, dev)
 
     # ---- 7. where the device time goes ----
     img_d = torch.from_numpy(images[0]).to(dev)
@@ -1232,6 +1429,12 @@ def main() -> None:
     print_profile(f"decode_image at {SHAPES[0][1]}x{SHAPES[0][0]}",
                   lambda: port.decode_image(h_stream, device="cuda"),
                   PROFILE_CALLS, waits_wanted=0)
+    print_profile(f"decode_frames at {vw}x{vh}x{vn}",
+                  lambda: port.decode_frames(raw_stream, device="cuda"),
+                  VIDEO_PROFILE_CALLS, waits_wanted=0)
+    print_profile(f"decode_video at {vw}x{vh}x{vn}",
+                  lambda: port.decode_video(raw_stream, device="cuda"),
+                  VIDEO_PROFILE_CALLS, waits_wanted=1)
 
     print(json.dumps({"kernels": [rows[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 // Replaces the JAX package's host engine decode_to_image_exact
 // (imageencoder_tpu/runtime/native/runtime.cpp:2219, body :767-832) and
 // its numpy chain (models/image.py:231-274, ops/dct.py:154-172, 204-215,
-// 268-271, ops/blockify.py:21-27).  No TPU kernel did this work: the
+// 268-271, ops/blockify.py:21-27); with a prediction, the P-frame engine
+// decode_residual_to_image_exact (runtime.cpp:2245, the same body) and
+// the numpy chain of models/video.py:637-647.  No TPU kernel did this work: the
 // JAX package's device inverse (ops/pipeline.py:251-275) is f32 and may
 // differ at ties, this one is the exact f64 engine's.
 //
@@ -18,6 +20,14 @@
 // with --fmad=false), + 128.0, clamped to [0, 255] and truncated (the
 // floor for those values), stored straight into the [H, W] image, one
 // 4- or 8-byte store a row: the deblockify is the store's addressing.
+// With a prediction (a P-frame) the pixel is (double)pred + (acc + 128.0),
+// each add a __dadd_rn, then the clamp and the truncation, in the host
+// engine's order (runtime.cpp:820-829); the prediction's row is one load.
+//
+// One launch decodes a set of frames: G frames of n_blocks records each,
+// frame g's records at g * rec_stride, its prediction and its pixels at
+// g * the frames' strides.  The video decode takes frame k of every GOP in
+// one launch, so a video takes gop launches.
 //
 // The host engine skips zero coefficients (runtime.cpp:813); this sums
 // all K.  A zero coefficient adds a product of +-0 to the sum: x + (+-0)
@@ -41,16 +51,20 @@ namespace {
 
 constexpr int kDecodeThreads = 128;
 
-template <int B>
-__global__ void __launch_bounds__(kDecodeThreads) decode_blocks_kernel(const uint8_t* data,
-                                     const long long* nbytes_p,
-                                     const long long* offs,
-                                     const int32_t* dbits,
-                                     const int32_t* counts,
-                                     long long n_blocks,
-                                     const double* quant, const double* wi,
-                                     const int32_t* izz, long long width,
-                                     uint8_t* img) {
+struct Frames {
+    long long n_blocks;    // records (blocks) a frame
+    long long n_frames;
+    long long rec_stride;  // records from one frame's first to the next's
+    long long pred_stride, img_stride;  // bytes from frame to frame
+};
+
+template <int B, bool kPred>
+__global__ void __launch_bounds__(kDecodeThreads) decode_blocks_kernel(
+        const uint8_t* data, const long long* nbytes_p,
+        const long long* offs, const int32_t* dbits, const int32_t* counts,
+        Frames fr, const double* quant, const double* wi,
+        const int32_t* izz, long long width, const uint8_t* pred,
+        uint8_t* img) {
     constexpr int K = B * B;
     __shared__ int s_izz[K];
     for (int i = threadIdx.x; i < K; i += blockDim.x) s_izz[i] = izz[i];
@@ -58,12 +72,14 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_blocks_kernel(const uin
     const double* const mats[1] = {wi};
     const double* const vecs[1] = {quant};
     const ie::TableCache<K, 1, 1> tables(mats, vecs);
-    const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= n_blocks) return;
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= fr.n_blocks * fr.n_frames) return;
+    const long long g = t / fr.n_blocks, n = t - g * fr.n_blocks;
+    const long long r = g * fr.rec_stride + n;
     const long long nbytes = *nbytes_p;
-    const long long off = offs[n];
-    const int b = dbits[n];
-    const int cnt = counts[n] < K ? counts[n] : K;
+    const long long off = offs[r];
+    const int b = dbits[r];
+    const int cnt = counts[r] < K ? counts[r] : K;
     double y[K];
 #pragma unroll
     for (int c = 0; c < K; c++) {
@@ -79,54 +95,96 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_blocks_kernel(const uin
     double acc[K];
     ie::exact_matvec<K>(y, tables.mat[0], acc);
     const long long wb = width / B;
-    uint8_t* base = img + (n / wb) * B * width + (n % wb) * B;
+    const long long at = (n / wb) * B * width + (n % wb) * B;
+    uint8_t* base = img + g * fr.img_stride + at;
+    const uint8_t* pbase = kPred ? pred + g * fr.pred_stride + at : nullptr;
 #pragma unroll
-    for (int r = 0; r < B; r++) {
+    for (int rr = 0; rr < B; rr++) {
+        uint32_t pw[B / 4] = {};
+        if constexpr (kPred) {
+            if constexpr (B == 4) {
+                pw[0] = *reinterpret_cast<const uint32_t*>(pbase + rr * width);
+            } else {
+                const uint2 p2 =
+                    *reinterpret_cast<const uint2*>(pbase + rr * width);
+                pw[0] = p2.x;
+                pw[1] = p2.y;
+            }
+        }
         uint32_t px[B / 4] = {};
 #pragma unroll
         for (int c = 0; c < B; c++) {
-            double v = __dadd_rn(acc[r * B + c], 128.0);
+            double v = __dadd_rn(acc[rr * B + c], 128.0);
+            if constexpr (kPred)
+                v = __dadd_rn((double)((pw[c / 4] >> (8 * (c % 4))) & 0xFFu),
+                              v);
             v = v < 0.0 ? 0.0 : (v > 255.0 ? 255.0 : v);
             px[c / 4] |= (uint32_t)v << (8 * (c % 4));  // trunc == floor
         }
         if constexpr (B == 4) {
-            *reinterpret_cast<uint32_t*>(base + r * width) = px[0];
+            *reinterpret_cast<uint32_t*>(base + rr * width) = px[0];
         } else {
-            *reinterpret_cast<uint2*>(base + r * width) =
+            *reinterpret_cast<uint2*>(base + rr * width) =
                 make_uint2(px[0], px[1]);
         }
     }
 }
 
+template <int B>
+void launch(const uint8_t* data, const long long* nbytes,
+            const long long* offs, const int32_t* dbits,
+            const int32_t* counts, const Frames& fr, const double* quant,
+            const double* wi, const int32_t* izz, long long width,
+            const uint8_t* pred, uint8_t* img, cudaStream_t st) {
+    const long long n = fr.n_blocks * fr.n_frames;
+    const unsigned grid = (unsigned)((n + kDecodeThreads - 1)
+                                     / kDecodeThreads);
+    if (pred != nullptr)
+        decode_blocks_kernel<B, true><<<grid, kDecodeThreads, 0, st>>>(
+            data, nbytes, offs, dbits, counts, fr, quant, wi, izz, width,
+            pred, img);
+    else
+        decode_blocks_kernel<B, false><<<grid, kDecodeThreads, 0, st>>>(
+            data, nbytes, offs, dbits, counts, fr, quant, wi, izz, width,
+            pred, img);
+}
+
 }  // namespace
 
 // D3.  data: the payload (u8, `nbytes` int64 on the device); offs: int64,
-// dbits, counts: int32 [n_blocks] (D2's records); quant: f64 [B*B]
-// row-major; wi: f64 [B*B, B*B], the inverse weights (ops/dct.py::
-// _inv_weights); izz: int32 [B*B], the zig-zag position of each row-major
-// coefficient; img: u8 [H, width], width a multiple of B, 8-byte aligned
-// rows for B = 8.  One launch on `stream`.
+// dbits, counts: int32 (D2's records), n_frames rows of n_blocks records,
+// row g at g * rec_stride; quant: f64 [B*B] row-major; wi: f64 [B*B,
+// B*B], the inverse weights (ops/dct.py::_inv_weights); izz: int32
+// [B*B], the zig-zag position of each row-major coefficient; pred: u8
+// frames [H, width] at pred_stride bytes apart, or null (no prediction);
+// img: u8 frames [H, width] at img_stride bytes apart.  width is a
+// multiple of B, and for B = 8 rows start 8-byte aligned.  One launch on
+// `stream`.
 extern "C" int ie_decode_blocks(const void* data, const void* nbytes,
                                 const void* offs, const void* dbits,
                                 const void* counts, long long n_blocks,
+                                long long n_frames, long long rec_stride,
                                 const void* quant, const void* wi,
                                 const void* izz, int block_size,
-                                long long width, void* img, void* stream) {
-    const unsigned grid =
-        (unsigned)((n_blocks + kDecodeThreads - 1) / kDecodeThreads);
+                                long long width, const void* pred,
+                                long long pred_stride, void* img,
+                                long long img_stride, void* stream) {
+    if (n_blocks * n_frames <= 0) return (int)cudaGetLastError();
+    const Frames fr{n_blocks, n_frames, rec_stride, pred_stride,
+                    img_stride};
     const cudaStream_t st = (cudaStream_t)stream;
     if (block_size == 4) {
-        decode_blocks_kernel<4><<<grid, kDecodeThreads, 0, st>>>(
-            (const uint8_t*)data, (const long long*)nbytes,
-            (const long long*)offs, (const int32_t*)dbits,
-            (const int32_t*)counts, n_blocks, (const double*)quant,
-            (const double*)wi, (const int32_t*)izz, width, (uint8_t*)img);
+        launch<4>((const uint8_t*)data, (const long long*)nbytes,
+                  (const long long*)offs, (const int32_t*)dbits,
+                  (const int32_t*)counts, fr, (const double*)quant,
+                  (const double*)wi, (const int32_t*)izz, width,
+                  (const uint8_t*)pred, (uint8_t*)img, st);
     } else if (block_size == 8) {
-        decode_blocks_kernel<8><<<grid, kDecodeThreads, 0, st>>>(
-            (const uint8_t*)data, (const long long*)nbytes,
-            (const long long*)offs, (const int32_t*)dbits,
-            (const int32_t*)counts, n_blocks, (const double*)quant,
-            (const double*)wi, (const int32_t*)izz, width, (uint8_t*)img);
+        launch<8>((const uint8_t*)data, (const long long*)nbytes,
+                  (const long long*)offs, (const int32_t*)dbits,
+                  (const int32_t*)counts, fr, (const double*)quant,
+                  (const double*)wi, (const int32_t*)izz, width,
+                  (const uint8_t*)pred, (uint8_t*)img, st);
     } else {
         return (int)cudaErrorInvalidValue;
     }

@@ -82,6 +82,11 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return min(max(v, lo), hi);
 }
 
+__device__ __forceinline__ long long clampll(long long v, long long lo,
+                                             long long hi) {
+    return v < lo ? lo : (v > hi ? hi : v);
+}
+
 // Sum of the step sizes merange/2, merange/4, ..., 1 (ops/motion.py::
 // search_steps): the largest |offset| any candidate can reach.
 __host__ __device__ __forceinline__ int search_span(int merange) {
@@ -293,8 +298,10 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
 }
 
 __global__ void __launch_bounds__(kPredictThreads) predict_kernel(
-        const uint8_t* __restrict__ ref, const int32_t* __restrict__ mvec,
-        long long n_rows, int h, int w, uint8_t* __restrict__ pred) {
+        const uint8_t* __restrict__ ref, long long ref_stride,
+        const int32_t* __restrict__ mvec, long long mvec_stride,
+        long long n_rows, int h, int w, uint8_t* __restrict__ pred,
+        long long pred_stride) {
     const int nbx = w / kMacro;
     const long long t = blockIdx.x * (long long)kPredictThreads
                         + threadIdx.x;
@@ -304,14 +311,18 @@ __global__ void __launch_bounds__(kPredictThreads) predict_kernel(
     const long long f = fy / h;
     const int y = (int)(fy - f * h);
     const int mb = (y / kMacro) * nbx + mbx;
-    const int32_t* mv = mvec + (f * (long long)(nbx * (h / kMacro)) + mb) * 2;
-    const int px = clampi(mbx * kMacro + mv[0], 0, w - kMacro);
-    const int py = clampi((y / kMacro) * kMacro + mv[1], 0, h - kMacro);
+    // Any int32 vector: the window's corner is clamped into the frame in
+    // 64 bits, as the host clamps it (ops/motion.py::predict_image).
+    const int32_t* mv = mvec + f * mvec_stride + 2LL * mb;
+    const int px = (int)clampll(mbx * kMacro + (long long)mv[0], 0,
+                                w - kMacro);
+    const int py = (int)clampll((y / kMacro) * kMacro + (long long)mv[1], 0,
+                                h - kMacro);
     // The row's 16 bytes start px & 3 bytes into an aligned word (rows
     // start at multiples of 16 bytes): 4 words, and a fifth only where the
-    // bytes straddle it, so no read passes the frame's end.
+    // bytes straddle it, so no read passes the row's end.
     const uint32_t* src = reinterpret_cast<const uint32_t*>(
-        ref + (f * h + py + y % kMacro) * (long long)w) + (px >> 2);
+        ref + f * ref_stride + (long long)(py + y % kMacro) * w) + (px >> 2);
     const unsigned sh = 8u * (unsigned)(px & 3);
     uint32_t s[5];
 #pragma unroll
@@ -321,9 +332,9 @@ __global__ void __launch_bounds__(kPredictThreads) predict_kernel(
 #pragma unroll
     for (int k = 0; k < 4; k++) v[k] = __funnelshift_r(s[k], s[k + 1], sh);
     // The row starts at a multiple of 16 bytes: w % 16 == 0 and the
-    // wrapper allocates pred.
-    *(uint4*)(pred + fy * w + mbx * kMacro) = make_uint4(v[0], v[1], v[2],
-                                                         v[3]);
+    // frames start 16-byte aligned.
+    *(uint4*)(pred + f * pred_stride + (long long)y * w + mbx * kMacro) =
+        make_uint4(v[0], v[1], v[2], v[3]);
 }
 
 template <int kOut>
@@ -394,17 +405,19 @@ extern "C" int ie_search_residual(const void* frames, long long n_frames,
         (int32_t*)mvec, residual, (cudaStream_t)stream);
 }
 
-// mvec: i32 [F, (H/16)*(W/16), 2]; ref and pred: u8 [F, H, W], 16-byte
-// aligned.
-extern "C" int ie_predict(const void* ref, const void* mvec,
+// mvec: i32 [F, (H/16)*(W/16), 2], frame f at f * mvec_stride int32s;
+// ref and pred: u8 [F, H, W] frames at ref_stride and pred_stride bytes
+// apart, each frame 16-byte aligned.  Vectors may take any int32 value.
+extern "C" int ie_predict(const void* ref, long long ref_stride,
+                          const void* mvec, long long mvec_stride,
                           long long n_frames, int h, int w, void* pred,
-                          void* stream) {
+                          long long pred_stride, void* stream) {
     const long long n = n_frames * h * (w / kMacro);
     if (n <= 0) return (int)cudaGetLastError();
     const unsigned grid = (unsigned)((n + kPredictThreads - 1)
                                      / kPredictThreads);
     predict_kernel<<<grid, kPredictThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)ref, (const int32_t*)mvec, n_frames * h, h, w,
-        (uint8_t*)pred);
+        (const uint8_t*)ref, ref_stride, (const int32_t*)mvec, mvec_stride,
+        n_frames * h, h, w, (uint8_t*)pred, pred_stride);
     return (int)cudaGetLastError();
 }

@@ -47,7 +47,9 @@ SIGNATURES = {
     "ie_motion_search": [_P, _P, _I64, _I32, _I32, _I32, _P, _P],
     "ie_search_predict": [_P, _P, _I64, _I32, _I32, _I32, _P, _P, _P],
     "ie_search_residual": [_P, _I64, _I32, _I32, _I32, _I32, _P, _P, _P],
-    "ie_predict": [_P, _P, _I64, _I32, _I32, _P, _P],
+    # ref, ref_stride, mvec, mvec_stride, n_frames, h, w, pred,
+    # pred_stride, stream
+    "ie_predict": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _I64, _P],
     "ie_pack_locals": [_P, _P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _I64,
                        _P, _I64, _P, _I64, _P, _P, _P, _P],
     "ie_pack_locals_scratch": [_I64, _I32],
@@ -64,15 +66,19 @@ SIGNATURES = {
     # cap, count, scratch, stats, stream
     "ie_huffman_decode": [_P, _P, _I64, _I64, _I32, _P, _I32, _P, _I64, _P,
                           _P, _P, _P],
-    # data, nbytes, start_bit, n_chunks, chunk_bits, n_blocks, use_rle,
-    # block_size, offs, dbits, counts, end, scratch, stats, stream
-    "ie_walk_offsets": [_P, _P, _I64, _I64, _I32, _I64, _I32, _I32, _P, _P,
-                        _P, _P, _P, _P, _P],
+    # data, nbytes, start_bit, n_chunks, chunk_bits, n_micro, n_frames,
+    # gop, vbits, use_rle, block_size, offs, dbits, counts, end, vstart,
+    # rstart, scratch, stats, stream
+    "ie_walk_video": [_P, _P, _I64, _I64, _I32, _I64, _I64, _I32, _I64, _I32,
+                      _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "ie_chain_scratch_words": [_I64, _I32],
-    # data, nbytes, offs, dbits, counts, n_blocks, quant, wi, izz,
-    # block_size, width, img, stream
-    "ie_decode_blocks": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I32, _I64,
-                         _P, _P],
+    # data, nbytes, vstart, n_frames, gop, n_fields, mb, out, stream
+    "ie_read_vectors": [_P, _P, _P, _I64, _I32, _I64, _I32, _P, _P],
+    # data, nbytes, offs, dbits, counts, n_blocks, n_frames, rec_stride,
+    # quant, wi, izz, block_size, width, pred, pred_stride, img,
+    # img_stride, stream
+    "ie_decode_blocks": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P,
+                         _I32, _I64, _P, _I64, _P, _I64, _P],
 }
 
 _LOCK = threading.Lock()
@@ -191,6 +197,15 @@ def require(t, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def require_frames(t, name: str, dtype, ndim: int, device) -> None:
+    """As :func:`require`, but the first dimension may have any stride:
+    each of its entries (a frame of pixels, a frame's records) must be
+    contiguous, as a view ``x[k::step]`` of a contiguous tensor is."""
+    require(t[:1], name, dtype, ndim, device)
+    if t.stride(0) < 0:
+        raise ValueError(f"{name}: negative stride")
 
 
 def require_aligned(t, name: str, align: int = 16) -> None:

@@ -25,6 +25,7 @@ import torch
 from ..ops import cuda_decode
 from ..ops import huffman as huffman_ops
 from ..ops.bitpack import BitReader, BitWriter, read_fields, to_bits
+from ..ops.dct import clamp_to_u8, inverse_transform
 from ..ops.device_pack import (header_to_words, host_total, stream_bytes,
                                to_device)
 from ..ops.huffman import huffman_encode_from_hist
@@ -35,7 +36,8 @@ from ..utils.bits import shift_signed
 from ..utils.device import resolve_device
 from ..utils.exceptions import StreamFormatError
 from ..utils.quant import QuantMatrix
-from .headers import read_image_header, write_image_header
+from .headers import (read_image_header, read_video_params,
+                      write_image_header)
 
 BLOCK_SIZE = 4
 
@@ -171,18 +173,53 @@ def extract_block_coeffs(bits: np.ndarray | None, start_bit: int,
     return coeffs_from_records(bits, offs, dbits, counts, block_size), end
 
 
-def header_bytes(block_size: int) -> int:
+def blocks_from_records(bits: np.ndarray, offs, dbits, counts, quant,
+                        norm: str = "reference", block_size: int = BLOCK_SIZE,
+                        residual: bool = False) -> np.ndarray:
+    """The records' blocks: u8 [N, B, B] pixels, or with residual=True the
+    exact f64 inverse + 128 unclamped (what a P-frame adds onto its
+    prediction).  ``quant`` is the f64 matrix [B, B]."""
+    coeffs = coeffs_from_records(bits, offs, dbits, counts, block_size)
+    px = inverse_transform(coeffs, quant, norm)
+    return px if residual else clamp_to_u8(px)
+
+
+def decode_blocks(bits: np.ndarray | None, start_bit: int, n_blocks: int,
+                  quant: QuantMatrix, use_rle: bool, norm: str = "reference",
+                  block_size: int = BLOCK_SIZE, residual: bool = False,
+                  packed: bytes | None = None):
+    """Parse and inverse-transform n_blocks records from ``start_bit``:
+    ([N, B, B] u8, end bit), or with residual=True the raw f64 inverse
+    with its + 128 and no clamp (the P-frame residual).  The JAX
+    package's decode_blocks with backend="numpy"; ``bits`` may be None
+    when ``packed`` is given."""
+    if packed is None:
+        packed = np.packbits(bits).tobytes()
+    if bits is None:
+        bits = to_bits(packed)
+    offs, dbits, counts, end = walk_block_offsets(
+        None, start_bit, n_blocks, use_rle, block_size, packed=packed)
+    return blocks_from_records(bits, offs, dbits, counts, quant.as_float(),
+                               norm, block_size, residual), end
+
+
+def header_bytes(block_size: int, video: bool = False) -> int:
     """Payload bytes that hold any image header: a 5-bit quant width, B*B
-    entries of up to 31 bits, the RLE bit and two 15-bit dims."""
-    return (5 + block_size * block_size * 31 + 1 + 30 + 7) // 8
+    entries of up to 31 bits, the RLE bit and two 15-bit dims; a video's
+    three 15-bit parameters after them."""
+    return (5 + block_size * block_size * 31 + 1 + 30 + 45 * video
+            + 7) // 8
 
 
-def parse_stream(data: bytes, block_size: int = BLOCK_SIZE) -> dict:
+def parse_stream(data: bytes, block_size: int = BLOCK_SIZE,
+                 video: bool = False) -> dict:
     """The host's part of a decode: the dict (if any), the image header
-    and the layout of the one upload.  Nothing runs on a device.
+    (with video=True the video parameters after it) and the layout of the
+    one upload.  Nothing runs on a device.
 
     Returns a dict with ``huffman``, ``quant``, ``use_rle``, ``w``, ``h``,
-    ``start`` (the header's end bit in the payload), ``n_blocks`` and
+    ``start`` (the header's end bit in the payload), ``n_blocks`` (a
+    frame's), ``params`` (a video's VideoParams, else None) and
     ``staging`` (numpy uint8: the stream's byte count as int64, the quant
     matrix f64 [B*B] row-major, the decode table with Huffman, the stream
     zero-padded), with each part's (offset, length) under ``parts``; with
@@ -200,7 +237,7 @@ def parse_stream(data: bytes, block_size: int = BLOCK_SIZE) -> dict:
         huffman_ops.validate_dict_entries(entries)
         table, max_len, min_len = huffman_ops.decode_table(entries)
         head = huffman_ops.head_decode(data, dict_end, table, max_len,
-                                       header_bytes(block_size))
+                                       header_bytes(block_size, video))
         reader = BitReader(head, position=0)
         out.update(dict_end=dict_end, max_len=max_len,
                    cap=cuda_decode.payload_capacity(
@@ -209,10 +246,12 @@ def parse_stream(data: bytes, block_size: int = BLOCK_SIZE) -> dict:
         table = None
         reader = BitReader(data[:65536], position=1)
     quant, use_rle, w, h = read_image_header(reader, block_size)
-    if w % block_size or h % block_size:
+    params = read_video_params(reader) if video else None
+    if (w % block_size or h % block_size) and (
+            params is None or params.frame_count):
         raise StreamFormatError(f"image {w}x{h} is not a multiple of the "
                                 f"{block_size}-pixel block")
-    out.update(quant=quant, use_rle=use_rle, w=w, h=h,
+    out.update(quant=quant, use_rle=use_rle, w=w, h=h, params=params,
                start=reader.position,
                n_blocks=(w // block_size) * (h // block_size))
     parts = [("nbytes", np.array([len(data), 0], np.int64)),

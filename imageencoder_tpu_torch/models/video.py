@@ -1,15 +1,25 @@
-"""Video encode on a torch device.
+"""Video encode and decode on a torch device.
 
-The counterpart of imageencoder_tpu/models/video.py::encode_video with
-backend="jax" (models/video.py:223-328): the same signature, header and
-semantics, and streams byte-identical to its backend="numpy".  The host
-writes the header bits exactly as the JAX package does
-(models/headers.py); the device runs the motion search, the transform
-and the pack, which with Huffman counts the byte histogram
+:func:`encode_video` is the counterpart of imageencoder_tpu/models/
+video.py::encode_video with backend="jax" (models/video.py:223-328): the
+same signature, header and semantics, and streams byte-identical to its
+backend="numpy".  The host writes the header bits exactly as the JAX
+package does (models/headers.py); the device runs the motion search, the
+transform and the pack, which with Huffman counts the byte histogram
 (ops/video_pipeline.py), then the dict and the payload pack
-(ops/huffman.py).  Only the video decode still lives in the JAX
-package: imageencoder_tpu.models.video.decode_video(backend="fast") reads
-these streams (the port decodes images, models/image.py::decode_image).
+(ops/huffman.py).
+
+:func:`decode_video` is the counterpart of decode_video with
+backend="numpy", the exact f64 engine (models/video.py:584-676): its
+frames are equal byte for byte.  The host parses the dict and the header
+and uploads the stream once; then the card runs the Huffman decode, one
+walk over the whole video's records, the vector read, and frame k of
+every GOP at once: the block decode of the I-frames, then for each
+k >= 1 the prediction from frame k - 1 (K7) and the block decode of the
+residual onto it (ops/cuda_decode.py), with nothing read back.
+:func:`parse_video_stream`, :func:`iter_parsed_frames` and
+:func:`assemble_yuv420` are the port's copies of the JAX package's host
+front half and output assembly.
 """
 
 from __future__ import annotations
@@ -17,21 +27,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import bitpack
-from ..ops.bitpack import BitWriter
+from ..ops import bitpack, cuda_decode, cuda_motion
+from ..ops.bitpack import BitReader, BitWriter
 from ..ops.device_pack import (header_to_words, host_total, stream_bytes,
                                to_device)
-from ..ops.huffman import huffman_encode, huffman_encode_from_hist
+from ..ops.huffman import (huffman_decode, huffman_encode,
+                           huffman_encode_from_hist)
 from ..ops.motion import MACRO
 from ..ops.video_pipeline import (make_encode_video_packed,
                                   make_encode_video_packed_recon)
 from ..utils import profiling
+from ..utils.bits import shift_signed
 from ..utils.device import resolve_device
+from ..utils.exceptions import StreamFormatError
 from ..utils.quant import QuantMatrix
-from .headers import VideoParams, write_image_header, write_video_params
-from .image import BLOCK_SIZE
+from .headers import (VideoParams, read_image_header, read_video_params,
+                      write_image_header, write_video_params)
+from .image import BLOCK_SIZE, parse_stream, upload, walk_block_offsets
 
 MAX_FRAMES_PER_CALL = 32  # longer videos go in GOP-aligned chunks
+UV_FILL = 0x80  # dc::VIDEO_UV_FILL (Frame.hpp:12): decoded U and V
 
 
 def mvec_bits(merange: int) -> int:
@@ -152,3 +167,221 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
         with profiling.stage("huffman"):
             return huffman_encode(inner, dev)
     return inner
+
+
+# ---- decode: the host's copies ----
+
+def read_vector_fields(packed: bytes, pos: int, n_macro: int,
+                       mb: int) -> np.ndarray:
+    """A P-frame's vectors: 2 * n_macro signed ``mb``-bit fields from bit
+    ``pos`` of the bytes, zero past their end; int32 [n_macro, 2] as (x,
+    y)."""
+    nb = 2 * n_macro * mb
+    b0 = pos // 8
+    local = np.unpackbits(np.frombuffer(
+        packed[b0:(pos + nb + 7) // 8], dtype=np.uint8))
+    offs = (pos - b0 * 8) + np.arange(2 * n_macro, dtype=np.int64) * mb
+    raw = bitpack.read_fields(local, offs,
+                              np.full(2 * n_macro, mb, dtype=np.int64))
+    return shift_signed(raw, mb).reshape(n_macro, 2)
+
+
+def parse_video_header(data: bytes, block_size: int = BLOCK_SIZE):
+    """The host's Huffman stage and header parse: (payload, quant,
+    use_rle, params, width, height, first record bit).  The whole payload
+    is decoded on the host (the card path head-decodes only the header:
+    models/image.py::parse_stream)."""
+    if not data:
+        raise StreamFormatError("empty stream")
+    if data[0] & 0x80:  # the Huffman flag bit (MSB-first)
+        payload, start = huffman_decode(data), 0
+    else:
+        payload, start = bytes(data), 1
+    reader = BitReader(payload[:65536], position=start)
+    quant, use_rle, width, height = read_image_header(reader, block_size)
+    params = read_video_params(reader)
+    return payload, quant, use_rle, params, width, height, reader.position
+
+
+def walk_frames(payload: bytes, pos: int, n_frames: int, n_micro: int,
+                gop: int, vbits: int, use_rle: bool,
+                block_size: int = BLOCK_SIZE):
+    """The frame loop of the host's walk from bit ``pos``: yields (vector
+    start bit, record start bit, (offsets, data bits, counts), end bit) a
+    frame, a P-frame's (f % gop != 0) records after its ``vbits`` bits of
+    vectors."""
+    for f in range(n_frames):
+        vstart = pos
+        if f % gop:
+            pos += vbits
+        *records, end = walk_block_offsets(None, pos, n_micro, use_rle,
+                                           block_size, packed=payload)
+        yield vstart, pos, tuple(records), end
+        pos = end
+
+
+def iter_parsed_frames(payload: bytes, params: VideoParams, use_rle: bool,
+                       width: int, height: int, pos: int,
+                       block_size: int = BLOCK_SIZE):
+    """The host's record-layout walk, one frame at a time: yields (vectors
+    int32 [Nmb, 2] or None for an I-frame, record start bit, (offsets,
+    data bits, counts)).  A P-frame's 2 * Nmb vector fields come first."""
+    mb = mvec_bits(params.merange)
+    n_micro = (width // block_size) * (height // block_size)
+    n_macro = (width // MACRO) * (height // MACRO)
+    gop = max(1, params.gop)
+    frames = walk_frames(payload, pos, params.frame_count, n_micro, gop,
+                         2 * n_macro * mb, use_rle, block_size)
+    for f, (vstart, start, records, _) in enumerate(frames):
+        mv = read_vector_fields(payload, vstart, n_macro, mb) if f % gop \
+            else None
+        yield mv, start, records
+
+
+def parse_video_stream(data: bytes, block_size: int = BLOCK_SIZE):
+    """The host's front half of a video decode: (payload, quant, use_rle,
+    params, width, height, parsed), parsed[f] = (vectors or None, record
+    start bit, (offsets, data bits, counts))."""
+    (payload, quant, use_rle, params, width, height,
+     pos) = parse_video_header(data, block_size)
+    parsed = list(iter_parsed_frames(payload, params, use_rle, width,
+                                     height, pos, block_size))
+    return payload, quant, use_rle, params, width, height, parsed
+
+
+def assemble_yuv420(frames, width: int, height: int) -> bytes:
+    """Y planes u8 [F, H, W] (a list or an array) and the 0x80 U and V
+    fill, as YUV420p bytes."""
+    y_size = width * height
+    fs = y_size + y_size // 2
+    out = np.empty(len(frames) * fs, np.uint8)
+    ov = out.reshape(len(frames), fs)
+    ov[:, y_size:] = UV_FILL
+    for i, fr in enumerate(frames):
+        ov[i, :y_size] = np.asarray(fr).reshape(-1)
+    return out.tobytes()
+
+
+# ---- decode on the device ----
+
+def plan_video(data: bytes, block_size: int = BLOCK_SIZE) -> dict:
+    """The host's part of a video decode (models/image.py::parse_stream
+    with the video parameters), and what the frames need: ``n_macro``,
+    ``mb`` (the vector field width) and ``vbits`` (a P-frame's vector
+    bits, 0 where the video has no P-frame).  Raises StreamFormatError
+    where a P-frame cannot be predicted: frames that are no multiple of
+    the 16-pixel macroblock (the host decoder fails on them too)."""
+    plan = parse_stream(data, block_size, video=True)
+    params, w, h = plan["params"], plan["w"], plan["h"]
+    has_p = params.frame_count > 1 and params.gop > 1
+    if has_p and (w % MACRO or h % MACRO):
+        raise StreamFormatError(
+            f"video {w}x{h} has P-frames but is no multiple of the "
+            f"{MACRO}-pixel macroblock")
+    n_macro = (w // MACRO) * (h // MACRO)
+    mb = mvec_bits(params.merange)
+    plan.update(n_macro=n_macro, mb=mb,
+                vbits=2 * n_macro * mb if has_p else 0)
+    return plan
+
+
+def decode_into(plan: dict, views: dict, y: torch.Tensor,
+                motioncomp: bool = True, norm: str = "reference",
+                block_size: int = BLOCK_SIZE) -> torch.Tensor:
+    """The device's part of a video decode, on the uploaded stream
+    (models/image.py::upload), into ``y`` (u8 [F, H, W] on the views'
+    device; its frames may lie apart, as in a YUV420 buffer): D1 (with
+    Huffman), D2 over the whole video, the vector read, then frame k of
+    every GOP at once: D3 on the I-frames; for k >= 1 K7 from frame k - 1
+    and D3 of the residual onto it (with motioncomp=False the frame is
+    the prediction).  Nothing is read back."""
+    params = plan["params"]
+    n_frames, gop = params.frame_count, max(1, params.gop)
+    n_micro, w, h = plan["n_blocks"], plan["w"], plan["h"]
+    if n_frames == 0 or n_micro == 0:
+        return y
+    payload, nbytes = views["stream"], views["nbytes"]
+    if plan["huffman"]:
+        payload, nbytes = cuda_decode.huffman_decode(
+            payload, nbytes, plan["dict_end"], views["table"],
+            plan["max_len"], plan["cap"])
+    offs, dbits, counts, _, vstart, _ = cuda_decode.walk_video(
+        payload, nbytes, plan["start"], n_frames, n_micro, gop,
+        plan["vbits"], plan["use_rle"], block_size)
+    recs = [r.view(n_frames, n_micro) for r in (offs, dbits, counts)]
+    quant = views["quant"]
+    cuda_decode.decode_blocks(payload, nbytes, *(r[0::gop] for r in recs),
+                              quant, block_size, norm, h, w, out=y[0::gop])
+    if not plan["vbits"]:
+        return y
+    mvec = cuda_decode.read_vectors(payload, nbytes, vstart, gop,
+                                    plan["n_macro"], plan["mb"])
+    for k in range(1, min(gop, n_frames)):
+        ref = y[k - 1::gop][:len(range(k, n_frames, gop))]
+        if not motioncomp:
+            cuda_motion.predict(ref, mvec[k::gop], out=y[k::gop])
+            continue
+        pred = cuda_motion.predict(ref, mvec[k::gop])
+        cuda_decode.decode_blocks(
+            payload, nbytes, *(r[k::gop] for r in recs), quant, block_size,
+            norm, h, w, pred=pred, out=y[k::gop])
+    return y
+
+
+def _planned(data: bytes, block_size: int, device):
+    dev = resolve_device(device)
+    with profiling.stage("parse"):
+        plan = plan_video(data, block_size)
+    views = None
+    if plan["params"].frame_count and plan["n_blocks"]:
+        with profiling.stage("upload"):
+            views = upload(plan, dev)
+    return dev, plan, views
+
+
+def decode_frames(data: bytes, motioncomp: bool = True,
+                  norm: str = "reference", block_size: int = BLOCK_SIZE,
+                  device="cuda") -> torch.Tensor:
+    """:func:`decode_video`'s Y planes: u8 [F, H, W] on ``device``, left
+    there (no wait for the device)."""
+    dev, plan, views = _planned(data, block_size, device)
+    y = torch.empty((plan["params"].frame_count, plan["h"], plan["w"]),
+                    dtype=torch.uint8, device=dev)
+    with profiling.stage("device decode"):
+        return decode_into(plan, views, y, motioncomp, norm, block_size)
+
+
+def decode_video(data: bytes, motioncomp: bool = True,
+                 norm: str = "reference", block_size: int = BLOCK_SIZE,
+                 device="cuda"):
+    """Decode a video stream on ``device``: (YUV420p bytes, VideoParams,
+    (width, height)), frame for frame as
+    imageencoder_tpu.models.video.decode_video(data, motioncomp, norm,
+    backend="numpy", block_size=block_size).  U and V are 0x80.
+
+    The frames go into one u8 [F, 1.5 * H * W] buffer on the device, U
+    and V filled there, and come to the host in one copy, the call's one
+    wait.  Raises StreamFormatError on an empty stream, a Huffman dict
+    that no code tree represents, frames that are no multiple of the
+    block, or P-frames that are no multiple of the 16-pixel macroblock
+    (before anything runs on the device); ValueError on a Huffman stream
+    without a dict.  A stream of no frames launches nothing."""
+    dev, plan, views = _planned(data, block_size, device)
+    params, w, h = plan["params"], plan["w"], plan["h"]
+    n, y_size = params.frame_count, w * h
+    if n == 0:
+        return b"", params, (w, h)
+    buf = torch.empty((n, y_size + y_size // 2), dtype=torch.uint8,
+                      device=dev)
+    with profiling.stage("device decode"):
+        buf[:, y_size:] = UV_FILL
+        decode_into(plan, views, buf[:, :y_size].view(n, h, w), motioncomp,
+                    norm, block_size)
+    with profiling.stage("copy"):
+        if dev.type == "cuda":
+            host = torch.empty(buf.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+            buf = host
+        return buf.numpy().tobytes(), params, (w, h)

@@ -12,7 +12,9 @@ launch for both kernels: :func:`search_predict` (the recon path: vectors
 and the predicted frame) and :func:`search_residual` (the raw path: a
 whole video in, its vectors and the int16 residual stack that K1 reads
 out).  :func:`motion_search` (K6 alone) and :func:`predict` (K7 alone,
-the vectors given: what a decoder has) stay beside them.
+the vectors given) stay beside them; the video decode
+(models/video.py::decode_frames) runs K7 alone on the vectors it reads
+from the stream.
 
 The kernels read the frames as 32-bit words and 16-byte vectors, so their
 data must start 16-byte aligned: frames of a contiguous [F, H, W] tensor
@@ -78,26 +80,38 @@ def motion_search(cur: torch.Tensor, ref: torch.Tensor,
 motion_search.launches = 0
 
 
-def predict(ref: torch.Tensor, mvec: torch.Tensor) -> torch.Tensor:
+def predict(ref: torch.Tensor, mvec: torch.Tensor,
+            out: torch.Tensor | None = None) -> torch.Tensor:
     """Motion-compensated prediction: ref u8 [F, H, W] and mvec int32
-    [F, Nmb, 2] -> u8 [F, H, W], each macroblock copied from its clamped
-    window."""
+    [F, Nmb, 2] -> u8 [F, H, W] (into ``out`` where given), each
+    macroblock copied from its window at its vector, clamped into the
+    frame.  Vectors may take any int32 value.  Each of the three may be a
+    view of every k-th frame (``x[k::gop]``): a frame's own data must be
+    contiguous, and on the card its pixels start 16-byte aligned."""
     _check_frames(ref, "ref")
     f, h, w = ref.shape
     want = (f, (h // MACRO) * (w // MACRO), 2)
     if tuple(mvec.shape) != want:
         raise ValueError(f"mvec {tuple(mvec.shape)} != {want}")
+    if out is not None and out.shape != ref.shape:
+        raise ValueError(f"out {tuple(out.shape)} != ref "
+                         f"{tuple(ref.shape)}")
     if ref.device.type == "cpu":
-        return predict_plain(ref, mvec)
+        pred = predict_plain(ref, mvec)
+        return pred if out is None else out.copy_(pred)
     dev = ref.device
-    build.require(ref, "ref", torch.uint8, 3, dev)
-    build.require_aligned(ref, "ref")
-    build.require(mvec, "mvec", torch.int32, 3, dev)
-    out = torch.empty_like(ref)
+    if out is None:
+        out = torch.empty_like(ref, memory_format=torch.contiguous_format)
+    for name, x in (("ref", ref), ("out", out)):
+        build.require_frames(x, name, torch.uint8, 3, dev)
+        build.require_aligned(x, name)
+        if x.stride(0) % 16:
+            raise ValueError(f"{name}: frames must start 16 bytes apart")
+    build.require_frames(mvec, "mvec", torch.int32, 3, dev)
     with torch.cuda.device(dev):
         code = build.library().ie_predict(
-            ref.data_ptr(), mvec.data_ptr(), f, h, w, out.data_ptr(),
-            build.stream_ptr(dev))
+            ref.data_ptr(), ref.stride(0), mvec.data_ptr(), mvec.stride(0),
+            f, h, w, out.data_ptr(), out.stride(0), build.stream_ptr(dev))
     build.check(code, "ie_predict")
     predict.launches += 1
     return out

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, its full-size
 image and video streams against the JAX package's host engine, and its
-image decode on the card against the host engine's pixels.
+image and video decode on the card against the host engine's pixels.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips where
 torch.cuda.is_available() is false.  The file imports no JAX (the machine
@@ -519,6 +519,8 @@ def test_small_videos_equal_host_engine(dev, ref_mode, b, norm, gop,
         assert got == bytes(host_video.encode_video(
             data, w, h, quant, use_rle, gop, 8, use_huffman=huff, norm=norm,
             backend="numpy", ref_mode=ref_mode, block_size=b))
+        for motioncomp in (True, False):  # and decoded on the card
+            video_held(dev, got, motioncomp, norm, b)
 
 
 @pytest.mark.parametrize("ref_mode", ["raw", "recon"])
@@ -541,6 +543,16 @@ def test_video_720p25_equals_host_engine_and_decodes(dev, ref_mode):
     y = np.frombuffer(dec, np.uint8).reshape(n, -1)[:, :w * h]
     mse = ((y.astype(np.float64) - frames.reshape(n, -1)) ** 2).mean()
     assert 10 * np.log10(255 ** 2 / mse) > 28
+    # Decoded on the card: the exact engine's frames, in D1 and D2 once,
+    # the vector read once, D3 once a GOP step and K7 once a P step.
+    assert video_held(dev, got) == dec
+    before = launch_counts(VDECODE + ENCODE)
+    frames_d = imageencoder_tpu_torch.decode_frames(got, device=dev)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(launch_counts(VDECODE + ENCODE),
+                                  before)] == [1, 1, 1, 4, 3] + [0] * 5
+    assert frames_d.device == dev
+    np.testing.assert_array_equal(frames_d.cpu().numpy().reshape(n, -1), y)
 
 
 def held_dict(hist, total):
@@ -951,3 +963,224 @@ def test_corrupt_dict_raises_before_any_launch(dev):
             imageencoder_tpu_torch.decode_image(dict_stream(entries),
                                                 device=dev)
     assert launch_counts(DECODE) == before
+
+
+# ---- the video decode ----
+
+VDECODE = (cuda_decode.huffman_decode, cuda_decode.walk_video,
+           cuda_decode.read_vectors, cuda_decode.decode_blocks,
+           cuda_motion.predict)
+
+
+def video_held(dev, data: bytes, motioncomp: bool = True,
+               norm: str = "reference", b: int = 4) -> bytes:
+    """decode_video on the card against the host's exact engine
+    (backend="numpy"): equal bytes, params and size."""
+    got = imageencoder_tpu_torch.decode_video(data, motioncomp, norm, b,
+                                              device=dev)
+    want = host_video.decode_video(data, motioncomp, norm, backend="numpy",
+                                   block_size=b)
+    assert got[0] == want[0]
+    assert (got[1].frame_count, got[1].gop, got[1].merange) == (
+        want[1].frame_count, want[1].gop, want[1].merange)
+    assert got[2] == want[2]
+    return got[0]
+
+
+def small_video(dev, gop: int, merange: int, use_rle: bool, huff: bool,
+                n: int = 9, w: int = 64, h: int = 48) -> bytes:
+    frames = video_frames(w, h, n, gop + merange)
+    data = b"".join(f.tobytes() + bytes(w * h // 2) for f in frames)
+    return imageencoder_tpu_torch.encode_video(
+        data, w, h, quant_from_numpy(np.array(JPEG4, np.uint32)), use_rle,
+        gop, merange, use_huffman=huff, device=dev)
+
+
+def hand_video(w: int, h: int, n: int, gop: int, merange: int,
+               body_bytes: int = 600, seed: int = 0,
+               empty_records: bool = False) -> bytes:
+    """A stream without Huffman: a w x h video's header, then seeded
+    random bytes (records and vectors of any value); with empty_records
+    each frame's records are 4 zero bits each (b = 0) and each P-frame's
+    vectors random bits, so every vector lies in the stream."""
+    from imageencoder_tpu_torch.models.headers import VideoParams
+    from imageencoder_tpu_torch.models.video import mvec_bits, video_header
+    from imageencoder_tpu_torch.ops.bitpack import concat_bit_segments
+
+    writer = video_header(quant_from_numpy(np.full((4, 4), 3)), True, w, h,
+                          VideoParams(n, gop, merange), False)
+    rng = np.random.default_rng(seed)
+    segments = [(writer.getvalue(), writer.position)]
+    if not empty_records:
+        body = rng.integers(0, 256, body_bytes).astype(np.uint8).tobytes()
+        return concat_bit_segments([*segments, (body, 8 * body_bytes)])
+    vbits = 2 * (w // 16) * (h // 16) * mvec_bits(merange)
+    for f in range(n):
+        if f % gop:
+            segments.append((rng.integers(0, 256, -(-vbits // 8)).astype(
+                np.uint8).tobytes(), vbits))
+        records = 4 * (w // 4) * (h // 4)
+        segments.append((bytes(-(-records // 8)), records))
+    return concat_bit_segments(segments)
+
+
+def payload_of(dev, data: bytes, tail: int = 256):
+    """(the video's plan, its payload on the card with 0xFF past its byte
+    count, the count)."""
+    from imageencoder_tpu_torch.models.video import plan_video
+
+    plan = plan_video(data)
+    payload = (host_video.parse_video_stream(data)[0] if plan["huffman"]
+               else data)
+    buf = torch.tensor(list(bytes(payload)) + [0xFF] * tail,
+                       dtype=torch.uint8, device=dev)
+    return plan, buf, torch.tensor([len(payload)], dtype=torch.int64,
+                                   device=dev)
+
+
+@pytest.mark.parametrize("gop,merange,use_rle,huff,keep", [
+    (4, 16, True, True, 1.0), (5, 1, True, False, 1.0),
+    (1, 8, False, True, 1.0), (4, 1, False, False, 1.0),
+    (3, 16, True, False, 0.6), (4, 8, True, True, 0.8)])
+@pytest.mark.parametrize("chunk_bits", [32, 256, 2048])
+def test_video_walk_kernel_equals_plain(dev, gop, merange, use_rle, huff,
+                                        keep, chunk_bits):
+    """D2 over a whole video: gop 1, 3, 4 and 5, merange 1 (2-bit vector
+    fields) and 16, RLE on and off, streams cut short, and chunks small
+    enough that nearly every chunk holds a frame boundary (64x48 frames
+    of 192 records); 0xFF past the byte count.  Then the vector read at
+    the start bits D2 wrote."""
+    data = small_video(dev, gop, merange, use_rle, huff)
+    plan, payload, nbytes = payload_of(dev, data)
+    if keep < 1.0:
+        nbytes = (nbytes * keep).to(torch.int64)
+    n = plan["params"].frame_count
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    args = (payload, nbytes, plan["start"], n, plan["n_blocks"], gop,
+            plan["vbits"], use_rle, 4)
+    before = cuda_decode.walk_video.launches
+    got = cuda_decode.walk_video(*args, chunk_bits, stats)
+    assert cuda_decode.walk_video.launches == before + 1
+    want = cuda_decode.walk_video_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if plan["vbits"]:
+        mv = cuda_decode.read_vectors(payload, nbytes, got[4], gop,
+                                      plan["n_macro"], plan["mb"])
+        assert torch.equal(mv, cuda_decode.read_vectors_plain(
+            payload, nbytes, got[4], gop, plan["n_macro"], plan["mb"]))
+
+
+@pytest.mark.parametrize("merange,mb", [(1, 2), (16, 6), (300, 10),
+                                        (20000, 16)])
+def test_read_vectors_kernel_equals_plain_out_to_the_widest(dev, merange,
+                                                            mb):
+    """The vector read on random bits: every value of mb-bit fields, the
+    extremes +-2^(mb - 1) among them for narrow fields, and vector
+    blocks that run past the byte count (0xFF in the buffer there)."""
+    data = hand_video(48, 32, 7, 3, merange, seed=mb, empty_records=True)
+    plan, payload, nbytes = payload_of(dev, data)
+    assert plan["mb"] == mb
+    n = plan["params"].frame_count
+    _, _, _, _, vstart, _ = cuda_decode.walk_video_plain(
+        payload, nbytes, plan["start"], n, plan["n_blocks"], 3,
+        plan["vbits"], True, 4)
+    values = set()
+    for cut in (int(nbytes), int(nbytes) // 3):
+        nb = torch.tensor([cut], dtype=torch.int64, device=dev)
+        got = cuda_decode.read_vectors(payload, nb, vstart, 3,
+                                       plan["n_macro"], mb)
+        want = cuda_decode.read_vectors_plain(payload, nb, vstart, 3,
+                                              plan["n_macro"], mb)
+        assert torch.equal(got, want)
+        values |= set(got.unique().tolist())
+    if mb == 2:
+        assert values == {-2, -1, 0, 1}
+
+
+@pytest.mark.parametrize("b,norm", [(4, "reference"), (8, "ortho")])
+def test_decode_blocks_with_prediction_kernel_equals_plain(dev, b, norm):
+    """D3 with a prediction, on every 3rd frame of a stack (records,
+    prediction and output all views): records of every width at random
+    offsets into random bytes, counts past B*B among them, some fields
+    past the byte count (0xFF in the buffer there), onto random
+    predictions, clamped both ways."""
+    k, n_frames = b * b, 7
+    h, w = 4 * b, 16 * b
+    n = (h // b) * (w // b)
+    rng = np.random.default_rng(b)
+    data = rng.integers(0, 256, 4000, np.uint8)
+    payload = torch.tensor(list(data) + [0xFF] * 512, dtype=torch.uint8,
+                           device=dev)
+    nbytes = torch.tensor([3000], dtype=torch.int64, device=dev)
+    shape = (n_frames, n)
+    recs = [torch.from_numpy(x).to(dev) for x in (
+        rng.integers(0, 8 * 3200, shape).astype(np.int64),
+        rng.integers(0, 16, shape).astype(np.int32),
+        rng.integers(0, k + 4, shape).astype(np.int32))]
+    quant = torch.tensor(quant_for(b).ravel(), dtype=torch.float64,
+                         device=dev)
+    pred = torch.from_numpy(rng.integers(0, 256, (2, h, w), np.uint8)).to(
+        dev)
+    out = torch.zeros((n_frames, h, w), dtype=torch.uint8, device=dev)
+    args = (payload, nbytes, *(r[1::3] for r in recs), quant, b, norm, h, w)
+    got = cuda_decode.decode_blocks(*args, pred=pred, out=out[1::3])
+    want = cuda_decode.decode_blocks_plain(*args, pred=pred)
+    assert torch.equal(got, want) and torch.equal(out[1::3], want)
+    assert not out[0::3].any() and not out[2::3].any()
+    assert 0 < int((want == 0).sum()) and 0 < int((want == 255).sum())
+    assert 0 < int(((want > 0) & (want < 255)).sum())
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (720, 1280)])
+@pytest.mark.parametrize("mb", [2, 6, 16])
+def test_predict_kernel_on_decode_vectors(dev, h, w, mb):
+    """K7 on the vectors a decoder reads: any mb-bit value, out to
+    +-2^(mb - 1), so windows clamp at every edge; reference, vectors and
+    output as views of every 4th frame, as the decode hands them over."""
+    rng = np.random.default_rng(h + mb)
+    frames = torch.from_numpy(rng.integers(0, 256, (8, h, w), np.uint8)).to(
+        dev)
+    n_macro = (h // 16) * (w // 16)
+    lim = 1 << (mb - 1)
+    mvec = torch.from_numpy(rng.integers(-lim, lim, (8, n_macro, 2))
+                            .astype(np.int32))
+    mvec[:, :4] = torch.tensor([[-lim, -lim], [lim - 1, lim - 1],
+                                [-lim, lim - 1], [lim - 1, -lim]])
+    mvec = mvec.to(dev)
+    out = torch.zeros_like(frames)
+    before = cuda_motion.predict.launches
+    got = cuda_motion.predict(frames[0::4], mvec[1::4], out=out[1::4])
+    assert cuda_motion.predict.launches == before + 1
+    want = cuda_motion.predict_plain(frames[0::4], mvec[1::4])
+    assert torch.equal(got, want) and torch.equal(out[1::4], want)
+    assert not out[0::4].any()
+    assert torch.equal(cuda_motion.predict(frames, mvec),
+                       cuda_motion.predict_plain(frames, mvec))
+
+
+@pytest.mark.parametrize("w,h,n,gop,merange", [
+    (48, 32, 5, 2, 1), (48, 32, 7, 3, 300), (40, 24, 3, 1, 8)])
+def test_random_video_streams_decode_on_the_card_as_on_the_host(
+        dev, w, h, n, gop, merange):
+    """Streams of random bits after a video header: vectors of every
+    value and records of any width, decoded on the card."""
+    for seed in range(3):
+        video_held(dev, hand_video(w, h, n, gop, merange, seed=seed))
+        video_held(dev, hand_video(w, h, n, gop, merange, seed=seed,
+                                   empty_records=True))
+
+
+def test_video_rejections_launch_nothing(dev):
+    before = launch_counts(VDECODE)
+    with pytest.raises(StreamFormatError):  # P-frames off the 16-px grid
+        imageencoder_tpu_torch.decode_video(hand_video(40, 24, 3, 4, 8),
+                                            device=dev)
+    with pytest.raises(StreamFormatError):
+        imageencoder_tpu_torch.decode_video(
+            dict_stream([(1, 1, 2), (2, 1, 2)]), device=dev)
+    with pytest.raises(ValueError, match="without a dict"):
+        imageencoder_tpu_torch.decode_video(b"\x80\x00", device=dev)
+    empty = hand_video(48, 32, 0, 4, 8)  # a header-only stream
+    assert video_held(dev, empty) == b""
+    assert launch_counts(VDECODE) == before

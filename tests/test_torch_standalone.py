@@ -6,14 +6,18 @@ package and keeps its own copy of the host code it needs.
     recon, Huffman on, so the chunked path runs) byte for byte as this
     process's ``backend="numpy"`` did, and decodes its image stream (and
     the stream without Huffman) to this process's
-    ``decode_image(backend="numpy")`` pixels;
+    ``decode_image(backend="numpy")`` pixels and its video streams to
+    ``decode_video(backend="numpy")``'s frames;
   * every copied helper equals its JAX-package original: header bits,
     QuantMatrix serialization, zig-zag, the DCT tables bit for bit, the
     register-file bounds, search steps, motion-vector width, YUV420 split,
     the bit packers and the Huffman dict; and the decode's: the bit
     reader and field gather, sign extension, the header readers, the
     dict parse and validation, the Huffman decode, the offset walk, the
-    extraction, the exact inverse, the clamp and deblockify;
+    extraction, the exact inverse, the clamp and deblockify; the video
+    decode's header parse and frame walk (vectors included), the block
+    decode with and without its P-frame residual form, and the YUV420
+    assembly;
   * the port's Python Huffman tree build equals the JAX package's (native)
     code_lengths on seeded histograms with ties and with skew deep enough
     to need the 15-bit length limit.
@@ -71,6 +75,9 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked(tmp_path):
     }
     pixels = {key: imageencoder_tpu.decode_image(want[key], backend="numpy")
               for key in ("image", "image raw")}
+    pixels.update({mode: jax_video.decode_video(want[mode],
+                                                backend="numpy")[0]
+                   for mode in ("raw", "recon")})
     case = tmp_path / "case.pkl"
     case.write_bytes(pickle.dumps((img, data, quant.matrix, want, pixels)))
     code = textwrap.dedent(f"""
@@ -91,6 +98,8 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked(tmp_path):
                                     use_huffman=True, ref_mode=mode,
                                     device="cpu")
             assert got == want[mode], mode
+            got = port.decode_video(want[mode], device="cpu")[0]
+            assert got == pixels[mode], mode
         assert sys.modules["jax"] is None
         assert sys.modules["imageencoder_tpu"] is None
         assert not [m for m in sys.modules
@@ -233,7 +242,78 @@ HELPERS = {
                                                           jax_blockify)),
     "stream errors": (
         lambda: _errors(exceptions), lambda: _errors(jax_exceptions)),
+    "video header and frame walk": (
+        lambda: _video_front(video.parse_video_stream),
+        lambda: _video_front(jax_video.parse_video_stream)),
+    "video header parse": (
+        lambda: _video_header(video.parse_video_header),
+        lambda: _video_header(jax_video._parse_video_header)),
+    "frame walk from a bit": (
+        lambda: _frame_walk(video.iter_parsed_frames, video),
+        lambda: _frame_walk(jax_video._iter_parsed_frames, jax_video)),
+    "block decode and its residual": (
+        lambda: _block_decode(image), lambda: _block_decode(jax_image)),
+    "yuv420 assembly": (
+        lambda: video.assemble_yuv420(_y_planes(), 16, 8),
+        lambda: jax_video._assemble_yuv420(_y_planes(), 16, 8)),
 }
+
+
+def _video_stream(huff: bool) -> bytes:
+    return bytes(jax_video.encode_video(
+        yuv420(bench_frames(32, 32, 7, 3)), 32, 32, QuantMatrix(JPEG4), True,
+        3, 8, use_huffman=huff, backend="numpy"))
+
+
+def _video_front(parse):
+    out = []
+    for huff in (True, False):
+        (payload, q, rle, p, w, h, parsed) = parse(_video_stream(huff))
+        out.append((bytes(payload), q.matrix.tolist(), rle,
+                    (p.frame_count, p.gop, p.merange), w, h,
+                    [(None if mv is None else mv.tolist(), start,
+                      [r.tolist() for r in recs])
+                     for mv, start, recs in parsed]))
+    return out
+
+
+def _video_header(parse):
+    payload, q, rle, p, w, h, pos = parse(_video_stream(False))
+    return (bytes(payload), q.matrix.tolist(), rle,
+            (p.frame_count, p.gop, p.merange), w, h, pos)
+
+
+def _frame_walk(walk, mod):
+    """The walk from bit 5 of random bytes: vectors, start bits and
+    records read from noise, past the end as well."""
+    data = bytes(np.random.default_rng(6).integers(0, 256, 400)
+                 .astype(np.uint8))
+    params = mod.VideoParams(5, 3, 300) if mod is jax_video else \
+        headers.VideoParams(5, 3, 300)
+    return [(None if mv is None else mv.tolist(), start,
+             [r.tolist() for r in recs])
+            for mv, start, recs in walk(data, params, True, 32, 16, 5)]
+
+
+def _block_decode(mod):
+    data = bytes(np.random.default_rng(9).integers(0, 256, 300)
+                 .astype(np.uint8))
+    q = _quant_of(headers if mod is image else jax_headers)
+    i, j = np.indices((8, 8))
+    q8 = (1 + 2 * (i + j)).astype(np.uint32)
+    q8 = (imageencoder_tpu_torch.quant_from_numpy(q8) if mod is image
+          else QuantMatrix(q8))
+    kw = {} if mod is image else {"backend": "numpy"}
+    return [(px.tobytes(), end) for px, end in (
+        mod.decode_blocks(None, 3, 40, q, True, packed=data, **kw),
+        mod.decode_blocks(None, 3, 40, q, True, residual=True, packed=data,
+                          **kw),
+        mod.decode_blocks(jax_bitpack.to_bits(data), 11, 8, q8, False,
+                          "ortho", block_size=8, residual=True, **kw))]
+
+
+def _y_planes():
+    return np.random.default_rng(2).integers(0, 256, (3, 8, 16), np.uint8)
 
 
 def _reads(mod):

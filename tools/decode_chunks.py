@@ -9,8 +9,10 @@ on the stream and D2 on its payload, checks the output equal to the
 default chunk size's, and prints per chunk size: the device time of each
 of the four launches (walk, check, stitch, emit) from torch.profiler, the
 live chunks and how many the true chain walked whole (each such chunk is
-a break that the one-thread stitch follows serially).  The card's name
-and power limit come first.
+a step of the one-thread stitch).  Then the same for chip_smoke.py's
+1280x720x25 raw video stream (gop 4, merange 16, Huffman on): D1 on the
+stream and D2 over the whole video (walk_video, its 18 jumps in the
+stitch).  The card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from imageencoder_tpu_torch.utils.device import gpu_identity  # noqa: E402
 QUANT = [[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
          [14, 17, 22, 29]]
 SHAPES = ((912, 4096), (2160, 3840))
+VIDEO = (1280, 720, 25)
 D1_CHUNKS = (256, 512, 1024, 2048)
 D2_CHUNKS = (512, 1024, 2048, 4096)
 REPS = 10
@@ -81,6 +84,20 @@ def sweep(label: str, fn, chunks, reference) -> None:
               f"{live} chunks, {whole} walked whole", flush=True)
 
 
+def video_stream() -> bytes:
+    """chip_smoke.py's 720p25 raw stream: 8x8 random blocks moving by
+    (2, 3) pixels a frame plus noise of sigma 3, gop 4, merange 16."""
+    w, h, n = VIDEO
+    rng = np.random.default_rng(0)
+    base = np.kron(rng.integers(0, 256, (h // 8, w // 8)), np.ones((8, 8)))
+    yuv = b"".join(np.clip(np.roll(base, (f * 2, f * 3), (0, 1))
+                           + rng.normal(0, 3, base.shape), 0, 255)
+                   .astype(np.uint8).tobytes() + bytes([0x80]) * (w * h // 2)
+                   for f in range(n))
+    return port.encode_video(yuv, w, h, port.QuantMatrix(np.array(
+        QUANT, np.uint32)), True, 4, 16, use_huffman=True, device="cuda")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("decode_chunks: needs a CUDA card")
@@ -115,6 +132,40 @@ def main() -> None:
               f"bytes, {plan['n_blocks']} records", flush=True)
         sweep(f"D1 {w}x{h}", d1, D1_CHUNKS, d1_ref)
         sweep(f"D2 {w}x{h}", d2, D2_CHUNKS, d2_ref)
+
+    from imageencoder_tpu_torch.models.video import plan_video
+
+    data = video_stream()
+    plan = plan_video(data)
+    views = upload(plan, dev)
+    v1_args = (views["stream"], views["nbytes"], plan["dict_end"],
+               views["table"], plan["max_len"], plan["cap"])
+    payload, count = cuda_decode.huffman_decode(*v1_args)
+    n_payload = int(count)
+
+    def v1(chunk, stats):
+        out, cnt = cuda_decode.huffman_decode(*v1_args, chunk_bits=chunk,
+                                              stats=stats)
+        return out[:n_payload], cnt
+
+    params = plan["params"]
+    v2_args = (payload, count, plan["start"], params.frame_count,
+               plan["n_blocks"], params.gop, plan["vbits"], plan["use_rle"],
+               4)
+
+    def v2(chunk, stats):
+        return cuda_decode.walk_video(*v2_args, chunk_bits=chunk,
+                                      stats=stats)
+
+    w, h, n = VIDEO
+    label = f"{w}x{h}x{n}"
+    print(f"{label}: {len(data)} stream bytes, {n_payload} payload bytes, "
+          f"{n * plan['n_blocks']} records, {plan['vbits']} vector bits a "
+          f"P-frame", flush=True)
+    sweep(f"D1 {label}", v1, D1_CHUNKS, v1(cuda_decode.CHUNK_BITS_HUFFMAN,
+                                           None))
+    sweep(f"D2 video {label}", v2, D2_CHUNKS,
+          v2(cuda_decode.CHUNK_BITS_WALK, None))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the decode kernels D1-D3 on the host, with no card and no nvcc.
+"""Run the decode kernels D1-D3 and the vector read on the host, with no
+card and no nvcc.
 
     python tools/emulate_decode.py
 
@@ -11,7 +12,13 @@ launch `k<<<grid, block, smem, stream>>>(args)` becomes a call that runs
 the grid.  Then it holds each kernel's output against its plain version
 (ops/cuda_decode.py) on streams written by the port's encoder on the CPU
 and on records built to keep speculative walkers out of phase, with many
-small chunks, and prints the chunks each chain walked whole.
+small chunks, and prints the chunks each chain walked whole.  For videos
+(streams of the port's encode_video: gop 1, 4 and 5, merange 1 and 16,
+RLE on and off, whole and cut short) it runs D2 over the whole video with
+chunks small enough that nearly every chunk holds a frame boundary, the
+vector read at the start bits D2 wrote, and D3 on frame k of every GOP at
+once with the prediction from frame k - 1 (the plain K7), as the decode
+does, and holds the frames against decode_video(device="cpu").
 
 It finds compile errors and logic faults before a chip call.  It says
 nothing of speed, of nvcc's own rules, or of races the threads' timing
@@ -33,17 +40,19 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from imageencoder_tpu_torch import QuantMatrix, encode_image  # noqa: E402
+from imageencoder_tpu_torch import (QuantMatrix, decode_video,  # noqa
+                                    encode_image, encode_video)
 from imageencoder_tpu_torch.kernels.build import SIGNATURES  # noqa: E402
-from imageencoder_tpu_torch.models import image  # noqa: E402
-from imageencoder_tpu_torch.ops import bitpack, cuda_decode, huffman  # noqa
+from imageencoder_tpu_torch.models import image, video  # noqa: E402
+from imageencoder_tpu_torch.ops import (bitpack, cuda_decode,  # noqa: E402
+                                        huffman, motion)
 from imageencoder_tpu_torch.ops.dct import _inv_weights  # noqa: E402
 from imageencoder_tpu_torch.ops.zigzag import zigzag_order  # noqa: E402
 
 CSRC = REPO / "imageencoder_tpu_torch" / "csrc"
 UNITS = ("huffman_decode.cu", "walk.cu", "decode.cu")
-ENTRY = ("ie_huffman_decode", "ie_walk_offsets", "ie_chain_scratch_words",
-         "ie_decode_blocks")
+ENTRY = ("ie_huffman_decode", "ie_walk_video", "ie_chain_scratch_words",
+         "ie_read_vectors", "ie_decode_blocks")
 
 SHIM = r"""
 #pragma once
@@ -68,6 +77,13 @@ enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned atomicAnd(unsigned* p, unsigned v) {
+    return __atomic_fetch_and(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+    return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
 inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
@@ -88,6 +104,7 @@ struct EmuBlock {
 };
 inline EmuBlock* g_emu;
 inline void __syncthreads() { g_emu->block->arrive_and_wait(); }
+inline void __syncwarp() { g_emu->warp[threadIdx.x / 32]->arrive_and_wait(); }
 template <class T> inline T emu_exchange(T v, int src_of_lane(int, int),
                                          int arg) {
     const int t = threadIdx.x, w = t / 32, lane = t % 32;
@@ -107,11 +124,15 @@ template <class T> inline T emu_exchange(T v, int src_of_lane(int, int),
 }
 inline int emu_src(int, int src) { return src; }
 inline int emu_up(int lane, int d) { return lane >= d ? lane - d : -1; }
+inline int emu_xor(int lane, int m) { return lane ^ m; }
 template <class T> inline T __shfl_sync(unsigned, T v, int src) {
     return emu_exchange(v, emu_src, src);
 }
 template <class T> inline T __shfl_up_sync(unsigned, T v, int d) {
     return emu_exchange(v, emu_up, d);
+}
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) {
+    return emu_exchange(v, emu_xor, m);
 }
 inline unsigned __ballot_sync(unsigned, bool p) {
     const int t = threadIdx.x, w = t / 32;
@@ -148,7 +169,7 @@ inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t,
 }
 """
 
-LAUNCH = re.compile(r"([\w:]+(?:<\d+>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+LAUNCH = re.compile(r"([\w:]+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\);", re.S)
 
 
 def build(tmp: pathlib.Path) -> ctypes.CDLL:
@@ -211,10 +232,10 @@ def d2(lib, payload: bytes, start: int, n_blocks: int, use_rle: bool,
     offs = np.full(n_blocks, -1, np.int64)
     dbits, counts = (np.full(n_blocks, -1, np.int32) for _ in range(2))
     end, stats = np.full(1, -1, np.int64), np.zeros(2, np.int64)
-    assert lib.ie_walk_offsets(
-        ptr(buf), ptr(nb), start, n_chunks, chunk_bits, n_blocks,
+    assert lib.ie_walk_video(
+        ptr(buf), ptr(nb), start, n_chunks, chunk_bits, n_blocks, 1, 1, 0,
         int(use_rle), block_size, ptr(offs), ptr(dbits), ptr(counts),
-        ptr(end), ptr(scratch), ptr(stats), None) == 0
+        ptr(end), None, None, ptr(scratch), ptr(stats), None) == 0
     want = image.walk_block_offsets(None, start, n_blocks, use_rle,
                                     block_size, packed=payload)
     ok = (all(np.array_equal(a, b) for a, b in zip((offs, dbits, counts),
@@ -224,24 +245,93 @@ def d2(lib, payload: bytes, start: int, n_blocks: int, use_rle: bool,
 
 
 def d3(lib, payload: bytes, records, quant: np.ndarray, block_size: int,
-       norm: str, h: int, w: int) -> bool:
-    """D3 on a payload's records: equal to the plain block decode."""
+       norm: str, h: int, w: int, pred: np.ndarray | None = None,
+       step: int = 1) -> np.ndarray | None:
+    """D3 on a payload's records (one frame's, or [G * step, N] of which
+    every ``step``-th row), with a prediction u8 [G, h, w] or none, into
+    every ``step``-th frame of a buffer: its frames if equal to the plain
+    block decode, else None."""
     buf, nb = buffer(payload, 64), np.array([len(payload)], np.int64)
     offs, dbits, counts = (np.ascontiguousarray(r) for r in records)
+    rows = offs.reshape(-1, offs.shape[-1])
+    n_frames = -(-rows.shape[0] // step)
     wi = np.ascontiguousarray(_inv_weights(block_size, norm))
     zz = zigzag_order(block_size)
     izz = np.empty_like(zz)
     izz[zz] = np.arange(len(zz), dtype=np.int32)
     q = np.ascontiguousarray(quant, np.float64).reshape(-1)
-    img = np.full((h, w), 0x77, np.uint8)
+    img = np.full((n_frames * step, h, w), 0x77, np.uint8)
+    p = None if pred is None else np.ascontiguousarray(pred)
     assert lib.ie_decode_blocks(
-        ptr(buf), ptr(nb), ptr(offs), ptr(dbits), ptr(counts), len(offs),
-        ptr(q), ptr(wi), ptr(izz), block_size, w, ptr(img), None) == 0
+        ptr(buf), ptr(nb), ptr(offs), ptr(dbits), ptr(counts),
+        rows.shape[1], n_frames, step * rows.shape[1], ptr(q), ptr(wi),
+        ptr(izz), block_size, w, None if p is None else ptr(p), h * w,
+        ptr(img), step * h * w, None) == 0
+    tr = [torch.from_numpy(r.reshape(rows.shape)[::step])
+          for r in (offs, dbits, counts)]
     want = cuda_decode.decode_blocks_plain(
-        torch.from_numpy(buf), torch.tensor([len(payload)]),
-        *(torch.from_numpy(r) for r in (offs, dbits, counts)),
-        torch.from_numpy(q), block_size, norm, h, w)
-    return np.array_equal(img, want.numpy())
+        torch.from_numpy(buf), torch.tensor([len(payload)]), *tr,
+        torch.from_numpy(q), block_size, norm, h, w,
+        None if p is None else torch.from_numpy(p))
+    got = img[::step]
+    return got if np.array_equal(got, want.numpy()) else None
+
+
+def video_case(lib, data: bytes, chunk_bits: int):
+    """A video stream decoded by the emulated D1, D2 over the whole video,
+    the vector read and D3, K7's plain version between: (equal to
+    decode_video(device="cpu"), D2 equal to its plain version, the vector
+    read equal to its plain version, D2's stats)."""
+    plan = video.plan_video(data, 4)
+    params, w, h = plan["params"], plan["w"], plan["h"]
+    n, gop, n_micro = params.frame_count, max(1, params.gop), plan["n_blocks"]
+    payload = data if not plan["huffman"] else d1(lib, data, 512)[2]
+    start, vbits = plan["start"], plan["vbits"]
+    buf, nb = buffer(payload, 256), np.array([len(payload)], np.int64)
+    n_chunks = cuda_decode._n_chunks(8 * len(buf) - start, chunk_bits)
+    scratch = np.full(lib.ie_chain_scratch_words(n_chunks, chunk_bits), -7,
+                      np.int64)
+    offs = np.full(n * n_micro, -1, np.int64)
+    dbits, counts = (np.full(n * n_micro, -1, np.int32) for _ in range(2))
+    end, stats = np.full(1, -1, np.int64), np.zeros(2, np.int64)
+    vstart, rstart = (np.full(n, -1, np.int64) for _ in range(2))
+    assert lib.ie_walk_video(
+        ptr(buf), ptr(nb), start, n_chunks, chunk_bits, n_micro, n, gop,
+        vbits, int(plan["use_rle"]), 4, ptr(offs), ptr(dbits), ptr(counts),
+        ptr(end), ptr(vstart), ptr(rstart), ptr(scratch), ptr(stats),
+        None) == 0
+    t_buf, t_nb = torch.from_numpy(buf), torch.tensor([len(payload)])
+    want = cuda_decode.walk_video_plain(t_buf, t_nb, start, n, n_micro, gop,
+                                        vbits, plan["use_rle"], 4)
+    walk_ok = all(np.array_equal(a, b.numpy()) for a, b in zip(
+        (offs, dbits, counts, end, vstart, rstart), want))
+    mvec = np.zeros((n, plan["n_macro"], 2), np.int32)
+    if vbits:
+        assert lib.ie_read_vectors(ptr(buf), ptr(nb), ptr(vstart), n, gop,
+                                   2 * plan["n_macro"], plan["mb"],
+                                   ptr(mvec), None) == 0
+    vec_ok = np.array_equal(mvec, cuda_decode.read_vectors_plain(
+        t_buf, t_nb, torch.from_numpy(vstart), gop, plan["n_macro"],
+        plan["mb"]).numpy())
+    recs = [r.reshape(n, n_micro) for r in (offs, dbits, counts)]
+    q = plan["quant"].as_float()
+    frames = np.zeros((n, h, w), np.uint8)
+    got = d3(lib, payload, recs, q, 4, "reference", h, w, step=gop)
+    ok = got is not None
+    if ok:
+        frames[0::gop] = got
+    for k in range(1, min(gop, n) if vbits else 1):
+        g_k = len(range(k, n, gop))
+        pred = motion.predict_plain(torch.from_numpy(frames[k - 1::gop][:g_k]),
+                                    torch.from_numpy(mvec[k::gop])).numpy()
+        got = d3(lib, payload, [r[k:] for r in recs], q, 4, "reference", h,
+                 w, pred, step=gop)
+        ok = ok and got is not None
+        if ok:
+            frames[k::gop] = got
+    yuv = video.assemble_yuv420(frames, w, h)
+    return (ok and yuv == decode_video(data, device="cpu")[0], walk_ok,
+            vec_ok, stats.tolist())
 
 
 def records(kind: str, n: int, seed: int, use_rle: bool, k: int):
@@ -296,7 +386,8 @@ def main() -> int:
                     report(f"D2 {b}x{b} rle={use_rle} chunks of {chunk}",
                            ok, stats)
                 report(f"D3 {b}x{b} {norm} rle={use_rle}",
-                       d3(lib, payload, recs, q, b, norm, 96, 128))
+                       d3(lib, payload, recs, q, b, norm, 96, 128)
+                       is not None)
         inner = bytes(np.repeat(np.arange(8, dtype=np.uint8) * 17, 50)[
             rng.permutation(400)])  # every code 3 bits long
         ok, stats, _ = d1(lib, huffman.huffman_encode(inner, "cpu"), 32)
@@ -309,7 +400,35 @@ def main() -> int:
                    stats)
             report(f"D3 {kind} records, a third cut off", d3(
                 lib, payload[:2 * len(payload) // 3], recs, jpeg, 4,
-                "reference", 32, 116))
+                "reference", 32, 116) is not None)
+        # Videos: 64x48 frames of 192 records (about 1,000-3,000 bits a
+        # frame), so chunks of 32 and 256 bits put a boundary in nearly
+        # every chunk, and 96-bit P-frame vector blocks at merange 1.
+        rng = np.random.default_rng(2)
+        base = np.kron(rng.integers(0, 256, (6, 8)), np.ones((8, 8)))
+        yuv = b"".join(np.clip(np.roll(base, (2 * f, 3 * f), (0, 1))
+                               + rng.normal(0, 3, base.shape), 0, 255)
+                       .astype(np.uint8).tobytes() + bytes(1536)
+                       for f in range(9))
+        for gop, merange, use_rle, huff, mode, cut in (
+                (4, 16, True, True, "raw", False),
+                (5, 1, True, False, "recon", False),
+                (1, 8, False, True, "raw", False),
+                (4, 1, False, False, "raw", False),
+                (3, 16, True, False, "raw", True)):
+            data = encode_video(yuv, 64, 48, QuantMatrix(jpeg), use_rle, gop,
+                                merange, use_huffman=huff, ref_mode=mode,
+                                device="cpu")
+            if cut:  # the last frames' records read zeros
+                data = data[:2 * len(data) // 3]
+            for chunk in (32, 256, 2048):
+                ok, walk_ok, vec_ok, stats = video_case(lib, data, chunk)
+                label = (f"video gop {gop} merange {merange} rle={use_rle} "
+                         f"huffman={huff}{' cut' if cut else ''}, chunks of "
+                         f"{chunk}")
+                report(f"D2 {label}", walk_ok, stats)
+                report(f"vectors {label}", vec_ok)
+                report(f"D3 frames {label}", ok)
     print("all equal" if not failed else f"{failed} mismatches")
     return int(failed > 0)
 
