@@ -6,11 +6,13 @@
 It needs one CUDA card (an H100: the kernels are built for sm_90a), nvcc,
 and this checkout.  It imports only the port, which stands alone: JAX and
 the JAX package (imageencoder_tpu) are blocked before anything is
-imported.  It drives five paths: the image encode (encode_image), the
+imported.  It drives these paths: the image encode (encode_image), the
 video encode (encode_video) with the raw and with the recon motion
-reference, the image decode (decode_image) and the video decode
-(decode_frames and decode_video).  Phases, each of which raises on
-failure:
+reference, the image decode (decode_image), the video decode
+(decode_frames and decode_video), the serving paths (encode_image_batch,
+encode_image_stream, decode_image_batch) and the command line (python -m
+imageencoder_tpu_torch, checkpointed video encode included).  Phases,
+each of which raises on failure:
 
   1. build the kernels in imageencoder_tpu_torch/csrc with nvcc, one
      process per source, all started together;
@@ -47,11 +49,16 @@ failure:
      D1 on a video's payload, D2 walk_video (one chain over the whole
      video), the vector read, every D3 call (the I-frames, then frame k of
      every GOP onto its prediction) and every K7 predict call (frame k
-     predicted from frame k - 1 at the vectors read from the stream).
-     The packers'
-     words are compared up to the stream's last word, which is all the
-     kernels define.  K3 is also timed against torch.bincount over the
-     same stream bytes, the one PyTorch call that computes its function;
+     predicted from frame k - 1 at the vectors read from the stream);
+     encode_image_batch of 16 seeded 4096x912 images (the last one noise)
+     for K1 on the stacked images and the batched K2 (with and without
+     the histograms), dict kernel and K4 pack_payload (a batch's stream
+     the grid's y), and of 4 128x256 images under quant all ones, whose
+     noise image takes the raw-copy fallback inside the batch, for the
+     batched dict and K4 again.  The packers' words are compared up to
+     each stream's last word, which is all the kernels define.  K3 is
+     also timed against torch.bincount over the same stream bytes, the
+     one PyTorch call that computes its function;
   3. drive each path with every kernel's launch count set to 0 just
      before it and read just after: encode_image(..., device="cuda") on
      seeded 4096x912 and 3840x2160 images with Huffman on and off and on
@@ -69,14 +76,23 @@ failure:
      stream, D2 and D3 once a stream; the video decode D1 once a Huffman
      stream, D2 walk_video and the vector read once a stream, D3 once and
      K7 alone once less a GOP step (min(gop, frames)): at gop 4, 4 and 3
-     whatever the frame count;
+     whatever the frame count; encode_image_batch at B = 16 (4096x912)
+     and B = 8 (3840x2160), Huffman on and off: each call launches K1,
+     the batched K2 and, with Huffman, the batched dict and K4 once each
+     and nothing else; encode_image_stream of the 16 images at depth 2
+     (the single-image kernels, 16 launches each); decode_image_batch of
+     the 16 Huffman streams (D1, D2, D3, 16 each, no encode kernel);
   4. hold every image stream from phase 3, and its pixels decoded on the
      card, video streams of both
      references at 320x176 with 8 frames (gop 4, merange 16, Huffman on and
      off), the 40-frame video's, and the frames phase 3 decoded on the card
      from the video streams (and those of decode_video with and without
      motion compensation), against the port's plain path, device="cpu",
-     byte for byte.
+     byte for byte; the same for every stream of the four batch calls
+     (the plain path's encode_image_batch, stream by stream), the
+     stream's 16 (equal to the batch's) and the 16 images
+     decode_image_batch left on the card (each equal to the plain
+     decode_image).
      That path is the one tests/test_torch_image.py and
      tests/test_torch_video.py hold byte-equal to the JAX package's host
      engine; tests/test_torch_cuda.py holds the card's full-size image and
@@ -98,7 +114,10 @@ failure:
      the Huffman stage and the copy of the frames; for the decode of the
      4096x912 and 3840x2160 Huffman streams, the host's parse, the
      stream's upload, the device window (D1-D3) and the whole decode_image
-     until its pixels are ready;
+     until its pixels are ready; for serving, on the 16 4096x912 images
+     on the device, encode_image_batch, 16 back-to-back encode_image
+     calls, encode_image_stream and decode_image_batch of the batch's
+     streams, each with its Mpix/s;
   7. profile a few calls of each path and print the device time per call
      by operation and the device operations per call: where the device
      time goes.  A video profile with a row of K7 alone, or a raw one with
@@ -108,7 +127,17 @@ failure:
      one): one of each is the stream's own copy, and the path fails with
      more than one wait before it.  A decode_image or decode_frames that
      waits on the device at all fails: it leaves its pixels there; a
-     decode_video waits once, for its frames' copy.
+     decode_video waits once, for its frames' copy.  A wait on an event
+     is counted too (the debug mode does not see it): encode_image_batch
+     waits at most twice whatever B (its lengths, then its copies),
+     encode_image_stream at most once an image and once at its end, and
+     decode_image_batch never;
+  8. the command line: python -m imageencoder_tpu_torch as a subprocess
+     with --device cuda on a 4096x912 image job, a 320x176x8 video
+     encoder job with a decoder's decfile, and the same video with
+     --checkpoint-dir, run again from the directory a run stopped after
+     its first GOP leaves; exit codes 0, and every file equal to what the
+     CLI writes with --device cpu in this process.
 
 Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
@@ -154,6 +183,10 @@ SHAPES = ((912, 4096), (2160, 3840))  # (H, W): ex4's geometry, 4K UHD
 VIDEO = (1280, 720, 25)  # W, H, frames: bench.py's video size
 VIDEO_SMALL = (320, 176, 8)  # held against the plain path on the host
 VIDEO_LONG = (320, 176, 40)  # two chunks: K3 on the spliced stream
+BATCHES = ((16, 912, 4096), (8, 2160, 3840))  # serving: B, H, W
+FALLBACK_BATCH = (4, 128, 256)  # 3 smooth images and a noise image
+STREAM_DEPTH = 2
+SERVING_SAMPLES = 20  # per serving timing (16 images a sample)
 GOP, MERANGE = 4, 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SMS, BOOST_HZ = 132, 1.98e9  # H100 SXM
@@ -264,6 +297,27 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                     "read_vectors_kernel",
                     "imageencoder_tpu_torch/csrc/walk.cu",
                     "imageencoder_tpu/runtime/native/runtime.cpp:1472"),
+    # Serving: the same kernels over a batch of streams, the stream the
+    # grid's y (K2's two launches, the dict a CTA a stream, K4 one launch).
+    "K2 pack_locals batch": ("cuda_pack", "pack_locals_batch",
+                             "pack_locals_batch_plain",
+                             ("tile_sums_kernel", "pack_known_kernel"),
+                             "imageencoder_tpu_torch/csrc/pack.cu",
+                             "imageencoder_tpu/ops/pallas_pack.py:256"),
+    "K2 pack_locals+hist batch": ("cuda_pack", "pack_locals_hist_batch",
+                                  "pack_locals_hist_batch_plain",
+                                  ("tile_sums_kernel", "pack_known_kernel"),
+                                  "imageencoder_tpu_torch/csrc/pack.cu",
+                                  "imageencoder_tpu/ops/pallas_pack.py:256"),
+    "Huffman dict batch": ("huffman", "build_dict_batch",
+                           "build_dict_batch_plain", "huffman_dict_kernel",
+                           "imageencoder_tpu_torch/csrc/huffman.cu",
+                           "imageencoder_tpu/ops/huffman.py:194"),
+    "K4 pack_payload batch": ("cuda_pack", "pack_payload_batch",
+                              "pack_payload_batch_plain",
+                              "pack_payload_kernel",
+                              "imageencoder_tpu_torch/csrc/pack.cu",
+                              "imageencoder_tpu/ops/pallas_pack.py:55"),
 }
 PATHS = {  # path: the kernels it runs (Huffman on and off)
     "image": ("K1 encode_locals", "K2 pack_locals", "K2 pack_locals+hist",
@@ -280,8 +334,15 @@ PATHS = {  # path: the kernels it runs (Huffman on and off)
                      "D3 decode_blocks"),
     "video decode": ("D1 huffman_decode", "D2 walk_video", "vector read",
                      "D3 decode_blocks", "K7 predict"),
+    "image batch": ("K1 encode_locals", "K2 pack_locals batch",
+                    "K2 pack_locals+hist batch", "Huffman dict batch",
+                    "K4 pack_payload batch"),
+    "image stream": ("K1 encode_locals", "K2 pack_locals+hist",
+                     "Huffman dict", "K4 pack_payload"),
+    "image batch decode": ("D1 huffman_decode", "D2 walk_offsets",
+                           "D3 decode_blocks"),
 }
-DECODE_PATHS = ("image decode", "video decode")
+DECODE_PATHS = ("image decode", "video decode", "image batch decode")
 # No encode path launches these.
 DECODE = ("D1 huffman_decode", "D2 walk_offsets", "D2 walk_video",
           "vector read", "D3 decode_blocks")
@@ -295,9 +356,16 @@ NOT_ON_ENCODE = (*ALONE, "K7 predict")
 # that part.
 STREAM_OUT = ("K2 pack_locals", "K2 pack_locals+hist", "K4 pack_records",
               "K4 pack_payload", "K4 pack_coeffs", "K4 pack_coeffs+hist")
+# The same over a batch: one K2 call a batch, its streams in rows.
+BATCH_OUT = ("K2 pack_locals batch", "K2 pack_locals+hist batch",
+             "K4 pack_payload batch")
 # One encode_image with Huffman on launches these once each, and no other.
 IMAGE_CALL = ("K1 encode_locals", "K2 pack_locals+hist", "Huffman dict",
               "K4 pack_payload")
+# So does one encode_image_batch, whatever its B; without Huffman, K1 and
+# K2 pack_locals batch.
+BATCH_CALL = ("K1 encode_locals", "K2 pack_locals+hist batch",
+              "Huffman dict batch", "K4 pack_payload batch")
 # D1's payload is defined up to its byte count (its second output).
 PAYLOAD_OUT = ("D1 huffman_decode",)
 
@@ -511,6 +579,11 @@ def held_equal(name: str, args: tuple, kwargs: dict):
 
         got = (stream_words(*got[:2]), *got[1:])
         want = (stream_words(*want[:2]), *want[1:])
+    if name in BATCH_OUT:  # each stream's words, then the totals, ...
+        from imageencoder_tpu_torch.ops.cuda_pack import stream_words
+
+        got = (*map(stream_words, got[0], got[1]), *got[1:])
+        want = (*map(stream_words, want[0], want[1]), *want[1:])
     if name in PAYLOAD_OUT:
         got = (got[0][:int(got[1])], got[1])
         want = (want[0][:int(want[1])], want[1])
@@ -618,6 +691,21 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
                   + hist_bytes)
     elif name == "Huffman dict":
         nbytes = 1024 + 8 + tensor_bytes(got)
+    elif name in ("K2 pack_locals batch", "K2 pack_locals+hist batch"):
+        # B-fold K2's: the register files and lengths, each stream's
+        # bytes (and bins).
+        hist = name == "K2 pack_locals+hist batch"
+        nbytes = (tensor_bytes(args[:2])
+                  + sum((int(t) + 7) // 8 for t in got[-2 if hist else -1])
+                  + 1024 * args[0].shape[0] * hist)
+    elif name == "Huffman dict batch":
+        nbytes = (1024 + 8) * args[0].shape[0] + tensor_bytes(got)
+    elif name == "K4 pack_payload batch":
+        from imageencoder_tpu_torch.ops.dict_table import fields
+
+        nbytes = (sum(fields(t)["nbytes"] for t in args[1])
+                  + tensor_bytes(args[1:2])
+                  + sum((int(t) + 7) // 8 for t in got[-1]))
     elif name == "K3 byte_histogram":
         nbytes = (int(args[1]) + 7) // 8
     elif name == "D1 huffman_decode":
@@ -923,15 +1011,150 @@ def time_video_decode(data: bytes, n: int, h: int, w: int, dev) -> None:
           f"{busy:.4f} ms", flush=True)
 
 
+def time_serving(imgs_d, quant, dev) -> list:
+    """Phase 6 for the serving paths, images resident on the device:
+    encode_image_batch, the same images as back-to-back encode_image
+    calls, encode_image_stream at STREAM_DEPTH, and decode_image_batch of
+    the batch's streams (pixels left on the device), each until its
+    result is ready; Mpix/s beside each median.  Returns the batch's
+    streams."""
+    import torch
+
+    import imageencoder_tpu_torch as port
+
+    b, h, w = imgs_d.shape
+    mpix = b * h * w / 1e6
+
+    def timed(fn):
+        fn()
+        t = []
+        for _ in range(SERVING_SAMPLES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        return quantiles(t)
+
+    streams = port.encode_image_batch(imgs_d, quant, device=dev)
+    got = {
+        "encode_image_batch": timed(lambda: port.encode_image_batch(
+            imgs_d, quant, device=dev)),
+        f"{b} encode_image calls": timed(lambda: [port.encode_image(
+            im, quant, use_huffman=True, device=dev) for im in imgs_d]),
+        "encode_image_stream": timed(lambda: list(port.encode_image_stream(
+            imgs_d, quant, depth=STREAM_DEPTH, device=dev))),
+        "decode_image_batch": timed(lambda: port.decode_image_batch(
+            streams, device=dev)),
+    }
+    busy = profiled_ms(lambda: port.encode_image_batch(imgs_d, quant,
+                                                       device=dev), reps=5)
+    print(f"serving {b}x{w}x{h}, Huffman on: " + "; ".join(
+        f"{label} median {med:.3f} ms, p90 {p90:.3f} ms "
+        f"({mpix / med * 1e3:.1f} Mpix/s)"
+        for label, (med, p90) in got.items())
+          + f" (n={SERVING_SAMPLES}); encode_image_batch device busy "
+          f"{busy:.4f} ms a call", flush=True)
+    return streams
+
+
+def cli_phase(image, frames) -> None:
+    """Phase 8: ``python -m imageencoder_tpu_torch`` as a subprocess with
+    --device cuda on an image job, on a video encoder job with a
+    decoder's decfile, and on that video job with --checkpoint-dir, run
+    again from the directory a run stopped after its first GOP leaves
+    (meta.json and GOP 0's segment); every file it writes equals the one
+    the CLI writes with --device cpu (run in this process), every exit
+    code is 0, and the resumed run keeps GOP 0's segment as it was."""
+    import pathlib
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from imageencoder_tpu_torch import cli
+
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "matrix.txt").write_text("".join(
+            " ".join(map(str, row)) + "\n" for row in QUANT))
+        image.tofile(tmp / "in.raw")
+        (tmp / "in.yuv").write_bytes(yuv420(frames))
+        h, w = image.shape
+        n, vh, vw = frames.shape
+
+        def job(name: str, video: bool, device: str, *flags: str):
+            keys = dict(rawfile=tmp / ("in.yuv" if video else "in.raw"),
+                        encfile=tmp / f"{name}.enc",
+                        decfile=tmp / f"{name}_dec.raw", rle=1,
+                        quantfile=tmp / "matrix.txt",
+                        width=vw if video else w, height=vh if video else h,
+                        logfile=tmp / f"{name}.log")
+            if video:
+                keys.update(gop=GOP, merange=MERANGE)
+            conf = tmp / f"{name}.conf"
+            conf.write_text("".join(f"{k}={v}\n" for k, v in keys.items()))
+            args = [str(conf), "--device", device, *flags]
+            t0 = time.perf_counter()
+            if device == "cpu":
+                code = cli.main(args)
+            else:
+                res = subprocess.run(
+                    [sys.executable, "-m", "imageencoder_tpu_torch", *args],
+                    cwd=root, capture_output=True, text=True, timeout=600)
+                if res.returncode != 0:
+                    print(res.stderr[-4000:], flush=True)
+                code = res.returncode
+            if code != 0:
+                raise AssertionError(f"CLI {name} exited {code}")
+            print(f"CLI {name} ({' '.join(args[1:])}): exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            return [(tmp / f"{name}{ext}").read_bytes()
+                    for ext in (".enc", "_dec.raw")]
+
+        ckpt = tmp / "ckpt"
+        want = {"image": job("image_cpu", False, "cpu"),
+                "video": job("video_cpu", True, "cpu")}
+        got = {"image": job("image_cuda", False, "cuda"),
+               "video": job("video_cuda", True, "cuda"),
+               "checkpointed": job("ckpt_cuda", True, "cuda",
+                                   "--checkpoint-dir", str(ckpt))}
+        segs = sorted(ckpt.glob("gop_*.seg"))
+        for seg in segs[1:]:  # as if the run stopped after its first GOP
+            seg.unlink()
+            seg.with_suffix(".json").unlink()
+        first = segs[0].stat().st_mtime_ns
+        got["resumed"] = job("ckpt_cuda", True, "cuda", "--checkpoint-dir",
+                             str(ckpt))
+        if sorted(ckpt.glob("gop_*.seg")) != segs or (
+                segs[0].stat().st_mtime_ns != first):
+            raise AssertionError("the resumed run did not keep GOP 0 and "
+                                 "write the others again")
+        for key, files in got.items():
+            ref = want["image" if key == "image" else "video"]
+            if files != ref:
+                raise AssertionError(f"CLI {key}: --device cuda wrote other "
+                                     f"files than --device cpu")
+            print(f"CLI {key}: {len(files[0])}-byte stream and "
+                  f"{len(files[1])}-byte decode, equal to --device cpu",
+                  flush=True)
+        if np.frombuffer(want["image"][1], np.uint8).size != h * w:
+            raise AssertionError("the image decode has the wrong size")
+
+
 def host_waits(fn, calls: int):
     """The host's waits for the device in each of ``calls`` calls of fn():
     PyTorch's sync debug mode warns at each (a copy to pageable memory, a
     stream's synchronize, a read of a device scalar), and the warnings
-    are counted, with the line of Python that waited.  The kernels' C
-    entry points never wait.  Returns (waits of each call, {line: waits in
-    all})."""
+    are counted, with the line of Python that waited; it does not see a
+    wait on an event, so torch.cuda.Event.synchronize is counted by a
+    stand-in that calls it (with the debug mode off meanwhile, so that no
+    wait counts twice).  The kernels' C entry points never wait.  Returns
+    (waits of each call, {line: waits in all})."""
     import collections
     import os
+    import sys as _sys
     import warnings
 
     import torch
@@ -939,30 +1162,48 @@ def host_waits(fn, calls: int):
     fn()
     torch.cuda.synchronize()
     per_call, where = [], collections.Counter()
+    event_waits = []
+    real_sync = torch.cuda.Event.synchronize
+
+    def counted_sync(event):
+        frame = _sys._getframe(1)
+        event_waits.append(f"{os.path.basename(frame.f_code.co_filename)}:"
+                           f"{frame.f_lineno}")
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            real_sync(event)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    torch.cuda.Event.synchronize = counted_sync
     torch.cuda.set_sync_debug_mode("warn")
     try:
         for _ in range(calls):
+            event_waits.clear()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 fn()
             waits = [w for w in caught if "synchroniz" in str(w.message)]
-            per_call.append(len(waits))
+            per_call.append(len(waits) + len(event_waits))
             where.update(f"{os.path.basename(w.filename)}:{w.lineno}"
                          for w in waits)
+            where.update(event_waits)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.Event.synchronize = real_sync
     return per_call, dict(where)
 
 
 def print_profile(label: str, fn, calls: int, absent: tuple = (),
-                  waits_wanted: int = 2) -> None:
+                  waits_wanted: int = 2, at_most: bool = False) -> None:
     """Phase 7: device time per call by operation, the number of device
     operations (kernels and copies) per call, the device-to-host copies
     and the host's waits per call.  Fails if a device row's name contains
     one of ``absent``, or if the host waits other than ``waits_wanted``
-    times a call: an encode (the median of the calls) for the dict
-    table's totals and at the stream's own copy, a decode (every call: it
-    leaves its pixels on the device) never."""
+    times a call (with ``at_most``, more than that in any call): an encode
+    (the median of the calls) for the dict table's totals and at the
+    stream's own copy, a decode (every call: it leaves its pixels on the
+    device) never."""
     counts = {}
     by_op, wall_ms = device_rows(fn, calls, counts)
     for key in by_op:
@@ -983,7 +1224,11 @@ def print_profile(label: str, fn, calls: int, absent: tuple = (),
           f"waits for the device a call (profiler; sync debug mode; median "
           f"of the calls; each call's waits {per_call}, by line {where})",
           flush=True)
-    if (max(per_call) if waits_wanted == 0 else waits) != waits_wanted:
+    if at_most and max(per_call) > waits_wanted:
+        raise AssertionError(f"{label}: {per_call} host waits a call, "
+                             f"expected at most {waits_wanted}")
+    if not at_most and (max(per_call) if waits_wanted == 0
+                        else waits) != waits_wanted:
         raise AssertionError(f"{label}: {per_call} host waits a call, "
                              f"expected {waits_wanted}")
 
@@ -1009,7 +1254,7 @@ def main() -> None:
           f"python {sys.version.split()[0]}", flush=True)
 
     # ---- 1. build ----
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib_path = build.build()
     build.library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s",
@@ -1027,6 +1272,8 @@ def main() -> None:
         return port.encode_video(data, w, h, quant, True, GOP, MERANGE,
                                  use_huffman=huffman, ref_mode=ref_mode,
                                  device=device)
+
+    print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 2. each kernel against its plain version, main-path inputs ----
     # No full-size image compresses too little for the dict (the records'
@@ -1206,6 +1453,50 @@ def main() -> None:
           f"whole from their true entry", flush=True)
     del calls, k7_search
 
+    # The serving path: one encode_image_batch of 16 images at 4096x912,
+    # the last of them noise (at full size noise still pays for the dict,
+    # so no full-size stream takes the fallback), then a small batch whose
+    # noise image, under quant all ones, does take it.
+    bq, bh, bw = BATCHES[0]
+    batch0 = np.stack([synthetic(bh, bw, 100 + k) for k in range(bq - 1)]
+                      + [np.random.default_rng(9).integers(
+                          0, 256, (bh, bw), dtype=np.uint8)])
+    batch0_d = torch.from_numpy(batch0).to(dev)
+    with captured_calls() as calls:
+        port.encode_image_batch(batch0_d, quant, device="cuda")
+    for name in BATCH_CALL:
+        if len(calls[name]) != 1:
+            raise AssertionError(f"{name}: {len(calls[name])} calls in one "
+                                 f"encode_image_batch, expected 1")
+    beside(rows["K1 encode_locals"], "batch",
+           check_kernel("K1 encode_locals", *calls["K1 encode_locals"][0]))
+    for name in BATCH_CALL[1:]:
+        rows[name] = check_kernel(name, *calls[name][0])
+    rows["K2 pack_locals batch"] = check_kernel(
+        "K2 pack_locals batch", *calls["K2 pack_locals+hist batch"][0])
+    del calls
+    fb, fh, fw = FALLBACK_BATCH
+    small = np.stack([synthetic(fh, fw, 20 + k) for k in range(fb - 1)]
+                     + [np.random.default_rng(9).integers(
+                         0, 256, (fh, fw), dtype=np.uint8)])
+    with captured_calls() as calls:
+        fallback_batch = port.encode_image_batch(small, q_ones, device="cuda")
+    kinds = [bool(st[0] & 0x80) for st in fallback_batch]
+    if kinds != [True] * (fb - 1) + [False]:
+        raise AssertionError(f"the small batch's Huffman flags are {kinds}")
+    for name in ("Huffman dict batch", "K4 pack_payload batch"):
+        beside(rows[name], "fallback_batch", check_kernel(name,
+                                                          *calls[name][0]))
+    if fallback_batch != [port.encode_image(im, q_ones, use_huffman=True,
+                                            device="cpu") for im in small]:
+        raise AssertionError("the small batch differs from the plain path")
+    print(f"encode_image_batch of {fb} {fw}x{fh} images, quant all ones: "
+          f"the noise image took the fallback inside the batch, every "
+          f"stream equal to the plain path", flush=True)
+    del calls
+
+    print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # ---- 3. each path, counts from 0 ----
     cases = ([(im, quant, True) for im in images]
              + [(im, quant, False) for im in images]
@@ -1252,12 +1543,59 @@ def main() -> None:
     if got != want:  # 4 D3 and 3 K7 a stream at 25 and at 40 frames
         raise AssertionError(f"{len(video_streams)} video decodes launched "
                              f"{got}, expected {want}")
+    batches = [(batch0, batch0_d)]
+    for b, h, w in BATCHES[1:]:
+        imgs = np.stack([synthetic(h, w, 200 + k) for k in range(b)])
+        batches.append((imgs, torch.from_numpy(imgs).to(dev)))
+    batch_streams = {}
+
+    def drive_batches():
+        for imgs, imgs_d in batches:
+            for huff in (True, False):
+                before = {n: fn.launches for n, fn in wrappers.items()}
+                got = port.encode_image_batch(imgs_d, quant,
+                                              use_huffman=huff, device="cuda")
+                batch_streams[(imgs.shape, huff)] = got
+                torch.cuda.synchronize()
+                ran = {n: fn.launches - before[n]
+                       for n, fn in wrappers.items()
+                       if fn.launches != before[n]}
+                want = dict.fromkeys(BATCH_CALL if huff else (
+                    "K1 encode_locals", "K2 pack_locals batch"), 1)
+                if ran != want:
+                    raise AssertionError(f"encode_image_batch of "
+                                         f"{imgs.shape} (Huffman {huff}) "
+                                         f"launched {ran}, expected {want}")
+                print(f"one encode_image_batch of {imgs.shape[0]} "
+                      f"{imgs.shape[2]}x{imgs.shape[1]} images, Huffman "
+                      f"{huff}: " + ", ".join(f"{n} {k}"
+                                              for n, k in ran.items()),
+                      flush=True)
+
+    counts.append(phase_of_path("image batch", wrappers, drive_batches))
+    streamed = []
+    counts.append(phase_of_path(
+        "image stream", wrappers, lambda: streamed.extend(
+            port.encode_image_stream(batch0_d, quant, depth=STREAM_DEPTH,
+                                     device="cuda"))))
+    if any(counts[-1][name] != bq for name in PATHS["image stream"]):
+        raise AssertionError(f"a stream of {bq} images launched {counts[-1]}")
+    batch_decoded = []
+    huff_streams = batch_streams[(batch0.shape, True)]
+    counts.append(phase_of_path(
+        "image batch decode", wrappers, lambda: batch_decoded.extend(
+            port.decode_image_batch(huff_streams, device="cuda"))))
+    if any(counts[-1][name] != bq for name in PATHS["image batch decode"]):
+        raise AssertionError(f"decode_image_batch of {bq} streams launched "
+                             f"{counts[-1]}")
     for name in KERNELS:
         rows[name]["launches"] = sum(c[name] for c in counts)
     for (mode, huff), got in video_streams.items():
         if huff and not got[0] & 0x80:
             raise AssertionError(f"video {mode}: took the raw-copy fallback")
         print(f"video {mode} huffman={huff}: {len(got)} bytes", flush=True)
+
+    print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 4. every stream against the port's plain path on the host ----
     for (im, q, huff), got in zip(cases, streams):
@@ -1333,6 +1671,39 @@ def main() -> None:
                              f"plain path's")
     print(f"{label}: {len(want)} bytes, byte-identical to the plain path on "
           f"the host ({plain_s:.2f} s there)", flush=True)
+    for imgs, _ in batches:
+        for huff in (True, False):
+            label = (f"encode_image_batch of {imgs.shape[0]} "
+                     f"{imgs.shape[2]}x{imgs.shape[1]} huffman={huff}")
+            t0 = time.perf_counter()
+            want = port.encode_image_batch(imgs, quant, use_huffman=huff,
+                                           device="cpu")
+            plain_s = time.perf_counter() - t0
+            got = batch_streams[(imgs.shape, huff)]
+            if got != want:
+                bad = [k for k, (a, b) in enumerate(zip(got, want)) if a != b]
+                raise AssertionError(f"{label}: streams {bad} differ from "
+                                     f"the plain path's")
+            flags = sum(1 for st in got if st[0] & 0x80)
+            print(f"{label}: {sum(map(len, got))} bytes in all ({flags} "
+                  f"Huffman-coded), every stream byte-identical to the plain "
+                  f"path on the host ({plain_s:.2f} s there)", flush=True)
+    if streamed != huff_streams:
+        raise AssertionError("encode_image_stream differs from the batch")
+    print(f"encode_image_stream of the {bq} images (depth {STREAM_DEPTH}): "
+          f"every stream equal to the batch's, in order", flush=True)
+    t0 = time.perf_counter()
+    for data, got in zip(huff_streams, batch_decoded):
+        want = port.decode_image(data, device="cpu")
+        if got.device != dev or not torch.equal(got.cpu(), want):
+            raise AssertionError("decode_image_batch differs from the plain "
+                                 "decode")
+    print(f"decode_image_batch of the {bq} streams: every image on the card, "
+          f"pixel-equal to the plain decode on the host "
+          f"({time.perf_counter() - t0:.2f} s there)", flush=True)
+    del batch_decoded, streamed
+
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 5. K1's division beside __ddiv_rn ----
     from imageencoder_tpu_torch.ops.cuda_encode import (
@@ -1352,6 +1723,8 @@ def main() -> None:
           f"{sweep['checks']} checks (q 1..255; |k| <= {k_max} at k*q, "
           f"(k+1/2)*q, (k+1/4)*q +-8 ulps; {DIV_RANDOM} random y), "
           f"{sweep_s:.2f} s", flush=True)
+
+    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 6. timing ----
     for (hh, ww), im in zip(SHAPES, images):
@@ -1411,12 +1784,18 @@ def main() -> None:
     for mode in ("raw", "recon"):
         time_video(vframes, quant, mode, dev)
     time_video_decode(raw_stream, vn, vh, vw, dev)
+    serving_streams = time_serving(batch0_d, quant, dev)
+
+    print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 7. where the device time goes ----
+    # An encode waits for its dict table's totals, then for its stream's
+    # copy unless that has landed by the time the host looks: at most 2.
     img_d = torch.from_numpy(images[0]).to(dev)
     print_profile(f"encode_image at {SHAPES[0][1]}x{SHAPES[0][0]}",
                   lambda: port.encode_image(img_d, quant, use_huffman=True,
-                                            device="cuda"), PROFILE_CALLS)
+                                            device="cuda"), PROFILE_CALLS,
+                  at_most=True)
     fr_d = torch.from_numpy(vframes).to(dev)
     for mode, absent in (("raw", ("predict_kernel", "scan")),
                          ("recon", ("predict_kernel",))):
@@ -1424,7 +1803,8 @@ def main() -> None:
             f"encode_video {mode} at {vw}x{vh}x{vn}",
             lambda mode=mode: encode_frames(
                 fr_d, vw, vh, quant, True, GOP, MERANGE, use_huffman=True,
-                ref_mode=mode, device=dev), VIDEO_PROFILE_CALLS, absent)
+                ref_mode=mode, device=dev), VIDEO_PROFILE_CALLS, absent,
+            at_most=True)
 
     print_profile(f"decode_image at {SHAPES[0][1]}x{SHAPES[0][0]}",
                   lambda: port.decode_image(h_stream, device="cuda"),
@@ -1435,7 +1815,28 @@ def main() -> None:
     print_profile(f"decode_video at {vw}x{vh}x{vn}",
                   lambda: port.decode_video(raw_stream, device="cuda"),
                   VIDEO_PROFILE_CALLS, waits_wanted=1)
+    # Serving: the batch waits once for its lengths and once for its
+    # copies, whatever B; the stream once an image and once at its end;
+    # the batch decode never.
+    print_profile(f"encode_image_batch of {bq} at {bw}x{bh}",
+                  lambda: port.encode_image_batch(batch0_d, quant,
+                                                  device="cuda"),
+                  VIDEO_PROFILE_CALLS, at_most=True)
+    print_profile(f"encode_image_stream of {bq} at {bw}x{bh}",
+                  lambda: list(port.encode_image_stream(
+                      batch0_d, quant, depth=STREAM_DEPTH, device="cuda")),
+                  VIDEO_PROFILE_CALLS, waits_wanted=bq + 1, at_most=True)
+    print_profile(f"decode_image_batch of {bq} at {bw}x{bh}",
+                  lambda: port.decode_image_batch(serving_streams,
+                                                  device="cuda"),
+                  VIDEO_PROFILE_CALLS, waits_wanted=0)
 
+    print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 8. the command line ----
+    cli_phase(images[0], video_frames(sw, sh, sn, 1))
+
+    print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [rows[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,6 +37,11 @@
 //
 // Bound: latency.  It moves about 4 KB; its time is the serial merge, up
 // to 255 dependent steps.
+//
+// A batch of streams (the serving path, models/batch.py) is one launch of
+// a CTA a stream: CTA b reads histogram b and total b and writes table b,
+// so each stream decides its own fallback and its own error word, and the
+// streams' serial merges run side by side on as many SMs.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -78,6 +83,9 @@ __global__ void __launch_bounds__(kSyms) huffman_dict_kernel(
     __shared__ int warp_int[kSyms / 32];
     __shared__ long long warp_sum[kSyms / 32];
     __shared__ int s_err, s_dict_bits;
+    hist += (long long)blockIdx.x * kSyms;  // the CTA's stream
+    total_bits += blockIdx.x;
+    table += (long long)blockIdx.x * ie::kTableWords;
     const int s = threadIdx.x;
     const int lane = s & 31;
     const int warp = s >> 5;
@@ -318,13 +326,26 @@ __global__ void __launch_bounds__(kSyms) huffman_dict_kernel(
 
 extern "C" int ie_dict_table_words() { return ie::kTableWords; }
 
-// hist: i32 [256], the inner stream's byte histogram; total_bits: i64 [1],
-// its length in bits (-1 for a refused stream: no dict, the fallback flag
-// set); table: i32 [ie_dict_table_words()], written whole (dict_table.cuh).
-extern "C" int ie_huffman_dict(const void* hist, const void* total_bits,
-                               void* table, void* stream) {
-    huffman_dict_kernel<<<1, kSyms, 0, (cudaStream_t)stream>>>(
+// hist: i32 [n_streams, 256], each inner stream's byte histogram;
+// total_bits: i64 [n_streams], its length in bits (-1 for a refused stream:
+// no dict, the fallback flag set); table: i32 [n_streams,
+// ie_dict_table_words()], each row written whole (dict_table.cuh).  One
+// launch, a CTA a stream.
+extern "C" int ie_huffman_dict_batch(const void* hist, const void* total_bits,
+                                     void* table, long long n_streams,
+                                     void* stream) {
+    if (n_streams < 1 || n_streams > 65535)
+        return (int)cudaErrorInvalidValue;
+    huffman_dict_kernel<<<(unsigned)n_streams, kSyms, 0,
+                          (cudaStream_t)stream>>>(
         (const int32_t*)hist, (const long long*)total_bits,
         (int32_t*)table);
     return (int)cudaGetLastError();
+}
+
+// One stream: hist i32 [256], total_bits i64 [1], table i32
+// [ie_dict_table_words()].
+extern "C" int ie_huffman_dict(const void* hist, const void* total_bits,
+                               void* table, void* stream) {
+    return ie_huffman_dict_batch(hist, total_bits, table, 1, stream);
 }

@@ -49,6 +49,12 @@
 // share are merged once at the end instead of by global atomics; the
 // output is not zeroed first.
 //
+// A batch of image streams (the serving path, models/batch.py) takes K2
+// and pack_payload once each: blockIdx.y is the stream, and each stream has
+// its own register files, output words, sums or look-back state, total and
+// histogram at a fixed stride, so no tile composes a word from two streams
+// and every stream ends where its own records do.
+//
 // The TPU kernel's merge tree, its bit-reversal pre-permute, the capped
 // level schedule and the row splice are workarounds for a machine without
 // scatter or atomics; none of them has a counterpart here.
@@ -587,10 +593,20 @@ __global__ void __launch_bounds__(kTile) pack_records_kernel(
 // The codes, the dict words, the start bit (the dict's bits) and the bytes
 // to code come from the dict kernel's table; every CTA sizes the pack from
 // the byte count alike, and one with no tile to take leaves at once.
+// blockIdx.y is the stream of a batch: its words, table, output and total,
+// and its scratch and edges at the given strides.
 __global__ void __launch_bounds__(kTile) pack_payload_kernel(
         const uint32_t* __restrict__ words, long long n_in,
-        const int32_t* __restrict__ table, PackOut a) {
+        const int32_t* __restrict__ table, long long scratch_stride,
+        long long edges_stride, PackOut a) {
     constexpr long long kRecords = (long long)kTile * PayloadFront::kItems;
+    const long long b = blockIdx.y;
+    words += b * n_in;
+    table += b * ie::kTableWords;
+    a.out += b * a.n_words;
+    a.total += b;
+    a.scratch += b * scratch_stride;
+    a.edges += b * edges_stride;
     __shared__ uint32_t tab[256];
     for (int k = threadIdx.x; k < 256; k += kTile)
         tab[k] = ((uint32_t)min(max(table[ie::kTableCodeL + k], 0), 0xFFFF)
@@ -631,10 +647,15 @@ __global__ void __launch_bounds__(kTile) pack_coeffs_kernel(
 // Fills in the launch-side fields of PackOut for tiles of kTile * items
 // records and launches a persistent grid: as many CTAs as fit on the card
 // at once, at most one a tile, so that every CTA that waits for the others
-// waits on running ones.
+// waits on running ones.  With n_streams > 1 the grid's y is the stream and
+// the card's CTAs are shared among the streams; a CTA waits only for tiles
+// of its own stream that running CTAs have taken.
 template <class... P, class... A>
-int launch_pack(void (*kernel)(P...), int items, PackOut a,
-                long long max_record_bits, cudaStream_t s, A... args) {
+int launch_pack_streams(void (*kernel)(P...), int items, PackOut a,
+                        long long max_record_bits, long long n_streams,
+                        cudaStream_t s, A... args) {
+    if (n_streams < 1 || n_streams > 65535)
+        return (int)cudaErrorInvalidValue;
     const long long records = (long long)kTile * items;  // a tile
     a.n_tiles = (a.n + records - 1) / records;
     a.max_record_bits = (int)max_record_bits;
@@ -653,10 +674,19 @@ int launch_pack(void (*kernel)(P...), int items, PackOut a,
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const long long grid =
-        std::max(1ll, std::min(a.n_tiles, (long long)per_sm * sms));
-    kernel<<<(unsigned)grid, kTile, smem, s>>>(args..., a);
+    const long long grid = std::max(
+        1ll, std::min(a.n_tiles, ((long long)per_sm * sms + n_streams - 1)
+                                     / n_streams));
+    kernel<<<dim3((unsigned)grid, (unsigned)n_streams), kTile, smem, s>>>(
+        args..., a);
     return (int)cudaGetLastError();
+}
+
+template <class... P, class... A>
+int launch_pack(void (*kernel)(P...), int items, PackOut a,
+                long long max_record_bits, cudaStream_t s, A... args) {
+    return launch_pack_streams(kernel, items, a, max_record_bits, 1, s,
+                               args...);
 }
 
 PackOut pack_out(long long n, long long start_bit, const void* prefix,
@@ -713,6 +743,12 @@ struct LocalsFront {
         const unsigned g = c.fi / (unsigned)gop;
         c.live = c.fi != g * (unsigned)gop;
         c.pf = c.fi - g - 1u;
+    }
+
+    // Stream k of a batch of block records (no vectors), n records each.
+    __device__ __forceinline__ void to_stream(long long k, long long n) {
+        local += k * n * lw;
+        lens += k * n;
     }
 
     __device__ __forceinline__ Cursor at(long long i) const {
@@ -837,10 +873,14 @@ __device__ __forceinline__ void emit_owned(
 // One scan-free pack's outputs.  sums: i64 [n_tiles + ceil(n_tiles /
 // kWarps)], tile t's bits and then each group of kWarps tiles', or -1
 // where one holds a refused record; total: i64 [1]; hist: i32 [256], the
-// stream's byte histogram, or null.
+// stream's byte histogram, or null.  A batch of n_streams streams has
+// these for each stream, out and sums at strides of n_words and
+// sums_stride; n and n_tiles are a stream's.
 struct KnownOut {
     long long n;  // records
     long long n_tiles;
+    long long n_streams;
+    long long sums_stride;
     long long start_bit;
     const uint32_t* prefix;
     long long prefix_words;
@@ -853,6 +893,14 @@ struct KnownOut {
     __device__ __forceinline__ uint32_t prefix_word(long long w) const {
         return w < prefix_words ? prefix[w] : 0u;
     }
+
+    // Stream k of a batch.
+    __device__ __forceinline__ void to_stream(long long k) {
+        out += k * n_words;
+        sums += k * sums_stride;
+        total += k;
+        if (hist) hist += 256 * k;
+    }
 };
 
 constexpr int kWarps = kTile / 32;
@@ -861,12 +909,14 @@ constexpr int kWarps = kTile / 32;
 // tile and kWarps tiles (a group) a CTA: tile t's into sums[t], group g's
 // into sums[n_tiles + g]; -1 for one that holds a refused record.  CTA 0
 // also zeroes the histogram that launch 2 counts into.  grid:
-// ceil(n_tiles / kWarps).
+// (ceil(n_tiles / kWarps), n_streams).
 template <int ITEMS, class Front>
 __global__ void __launch_bounds__(kTile) tile_sums_kernel(Front fe,
                                                           KnownOut a) {
     constexpr int kPerLane = kWarps * ITEMS;  // kTile * ITEMS / 32
     __shared__ long long warp_sum[kWarps];
+    fe.to_stream(blockIdx.y, a.n);
+    a.to_stream(blockIdx.y);
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const long long t = (long long)blockIdx.x * kWarps + warp;
@@ -913,7 +963,7 @@ __global__ void __launch_bounds__(kTile) tile_sums_kernel(Front fe,
 // record's further words are read as it is emitted.  With kHist the bytes
 // of every word it stores are counted (the stream's end, where it lies in
 // the tile's last word, is where warp 0's reach past the tile runs out of
-// records) and added to a.hist.  grid: n_tiles.
+// records) and added to a.hist.  grid: (n_tiles, n_streams).
 template <int ITEMS, class Front, bool kHist>
 __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
                                                            KnownOut a) {
@@ -931,6 +981,8 @@ __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
     const long long t = blockIdx.x;
     int* my_bins = bins + (kHist ? warp * 256 : 0);
     if (kHist) zero_bins<kWarps>(bins);
+    fe.to_stream(blockIdx.y, a.n);
+    a.to_stream(blockIdx.y);
 
     const long long first = t * kRecords + (long long)tid * ITEMS;
     typename Front::Cursor c = fe.at(first);
@@ -1116,8 +1168,10 @@ int launch_locals(const LocalsFront<kVec>& fe, KnownOut a, cudaStream_t s) {
         if (e != cudaSuccess) return (int)e;
     }
     const long long groups = (a.n_tiles + kWarps - 1) / kWarps;
-    tile_sums_kernel<ITEMS><<<(unsigned)groups, kTile, 0, s>>>(fe, a);
-    kernel<<<(unsigned)a.n_tiles, kTile, smem, s>>>(fe, a);
+    const unsigned streams = (unsigned)a.n_streams;
+    tile_sums_kernel<ITEMS><<<dim3((unsigned)groups, streams), kTile, 0, s>>>(
+        fe, a);
+    kernel<<<dim3((unsigned)a.n_tiles, streams), kTile, smem, s>>>(fe, a);
     return (int)cudaGetLastError();
 }
 
@@ -1141,18 +1195,13 @@ extern "C" int ie_pack_locals_scratch(long long n_records, int lw) {
     return (int)(tiles + (tiles + kWarps - 1) / kWarps);
 }
 
-extern "C" int ie_pack_locals(const void* local, const void* lens,
-                              long long n_blocks, int lw, const void* mvecs,
-                              long long n_frames, long long n_macro, int gop,
-                              int mvec_nbits, long long start_bit,
-                              const void* prefix, long long prefix_words,
-                              void* out, long long n_words, void* sums,
-                              void* total, void* hist, void* stream) {
-    LocalsFront<true> fe;
+static KnownOut known_out(long long n_streams, long long start_bit,
+                   const void* prefix, long long prefix_words, void* out,
+                   long long n_words, void* sums, long long sums_stride,
+                   void* total, void* hist) {
     KnownOut a{};
-    if (!locals_front(local, lens, n_blocks, lw, mvecs, n_frames, n_macro,
-                      gop, mvec_nbits, &fe, &a.n))
-        return (int)cudaErrorInvalidValue;
+    a.n_streams = n_streams;
+    a.sums_stride = sums_stride;
     a.start_bit = start_bit;
     a.prefix = (const uint32_t*)prefix;
     a.prefix_words = prefix ? prefix_words : 0;
@@ -1161,6 +1210,22 @@ extern "C" int ie_pack_locals(const void* local, const void* lens,
     a.sums = (long long*)sums;
     a.total = (long long*)total;
     a.hist = (int32_t*)hist;
+    return a;
+}
+
+extern "C" int ie_pack_locals(const void* local, const void* lens,
+                              long long n_blocks, int lw, const void* mvecs,
+                              long long n_frames, long long n_macro, int gop,
+                              int mvec_nbits, long long start_bit,
+                              const void* prefix, long long prefix_words,
+                              void* out, long long n_words, void* sums,
+                              void* total, void* hist, void* stream) {
+    LocalsFront<true> fe;
+    KnownOut a = known_out(1, start_bit, prefix, prefix_words, out, n_words,
+                           sums, 0, total, hist);
+    if (!locals_front(local, lens, n_blocks, lw, mvecs, n_frames, n_macro,
+                      gop, mvec_nbits, &fe, &a.n))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const int items = locals_items(lw);
     if (fe.n_macro)
@@ -1172,6 +1237,36 @@ extern "C" int ie_pack_locals(const void* local, const void* lens,
     blocks.lw = lw;
     return items == 2 ? launch_locals<2>(blocks, a, s)
                       : launch_locals<1>(blocks, a, s);
+}
+
+// K2 over a batch of n_streams image streams of n_blocks block records
+// each: local u32 [n_streams, n_blocks, lw]; lens i32 [n_streams,
+// n_blocks].  Every stream starts at start_bit behind the same prefix, in
+// its own n_words words of out [n_streams, n_words]; sums: i64 [n_streams,
+// ie_pack_locals_scratch(n_blocks, lw)]; total: i64 [n_streams]; hist: i32
+// [n_streams, 256] or null.  The same two launches as one stream's.
+extern "C" int ie_pack_locals_batch(const void* local, const void* lens,
+                                    long long n_blocks, int lw,
+                                    long long n_streams, long long start_bit,
+                                    const void* prefix,
+                                    long long prefix_words, void* out,
+                                    long long n_words, void* sums,
+                                    void* total, void* hist, void* stream) {
+    LocalsFront<true> fe;
+    KnownOut a = known_out(n_streams, start_bit, prefix, prefix_words, out,
+                           n_words, sums,
+                           ie_pack_locals_scratch(n_blocks, lw), total, hist);
+    if (n_streams < 1 || n_streams > 65535
+        || !locals_front(local, lens, n_blocks, lw, nullptr, 1, 0, 1, 0, &fe,
+                         &a.n))
+        return (int)cudaErrorInvalidValue;
+    LocalsFront<false> blocks{};
+    blocks.local = fe.local;
+    blocks.lens = fe.lens;
+    blocks.lw = lw;
+    cudaStream_t s = (cudaStream_t)stream;
+    return locals_items(lw) == 2 ? launch_locals<2>(blocks, a, s)
+                                 : launch_locals<1>(blocks, a, s);
 }
 
 // The K4 entry points share their tail (pack_payload takes its start_bit
@@ -1214,7 +1309,29 @@ extern "C" int ie_pack_payload(const void* words, long long n_in,
                                scratch, edges, total);
     return launch_pack(pack_payload_kernel, PayloadFront::kItems, a,
                        16ll * 16, (cudaStream_t)stream,
-                       (const uint32_t*)words, n_in, (const int32_t*)table);
+                       (const uint32_t*)words, n_in, (const int32_t*)table,
+                       0ll, 0ll);
+}
+
+// pack_payload over a batch of n_streams streams in one launch: words u32
+// [n_streams, n_in], tables i32 [n_streams, ie_dict_table_words()], out u32
+// [n_streams, n_words], total i64 [n_streams]; each stream's scratch (u64,
+// zeroed) and edges at strides of scratch_stride and edges_stride words, at
+// least 3 + n_tiles and 2 * n_tiles for one stream of n_in words.  Each
+// stream is bounded by its own table's byte count.
+extern "C" int ie_pack_payload_batch(const void* words, long long n_in,
+                                     const void* table, long long n_streams,
+                                     void* out, long long n_words,
+                                     void* scratch, long long scratch_stride,
+                                     void* edges, long long edges_stride,
+                                     void* total, void* stream) {
+    const PackOut a = pack_out((n_in + 3) / 4, 0, nullptr, 0, out, n_words,
+                               scratch, edges, total);
+    return launch_pack_streams(pack_payload_kernel, PayloadFront::kItems, a,
+                               16ll * 16, n_streams, (cudaStream_t)stream,
+                               (const uint32_t*)words, n_in,
+                               (const int32_t*)table, scratch_stride,
+                               edges_stride);
 }
 
 // coeffs: i32 [F, H, W], 16-byte aligned, W % 4 == 0; mvecs: i32

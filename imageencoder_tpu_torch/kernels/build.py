@@ -52,14 +52,23 @@ SIGNATURES = {
     "ie_predict": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _I64, _P],
     "ie_pack_locals": [_P, _P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _I64,
                        _P, _I64, _P, _I64, _P, _P, _P, _P],
+    # local, lens, n_blocks, lw, n_streams, start_bit, prefix,
+    # prefix_words, out, n_words, sums, total, hist, stream
+    "ie_pack_locals_batch": [_P, _P, _I64, _I32, _I64, _I64, _P, _I64, _P,
+                             _I64, _P, _P, _P, _P],
     "ie_pack_locals_scratch": [_I64, _I32],
     "ie_pack_tile": [],
     "ie_pack_records": [_P, _P, _I64, _I32, *_K4_TAIL],
     "ie_pack_payload": [_P, _I64, _P, *_K4_TAIL[3:]],
+    # words, n_in, tables, n_streams, out, n_words, scratch,
+    # scratch_stride, edges, edges_stride, total, stream
+    "ie_pack_payload_batch": [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P,
+                              _I64, _P, _P],
     "ie_pack_coeffs": [_P, _I64, _I64, _I64, _I32, _P, _I64, _I32, _I32,
                        _I32, _I32, *_K4_TAIL[:-1], _P, _P],
     "ie_byte_histogram": [_P, _I64, _P, _P, _P],
     "ie_huffman_dict": [_P, _P, _P, _P],
+    "ie_huffman_dict_batch": [_P, _P, _P, _I64, _P],
     "ie_dict_table_words": [],
     "ie_div_sweep": [_P, _I64, _I64, _I32, _U64, _P, _P],
     # data, nbytes, start_bit, n_chunks, chunk_bits, table, max_len, out,

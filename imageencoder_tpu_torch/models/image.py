@@ -1,4 +1,4 @@
-"""Still-image encode and decode on a torch device.
+"""Still-image encode and decode on a torch device, and their drivers.
 
 :func:`encode_image` is the counterpart of imageencoder_tpu/models/
 image.py::encode_image with backend="jax" (models/image.py:73-113).  The
@@ -15,9 +15,15 @@ the stream once; then the card runs the Huffman decode, the offset walk
 and the block decode (ops/cuda_decode.py, D1-D3) with nothing read back.
 :func:`walk_block_offsets` and :func:`extract_block_coeffs` are the
 port's copies of the JAX package's host walk and extraction.
+
+:class:`ImageEncoder` and :class:`ImageDecoder` are the drivers the CLI
+runs (the JAX package's, models/image.py:484-539), with a ``device`` in
+place of its ``backend``.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -26,15 +32,15 @@ from ..ops import cuda_decode
 from ..ops import huffman as huffman_ops
 from ..ops.bitpack import BitReader, BitWriter, read_fields, to_bits
 from ..ops.dct import clamp_to_u8, inverse_transform
-from ..ops.device_pack import (header_to_words, host_total, stream_bytes,
-                               to_device)
-from ..ops.huffman import huffman_encode_from_hist
+from ..ops.device_pack import header_to_words, to_device
+from ..ops.huffman import Tail, huffman_encode_from_hist
 from ..ops.pipeline import make_encode_packed, make_encode_packed_hist
 from ..ops.zigzag import zigzag_order
 from ..utils import profiling
 from ..utils.bits import shift_signed
 from ..utils.device import resolve_device
-from ..utils.exceptions import StreamFormatError
+from ..utils.exceptions import FileReadError, StreamFormatError
+from ..utils.logger import Logger
 from ..utils.quant import QuantMatrix
 from .headers import (read_image_header, read_video_params,
                       write_image_header)
@@ -88,7 +94,7 @@ def encode_image(img, quant: QuantMatrix, use_rle: bool = True,
             return huffman_encode_from_hist(*got)
     with profiling.stage("device encode+pack"):
         words, total = make_encode_packed(block_size, use_rle, norm)(*args)
-        return stream_bytes(words, host_total(total))
+        return Tail(words[None], total.reshape(1)).finish()[0]
 
 
 def walk_block_offsets(bits: np.ndarray | None, start_bit: int,
@@ -325,3 +331,73 @@ def decode_image(data: bytes, norm: str = "reference",
         views = upload(plan, dev)
     with profiling.stage("device decode"):
         return decode_uploaded(plan, views, norm, block_size)
+
+
+def read_raw(path: str, size: int) -> np.ndarray:
+    """The u8 bytes of a raw file that must hold ``size`` of them; raises
+    FileReadError otherwise (the reference exits at read time,
+    ImageBase.cpp:22-27)."""
+    data = np.fromfile(path, dtype=np.uint8)
+    if data.size != size:
+        raise FileReadError(f"{path}: {data.size} bytes, expected {size}")
+    return data
+
+
+@dataclass
+class ImageEncoder:
+    """Driver mirroring dc::ImageEncoder (ImageEncoder.cpp): a raw u8 file
+    of width x height pixels in, its stream out."""
+
+    source_file: str
+    dest_file: str
+    width: int
+    height: int
+    use_rle: bool
+    quant: QuantMatrix
+    use_huffman: bool = True
+    norm: str = "reference"
+    block_size: int = BLOCK_SIZE
+    device: str = "cuda"
+
+    def process(self) -> bool:
+        img = read_raw(self.source_file, self.width * self.height)
+        Logger.write("[ImageEncoder] Processing image...")
+        self._result = encode_image(img.reshape(self.height, self.width),
+                                    self.quant, self.use_rle,
+                                    use_huffman=self.use_huffman,
+                                    norm=self.norm,
+                                    block_size=self.block_size,
+                                    device=self.device)
+        return True
+
+    def save_result(self) -> None:
+        with open(self.dest_file, "wb") as f:
+            f.write(self._result)
+        raw = self.width * self.height
+        Logger.write(f"[ImageEncoder] Encoded size: {len(self._result)} bytes"
+                     f" => Ratio: {len(self._result) / raw * 100:.2f}%")
+
+
+@dataclass
+class ImageDecoder:
+    """Driver mirroring dc::ImageDecoder (ImageDecoder.cpp): a stream in,
+    its raw u8 pixels out."""
+
+    source_file: str
+    dest_file: str
+    norm: str = "reference"
+    block_size: int = BLOCK_SIZE
+    device: str = "cuda"
+
+    def process(self) -> bool:
+        with open(self.source_file, "rb") as f:
+            data = f.read()
+        Logger.write("[ImageDecoder] Processing image...")
+        self._result = decode_image(data, norm=self.norm,
+                                    block_size=self.block_size,
+                                    device=self.device).cpu().numpy()
+        return True
+
+    def save_result(self) -> None:
+        self._result.tofile(self.dest_file)
+        Logger.write(f"[ImageDecoder] Decoded size: {self._result.size} bytes")

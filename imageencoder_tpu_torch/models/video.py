@@ -20,9 +20,16 @@ residual onto it (ops/cuda_decode.py), with nothing read back.
 :func:`parse_video_stream`, :func:`iter_parsed_frames` and
 :func:`assemble_yuv420` are the port's copies of the JAX package's host
 front half and output assembly.
+
+:class:`VideoEncoder` and :class:`VideoDecoder` are the drivers the CLI
+runs (the JAX package's, models/video.py:680-742), with a ``device`` in
+place of its ``backend`` and ``workers``: the card decodes every GOP at
+once.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -40,6 +47,7 @@ from ..utils import profiling
 from ..utils.bits import shift_signed
 from ..utils.device import resolve_device
 from ..utils.exceptions import StreamFormatError
+from ..utils.logger import Logger
 from ..utils.quant import QuantMatrix
 from .headers import (VideoParams, read_image_header, read_video_params,
                       write_image_header, write_video_params)
@@ -97,6 +105,24 @@ def encode_video(data: bytes, width: int, height: int, quant: QuantMatrix,
                          use_huffman, norm, ref_mode, block_size, device)
 
 
+def check_video(width: int, height: int, gop: int, ref_mode: str,
+                block_size: int = BLOCK_SIZE) -> None:
+    """Raise ValueError on a video the encode does not take."""
+    if ref_mode not in ("raw", "recon"):
+        raise ValueError(f"unknown ref_mode {ref_mode!r}")
+    if width % block_size or height % block_size or MACRO % block_size:
+        raise ValueError(f"video {width}x{height} does not tile into "
+                         f"{block_size}-pixel blocks and {MACRO}-pixel "
+                         f"macroblocks")
+    if (width % MACRO or height % MACRO) and max(1, gop) > 1:
+        # P-frames of such a video desync the reference's decoder: blocks
+        # outside every macroblock never get a record (models/video.py).
+        raise ValueError(
+            f"video dimensions must be multiples of {MACRO} "
+            f"(got {width}x{height}); the reference silently produces "
+            f"undecodable streams for these when gop > 1")
+
+
 def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
                   use_rle: bool, gop: int, merange: int,
                   use_huffman: bool = True, norm: str = "reference",
@@ -104,20 +130,8 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
                   device="cuda") -> bytes:
     """:func:`encode_video` of Y planes u8 [F, H, W] (a numpy array or a
     tensor, which may already lie on ``device``)."""
-    if ref_mode not in ("raw", "recon"):
-        raise ValueError(f"unknown ref_mode {ref_mode!r}")
+    check_video(width, height, gop, ref_mode, block_size)
     gop = max(1, gop)
-    if width % block_size or height % block_size or MACRO % block_size:
-        raise ValueError(f"video {width}x{height} does not tile into "
-                         f"{block_size}-pixel blocks and {MACRO}-pixel "
-                         f"macroblocks")
-    if (width % MACRO or height % MACRO) and gop > 1:
-        # P-frames of such a video desync the reference's decoder: blocks
-        # outside every macroblock never get a record (models/video.py).
-        raise ValueError(
-            f"video dimensions must be multiples of {MACRO} "
-            f"(got {width}x{height}); the reference silently produces "
-            f"undecodable streams for these when gop > 1")
     dev = resolve_device(device)
     frames = torch.as_tensor(frames, device=dev)
     if frames.dtype != torch.uint8 or frames.dim() != 3 or tuple(
@@ -385,3 +399,70 @@ def decode_video(data: bytes, motioncomp: bool = True,
             torch.cuda.current_stream(dev).synchronize()
             buf = host
         return buf.numpy().tobytes(), params, (w, h)
+
+
+@dataclass
+class VideoEncoder:
+    """Driver mirroring dc::VideoEncoder (VideoEncoder.cpp): a YUV420p file
+    in, its stream out."""
+
+    source_file: str
+    dest_file: str
+    width: int
+    height: int
+    use_rle: bool
+    quant: QuantMatrix
+    gop: int
+    merange: int
+    use_huffman: bool = True
+    ref_mode: str = "raw"
+    norm: str = "reference"
+    block_size: int = BLOCK_SIZE
+    device: str = "cuda"
+
+    def process(self) -> bool:
+        with open(self.source_file, "rb") as f:
+            data = f.read()
+        Logger.write("[VideoEncoder] Processing video...")
+        self._raw_size = len(data)
+        self._result = encode_video(data, self.width, self.height, self.quant,
+                                    self.use_rle, self.gop, self.merange,
+                                    use_huffman=self.use_huffman,
+                                    norm=self.norm, ref_mode=self.ref_mode,
+                                    block_size=self.block_size,
+                                    device=self.device)
+        return True
+
+    def save_result(self) -> None:
+        with open(self.dest_file, "wb") as f:
+            f.write(self._result)
+        ratio = len(self._result) / max(self._raw_size, 1) * 100
+        Logger.write(f"[VideoEncoder] Encoded size: {len(self._result)} bytes"
+                     f" => Ratio: {ratio:.2f}%")
+
+
+@dataclass
+class VideoDecoder:
+    """Driver mirroring dc::VideoDecoder (VideoDecoder.cpp): a stream in,
+    its YUV420p frames out."""
+
+    source_file: str
+    dest_file: str
+    motioncomp: bool = True
+    norm: str = "reference"
+    block_size: int = BLOCK_SIZE
+    device: str = "cuda"
+
+    def process(self) -> bool:
+        with open(self.source_file, "rb") as f:
+            data = f.read()
+        Logger.write("[VideoDecoder] Processing video...")
+        self._result, self._params, _ = decode_video(
+            data, motioncomp=self.motioncomp, norm=self.norm,
+            block_size=self.block_size, device=self.device)
+        return True
+
+    def save_result(self) -> None:
+        with open(self.dest_file, "wb") as f:
+            f.write(self._result)
+        Logger.write(f"[VideoDecoder] Decoded size: {len(self._result)} bytes")

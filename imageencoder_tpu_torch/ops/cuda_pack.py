@@ -8,6 +8,8 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
     frame's blocks, read from the vectors where they lie;
     :func:`pack_locals_hist` also counts the byte histogram of the stream
     it writes (K3, pallas_kernels.byte_histogram, folded in);
+    :func:`pack_locals_batch` and :func:`pack_locals_hist_batch` take a
+    batch of image streams in the same two launches;
   * K4 (pack_records_pallas) is one single-pass kernel with three front
     ends, each of which reads its records' fields where they already are:
     :func:`pack_records` [N, F] field tensors of (value, nbits) pairs,
@@ -17,7 +19,14 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
     :func:`pack_coeffs` a recon video's motion-vector and block records
     from its coefficient tensor (pipeline.fields_from_coeffs and the
     vector fields, then the pack), and :func:`pack_coeffs_hist` the same
-    with the stream's byte histogram.
+    with the stream's byte histogram; :func:`pack_payload_batch` packs a
+    batch of payloads in one launch.
+
+The batched entries (the serving path, models/batch.py) give each stream
+its own row of words, starting on a word boundary: no word holds bits of
+two streams.  Their plain versions are the single-stream plain versions,
+stream by stream.  On the card a row must be a whole number of 16-byte
+vectors (``n_words`` and the payload's input width multiples of 4).
 
 All return (words int32 [n_words], total_bits int64 0-d tensor, start_bit
 included, -1 where a record was refused), the ``_hist`` ones also the
@@ -159,6 +168,90 @@ def pack_locals_hist(local: torch.Tensor, lens: torch.Tensor,
 
 
 pack_locals_hist.launches = 0
+
+
+def _stacked(outs) -> tuple:
+    """Per-stream outputs [(a, b, ...), ...] as (stack(a), stack(b), ...)."""
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def pack_locals_batch_plain(local, lens, start_bit: int, n_words: int,
+                            prefix=None):
+    """The plain version of K2 over a batch: :func:`pack_locals_plain`,
+    stream by stream."""
+    return _stacked(pack_locals_plain(lo, ln, start_bit, n_words, prefix)
+                    for lo, ln in zip(local, lens))
+
+
+def pack_locals_hist_batch_plain(local, lens, start_bit: int, n_words: int,
+                                 prefix=None):
+    """The plain version of K2 with its histogram over a batch:
+    :func:`pack_locals_hist_plain`, stream by stream."""
+    return _stacked(pack_locals_hist_plain(lo, ln, start_bit, n_words, prefix)
+                    for lo, ln in zip(local, lens))
+
+
+def pack_locals_batch(local: torch.Tensor, lens: torch.Tensor,
+                      start_bit: int, n_words: int,
+                      prefix: torch.Tensor | None = None):
+    """K2 over B image streams: register files int32 [B, N, lw] and bit
+    lengths int32 [B, N] -> (words int32 [B, n_words], each stream in its
+    row from ``start_bit`` behind ``prefix``; totals int64 [B], -1 for a
+    stream with a refused record).  K2's two launches, whatever B is."""
+    return _pack_locals_batch(pack_locals_batch, False, local, lens,
+                              start_bit, n_words, prefix)
+
+
+pack_locals_batch.launches = 0
+
+
+def pack_locals_hist_batch(local: torch.Tensor, lens: torch.Tensor,
+                           start_bit: int, n_words: int,
+                           prefix: torch.Tensor | None = None):
+    """:func:`pack_locals_batch` that also counts each stream's byte
+    histogram, in the same two launches: (words, totals, hists int32
+    [B, 256])."""
+    return _pack_locals_batch(pack_locals_hist_batch, True, local, lens,
+                              start_bit, n_words, prefix)
+
+
+pack_locals_hist_batch.launches = 0
+
+
+def _pack_locals_batch(counter, hist: bool, local, lens, start_bit: int,
+                       n_words: int, prefix):
+    """K2 over a batch, with or without the histograms; a launch counts on
+    ``counter``."""
+    if local.dim() != 3 or lens.shape != local.shape[:2]:
+        raise ValueError(f"expected local [B, N, lw] and lens [B, N], got "
+                         f"{tuple(local.shape)} and {tuple(lens.shape)}")
+    if local.device.type == "cpu":
+        plain = (pack_locals_hist_batch_plain if hist
+                 else pack_locals_batch_plain)
+        return plain(local, lens, start_bit, n_words, prefix)
+    dev = local.device
+    build.require(local, "local", torch.int32, 3, dev)
+    build.require(lens, "lens", torch.int32, 2, dev)
+    if n_words % 4:
+        raise ValueError(f"n_words must be a multiple of 4, got {n_words}")
+    b, n, lw = local.shape
+    prefix_ptr, prefix_words = _prefix(prefix, dev)
+    lib = build.library()
+    sums = torch.empty(b * lib.ie_pack_locals_scratch(n, lw),
+                       dtype=torch.int64, device=dev)
+    total = torch.empty(b, dtype=torch.int64, device=dev)
+    out = torch.empty((b, n_words), dtype=torch.int32, device=dev)
+    bins = (torch.empty((b, 256), dtype=torch.int32, device=dev) if hist
+            else None)
+    with torch.cuda.device(dev):
+        code = lib.ie_pack_locals_batch(
+            local.data_ptr(), lens.data_ptr(), n, lw, b, start_bit,
+            prefix_ptr, prefix_words, out.data_ptr(), n_words,
+            sums.data_ptr(), total.data_ptr(),
+            bins.data_ptr() if hist else None, build.stream_ptr(dev))
+    build.check(code, "ie_pack_locals_batch")
+    counter.launches += 1
+    return (out, total) + ((bins,) if hist else ())
 
 
 def _pack_locals(counter, hist: bool, local, lens, start_bit: int,
@@ -320,6 +413,55 @@ def pack_payload(words: torch.Tensor, table: torch.Tensor, n_words: int):
 
 
 pack_payload.launches = 0
+
+
+def pack_payload_batch_plain(words, tables, n_words: int):
+    """The plain version of K4 pack_payload over a batch:
+    :func:`pack_payload_plain`, stream by stream."""
+    return _stacked(pack_payload_plain(w, t, n_words)
+                    for w, t in zip(words, tables))
+
+
+def pack_payload_batch(words: torch.Tensor, tables: torch.Tensor,
+                       n_words: int):
+    """:func:`pack_payload` of B inner streams int32 [B, W] under their
+    dict tables int32 [B, TABLE_WORDS]: (payloads int32 [B, n_words],
+    totals int64 [B]).  One launch; each stream packs its own table's
+    byte count, with its own look-back state."""
+    if words.dim() != 2 or tables.dim() != 2 or (
+            tables.shape != (words.shape[0], dict_table.TABLE_WORDS)):
+        raise ValueError(f"expected words [B, W] and tables [B, "
+                         f"{dict_table.TABLE_WORDS}], got "
+                         f"{tuple(words.shape)} and {tuple(tables.shape)}")
+    if words.device.type == "cpu":
+        return pack_payload_batch_plain(words, tables, n_words)
+    dev = words.device
+    build.require(words, "words", torch.int32, 2, dev)
+    build.require_aligned(words, "words")
+    build.require(tables, "tables", torch.int32, 2, dev)
+    build.require_aligned(tables, "tables", 8)
+    b, w = words.shape
+    if w % 4 or n_words % 4:
+        raise ValueError(f"W and n_words must be multiples of 4, got {w} "
+                         f"and {n_words}")
+    lib = build.library()
+    n_tiles = -(-(-(-w // 4)) // lib.ie_pack_tile())
+    scratch_stride, edges_stride = 3 + n_tiles, max(2 * n_tiles, 1)
+    scratch = torch.zeros(b * scratch_stride, dtype=torch.int64, device=dev)
+    edges = torch.empty(b * edges_stride, dtype=torch.int64, device=dev)
+    total = torch.empty(b, dtype=torch.int64, device=dev)
+    out = torch.empty((b, n_words), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.ie_pack_payload_batch(
+            words.data_ptr(), w, tables.data_ptr(), b, out.data_ptr(),
+            n_words, scratch.data_ptr(), scratch_stride, edges.data_ptr(),
+            edges_stride, total.data_ptr(), build.stream_ptr(dev))
+    build.check(code, "ie_pack_payload_batch")
+    pack_payload_batch.launches += 1
+    return out, total
+
+
+pack_payload_batch.launches = 0
 
 
 def coeff_fields(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,

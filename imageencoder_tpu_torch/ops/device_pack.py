@@ -90,8 +90,17 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:
-    """Stream words (int32 bit patterns, any device) -> host uint32."""
-    return words.cpu().numpy().view(np.uint32)
+    """Stream words (int32 bit patterns, any device) -> host uint32.  From
+    a card one copy into pinned memory and a wait on its own event, not on
+    the work queued after it."""
+    if words.device.type == "cuda":
+        host = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
+        host.copy_(words, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        words = host
+    return words.numpy().view(np.uint32)
 
 
 def host_total(total_bits) -> int:

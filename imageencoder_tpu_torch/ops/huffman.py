@@ -19,9 +19,15 @@ pack_coeffs, with K3 folded in; ops/cuda_pack.py), or from K3 for a stream
 that arrives packed; the dict kernel (csrc/huffman.cu, :func:`build_dict`)
 turns it into the dict table (ops/dict_table.py): codes, dict words, the
 out total and the fallback flag; K4's pack_payload front end packs the
-payload under the table.  Then the host waits once, for the table's totals
-(one small pinned copy), and copies the final words, or on the fallback
-flag the inner words, in one exact-size copy.
+payload under the table.  :func:`huffman_launch` runs those and copies
+the table's totals towards pinned memory without waiting;
+:meth:`Tail.finish` waits for them (an event), copies the final words, or
+on the fallback flag the inner words, exactly, into pinned memory and
+waits for that copy unless it has landed (its event): at most two waits
+for the device, none of them for work queued after the stream's.  A
+batch of streams (models/batch.py) goes through :func:`build_dict_batch`
+and cuda_pack.pack_payload_batch, one launch each, and one
+:class:`Tail`: the same waits, whatever the batch's size.
 
 The decode half is the port's copy of the JAX package's host decode:
 :func:`parse_dict_bytes`, :func:`validate_dict_entries` (the Python
@@ -44,7 +50,7 @@ from ..kernels import build
 from . import cuda_kernels, cuda_pack, dict_table
 from ..utils.exceptions import StreamFormatError
 from .bitpack import BitReader, pack_fields
-from .device_pack import bytes_to_words, host_total, stream_bytes, to_device
+from .device_pack import bytes_to_words, host_total, to_device, words_to_bytes
 
 KEY_BITS = 8
 MAX_CODE_LEN = 15  # must fit the 4-bit dict header field
@@ -252,16 +258,187 @@ def build_dict(hist: torch.Tensor, total_bits: torch.Tensor) -> torch.Tensor:
 build_dict.launches = 0
 
 
-def read_fields(table: torch.Tensor) -> dict:
-    """The table's fields on the host.  On a card one copy into pinned
-    memory and the one wait for the device before the stream's copy."""
-    meta = dict_table.meta(table)
-    if meta.device.type == "cuda":
-        host = torch.empty(meta.shape, dtype=meta.dtype, pin_memory=True)
-        host.copy_(meta, non_blocking=True)
-        torch.cuda.current_stream(meta.device).synchronize()
-        meta = host
-    return dict(zip(dict_table.META_FIELDS, meta.tolist()))
+def build_dict_batch_plain(hists: torch.Tensor,
+                           total_bits: torch.Tensor) -> torch.Tensor:
+    """The plain version of the dict kernel over a batch:
+    :func:`build_dict_plain`, stream by stream: tables [B, TABLE_WORDS]."""
+    return torch.stack([build_dict_plain(h, t)
+                        for h, t in zip(hists, total_bits)])
+
+
+def build_dict_batch(hists: torch.Tensor,
+                     total_bits: torch.Tensor) -> torch.Tensor:
+    """The dict tables int32 [B, TABLE_WORDS] of B inner streams' byte
+    histograms int32 [B, 256] and lengths int64 [B].  On a card one launch
+    of csrc/huffman.cu, a CTA a stream: each stream takes its own
+    fallback and error word."""
+    if hists.dim() != 2 or hists.shape[1] != 256 or (
+            total_bits.shape != hists.shape[:1]):
+        raise ValueError(f"expected hists [B, 256] and total_bits [B], got "
+                         f"{tuple(hists.shape)} and "
+                         f"{tuple(total_bits.shape)}")
+    if hists.device.type == "cpu":
+        return build_dict_batch_plain(hists, total_bits)
+    dev = hists.device
+    build.require(hists, "hists", torch.int32, 2, dev)
+    totals = total_bits.to(torch.int64).contiguous()
+    build.require(totals, "total_bits", torch.int64, 1, dev)
+    b = hists.shape[0]
+    tables = torch.empty((b, dict_table.TABLE_WORDS), dtype=torch.int32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        code = build.library().ie_huffman_dict_batch(
+            hists.data_ptr(), totals.data_ptr(), tables.data_ptr(), b,
+            build.stream_ptr(dev))
+    build.check(code, "ie_huffman_dict_batch")
+    build_dict_batch.launches += 1
+    return tables
+
+
+build_dict_batch.launches = 0
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+class Tail:
+    """Streams on the device on their way to the host: the inner words
+    int32 [B, W] and their lengths int64 [B], and with Huffman the dict
+    tables [B, TABLE_WORDS] and the payloads [B, P] (ops/dict_table.py:
+    each stream's fallback flag picks its inner words or its payload).
+
+    Three steps, each waiting for the device once at most, and never for
+    more than the work queued before its own event:
+
+      :meth:`read_lengths`  a copy of the lengths (with Huffman the
+                            tables' fields) into pinned memory that does
+                            not wait, and an event after it;
+      :meth:`copy`          waits on that event, then copies each stream's
+                            exact words into one pinned buffer and records
+                            an event after them;
+      :meth:`result`        waits on that event unless it has fired: the
+                            streams' bytes.
+
+    A copy queued before another tail's lengths is complete once those are
+    read, so :meth:`result` after the next tail's :meth:`copy` does not
+    wait (models/batch.py::encode_image_stream chains its images so).  On
+    the CPU every step is a plain read.
+    """
+
+    def __init__(self, words: torch.Tensor, total_bits: torch.Tensor,
+                 tables: torch.Tensor | None = None,
+                 payload: torch.Tensor | None = None):
+        self.words, self.total_bits = words, total_bits
+        self.tables, self.payload = tables, payload
+        self.cuda = words.device.type == "cuda"
+        self.lengths = self.lengths_ready = None
+        self.buffer = self.copied = self.parts = None
+
+    def read_lengths(self) -> None:
+        """Start the copy of what sizes the streams (once)."""
+        if self.lengths is not None:
+            return
+        if self.tables is None:
+            src = self.total_bits
+        else:
+            tw, b = dict_table.TABLE_WORDS, self.tables.shape[0]
+            src = self.tables.reshape(-1)[
+                dict_table.META:(b - 1) * tw + dict_table.TABLE_WORDS]
+        if not self.cuda:
+            self.lengths = src.clone()
+            return
+        self.lengths = torch.empty(src.shape, dtype=src.dtype,
+                                   pin_memory=True)
+        self.lengths.copy_(src, non_blocking=True)
+        self.lengths_ready = torch.cuda.Event()
+        self.lengths_ready.record()
+
+    def _sources(self) -> list:
+        """Per stream (words, bits, fallback) from the lengths read;
+        raises on a refused stream or a failed length limit."""
+        self.read_lengths()
+        if self.lengths_ready is not None:
+            self.lengths_ready.synchronize()
+        if self.tables is None:
+            return [(w, host_total(t), False)
+                    for w, t in zip(self.words, self.lengths.tolist())]
+        tw = dict_table.TABLE_WORDS
+        flat = self.lengths.numpy()
+        parts = []
+        for b, (inner, out) in enumerate(zip(self.words, self.payload)):
+            meta = dict(zip(dict_table.META_FIELDS, flat[
+                b * tw:b * tw + 2 * dict_table.N_META].view(np.int64)
+                .tolist()))
+            inner_bits = host_total(meta["inner_bits"])
+            if meta["error"]:
+                raise RuntimeError("the Huffman code-length limit found no "
+                                   "valid code profile for this histogram")
+            parts.append((inner, inner_bits, True) if meta["fallback"]
+                         else (out, meta["out_total"], False))
+        return parts
+
+    def copy(self, out: torch.Tensor | None = None) -> None:
+        """Wait for the lengths, then copy each stream's words into one
+        pinned buffer (``out`` where it is large enough, else a new one,
+        kept as :attr:`buffer`) without waiting."""
+        parts = self._sources()
+        sizes = [((bits + 7) // 8 + 3) // 4 for _, bits, _ in parts]
+        if not self.cuda:
+            self.parts = [(w[:n], bits, fb)
+                          for (w, bits, fb), n in zip(parts, sizes)]
+            return
+        need = sum(sizes)
+        if out is None or out.numel() < need:
+            out = torch.empty(max(need, 1), dtype=torch.int32,
+                              pin_memory=True)
+        self.buffer, self.parts, at = out, [], 0
+        for (w, bits, fb), n in zip(parts, sizes):
+            dst = out[at:at + n]
+            dst.copy_(w[:n], non_blocking=True)
+            self.parts.append((dst, bits, fb))
+            at += n
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+
+    def result(self) -> list[bytes]:
+        """The streams' bytes, after :meth:`copy`."""
+        if self.copied is not None and not self.copied.query():
+            self.copied.synchronize()
+        got = []
+        for words, bits, fb in self.parts:
+            data = words_to_bytes(words.numpy().view(np.uint32), bits)
+            got.append(_fallback(data) if fb else data)
+        return got
+
+    def finish(self) -> list[bytes]:
+        """:meth:`copy`, then :meth:`result`."""
+        self.copy()
+        return self.result()
+
+
+def huffman_launch(words: torch.Tensor, total_bits: torch.Tensor,
+                   hist: torch.Tensor, read: bool = True) -> Tail:
+    """The device half of the Huffman tail of an inner stream (words
+    int32 [W], total a tensor of one element, histogram int32 [256], as
+    the packers with a histogram return them) or of a batch (words [B, W],
+    totals [B], histograms [B, 256]): the dict kernel, K4 pack_payload
+    and, with ``read``, the lengths' copy (:meth:`Tail.read_lengths`).
+    Nothing waits; :meth:`Tail.finish` gives the final streams."""
+    if words.dim() == 1:
+        table = build_dict(hist, total_bits)
+        out, _ = cuda_pack.pack_payload(words, table,
+                                        payload_words(words.shape[0]))
+        tail = Tail(words[None], total_bits.reshape(1), table[None],
+                    out[None])
+    else:
+        tables = build_dict_batch(hist, total_bits)
+        out, _ = cuda_pack.pack_payload_batch(
+            words, tables, _round4(payload_words(words.shape[1])))
+        tail = Tail(words, total_bits, tables, out)
+    if read:
+        tail.read_lengths()
+    return tail
 
 
 def huffman_encode_from_hist(words: torch.Tensor, total_bits: torch.Tensor,
@@ -275,19 +452,9 @@ def huffman_encode_from_hist(words: torch.Tensor, total_bits: torch.Tensor,
     between them; the compressed size, and so the fallback-if-bigger, is
     known from the histogram alone.  Then the host reads the table's
     totals and one exact-size copy of the final (or, on the fallback, the
-    inner) words.
+    inner) words: :func:`huffman_launch`, then :meth:`Tail.finish`.
     """
-    table = build_dict(hist, total_bits)
-    out, _ = cuda_pack.pack_payload(words, table,
-                                    payload_words(words.shape[0]))
-    meta = read_fields(table)
-    inner_bits = host_total(meta["inner_bits"])
-    if meta["error"]:
-        raise RuntimeError("the Huffman code-length limit found no valid "
-                           "code profile for this histogram")
-    if meta["fallback"]:
-        return _fallback(stream_bytes(words, inner_bits))
-    return stream_bytes(out, meta["out_total"])
+    return huffman_launch(words, total_bits, hist).finish()[0]
 
 
 def huffman_encode_device(words: torch.Tensor, total_bits: int) -> bytes:

@@ -1,7 +1,8 @@
 """Quantization matrices and their wire serialization.
 
 The port's copy of imageencoder_tpu/utils/quant.py::QuantMatrix (parity
-with dc::MatrixReader), writer and reader: the wire form is a 5-bit width, then size * size
+with dc::MatrixReader): the text-file reader, and the wire writer and
+reader: the wire form is a 5-bit width, then size * size
 unsigned values of that width (MatrixReader.cpp:145-158), the width being
 the largest ffs over the entries (:182-190).
 """
@@ -31,6 +32,31 @@ class QuantMatrix:
     @property
     def size(self) -> int:
         return self.matrix.shape[0]
+
+    @classmethod
+    def from_file(cls, path: str, size: int = 4) -> "QuantMatrix":
+        """Parse a whitespace text matrix file (MatrixReader.cpp:66-134)."""
+        with open(path, "r") as f:
+            text = f.read()
+        rows = []
+        for line in text.splitlines():
+            line = line.strip()
+            if not line and not rows:
+                continue
+            items = line.split()
+            if len(items) != size:
+                raise ValueError(f"quant matrix row has {len(items)} cols, "
+                                 f"expected {size}: {line!r}")
+            rows.append([int(i, 0) for i in items])
+            if len(rows) == size:
+                break
+        if len(rows) != size:
+            raise ValueError(f"quant matrix has {len(rows)} rows, expected "
+                             f"{size}")
+        m = np.array(rows, dtype=np.uint32)
+        if not np.all(m <= np.iinfo(np.uint16).max):
+            raise ValueError("quant matrix entries must fit uint16")
+        return cls(m)
 
     def max_bit_length(self) -> int:
         """Bits for the widest entry (MatrixReader.cpp:182-190)."""

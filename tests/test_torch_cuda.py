@@ -1184,3 +1184,210 @@ def test_video_rejections_launch_nothing(dev):
     empty = hand_video(48, 32, 0, 4, 8)  # a header-only stream
     assert video_held(dev, empty) == b""
     assert launch_counts(VDECODE) == before
+
+
+# ---- serving: K2, the dict kernel and K4 pack_payload over a batch ----
+
+def round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def stacked_locals(dev, b: int, n: int, lw: int, seed: int):
+    """B streams of random register files, each with its own share of
+    empty records (all empty in the second stream)."""
+    got = [random_locals(dev, n, lw, seed + k, 1.0 if k == 1 else 0.1 * k)
+           for k in range(b)]
+    return (torch.stack([g[0] for g in got]).contiguous(),
+            torch.stack([g[1] for g in got]).contiguous())
+
+
+def held_stream_rows(got, want) -> None:
+    """Batched pack outputs (words [B, n], totals [B], ...) against their
+    plain version: totals, each stream's words, and any further output
+    (a histogram, undefined for a refused stream)."""
+    assert torch.equal(got[1], want[1])
+    for k in range(got[0].shape[0]):
+        assert torch.equal(cuda_pack.stream_words(got[0][k], got[1][k]),
+                           cuda_pack.stream_words(want[0][k], want[1][k])), k
+    kept = got[1] >= 0
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a[kept], b[kept])
+
+
+@pytest.mark.parametrize("hist", [True, False])
+@pytest.mark.parametrize("b,n,lw,start", [
+    (1, 3000, 9, 70), (5, 3000, 9, 70), (3, 700, 30, 2047), (4, 1, 6, 0),
+    (16, 0, 9, 37), (7, 5000, 7, 64), (3, 2100, 12, 19)])
+def test_pack_locals_batch_kernel_equals_plain(dev, hist, b, n, lw, start):
+    """K2 over a batch against its plain version and, stream by stream,
+    against one K2 call per stream: no stream reads another's records."""
+    local, lens = stacked_locals(dev, b, n, lw, n + lw)
+    prefix = torch.full((start // 32 + 1,), -1, dtype=torch.int32,
+                        device=dev)
+    prefix[-1] = -(1 << (32 - start % 32)) if start % 32 else 0
+    nw = round4(n * lw + start // 32 + 2)
+    dirtied(dev, b * nw)
+    wrapper, plain, single = (
+        (cuda_pack.pack_locals_hist_batch,
+         cuda_pack.pack_locals_hist_batch_plain, cuda_pack.pack_locals_hist)
+        if hist else (cuda_pack.pack_locals_batch,
+                      cuda_pack.pack_locals_batch_plain,
+                      cuda_pack.pack_locals))
+    before = wrapper.launches
+    got = wrapper(local, lens, start, nw, prefix)
+    assert wrapper.launches == before + 1
+    held_stream_rows(got, plain(local, lens, start, nw, prefix))
+    for k in range(b):
+        one = single(local[k], lens[k], start, nw, prefix)
+        assert int(one[1]) == int(got[1][k])
+        assert torch.equal(cuda_pack.stream_words(*one[:2]),
+                           cuda_pack.stream_words(got[0][k], got[1][k]))
+    assert got[1].tolist() == [start + int(x) for x in lens.sum(dim=1)]
+
+
+def test_pack_locals_batch_ends_and_refusals_stay_in_their_stream(dev):
+    """Stream 0 ends on a word boundary, stream 1 holds a refused record:
+    only its total is -1, and stream 2 is packed as alone."""
+    local, lens = stacked_locals(dev, 3, 2100, 7, 5)
+    short = (19 + int(lens[0, :-1].sum())) % 32
+    lens[0, -1] = 32 * 3 - short
+    local[0, -1] = -1
+    local[0, -1, 3:] = 0
+    local[0, -1, 2] = -(1 << short) if short else -1
+    lens[1, 1000] = 32 * 7 + 1
+    nw = round4(2100 * 7 + 3)
+    for wrapper, plain in (
+            (cuda_pack.pack_locals_hist_batch,
+             cuda_pack.pack_locals_hist_batch_plain),
+            (cuda_pack.pack_locals_batch, cuda_pack.pack_locals_batch_plain)):
+        dirtied(dev, 3 * nw)
+        got = wrapper(local, lens, 19, nw)
+        held_stream_rows(got, plain(local, lens, 19, nw))
+        assert int(got[1][0]) % 32 == 0 and int(got[1][1]) == -1
+        assert int(got[1][2]) == 19 + int(lens[2].sum())
+
+
+def test_dict_batch_kernel_equals_plain(dev):
+    """Every histogram kind, a refused stream and random histograms in one
+    batch: each row is the single kernel's table, bit for bit."""
+    freqs = [histogram(k, s) for k, s in KINDS if k != "geometric"]
+    freqs += [random_histogram(seed) for seed in range(40)]
+    totals = [8 * int(f.sum()) - (k % 7) for k, f in enumerate(freqs)]
+    totals[3] = -1
+    hists = torch.from_numpy(np.stack(freqs).astype(np.int32)).to(dev)
+    totals = torch.tensor(totals, dtype=torch.int64, device=dev)
+    before = huffman.build_dict_batch.launches
+    got = huffman.build_dict_batch(hists, totals)
+    assert huffman.build_dict_batch.launches == before + 1
+    assert torch.equal(got, huffman.build_dict_batch_plain(hists, totals))
+    for k in range(len(freqs)):
+        assert torch.equal(got[k], huffman.build_dict(hists[k], totals[k]))
+    fallback = [dict_table.fields(t)["fallback"] for t in got]
+    assert 0 < sum(fallback) < len(fallback)
+
+
+@pytest.mark.parametrize("b,n_words", [(1, 4096), (6, 1028), (16, 60000)])
+def test_pack_payload_batch_kernel_equals_plain(dev, b, n_words):
+    """K4 pack_payload over a batch under each stream's own dict table
+    (a fallback stream among them codes no byte): each row is the single
+    kernel's payload."""
+    rng = np.random.default_rng(b)
+    words = torch.from_numpy((rng.integers(0, 2 ** 32, (b, n_words),
+                                           dtype=np.uint64) & 0x0F1F3F7F)
+                             .astype(np.uint32).view(np.int32)).to(dev)
+    totals = torch.from_numpy(32 * n_words - rng.integers(0, 4000, b)).to(dev)
+    hists = torch.stack([cuda_kernels.byte_histogram(w, t)
+                         for w, t in zip(words, totals)])
+    tables = huffman.build_dict_batch(hists, totals)
+    if b > 1:  # a stream that takes the fallback: nothing to code
+        tables[1] = huffman.build_dict(hists[1], torch.tensor(-1, device=dev))
+    nw = round4(huffman.payload_words(n_words))
+    dirtied(dev, b * nw)
+    before = cuda_pack.pack_payload_batch.launches
+    got = cuda_pack.pack_payload_batch(words, tables, nw)
+    assert cuda_pack.pack_payload_batch.launches == before + 1
+    held_stream_rows(got, cuda_pack.pack_payload_batch_plain(words, tables,
+                                                             nw))
+    for k in range(b):
+        one = cuda_pack.pack_payload(words[k], tables[k], nw)
+        assert torch.equal(cuda_pack.stream_words(*one),
+                           cuda_pack.stream_words(got[0][k], got[1][k]))
+
+
+BATCH = (cuda_encode.encode_locals, cuda_pack.pack_locals_batch,
+         cuda_pack.pack_locals_hist_batch, huffman.build_dict_batch,
+         cuda_pack.pack_payload_batch)
+
+
+@pytest.mark.parametrize("b,h,w,use_huffman", [
+    (16, 912, 4096, True), (16, 912, 4096, False), (8, 2160, 3840, True),
+    (8, 2160, 3840, False)])
+def test_full_size_batch_equals_host_engine_and_decodes(dev, b, h, w,
+                                                        use_huffman):
+    """encode_image_batch at the serving sizes: K1, K2, and with Huffman
+    the dict and K4 launched once each; every stream equals the host
+    engine's and decode_image_batch gives back the host decode's pixels.
+    The last image is noise (full-size noise still pays for the dict)."""
+    imgs = np.stack([image(h, w, k) for k in range(b - 1)] + [
+        np.random.default_rng(9).integers(0, 256, (h, w), np.uint8)])
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    others = ENCODE[1:]  # the single-stream packers, dict and K4
+    before = launch_counts(BATCH + others)
+    got = imageencoder_tpu_torch.encode_image_batch(
+        imgs, quant_from_numpy(quant.matrix), use_huffman=use_huffman,
+        device=dev)
+    after = launch_counts(BATCH + others)
+    assert [a - c for a, c in zip(after, before)] == (
+        [1, int(not use_huffman), int(use_huffman), int(use_huffman),
+         int(use_huffman)] + [0] * len(others))
+    pixels = imageencoder_tpu_torch.decode_image_batch(got, device=dev)
+    for img, data, px in zip(imgs, got, pixels):
+        want = imageencoder_tpu.encode_image(img, quant,
+                                             use_huffman=use_huffman,
+                                             backend="numpy")
+        assert data == want
+        assert bool(data[0] & 0x80) == use_huffman
+        np.testing.assert_array_equal(
+            px.cpu().numpy(), imageencoder_tpu.decode_image(want,
+                                                            backend="numpy"))
+
+
+def test_batch_with_a_fallback_stream_equals_host_engine(dev):
+    """A batch under quant all ones whose noise image takes the raw-copy
+    fallback while the smooth ones are coded: each stream decides alone."""
+    imgs = np.stack([image(128, 256, k) for k in range(3)] + [
+        np.random.default_rng(9).integers(0, 256, (128, 256), np.uint8)])
+    quant = QuantMatrix(np.ones((4, 4), np.uint32))
+    got = imageencoder_tpu_torch.encode_image_batch(
+        imgs, quant_from_numpy(quant.matrix), device=dev)
+    want = [imageencoder_tpu.encode_image(img, quant, use_huffman=True,
+                                          backend="numpy") for img in imgs]
+    assert got == want
+    assert [bool(s[0] & 0x80) for s in got] == [True, True, True, False]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_stream_on_the_card_equals_host_engine(dev, depth):
+    imgs = [image(912, 4096, k) for k in range(5)]
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    got = list(imageencoder_tpu_torch.encode_image_stream(
+        iter(imgs), quant_from_numpy(quant.matrix), depth=depth, device=dev))
+    assert got == [imageencoder_tpu.encode_image(img, quant, use_huffman=True,
+                                                 backend="numpy")
+                   for img in imgs]
+
+
+@pytest.mark.parametrize("kind", ["image", "video"])
+def test_cli_on_the_card_writes_the_plain_paths_files(dev, tmp_path, kind):
+    """python -m imageencoder_tpu_torch with --device cuda and with
+    --device cpu write the same files."""
+    from test_torch_cli import write_job
+
+    from imageencoder_tpu_torch import cli
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        conf, files = write_job(tmp_path / device, kind, big=True)
+        assert cli.main([str(conf), "--device", device]) == 0
+        outs[device] = [f.read_bytes() for f in files]
+    assert outs["cuda"] == outs["cpu"]

@@ -428,3 +428,53 @@ def test_code_lengths_refuse_a_single_symbol():
     with pytest.raises(ValueError):
         huffman.code_lengths(f)
     assert huffman._dict_and_codes(f) is None
+
+
+def test_serving_and_cli_import_and_run_with_both_packages_blocked(
+        tmp_path):
+    """models.batch and cli import, a batch encodes and ``python -m
+    imageencoder_tpu_torch --help`` and a CPU image job run with jax and
+    imageencoder_tpu blocked."""
+    imgs = np.stack([smooth_image(32, 48, k) for k in range(3)])
+    want = [imageencoder_tpu.encode_image(img, QuantMatrix(JPEG4),
+                                          use_huffman=True, backend="numpy")
+            for img in imgs]
+    case = tmp_path / "case.pkl"
+    case.write_bytes(pickle.dumps((imgs, want)))
+    code = textwrap.dedent(f"""
+        import pickle, runpy, sys
+        sys.modules["jax"] = None
+        sys.modules["imageencoder_tpu"] = None
+        import imageencoder_tpu_torch.models.batch as batch
+        import imageencoder_tpu_torch.cli as cli
+        from imageencoder_tpu_torch import quant_from_numpy
+        imgs, want = pickle.loads(open({str(case)!r}, "rb").read())
+        q = quant_from_numpy({JPEG4.tolist()!r})
+        assert batch.encode_image_batch(imgs, q, device="cpu") == want
+        assert list(batch.encode_image_stream(imgs, q, device="cpu")) == want
+        sys.argv = ["imageencoder_tpu_torch", "--help"]
+        try:
+            runpy.run_module("imageencoder_tpu_torch", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        assert not [m for m in sys.modules
+                    if m.startswith(("jax.", "imageencoder_tpu."))]
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    assert "--device {cuda,cpu}" in res.stdout
+    env_code = ("import sys; sys.modules['jax'] = None; "
+                "sys.modules['imageencoder_tpu'] = None; import runpy; "
+                "sys.argv = ['x', '--help']; "
+                "runpy.run_module('imageencoder_tpu_torch', "
+                "run_name='__main__')")
+    res = subprocess.run([sys.executable, "-c", env_code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    res = subprocess.run([sys.executable, "-m", "imageencoder_tpu_torch",
+                          "--help"], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0 and "--checkpoint-dir" in res.stdout
