@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (imageencoder_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 9   # the build, then phase 9 alone
 
 It needs one CUDA card (an H100: the kernels are built for sm_90a), nvcc,
 and this checkout.  It imports only the port, which stands alone: JAX and
@@ -137,7 +138,25 @@ each of which raises on failure:
      encoder job with a decoder's decfile, and the same video with
      --checkpoint-dir, run again from the directory a run stopped after
      its first GOP leaves; exit codes 0, and every file equal to what the
-     CLI writes with --device cpu in this process.
+     CLI writes with --device cpu in this process;
+  9. the sharded and multi-process paths (imageencoder_tpu_torch/
+     parallel): in a world of one over NCCL, encode_sharded_image_batch
+     of the serving batch with Huffman after stage 1 (K1, K2 over
+     segments, K3 over each spliced stream, the batched dict and K4) and
+     by the distributed stage 2 (K1, K2 over segments, K3 over the
+     segments' whole bytes and over their owned bytes, the batched dict,
+     K4 over byte windows), every kernel call held against its plain
+     version and every stream equal to the one-device batch's; then
+     decode_image_sharded of the 3840x2160 stream (D1, D2, D3 on the
+     stripe), pixel-equal to decode_image; then the GOP-distributed
+     encode_video of the 720p25 video (raw and recon) and of the 320x176
+     one in two gloo processes on the card, every kernel call of one
+     encode in each process held against its plain version (K3 alone on
+     the spliced 720p25 stream among them), each stream equal to the
+     one-process encode_video's (the small one to the plain path's); each
+     path's launches counted from 0, and medians, device and host
+     profiles and waits of each call.  ``--phase 9`` runs the build and
+     this phase alone, on inputs made by the same builders.
 
 Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
@@ -318,6 +337,28 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                               "pack_payload_kernel",
                               "imageencoder_tpu_torch/csrc/pack.cu",
                               "imageencoder_tpu/ops/pallas_pack.py:55"),
+    # The sharded paths (parallel/sharding.py): K2 over a rank's segments,
+    # each from its own bit phase (the JAX package's TPU branch packs with
+    # pack_locals_pallas); K3 over a window of each segment's bytes (its
+    # _segment_byte_histogram, an XLA reduction; the owned bytes'
+    # histogram that gives stage 2 its code bits; and after stage 1 each
+    # spliced stream's whole histogram for the dict); K4 pack_payload over
+    # each segment's owned bytes at its output bit (its pack_blocks_device,
+    # pack_records_pallas on a TPU).
+    "K2 pack_segments": ("cuda_pack", "pack_segments", "pack_segments_plain",
+                         ("tile_sums_kernel", "pack_known_kernel"),
+                         "imageencoder_tpu_torch/csrc/pack.cu",
+                         "imageencoder_tpu/ops/pallas_pack.py:256"),
+    "K3 byte_histogram_rows": ("cuda_kernels", "byte_histogram_rows",
+                               "byte_histogram_rows_plain",
+                               "byte_histogram_rows_kernel",
+                               "imageencoder_tpu_torch/csrc/histogram.cu",
+                               "imageencoder_tpu/ops/pallas_kernels.py:37"),
+    "K4 pack_payload window": ("cuda_pack", "pack_payload_window",
+                               "pack_payload_batch_plain",
+                               "pack_payload_kernel",
+                               "imageencoder_tpu_torch/csrc/pack.cu",
+                               "imageencoder_tpu/ops/pallas_pack.py:55"),
 }
 PATHS = {  # path: the kernels it runs (Huffman on and off)
     "image": ("K1 encode_locals", "K2 pack_locals", "K2 pack_locals+hist",
@@ -341,8 +382,27 @@ PATHS = {  # path: the kernels it runs (Huffman on and off)
                      "Huffman dict", "K4 pack_payload"),
     "image batch decode": ("D1 huffman_decode", "D2 walk_offsets",
                            "D3 decode_blocks"),
+    # Phase 9: a world of one over NCCL; the GOP encode in two processes.
+    "sharded image": ("K1 encode_locals", "K2 pack_segments",
+                      "K3 byte_histogram_rows", "Huffman dict batch",
+                      "K4 pack_payload batch"),
+    "sharded image stage 2": ("K1 encode_locals", "K2 pack_segments",
+                              "K3 byte_histogram_rows", "Huffman dict batch",
+                              "K4 pack_payload window"),
+    "sharded decode": ("D1 huffman_decode", "D2 walk_offsets",
+                       "D3 decode_blocks"),
+    # Each GOP's payload from bit 0, then the spliced stream's Huffman
+    # stage: K3 alone counts it.
+    "gop encode raw": ("K1 encode_locals", "K2 pack_locals",
+                       "K6+K7 search_residual", "K3 byte_histogram",
+                       "Huffman dict", "K4 pack_payload"),
+    "gop encode recon": ("K5 quantize_image", "K5 recon_step",
+                         "K6+K7 search_predict", "K4 pack_coeffs",
+                         "K3 byte_histogram", "Huffman dict",
+                         "K4 pack_payload"),
 }
-DECODE_PATHS = ("image decode", "video decode", "image batch decode")
+DECODE_PATHS = ("image decode", "video decode", "image batch decode",
+                "sharded decode")
 # No encode path launches these.
 DECODE = ("D1 huffman_decode", "D2 walk_offsets", "D2 walk_video",
           "vector read", "D3 decode_blocks")
@@ -358,7 +418,16 @@ STREAM_OUT = ("K2 pack_locals", "K2 pack_locals+hist", "K4 pack_records",
               "K4 pack_payload", "K4 pack_coeffs", "K4 pack_coeffs+hist")
 # The same over a batch: one K2 call a batch, its streams in rows.
 BATCH_OUT = ("K2 pack_locals batch", "K2 pack_locals+hist batch",
-             "K4 pack_payload batch")
+             "K4 pack_payload batch", "K2 pack_segments",
+             "K4 pack_payload window")
+# One sharded image encode launches these once each (K3 rows twice with
+# stage 2), and no other.
+SHARDED_CALL = {False: dict.fromkeys(PATHS["sharded image"], 1),
+                True: {"K1 encode_locals": 1, "K2 pack_segments": 1,
+                       "K3 byte_histogram_rows": 2, "Huffman dict batch": 1,
+                       "K4 pack_payload window": 1}}
+SHARDED_SAMPLES = 20  # per sharded timing
+GOP_REPS = 3  # timed GOP-distributed encodes in each process
 # One encode_image with Huffman on launches these once each, and no other.
 IMAGE_CALL = ("K1 encode_locals", "K2 pack_locals+hist", "Huffman dict",
               "K4 pack_payload")
@@ -398,6 +467,23 @@ def yuv420(frames) -> bytes:
     h, w = frames.shape[1:]
     return b"".join(f.tobytes() + bytes([0x80]) * (w * h // 2)
                     for f in frames)
+
+
+def smoke_images() -> list:
+    """The two full-size test images: u8 [H, W] at each of SHAPES."""
+    return [synthetic(h, w, 2 + i) for i, (h, w) in enumerate(SHAPES)]
+
+
+def serving_batch():
+    """The serving cell's batch, u8 [B, H, W] at BATCHES[0]: smooth images
+    and, last, a noise image (at full size noise still pays for the dict,
+    so no full-size stream takes the fallback)."""
+    import numpy as np
+
+    bq, bh, bw = BATCHES[0]
+    return np.stack([synthetic(bh, bw, 100 + k) for k in range(bq - 1)]
+                    + [np.random.default_rng(9).integers(
+                        0, 256, (bh, bw), dtype=np.uint8)])
 
 
 def module(name: str):
@@ -529,6 +615,15 @@ def tensor_bytes(xs) -> int:
 
     return sum(x.numel() * x.element_size() for x in xs
                if isinstance(x, torch.Tensor) and x.dim() > 0)
+
+
+def record_bytes(lens) -> int:
+    """The bytes K2 must read of records of these bit lengths: each
+    length (4 bytes) and the register-file words the record fills."""
+    import torch
+
+    lens = lens.to(torch.int64)
+    return 4 * lens.numel() + 4 * int(((lens + 31) // 32).sum())
 
 
 def reps_for(fn, budget_s: float = 0.4) -> int:
@@ -667,7 +762,8 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     err, got = held_equal(name, args, kwargs)
     # The bytes the kernel itself must move: its tensor inputs, and its
     # outputs up to the stream's end where the output is a stream.  K2
-    # reads the register files, the lengths and, for a video, the vectors.  K4
+    # reads the lengths, the register-file words its records fill and,
+    # for a video, the vectors.  K4
     # pack_records reads a record's values only where the record is not
     # empty; pack_payload reads the nbytes stream bytes and the dict's
     # table; pack_coeffs 4 bytes a coefficient and the vectors.  A packer
@@ -675,7 +771,7 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     # the histogram and the total and writes the table.
     hist_bytes = 1024 if name.endswith("+hist") else 0
     if name in ("K2 pack_locals", "K2 pack_locals+hist"):
-        nbytes = (tensor_bytes(args[:2]) + tensor_bytes([kwargs.get("mvecs")])
+        nbytes = (record_bytes(args[1]) + tensor_bytes([kwargs.get("mvecs")])
                   + (int(got[1]) + 7) // 8 + hist_bytes)
     elif name == "K4 pack_records":
         live = int((args[1].sum(dim=1) > 0).sum())
@@ -695,17 +791,28 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
         # B-fold K2's: the register files and lengths, each stream's
         # bytes (and bins).
         hist = name == "K2 pack_locals+hist batch"
-        nbytes = (tensor_bytes(args[:2])
+        nbytes = (record_bytes(args[1])
                   + sum((int(t) + 7) // 8 for t in got[-2 if hist else -1])
                   + 1024 * args[0].shape[0] * hist)
     elif name == "Huffman dict batch":
         nbytes = (1024 + 8) * args[0].shape[0] + tensor_bytes(got)
-    elif name == "K4 pack_payload batch":
+    elif name in ("K4 pack_payload batch", "K4 pack_payload window"):
+        # The bytes each row codes ([first_byte, nbytes) of its table),
+        # the tables, the codes out.
         from imageencoder_tpu_torch.ops.dict_table import fields
 
-        nbytes = (sum(fields(t)["nbytes"] for t in args[1])
+        nbytes = (sum(max(f["nbytes"] - f["first_byte"], 0)
+                      for f in map(fields, args[1]))
                   + tensor_bytes(args[1:2])
                   + sum((int(t) + 7) // 8 for t in got[-1]))
+    elif name == "K2 pack_segments":
+        # The records and lengths in, each segment's bytes out.
+        nbytes = (record_bytes(args[1])
+                  + sum((int(t) + 7) // 8 for t in got[-1]))
+    elif name == "K3 byte_histogram_rows":
+        # Each row's window in, 256 bins a row out.
+        nbytes = (int((args[2] - args[1]).clamp(min=0).sum())
+                  + tensor_bytes(got))
     elif name == "K3 byte_histogram":
         nbytes = (int(args[1]) + 7) // 8
     elif name == "D1 huffman_decode":
@@ -791,11 +898,15 @@ def launches_of(wrappers: dict, drive) -> dict:
 
 def phase_of_path(path: str, wrappers: dict, drive) -> dict:
     """Drive one path with every launch count at 0 just before it; return
-    the counts just after, and fail if a kernel of the path is at 0, if a
-    path other than the long video's launches K3, if a decode kernel runs
-    on an encode path or a kernel not its own on a decode path, or if an
-    encode path launches K6 or K7 alone."""
-    counts = launches_of(wrappers, drive)
+    the counts just after (:func:`check_path`)."""
+    return check_path(path, launches_of(wrappers, drive))
+
+
+def check_path(path: str, counts: dict) -> dict:
+    """Fail if a kernel of the path is at 0 in ``counts``, if a path that
+    does not list K3 launches it, if a decode kernel runs on an encode
+    path or a kernel not its own on a decode path, or if an encode path
+    launches K6 or K7 alone; print and return the counts."""
     decode = path in DECODE_PATHS
     for name in PATHS[path]:
         if counts[name] < 1:
@@ -1233,10 +1344,328 @@ def print_profile(label: str, fn, calls: int, absent: tuple = (),
                              f"expected {waits_wanted}")
 
 
+def host_profile(label: str, fn, top: int = 8) -> None:
+    """The host's time in one call of fn() by Python function
+    (cProfile, each function's own time): where the host's share of a
+    call goes."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    print(f"{label}: host time by function, one call ({st.total_tt * 1e3:.1f}"
+          f" ms under cProfile): " + "; ".join(
+              f"{func[2]} ({func[0].split('/')[-1]}:{func[1]}) "
+              f"{tt * 1e3:.1f} ms" for func, (_, _, tt, _, _) in rows),
+          flush=True)
+
+
+def keep_row(rows: dict, name: str, key: str, row: dict) -> None:
+    """A kernel's row at a phase-9 path's shapes: beside the row of an
+    earlier phase, under ``key``, or the row itself where there is none
+    (phase 9 run alone)."""
+    if name in rows:
+        beside(rows[name], key, row)
+    else:
+        rows[name] = row
+
+
+def gop_job(reps: int = 0, **kw) -> dict:
+    """One process's share of the GOP-distributed encode (run in each
+    process of a gloo world, parallel/dryrun.py): its kernels' launches in
+    one call (counts from 0); then every kernel call of another call held
+    against its plain version (the GOPs' K1, K2, K5, K6+K7 and K4
+    pack_coeffs at 4 frames, K3 alone on the spliced stream, the dict and
+    K4 pack_payload); then with ``reps`` K3's row at the spliced stream,
+    the median host ms of that many calls (a barrier before each), the
+    device busy ms of one call under torch.profiler and its host waits.
+    Every process makes the same calls in the same order: the calls meet
+    in their all-gathers."""
+    import torch
+    import torch.distributed as dist
+
+    from imageencoder_tpu_torch.parallel import dryrun
+
+    wrappers = {name: getattr(module(mod_name), attr)
+                for name, (mod_name, attr, *_) in KERNELS.items()}
+    got = []
+    counts = launches_of(wrappers, lambda: got.append(dryrun.job_gops(**kw)))
+    out = {"stream": got[0][0], "missing": got[0][1], "counts": counts}
+    with captured_calls() as calls:
+        dryrun.job_gops(**kw)
+    out["held"] = {name: len(c) for name, c in calls.items() if c}
+    for name, captured in calls.items():
+        for args, kwargs in captured:
+            held_equal(name, args, kwargs)
+    if reps:
+        out["k3_row"] = check_kernel("K3 byte_histogram",
+                                     *calls["K3 byte_histogram"][0])
+    del calls
+    if reps:
+        t = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dryrun.job_gops(**kw)
+            t.append(time.perf_counter() - t0)
+        out["median_ms"] = quantiles(t)[0]
+        rows, _ = device_rows(lambda: dryrun.job_gops(**kw), 1)
+        out["busy_ms"] = sum(rows.values()) / 1e3 if rows else None
+        out["waits"], out["where"] = host_waits(
+            lambda: dryrun.job_gops(**kw), 1)
+    return out
+
+
+def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
+                  image_pixels, vdata, video_streams, wrappers,
+                  rows: dict) -> list:
+    """Phase 9: the sharded image encode (Huffman by stage 1 and by the
+    distributed stage 2) and the sharded decode in a world of one over
+    NCCL, the GOP-distributed video encode in two processes over gloo on
+    the card, and the one-process encode_video beside it.  Adds the new
+    kernels' rows to ``rows`` (and the rows of earlier kernels at these
+    paths' shapes beside theirs); returns each path's launch counts."""
+    import numpy as np
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from imageencoder_tpu_torch import parallel
+    from imageencoder_tpu_torch.parallel import distributed, dryrun
+    from imageencoder_tpu_torch.utils.device import gpu_identity
+
+    print(f"phase 9 gpu: {gpu_identity()}; torch.distributed: nccl "
+          f"{dist.is_nccl_available()}, gloo {dist.is_gloo_available()}",
+          flush=True)
+    if not dist.is_nccl_available():
+        raise AssertionError("no NCCL: the sharded paths need it on a card")
+    distributed.initialize(device="cuda")
+    counts = []
+    try:
+        mesh = parallel.make_mesh(1, device="cuda")
+        bq, bh, bw = batch0_d.shape
+
+        def encode(entropy):
+            return parallel.encode_sharded_image_batch(
+                batch0_d, quant, mesh, device_entropy=entropy)
+
+        for entropy in (False, True):
+            with captured_calls() as calls:
+                got = encode(entropy)
+            ran = {name: len(c) for name, c in calls.items() if c}
+            if ran != SHARDED_CALL[entropy]:
+                raise AssertionError(f"one sharded encode (stage 2 "
+                                     f"{entropy}) made the calls {ran}")
+            for name in ran:
+                for args, kwargs in calls[name]:
+                    held_equal(name, args, kwargs)
+            if entropy:
+                rows["K4 pack_payload window"] = check_kernel(
+                    "K4 pack_payload window",
+                    *calls["K4 pack_payload window"][0])
+                for key, k in (("stage2_segments", 0), ("stage2_owned", 1)):
+                    beside(rows["K3 byte_histogram_rows"], key, check_kernel(
+                        "K3 byte_histogram_rows",
+                        *calls["K3 byte_histogram_rows"][k]))
+                keep_row(rows, "Huffman dict batch", "sharded_stage2",
+                         check_kernel("Huffman dict batch",
+                                      *calls["Huffman dict batch"][0]))
+            else:
+                # K3 here counts each spliced stream whole.
+                for name in ("K2 pack_segments", "K3 byte_histogram_rows"):
+                    rows[name] = check_kernel(name, *calls[name][0])
+            del calls
+            if got != huff_streams:
+                bad = [k for k, (a, b) in enumerate(zip(got, huff_streams))
+                       if a != b]
+                raise AssertionError(f"the sharded encode (stage 2 {entropy})"
+                                     f" differs from the one-device batch in "
+                                     f"streams {bad}")
+            print(f"encode_sharded_image_batch of {bq} {bw}x{bh} images, "
+                  f"world of one over NCCL, Huffman by "
+                  f"{'the distributed stage 2' if entropy else 'stage 1'}: "
+                  f"every stream equal to the one-device batch's (phase 4 "
+                  f"held those against the plain path on the host), every "
+                  f"kernel call bit-equal to its plain version", flush=True)
+        counts.append(phase_of_path("sharded image", wrappers,
+                                    lambda: encode(False)))
+        counts.append(phase_of_path("sharded image stage 2", wrappers,
+                                    lambda: encode(True)))
+        decoded = []
+        counts.append(phase_of_path(
+            "sharded decode", wrappers, lambda: decoded.append(
+                parallel.decode_image_sharded(image_stream, mesh))))
+        if not torch.equal(decoded[0], image_pixels):
+            raise AssertionError("the sharded decode differs from "
+                                 "decode_image on the card")
+        h, w = image_pixels.shape
+        print(f"decode_image_sharded of the {w}x{h} stream, world of one: "
+              f"pixel-equal to decode_image on the card (phase 4 held it "
+              f"against the plain decode on the host)", flush=True)
+
+        mpix = bq * bh * bw / 1e6
+        timed = {
+            "encode_sharded_image_batch stage 1": (lambda: encode(False),
+                                                   mpix),
+            "encode_sharded_image_batch stage 2": (lambda: encode(True),
+                                                   mpix),
+            "encode_image_batch (one device)": (
+                lambda: port.encode_image_batch(batch0_d, quant,
+                                                device="cuda"), mpix),
+            "decode_image_sharded": (
+                lambda: parallel.decode_image_sharded(image_stream, mesh),
+                h * w / 1e6),
+            "decode_image (one device)": (
+                lambda: port.decode_image(image_stream, device="cuda"),
+                h * w / 1e6)}
+        for label, (fn, mp) in timed.items():
+            t = []
+            for _ in range(SHARDED_SAMPLES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                t.append(time.perf_counter() - t0)
+            med, p90 = quantiles(t)
+            print(f"{label}: median {med:.3f} ms, p90 {p90:.3f} ms "
+                  f"(n={SHARDED_SAMPLES}; {mp / med * 1e3:.1f} Mpix/s)",
+                  flush=True)
+            # A decode leaves its pixels on the card: it never waits.
+            decode = label.startswith("decode")
+            print_profile(label, fn, 3, waits_wanted=0 if decode else 20,
+                          at_most=not decode)
+            host_profile(label, fn)
+    finally:
+        dist.destroy_process_group()
+
+    # The GOP-distributed encode: two processes over gloo, kernels on the
+    # card, at 720p25 (timed) and at the small size (held against the
+    # plain path on the host).
+    vw, vh, vn = VIDEO
+    sw, sh, sn = VIDEO_SMALL
+    small = yuv420(video_frames(sw, sh, sn, 1))
+    base = {"quant": quant, "use_rle": True, "gop": GOP, "merange": MERANGE,
+            "device": "cuda"}
+    jobs = [("chip_smoke:gop_job", dict(base, data=vdata, width=vw,
+                                        height=vh, ref_mode=mode,
+                                        reps=GOP_REPS))
+            for mode in ("raw", "recon")]
+    jobs += [("chip_smoke:gop_job", dict(base, data=small, width=sw,
+                                         height=sh, ref_mode=mode))
+             for mode in ("raw", "recon")]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = dryrun.spawn_world(2, jobs, workdir=work, timeout_s=600)
+    print(f"two gloo processes on the card: {len(jobs)} jobs in "
+          f"{time.perf_counter() - t0:.1f} s (start-up included)", flush=True)
+    for k, mode in enumerate(("raw", "recon")):
+        for r, res in enumerate(ranks):
+            got = res[k]
+            if got["missing"] or got["stream"] != video_streams[(mode, True)]:
+                raise AssertionError(f"GOP encode {mode}, process {r}: not "
+                                     f"the one-process encode_video stream")
+            got_s = res[2 + k]
+            want = port.encode_video(small, sw, sh, quant, True, GOP, MERANGE,
+                                     ref_mode=mode, device="cpu")
+            if got_s["missing"] or got_s["stream"] != want:
+                raise AssertionError(f"GOP encode {mode} {sw}x{sh}x{sn}, "
+                                     f"process {r}: not the plain path's")
+        both = {name: sum(res[k]["counts"][name] for res in ranks)
+                for name in KERNELS}
+        counts.append(check_path(f"gop encode {mode}", both))
+        held = {name: sum(res[k]["held"].get(name, 0) for res in ranks)
+                for name in KERNELS}
+        if any(held[name] < 1 for name in PATHS[f"gop encode {mode}"]):
+            raise AssertionError(f"GOP encode {mode}: a kernel of the path "
+                                 f"was not held against its plain version "
+                                 f"({held})")
+        k3 = ranks[0][k]["k3_row"]
+        keep_row(rows, "K3 byte_histogram", f"gop_{mode}", k3)
+        print(f"GOP encode {mode} {vw}x{vh}x{vn}, two processes: every "
+              f"kernel call of one encode bit-equal to its plain version ("
+              + ", ".join(f"{name} {n}" for name, n in held.items() if n)
+              + f" calls); K3 alone on the spliced stream of {k3['bytes']} "
+              f"bytes: device {k3['ms']:.4f} ms (plain {k3['plain_ms']:.4f} "
+              f"ms, torch.bincount {k3['library_ms']:.4f} ms), bound "
+              f"{k3['bound_ms']:.4f} ms by {k3['bound_by']}", flush=True)
+        t = []
+        for _ in range(GOP_REPS * 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            port.encode_video(vdata, vw, vh, quant, True, GOP, MERANGE,
+                              ref_mode=mode, device="cuda")
+            t.append(time.perf_counter() - t0)
+        one = quantiles(t)[0]
+        r0 = ranks[0][k]
+        print(f"GOP-distributed encode_video {mode} {vw}x{vh}x{vn} (gop "
+              f"{GOP}, merange {MERANGE}), two processes on one card: stream "
+              f"equal to the one-process encode_video on the card (and the "
+              f"{sw}x{sh}x{sn} one to the plain path on the host); process "
+              f"0: median {r0['median_ms']:.3f} ms a call (n={GOP_REPS}), "
+              f"device busy {r0['busy_ms']} ms, host waits {r0['waits']} "
+              f"(by line {r0['where']}); process 1: median "
+              f"{ranks[1][k]['median_ms']:.3f} ms; one-process encode_video "
+              f"median {one:.3f} ms (n={GOP_REPS * 3})", flush=True)
+    return counts
+
+
+def phase9_alone(port, quant, vdata, dev) -> tuple:
+    """``--phase 9``: phase 9 on the inputs the whole run gives it (the
+    serving batch and its one-device encode_image_batch streams, the
+    3840x2160 Huffman stream and its decode_image pixels, the 720p25
+    video's one-process encode_video streams, raw and recon), made by the
+    same builders, without the phases that hold those against the plain
+    path on the host.  Returns the paths' launch counts; adds the rows."""
+    import torch
+
+    batch_d = torch.from_numpy(serving_batch()).to(dev)
+    streams = port.encode_image_batch(batch_d, quant, device="cuda")
+    stream = port.encode_image(smoke_images()[1], quant, use_rle=True,
+                               use_huffman=True, device="cuda")
+    pixels = port.decode_image(stream, device="cuda")
+    vw, vh, _ = VIDEO
+    videos = {(mode, True): port.encode_video(
+        vdata, vw, vh, quant, True, GOP, MERANGE, ref_mode=mode,
+        device="cuda") for mode in ("raw", "recon")}
+    wrappers = {name: getattr(module(mod_name), attr)
+                for name, (mod_name, attr, *_) in KERNELS.items()}
+    rows = {}
+    counts = sharded_phase(port, quant, batch_d, streams, stream, pixels,
+                           vdata, videos, wrappers, rows)
+    return rows, counts
+
+
+def finish(rows: dict, counts: list, names) -> None:
+    """The kernels' rows of ``names`` with their launches in every path's
+    run (counts from 0), then the last line."""
+    import torch
+
+    for name in names:
+        rows[name]["launches"] = sum(c[name] for c in counts)
+    print(json.dumps({"kernels": [rows[name] for name in names]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     import numpy as np
     import torch
 
+    alone = sys.argv[1:] == ["--phase", "9"]
+    if sys.argv[1:] and not alone:
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 9]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one GPU")
 
@@ -1274,12 +1703,18 @@ def main() -> None:
                                  device=device)
 
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    if alone:
+        rows, counts = phase9_alone(port, quant, vdata, dev)
+        print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        finish(rows, counts, list(rows))
+        return
 
     # ---- 2. each kernel against its plain version, main-path inputs ----
     # No full-size image compresses too little for the dict (the records'
     # headers skew the byte histogram), so the raw-copy fallback runs on a
     # small noise image.
-    images = [synthetic(h, w, 2 + i) for i, (h, w) in enumerate(SHAPES)]
+    images = smoke_images()
     noise = np.random.default_rng(9).integers(0, 256, (128, 256),
                                               dtype=np.uint8)
     q_ones = port.QuantMatrix(np.ones((4, 4), dtype=np.uint32))
@@ -1454,13 +1889,10 @@ def main() -> None:
     del calls, k7_search
 
     # The serving path: one encode_image_batch of 16 images at 4096x912,
-    # the last of them noise (at full size noise still pays for the dict,
-    # so no full-size stream takes the fallback), then a small batch whose
-    # noise image, under quant all ones, does take it.
+    # the last of them noise, then a small batch whose noise image, under
+    # quant all ones, does take the fallback.
     bq, bh, bw = BATCHES[0]
-    batch0 = np.stack([synthetic(bh, bw, 100 + k) for k in range(bq - 1)]
-                      + [np.random.default_rng(9).integers(
-                          0, 256, (bh, bw), dtype=np.uint8)])
+    batch0 = serving_batch()
     batch0_d = torch.from_numpy(batch0).to(dev)
     with captured_calls() as calls:
         port.encode_image_batch(batch0_d, quant, device="cuda")
@@ -1588,8 +2020,6 @@ def main() -> None:
     if any(counts[-1][name] != bq for name in PATHS["image batch decode"]):
         raise AssertionError(f"decode_image_batch of {bq} streams launched "
                              f"{counts[-1]}")
-    for name in KERNELS:
-        rows[name]["launches"] = sum(c[name] for c in counts)
     for (mode, huff), got in video_streams.items():
         if huff and not got[0] & 0x80:
             raise AssertionError(f"video {mode}: took the raw-copy fallback")
@@ -1837,10 +2267,14 @@ def main() -> None:
     cli_phase(images[0], video_frames(sw, sh, sn, 1))
 
     print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [rows[name] for name in KERNELS]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+
+    # ---- 9. the sharded and multi-process paths ----
+    counts += sharded_phase(
+        port, quant, batch0_d, huff_streams, streams[1], decoded[1], vdata,
+        video_streams, wrappers, rows)
+
+    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    finish(rows, counts, KERNELS)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@
 //   [512, 768)  the serialized dict as kDictWords u32 stream words, MSB first
 //   [768, 784)  i64 fields: dict bits, out total (dict bits + the payload's),
 //               the inner stream's bits (-1 for a refused one), the fallback
-//               flag, the bytes K4 codes (0 on the fallback), the error word
+//               flag, the bytes K4 codes (0 on the fallback), the error word,
+//               the first byte K4 codes (0 from the dict kernel)
 #pragma once
 
 namespace ie {
@@ -22,7 +23,8 @@ constexpr int kMetaInnerBits = 2;
 constexpr int kMetaFallback = 3;
 constexpr int kMetaNbytes = 4;
 constexpr int kMetaError = 5;
-constexpr int kMetaFields = 8;  // 6 used, padded
+constexpr int kMetaFirstByte = 6;
+constexpr int kMetaFields = 8;  // 7 used, padded
 constexpr int kTableWords = kTableMeta + 2 * kMetaFields;
 
 }  // namespace ie

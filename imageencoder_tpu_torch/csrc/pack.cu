@@ -457,8 +457,8 @@ struct RecordsFront {
 
 // pack_payload: 16 stream bytes a record, one 16-byte load, taken in the
 // order w>>24, >>16, >>8, &0xFF, each replaced by its code from a table in
-// shared memory ((length << 16) | code); bytes at or past nbytes have
-// width 0.
+// shared memory ((length << 16) | code); bytes before first or at or past
+// nbytes have width 0.
 struct PayloadFront {
     static constexpr int kItems = 2;
     struct State {
@@ -469,6 +469,7 @@ struct PayloadFront {
     long long n_in;
     long long nbytes;
     const uint32_t* tab;
+    long long first;
 
     __device__ __forceinline__ void load(long long r, uint32_t* w) const {
         const long long b = 4 * r;
@@ -481,10 +482,11 @@ struct PayloadFront {
                 w[k] = b + k < n_in ? words[b + k] : 0u;
         }
     }
-    // The table entry of byte k of the record, 0 past nbytes.
+    // The table entry of byte k of the record, 0 outside [first, nbytes).
     __device__ __forceinline__ uint32_t entry(const uint32_t* w, long long r,
                                               int k) const {
-        return 16 * r + k < nbytes
+        const long long b = 16 * r + k;
+        return b >= first && b < nbytes
             ? tab[(w[k >> 2] >> (24 - 8 * (k & 3))) & 0xFFu] : 0u;
     }
 
@@ -592,7 +594,11 @@ __global__ void __launch_bounds__(kTile) pack_records_kernel(
 
 // The codes, the dict words, the start bit (the dict's bits) and the bytes
 // to code come from the dict kernel's table; every CTA sizes the pack from
-// the byte count alike, and one with no tile to take leaves at once.
+// the byte count alike, and one with no tile to take leaves at once.  A
+// table may also name the first byte to code (0 from the dict kernel): the
+// sharded encode's stage 2 codes the window of inner bytes a segment owns,
+// at the segment's final output bit, under a table whose dict words are 0
+// (parallel/sharding.py).
 // blockIdx.y is the stream of a batch: its words, table, output and total,
 // and its scratch and edges at the given strides.
 __global__ void __launch_bounds__(kTile) pack_payload_kernel(
@@ -615,13 +621,14 @@ __global__ void __launch_bounds__(kTile) pack_payload_kernel(
     const long long* meta =
         reinterpret_cast<const long long*>(table + ie::kTableMeta);
     const long long nbytes = min(meta[ie::kMetaNbytes], 4 * n_in);
+    const long long first = max(meta[ie::kMetaFirstByte], 0ll);
     a.start_bit = meta[ie::kMetaDictBits];
     a.prefix = reinterpret_cast<const uint32_t*>(table + ie::kTableDict);
     a.prefix_words = ie::kDictWords;
     a.n = (nbytes + 15) / 16;
     a.n_tiles = (a.n + kRecords - 1) / kRecords;
     __syncthreads();
-    const PayloadFront fe{words, n_in, nbytes, tab};
+    const PayloadFront fe{words, n_in, nbytes, tab, first};
     pack_tiles<PayloadFront::kItems>(fe, a);
 }
 
@@ -875,7 +882,9 @@ __device__ __forceinline__ void emit_owned(
 // where one holds a refused record; total: i64 [1]; hist: i32 [256], the
 // stream's byte histogram, or null.  A batch of n_streams streams has
 // these for each stream, out and sums at strides of n_words and
-// sums_stride; n and n_tiles are a stream's.
+// sums_stride; n and n_tiles are a stream's; starts, where not null, i64
+// [n_streams] on the device, each stream's own start bit in place of
+// start_bit.
 struct KnownOut {
     long long n;  // records
     long long n_tiles;
@@ -889,6 +898,7 @@ struct KnownOut {
     long long* sums;
     long long* total;
     int32_t* hist;
+    const long long* starts;
 
     __device__ __forceinline__ uint32_t prefix_word(long long w) const {
         return w < prefix_words ? prefix[w] : 0u;
@@ -896,6 +906,7 @@ struct KnownOut {
 
     // Stream k of a batch.
     __device__ __forceinline__ void to_stream(long long k) {
+        if (starts) start_bit = starts[k];
         out += k * n_words;
         sums += k * sums_stride;
         total += k;
@@ -1198,8 +1209,9 @@ extern "C" int ie_pack_locals_scratch(long long n_records, int lw) {
 static KnownOut known_out(long long n_streams, long long start_bit,
                    const void* prefix, long long prefix_words, void* out,
                    long long n_words, void* sums, long long sums_stride,
-                   void* total, void* hist) {
+                   void* total, void* hist, const void* starts = nullptr) {
     KnownOut a{};
+    a.starts = (const long long*)starts;
     a.n_streams = n_streams;
     a.sums_stride = sums_stride;
     a.start_bit = start_bit;
@@ -1241,21 +1253,25 @@ extern "C" int ie_pack_locals(const void* local, const void* lens,
 
 // K2 over a batch of n_streams image streams of n_blocks block records
 // each: local u32 [n_streams, n_blocks, lw]; lens i32 [n_streams,
-// n_blocks].  Every stream starts at start_bit behind the same prefix, in
-// its own n_words words of out [n_streams, n_words]; sums: i64 [n_streams,
-// ie_pack_locals_scratch(n_blocks, lw)]; total: i64 [n_streams]; hist: i32
-// [n_streams, 256] or null.  The same two launches as one stream's.
+// n_blocks].  Every stream starts at start_bit, or with starts (i64
+// [n_streams] on the device, not null) at its own, behind the same prefix,
+// in its own n_words words of out [n_streams, n_words]; sums: i64
+// [n_streams, ie_pack_locals_scratch(n_blocks, lw)]; total: i64
+// [n_streams]; hist: i32 [n_streams, 256] or null.  The same two launches
+// as one stream's.  The sharded encode packs a rank's segments so, each at
+// its final bit phase (parallel/sharding.py).
 extern "C" int ie_pack_locals_batch(const void* local, const void* lens,
                                     long long n_blocks, int lw,
                                     long long n_streams, long long start_bit,
-                                    const void* prefix,
+                                    const void* starts, const void* prefix,
                                     long long prefix_words, void* out,
                                     long long n_words, void* sums,
                                     void* total, void* hist, void* stream) {
     LocalsFront<true> fe;
     KnownOut a = known_out(n_streams, start_bit, prefix, prefix_words, out,
                            n_words, sums,
-                           ie_pack_locals_scratch(n_blocks, lw), total, hist);
+                           ie_pack_locals_scratch(n_blocks, lw), total, hist,
+                           starts);
     if (n_streams < 1 || n_streams > 65535
         || !locals_front(local, lens, n_blocks, lw, nullptr, 1, 0, 1, 0, &fe,
                          &a.n))

@@ -52,10 +52,10 @@ SIGNATURES = {
     "ie_predict": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _I64, _P],
     "ie_pack_locals": [_P, _P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _I64,
                        _P, _I64, _P, _I64, _P, _P, _P, _P],
-    # local, lens, n_blocks, lw, n_streams, start_bit, prefix,
+    # local, lens, n_blocks, lw, n_streams, start_bit, starts, prefix,
     # prefix_words, out, n_words, sums, total, hist, stream
-    "ie_pack_locals_batch": [_P, _P, _I64, _I32, _I64, _I64, _P, _I64, _P,
-                             _I64, _P, _P, _P, _P],
+    "ie_pack_locals_batch": [_P, _P, _I64, _I32, _I64, _I64, _P, _P, _I64,
+                             _P, _I64, _P, _P, _P, _P],
     "ie_pack_locals_scratch": [_I64, _I32],
     "ie_pack_tile": [],
     "ie_pack_records": [_P, _P, _I64, _I32, *_K4_TAIL],
@@ -67,6 +67,8 @@ SIGNATURES = {
     "ie_pack_coeffs": [_P, _I64, _I64, _I64, _I32, _P, _I64, _I32, _I32,
                        _I32, _I32, *_K4_TAIL[:-1], _P, _P],
     "ie_byte_histogram": [_P, _I64, _P, _P, _P],
+    # words, n_words, n_rows, lo, hi, hist, stream
+    "ie_byte_histogram_rows": [_P, _I64, _I64, _P, _P, _P, _P],
     "ie_huffman_dict": [_P, _P, _P, _P],
     "ie_huffman_dict_batch": [_P, _P, _P, _I64, _P],
     "ie_dict_table_words": [],

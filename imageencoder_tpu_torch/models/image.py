@@ -8,6 +8,9 @@ with Huffman counts the byte histogram (ops/pipeline.py), then the dict
 and the payload pack (ops/huffman.py), and the host waits once before it
 copies the stream.
 
+:func:`encode_blocks` is the fields form of the encode (models/image.py:
+40-70): tiles in, their wire fields out, for a caller's own packer.
+
 :func:`decode_image` is the counterpart of decode_image with
 backend="numpy", the exact f64 engine (models/image.py:331-397): its
 pixels are equal.  The host parses the dict and the header and uploads
@@ -34,7 +37,8 @@ from ..ops.bitpack import BitReader, BitWriter, read_fields, to_bits
 from ..ops.dct import clamp_to_u8, inverse_transform
 from ..ops.device_pack import header_to_words, to_device
 from ..ops.huffman import Tail, huffman_encode_from_hist
-from ..ops.pipeline import make_encode_packed, make_encode_packed_hist
+from ..ops.pipeline import (make_encode_fields_from_blocks,
+                            make_encode_packed, make_encode_packed_hist)
 from ..ops.zigzag import zigzag_order
 from ..utils import profiling
 from ..utils.bits import shift_signed
@@ -95,6 +99,20 @@ def encode_image(img, quant: QuantMatrix, use_rle: bool = True,
     with profiling.stage("device encode+pack"):
         words, total = make_encode_packed(block_size, use_rle, norm)(*args)
         return Tail(words[None], total.reshape(1)).finish()[0]
+
+
+def encode_blocks(blocks_u8, quant: QuantMatrix, use_rle: bool,
+                  norm: str = "reference", device="cuda"):
+    """[N, B, B] u8 tiles (numpy or a tensor) -> (field values, field
+    nbits) int32 numpy arrays [N, B*B + 2]: the transform, the stats and
+    the fields on ``device`` (ops/pipeline.py::
+    make_encode_fields_from_blocks), ready for a bit packer; equal to
+    imageencoder_tpu.models.image.encode_blocks(..., backend="numpy")."""
+    dev = resolve_device(device)
+    blocks = torch.as_tensor(blocks_u8, device=dev)
+    fn = make_encode_fields_from_blocks(blocks.shape[-1], use_rle, norm)
+    vals, nbits = fn(blocks.contiguous(), quant.as_float())
+    return vals.cpu().numpy(), nbits.cpu().numpy()
 
 
 def walk_block_offsets(bits: np.ndarray | None, start_bit: int,

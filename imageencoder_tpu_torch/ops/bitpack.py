@@ -67,15 +67,27 @@ def read_fields(bits: np.ndarray, offsets, nbits) -> np.ndarray:
 
 def concat_bit_segments(segments) -> bytes:
     """Concatenate (bytes, nbits) bit strings at bit granularity: exactly
-    nbits from the start of each, MSB-first, zero-padded to a byte."""
+    nbits from the start of each, MSB-first, zero-padded to a byte.  Each
+    segment's bytes are shifted to the bit phase where it starts and OR'd
+    in, a byte at a time (the JAX package unpacks every bit)."""
     total_bits = sum(nb for _, nb in segments)
-    bitbuf = np.zeros(((total_bits + 7) // 8) * 8, dtype=np.uint8)
+    out = np.zeros((total_bits + 7) // 8 + 1, dtype=np.uint8)
     pos = 0
     for data, nb in segments:
-        bitbuf[pos:pos + nb] = np.unpackbits(
-            np.frombuffer(data, dtype=np.uint8))[:nb]
+        if nb <= 0:
+            continue
+        n = (nb + 7) // 8
+        seg = np.frombuffer(data, dtype=np.uint8)[:n].copy()
+        if len(seg) < n:
+            raise ValueError(f"a segment of {len(data)} bytes holds no "
+                             f"{nb} bits")
+        seg[-1] &= (0xFF << (8 * n - nb)) & 0xFF  # bits past nb: zero
+        at, phase = pos >> 3, pos & 7
+        out[at:at + n] |= seg >> phase
+        if phase:
+            out[at + 1:at + 1 + n] |= seg << (8 - phase)
         pos += nb
-    return np.packbits(bitbuf).tobytes()
+    return out[:(total_bits + 7) // 8].tobytes()
 
 
 class BitWriter:

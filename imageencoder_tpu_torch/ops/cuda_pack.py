@@ -9,7 +9,9 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
     :func:`pack_locals_hist` also counts the byte histogram of the stream
     it writes (K3, pallas_kernels.byte_histogram, folded in);
     :func:`pack_locals_batch` and :func:`pack_locals_hist_batch` take a
-    batch of image streams in the same two launches;
+    batch of image streams in the same two launches, and
+    :func:`pack_segments` a sharded stream's segments, each from its own
+    start bit;
   * K4 (pack_records_pallas) is one single-pass kernel with three front
     ends, each of which reads its records' fields where they already are:
     :func:`pack_records` [N, F] field tensors of (value, nbits) pairs,
@@ -20,7 +22,9 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
     from its coefficient tensor (pipeline.fields_from_coeffs and the
     vector fields, then the pack), and :func:`pack_coeffs_hist` the same
     with the stream's byte histogram; :func:`pack_payload_batch` packs a
-    batch of payloads in one launch.
+    batch of payloads in one launch, :func:`pack_payload_window` a batch
+    of byte windows, each at its own start bit (the sharded Huffman
+    stage).
 
 The batched entries (the serving path, models/batch.py) give each stream
 its own row of words, starting on a word boundary: no word holds bits of
@@ -218,14 +222,40 @@ def pack_locals_hist_batch(local: torch.Tensor, lens: torch.Tensor,
 pack_locals_hist_batch.launches = 0
 
 
-def _pack_locals_batch(counter, hist: bool, local, lens, start_bit: int,
+def pack_segments_plain(local, lens, starts, n_words: int):
+    """The plain version of K2 over segments: :func:`pack_locals_plain`,
+    segment by segment, each from its own start bit."""
+    return _stacked(pack_locals_plain(lo, ln, int(s), n_words)
+                    for lo, ln, s in zip(local, lens, starts.tolist()))
+
+
+def pack_segments(local: torch.Tensor, lens: torch.Tensor,
+                  starts: torch.Tensor, n_words: int):
+    """K2 over the B segments of a sharded stream (parallel/sharding.py):
+    register files int32 [B, N, lw] and bit lengths int32 [B, N], segment
+    k from its own start bit ``starts[k]`` (int64 [B] on the device: the
+    segment's bit phase in the stream) in its own row -> (words int32
+    [B, n_words], totals int64 [B]).  The batch's two launches."""
+    if not isinstance(starts, torch.Tensor) or starts.shape != lens.shape[:1]:
+        raise ValueError(f"starts: expected a tensor [{lens.shape[0]}]")
+    return _pack_locals_batch(pack_segments, False, local, lens, starts,
+                              n_words, None)
+
+
+pack_segments.launches = 0
+
+
+def _pack_locals_batch(counter, hist: bool, local, lens, start_bit,
                        n_words: int, prefix):
-    """K2 over a batch, with or without the histograms; a launch counts on
-    ``counter``."""
+    """K2 over a batch, with or without the histograms, from one start
+    bit or (a tensor) one a stream; a launch counts on ``counter``."""
     if local.dim() != 3 or lens.shape != local.shape[:2]:
         raise ValueError(f"expected local [B, N, lw] and lens [B, N], got "
                          f"{tuple(local.shape)} and {tuple(lens.shape)}")
+    starts = start_bit if isinstance(start_bit, torch.Tensor) else None
     if local.device.type == "cpu":
+        if starts is not None:
+            return pack_segments_plain(local, lens, starts, n_words)
         plain = (pack_locals_hist_batch_plain if hist
                  else pack_locals_batch_plain)
         return plain(local, lens, start_bit, n_words, prefix)
@@ -236,6 +266,10 @@ def _pack_locals_batch(counter, hist: bool, local, lens, start_bit: int,
         raise ValueError(f"n_words must be a multiple of 4, got {n_words}")
     b, n, lw = local.shape
     prefix_ptr, prefix_words = _prefix(prefix, dev)
+    if starts is not None:
+        starts = starts.to(torch.int64).contiguous()
+        build.require(starts, "starts", torch.int64, 1, dev)
+        start_bit = 0
     lib = build.library()
     sums = torch.empty(b * lib.ie_pack_locals_scratch(n, lw),
                        dtype=torch.int64, device=dev)
@@ -246,7 +280,8 @@ def _pack_locals_batch(counter, hist: bool, local, lens, start_bit: int,
     with torch.cuda.device(dev):
         code = lib.ie_pack_locals_batch(
             local.data_ptr(), lens.data_ptr(), n, lw, b, start_bit,
-            prefix_ptr, prefix_words, out.data_ptr(), n_words,
+            None if starts is None else starts.data_ptr(), prefix_ptr,
+            prefix_words, out.data_ptr(), n_words,
             sums.data_ptr(), total.data_ptr(),
             bins.data_ptr() if hist else None, build.stream_ptr(dev))
     build.check(code, "ie_pack_locals_batch")
@@ -360,16 +395,17 @@ pack_records.launches = 0
 
 
 def payload_fields(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,
-                   code_l: torch.Tensor):
-    """The Huffman payload as pack_records records: each of the first
-    ``nbytes`` bytes replaced by its (code, length), 16 bytes per record;
-    bytes past the stream get length 0.  Returns (vals, nbits) int32
+                   code_l: torch.Tensor, first: int = 0):
+    """The Huffman payload as pack_records records: each of the bytes
+    [first, nbytes) replaced by its (code, length), 16 bytes per record;
+    the bytes outside them get length 0.  Returns (vals, nbits) int32
     [ceil(4W/16), 16]."""
     data = device_pack.words_to_u8(words)
     n_lanes = data.shape[0]
     idx = torch.arange(n_lanes, device=words.device)
     vals = code_w[data].to(torch.int32)
-    nbits = torch.where(idx < nbytes, code_l[data], 0).to(torch.int32)
+    live = (idx >= first) & (idx < nbytes)
+    nbits = torch.where(live, code_l[data], 0).to(torch.int32)
     rows = -(-n_lanes // 16)
     pad = rows * 16 - n_lanes
     vals = torch.nn.functional.pad(vals, (0, pad)).reshape(rows, 16)
@@ -384,7 +420,8 @@ def pack_payload_plain(words, table, n_words: int):
     meta = t.fields(table)
     nbytes = min(meta["nbytes"], 4 * words.shape[0])
     vals, nbits = payload_fields(words, nbytes, table[t.CODE_W:t.CODE_W + 256],
-                                 table[t.CODE_L:t.CODE_L + 256])
+                                 table[t.CODE_L:t.CODE_L + 256],
+                                 max(meta["first_byte"], 0))
     return pack_records_plain(vals, nbits, meta["dict_bits"], n_words,
                               table[t.DICT:t.DICT + t.DICT_WORDS])
 
@@ -392,10 +429,11 @@ def pack_payload_plain(words, table, n_words: int):
 def pack_payload(words: torch.Tensor, table: torch.Tensor, n_words: int):
     """Pack the Huffman payload of the inner stream ``words`` (int32 [W],
     u32 bits) under the dict kernel's ``table`` (ops/dict_table.py): each
-    of the stream's first ``nbytes`` bytes (a field of the table), in
-    stream order, replaced by its code of the table (lengths at most 16),
-    16 bytes a record, after the dict's bits, the dict's words OR'd into
-    the first words.  Nothing of the table is read on the host."""
+    of the stream's bytes [first_byte, nbytes) (fields of the table, the
+    first 0 from the dict kernel), in stream order, replaced by its code of
+    the table (lengths at most 16), 16 bytes a record, after the dict's
+    bits, the dict's words OR'd into the first words.  Nothing of the table
+    is read on the host."""
     if words.device.type == "cpu":
         return pack_payload_plain(words, table, n_words)
     dev = words.device
@@ -428,6 +466,11 @@ def pack_payload_batch(words: torch.Tensor, tables: torch.Tensor,
     dict tables int32 [B, TABLE_WORDS]: (payloads int32 [B, n_words],
     totals int64 [B]).  One launch; each stream packs its own table's
     byte count, with its own look-back state."""
+    return _pack_payload_batch(pack_payload_batch, words, tables, n_words)
+
+
+def _pack_payload_batch(counter, words, tables, n_words: int):
+    """K4 pack_payload over a batch; a launch counts on ``counter``."""
     if words.dim() != 2 or tables.dim() != 2 or (
             tables.shape != (words.shape[0], dict_table.TABLE_WORDS)):
         raise ValueError(f"expected words [B, W] and tables [B, "
@@ -457,11 +500,25 @@ def pack_payload_batch(words: torch.Tensor, tables: torch.Tensor,
             n_words, scratch.data_ptr(), scratch_stride, edges.data_ptr(),
             edges_stride, total.data_ptr(), build.stream_ptr(dev))
     build.check(code, "ie_pack_payload_batch")
-    pack_payload_batch.launches += 1
+    counter.launches += 1
     return out, total
 
 
 pack_payload_batch.launches = 0
+
+
+def pack_payload_window(words: torch.Tensor, tables: torch.Tensor,
+                        n_words: int):
+    """K4 pack_payload over byte windows: :func:`pack_payload_batch` of B
+    word rows under tables that name each row's bytes [first_byte, nbytes)
+    and its start bit (dict_bits), their dict words zero: each row's codes
+    from its start bit (the sharded encode's stage 2, each row a segment's
+    owned bytes at its output bit phase, parallel/sharding.py).  One
+    launch; the plain version is pack_payload_batch's."""
+    return _pack_payload_batch(pack_payload_window, words, tables, n_words)
+
+
+pack_payload_window.launches = 0
 
 
 def coeff_fields(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,

@@ -13,8 +13,10 @@ it):
 The fields: the dict's bits (the payload's start bit), the out total (dict
 bits plus the payload's), the inner stream's bits (-1 for a refused
 stream), the fallback flag (fewer than 2 byte values, or a coded stream not
-smaller than the inner one), the bytes K4 codes (0 on the fallback) and the
-error word (the length limit failed).
+smaller than the inner one), the bytes K4 codes (0 on the fallback), the
+error word (the length limit failed) and the first byte K4 codes (0 from
+the dict kernel; the sharded encode's stage 2 codes a window of a
+segment's bytes, parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ import torch
 DICT_WORDS = 256  # the dict takes at most 6,093 bits
 CODE_W, CODE_L, DICT, META = 0, 256, 512, 768
 META_FIELDS = ("dict_bits", "out_total", "inner_bits", "fallback", "nbytes",
-               "error")
-N_META = 8  # int64 fields, the last two unused
+               "error", "first_byte")
+N_META = 8  # int64 fields, the last one unused
 TABLE_WORDS = META + 2 * N_META
 
 

@@ -64,6 +64,26 @@ def read_segment(seg_p: pathlib.Path, info_p: pathlib.Path):
     return (raw, nbits) if ok else None
 
 
+def gop_encoder(gop: int, merange: int, block_size: int, use_rle: bool,
+                norm: str, ref_mode: str):
+    """The device video encode a GOP's payload goes through
+    (ops/video_pipeline.py), for the given job."""
+    factory = (make_encode_video_packed if ref_mode == "raw"
+               else make_encode_video_packed_recon)
+    return factory(max(1, gop), merange, mvec_bits(merange), block_size,
+                   use_rle, norm)
+
+
+def encode_gop_payload(fn, frames: torch.Tensor,
+                       quant: QuantMatrix) -> tuple[bytes, int]:
+    """One GOP's payload, u8 frames [F, H, W] on the device through
+    ``fn`` (:func:`gop_encoder`) at start bit 0: (its bytes, its bits).
+    The JAX package's utils/checkpoint.py::_encode_gop_payload."""
+    words, total = fn(frames, quant.as_float(), 0, None)
+    nbits = host_total(total)
+    return stream_bytes(words, nbits), nbits
+
+
 def encode_video_checkpointed(data: bytes, width: int, height: int,
                               quant: QuantMatrix, use_rle: bool, gop: int,
                               merange: int, ckpt_dir: str,
@@ -93,11 +113,7 @@ def encode_video_checkpointed(data: bytes, width: int, height: int,
     else:
         meta_p.write_text(json.dumps(meta))
 
-    factory = (make_encode_video_packed if ref_mode == "raw"
-               else make_encode_video_packed_recon)
-    fn = factory(max(1, gop), merange, mvec_bits(merange), block_size,
-                 use_rle, norm)
-    qf = quant.as_float()
+    fn = gop_encoder(gop, merange, block_size, use_rle, norm, ref_mode)
     frames_d: torch.Tensor | None = None
     segments = []
     for i, (s, e) in enumerate(gop_slices(n_frames, gop)):
@@ -109,17 +125,25 @@ def encode_video_checkpointed(data: bytes, width: int, height: int,
                              f"re-encoding GOP")
             if frames_d is None:
                 frames_d = to_device(frames, dev)
-            words, total = fn(frames_d[s:e], qf, 0, None)
-            nbits = host_total(total)
-            got = (stream_bytes(words, nbits), nbits)
+            got = encode_gop_payload(fn, frames_d[s:e], quant)
             seg_p.write_bytes(got[0])
-            info_p.write_text(json.dumps({"nbits": nbits,
+            info_p.write_text(json.dumps({"nbits": got[1],
                                           "crc32": zlib.crc32(got[0])}))
         segments.append(got)
+    return splice_gops(segments, n_frames, width, height, quant, use_rle,
+                       gop, merange, use_huffman, dev)
 
+
+def splice_gops(segments, n_frames: int, width: int, height: int,
+                quant: QuantMatrix, use_rle: bool, gop: int, merange: int,
+                use_huffman: bool, device) -> bytes:
+    """The stream of a video from its GOPs' payloads [(bytes, bits), ...]
+    in order: the header, the payloads spliced on the host behind it, then
+    with Huffman ops/huffman.py::huffman_encode on ``device`` (on a card
+    K3, the dict kernel and K4)."""
     writer = video_header(quant, use_rle, width, height,
                           VideoParams(n_frames, max(1, gop), merange),
                           use_huffman)
     inner = bitpack.concat_bit_segments(
-        [(writer.getvalue(), writer.position)] + segments)
-    return huffman_encode(inner, dev) if use_huffman else inner
+        [(writer.getvalue(), writer.position)] + list(segments))
+    return huffman_encode(inner, device) if use_huffman else inner

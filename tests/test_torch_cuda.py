@@ -1391,3 +1391,175 @@ def test_cli_on_the_card_writes_the_plain_paths_files(dev, tmp_path, kind):
         assert cli.main([str(conf), "--device", device]) == 0
         outs[device] = [f.read_bytes() for f in files]
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---- the sharded and multi-process paths (parallel/) ----
+# The card's machine has one card, and NCCL takes one rank a card: the
+# sharded paths run in a world of one over NCCL, through its collectives;
+# the GOP-distributed encode runs two processes over gloo, both launching
+# their kernels on the card.
+
+@pytest.mark.parametrize("rows,n_words", [(1, 5000), (16, 4100), (3, 64)])
+def test_byte_histogram_rows_kernel_equals_plain(dev, rows, n_words):
+    rng = np.random.default_rng(rows + n_words)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (rows, n_words))
+                             .astype(np.int32)).to(dev)
+    lo = rng.integers(0, 4 * n_words, rows)
+    hi = lo + rng.integers(-3, 4 * n_words, rows)
+    lo[0], hi[0] = 3, 4 * n_words - 1  # a window over nearly all of a row
+    windows = [torch.from_numpy(x).to(dev) for x in (lo, hi)]
+    before = cuda_kernels.byte_histogram_rows.launches
+    got = cuda_kernels.byte_histogram_rows(words, *windows)
+    assert cuda_kernels.byte_histogram_rows.launches == before + 1
+    want = cuda_kernels.byte_histogram_rows_plain(words.cpu(),
+                                                  *(w.cpu() for w in windows))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n,lw", [(233472 // 16, 6), (1000, 9), (40, 3)])
+def test_pack_segments_kernel_equals_plain(dev, n, lw):
+    rng = np.random.default_rng(n)
+    b = 4
+    f = (32 * lw - 4) // 16
+    vals = torch.from_numpy(rng.integers(0, 2**16, (b * n, f)))
+    nbits = torch.from_numpy(rng.integers(0, 17, (b * n, f)))
+    local, lens = device_pack.register_files(vals, nbits, lw)
+    local = device_pack.as_int32(local).view(b, n, lw)
+    lens = lens.to(torch.int32).view(b, n)
+    starts = torch.tensor([0, 13, 31, 32 + 7])
+    n_words = -(-(n * lw + 3) // 4) * 4
+    got = cuda_pack.pack_segments(local.to(dev), lens.to(dev),
+                                  starts.to(dev), n_words)
+    want = cuda_pack.pack_segments_plain(local, lens, starts, n_words)
+    for k in range(b):
+        assert int(got[1][k]) == int(want[1][k])
+        assert torch.equal(cuda_pack.stream_words(got[0][k].cpu(),
+                                                  got[1][k]),
+                           cuda_pack.stream_words(want[0][k], want[1][k]))
+
+
+@pytest.mark.parametrize("n_in,windows", [
+    (4096, [(0, 16384, 0), (3, 9000, 13), (1, 2, 31), (5, 5, 7)]),
+    (64, [(2, 200, 3)])])
+def test_pack_payload_window_kernel_equals_plain(dev, n_in, windows):
+    rng = np.random.default_rng(n_in)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (len(windows), n_in))
+                             .astype(np.int32))
+    freqs = np.bincount(words.numpy().view(np.uint32).astype(">u4")
+                        .view(np.uint8).reshape(-1), minlength=256) + 1
+    _, cw, cl = huffman._dict_and_codes(freqs)
+    tables = torch.stack([dict_table.make_table(
+        cw, cl, np.zeros(256), "cpu", dict_bits=start, nbytes=hi,
+        first_byte=lo) for lo, hi, start in windows])
+    n_words = -(-(4 * n_in * 15 // 32 + 2) // 4) * 4
+    got = cuda_pack.pack_payload_window(words.to(dev), tables.to(dev),
+                                        n_words)
+    want = cuda_pack.pack_payload_batch_plain(words, tables, n_words)
+    for k in range(len(windows)):
+        assert int(got[1][k]) == int(want[1][k])
+        assert torch.equal(cuda_pack.stream_words(got[0][k].cpu(),
+                                                  got[1][k]),
+                           cuda_pack.stream_words(want[0][k], want[1][k]))
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world of one over NCCL in this process, and its 1x1 mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    from imageencoder_tpu_torch.parallel import distributed, make_mesh
+
+    assert dist.is_nccl_available()
+    distributed.initialize(device="cuda")
+    try:
+        yield make_mesh(1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("h,w", [(912, 4096), (2160, 3840)])
+@pytest.mark.parametrize("entropy", [False, True])
+def test_sharded_image_batch_world_of_one(nccl_mesh, h, w, entropy):
+    """encode_sharded_image_batch over NCCL, Huffman by stage 1 or by the
+    distributed stage 2: the host engine's streams and the one-device
+    batch's, through K1, K2 over segments, the windowed K3, the dict
+    kernel and K4."""
+    from imageencoder_tpu_torch.parallel import encode_sharded_image_batch
+
+    imgs = np.stack([image(h, w, 60 + k) for k in range(3)])
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    qp = quant_from_numpy(quant.matrix)
+    before = launch_counts(SHARDED)
+    got = encode_sharded_image_batch(torch.from_numpy(imgs).cuda(), qp,
+                                     nccl_mesh, device_entropy=entropy)
+    torch.cuda.synchronize()
+    ran = [a - b for a, b in zip(launch_counts(SHARDED), before)]
+    assert ran == [1, 1, 1 + entropy, int(entropy), 1]
+    assert got == [imageencoder_tpu.encode_image(img, quant, use_huffman=True,
+                                                 backend="numpy")
+                   for img in imgs]
+    assert got == imageencoder_tpu_torch.encode_image_batch(imgs, qp,
+                                                            device="cuda")
+
+
+SHARDED = (cuda_encode.encode_locals, cuda_pack.pack_segments,
+           cuda_kernels.byte_histogram_rows, cuda_pack.pack_payload_window,
+           huffman.build_dict_batch)
+
+
+@pytest.mark.parametrize("mode", ["concat", "separate"])
+def test_sharded_stage2_world_of_one_equals_huffman_encode(nccl_mesh, mode):
+    from imageencoder_tpu.ops.huffman import huffman_encode as host_huffman
+    from imageencoder_tpu_torch.parallel import sharding
+
+    imgs = np.stack([image(256, 512, 70 + k) for k in range(4)])
+    step = sharding.make_sharded_encode_packed(nccl_mesh, mode=mode)
+    words, bits, hist = step(torch.from_numpy(imgs).cuda(), JPEG4, 37)
+    header = b"\x12\x34\x50\x00\x00"
+    got = sharding.encode_sharded_huffman(words, bits, hist, 37, header,
+                                          nccl_mesh, mode=mode)
+    inner = sharding.assemble_packed_stream(words, bits, 37, header, mode)
+    if mode == "concat":
+        assert got == host_huffman(inner[0])
+    else:
+        assert got == [host_huffman(x) for x, _ in inner]
+
+
+@pytest.mark.parametrize("h,w", [(912, 4096), (2160, 3840), (36, 24)])
+def test_sharded_decode_world_of_one(nccl_mesh, h, w):
+    from imageencoder_tpu_torch.parallel import decode_image_sharded
+
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    data = imageencoder_tpu.encode_image(image(h, w, 80), quant,
+                                         use_huffman=True, backend="numpy")
+    got = decode_image_sharded(data, nccl_mesh)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), imageencoder_tpu
+                                  .decode_image(data, backend="numpy"))
+
+
+@pytest.mark.parametrize("ref_mode", ["raw", "recon"])
+def test_two_process_gop_encode_at_720p25(dev, ref_mode, tmp_path):
+    """Two processes over gloo, each encoding its GOPs of bench.py's video
+    on the card: the one-process encode_video's stream and the host
+    engine's."""
+    from imageencoder_tpu_torch.parallel import dryrun
+
+    w, h, n = 1280, 720, 25
+    data = b"".join(f.tobytes() + bytes(w * h // 2)
+                    for f in video_frames(w, h, n, 0))
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    qp = quant_from_numpy(quant.matrix)
+    ranks = dryrun.spawn_world(2, [("gops", {
+        "data": data, "width": w, "height": h, "quant": qp, "use_rle": True,
+        "gop": 4, "merange": 16, "ref_mode": ref_mode, "device": "cuda"})],
+        workdir=tmp_path, timeout_s=600)
+    want = imageencoder_tpu_torch.encode_video(data, w, h, qp, True, 4, 16,
+                                               ref_mode=ref_mode,
+                                               device=dev)
+    assert want == bytes(host_video.encode_video(
+        data, w, h, quant, True, 4, 16, backend="numpy", ref_mode=ref_mode))
+    for (stream, missing), in ranks:
+        assert missing == [] and stream == want

@@ -212,7 +212,7 @@ def test_dict_plain_of_a_refused_stream():
 def test_table_layout_round_trips():
     rng = np.random.default_rng(3)
     parts = [rng.integers(-2 ** 31, 2 ** 31, 256) for _ in range(3)]
-    vals = dict(zip(dict_table.META_FIELDS, [7, 2 ** 40, -1, 1, 5, 0]))
+    vals = dict(zip(dict_table.META_FIELDS, [7, 2 ** 40, -1, 1, 5, 0, 3]))
     table = dict_table.make_table(*parts, "cpu", **vals)
     assert dict_table.TABLE_WORDS == 784
     assert dict_table.fields(table) == vals

@@ -478,3 +478,72 @@ def test_serving_and_cli_import_and_run_with_both_packages_blocked(
                           "--help"], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0 and "--checkpoint-dir" in res.stdout
+
+
+def test_parallel_imports_and_runs_with_both_packages_blocked(tmp_path):
+    """The parallel modules (mesh, sharding, distributed, dryrun) import
+    with jax and imageencoder_tpu blocked, and in a world of one over gloo
+    the sharded image encode (both Huffman stages), the sharded decode and
+    the GOP-distributed encode give this process's backend="numpy"
+    streams and pixels."""
+    imgs = np.stack([smooth_image(64, 48, 40 + k) for k in range(2)])
+    w, h = 32, 32
+    data = yuv420(bench_frames(w, h, 5, 12))
+    quant = QuantMatrix(JPEG4)
+    want = [imageencoder_tpu.encode_image(img, quant, use_huffman=True,
+                                          backend="numpy") for img in imgs]
+    video = bytes(jax_video.encode_video(data, w, h, quant, True, 2, 4,
+                                         backend="numpy"))
+    pixels = imageencoder_tpu.decode_image(want[0], backend="numpy")
+    case = tmp_path / "case.pkl"
+    case.write_bytes(pickle.dumps((imgs, data, want, video, pixels)))
+    code = textwrap.dedent(f"""
+        import pickle, sys
+        sys.modules["jax"] = None
+        sys.modules["imageencoder_tpu"] = None
+        import imageencoder_tpu_torch.parallel as par
+        from imageencoder_tpu_torch.parallel import distributed, dryrun
+        from imageencoder_tpu_torch import quant_from_numpy
+        imgs, data, want, video, pixels = pickle.loads(
+            open({str(case)!r}, "rb").read())
+        q = quant_from_numpy({JPEG4.tolist()!r})
+        distributed.initialize(device="cpu")
+        mesh = par.make_mesh(device="cpu")
+        for entropy in (False, True):
+            assert par.encode_sharded_image_batch(
+                imgs, q, mesh, device_entropy=entropy) == want
+        got = par.decode_image_sharded(want[0], mesh).numpy()
+        assert (got == pixels).all()
+        segs = distributed.encode_gops(data, {w}, {h}, q, True, 2, 4,
+                                       [0, 1, 2], device="cpu")
+        segs = distributed.gather_segments(segs, 3)
+        assert distributed.assemble(segs, 5, {w}, {h}, q, True, 2, 4,
+                                    device="cpu") == video
+        assert callable(dryrun.dryrun_multichip)
+        assert not [m for m in sys.modules
+                    if m.startswith(("jax.", "imageencoder_tpu."))]
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bit_splice_equals_jax_original_on_random_segments(seed):
+    """The port's byte-granular concat_bit_segments against the JAX
+    package's bit-granular one: every phase, empty segments, bytes past a
+    segment's bits (which must not leak), and a short segment refused."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        segs = []
+        for _ in range(int(rng.integers(0, 7))):
+            nb = int(rng.integers(0, 90))
+            extra = int(rng.integers(0, 3))
+            segs.append((rng.integers(0, 256, (nb + 7) // 8 + extra,
+                                      dtype=np.uint8).tobytes(), nb))
+        assert bitpack.concat_bit_segments(segs) == (
+            jax_bitpack.concat_bit_segments(segs))
+    with pytest.raises(ValueError):
+        bitpack.concat_bit_segments([(b"\x01", 9)])
