@@ -12,7 +12,8 @@ video encode (encode_video) with the raw and with the recon motion
 reference, the image decode (decode_image), the video decode
 (decode_frames and decode_video), the serving paths (encode_image_batch,
 encode_image_stream, decode_image_batch) and the command line (python -m
-imageencoder_tpu_torch, checkpointed video encode included).  Phases,
+imageencoder_tpu_torch, checkpointed video encode included) and the
+sharded and multi-process paths (imageencoder_tpu_torch.parallel).  Phases,
 each of which raises on failure:
 
   1. build the kernels in imageencoder_tpu_torch/csrc with nvcc, one
@@ -155,8 +156,22 @@ each of which raises on failure:
      the spliced 720p25 stream among them), each stream equal to the
      one-process encode_video's (the small one to the plain path's); each
      path's launches counted from 0, and medians, device and host
-     profiles and waits of each call.  ``--phase 9`` runs the build and
-     this phase alone, on inputs made by the same builders.
+     profiles and waits of each call.  Then the sharded video
+     (parallel/video_sharding.py): in the world of one,
+     encode_video_sharded of the 720p25 video, raw and recon, Huffman on
+     and off (K6+K7 on the stripe, search_residual_stripe or per P-frame
+     search_predict_stripe and the recon step; K1; K2 over the block
+     segments and K4 pack_records over the vector segments; with Huffman
+     the windowed K3 over the spliced stream, the dict and K4), every
+     stream equal to the one-device encode_frames, every kernel call of
+     one encode held against its plain version, and
+     decode_video_sharded of the streams, motion compensation on and off,
+     equal to decode_video, with medians, p90s, profiles and waits beside
+     the one-device calls; and in two gloo processes on the card, a
+     (1, 2) mesh whose halo exchange crosses the processes, the 1280x704
+     24-frame video, raw and recon, equal to the one-process encode.
+     ``--phase 9`` runs the build and this phase alone, on inputs made by
+     the same builders.
 
 Kernel times: ``ms`` and ``plain_ms`` are device time per call from
 torch.profiler (the kernel alone; everything the plain version runs);
@@ -359,6 +374,29 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                                "pack_payload_kernel",
                                "imageencoder_tpu_torch/csrc/pack.cu",
                                "imageencoder_tpu/ops/pallas_pack.py:55"),
+    # The sharded video (parallel/video_sharding.py): the search with the
+    # prediction as its epilogue on a haloed stripe, clamped in global
+    # rows (the JAX package's sharded step runs an XLA SAD scan there,
+    # :160-186 and :367-373, where its one-device path runs K6 and K7);
+    # K4 pack_records over a rank's vector segments, each from its own bit
+    # phase (its pack_blocks_device, pack_records_pallas on a TPU).
+    "K6+K7 search_residual_stripe": ("cuda_motion", "search_residual_stripe",
+                                     "search_residual_stripe_plain",
+                                     "motion_search_kernel",
+                                     "imageencoder_tpu_torch/csrc/motion.cu",
+                                     "imageencoder_tpu/ops/pallas_motion.py"
+                                     ":38"),
+    "K6+K7 search_predict_stripe": ("cuda_motion", "search_predict_stripe",
+                                    "search_predict_stripe_plain",
+                                    "motion_search_kernel",
+                                    "imageencoder_tpu_torch/csrc/motion.cu",
+                                    "imageencoder_tpu/ops/pallas_motion.py"
+                                    ":38"),
+    "K4 pack_records segments": ("cuda_pack", "pack_records_segments",
+                                 "pack_records_segments_plain",
+                                 "pack_records_segments_kernel",
+                                 "imageencoder_tpu_torch/csrc/pack.cu",
+                                 "imageencoder_tpu/ops/pallas_pack.py:55"),
 }
 PATHS = {  # path: the kernels it runs (Huffman on and off)
     "image": ("K1 encode_locals", "K2 pack_locals", "K2 pack_locals+hist",
@@ -400,9 +438,24 @@ PATHS = {  # path: the kernels it runs (Huffman on and off)
                          "K6+K7 search_predict", "K4 pack_coeffs",
                          "K3 byte_histogram", "Huffman dict",
                          "K4 pack_payload"),
+    # The sharded video in a world of one (Huffman on and off): the
+    # stripe's search, K1 on its residual stack, K2 and K4 over the block
+    # and vector segments; with Huffman the windowed K3 over the spliced
+    # stream, the dict and K4 pack_payload over it.
+    "sharded video raw": ("K6+K7 search_residual_stripe", "K1 encode_locals",
+                          "K2 pack_segments", "K4 pack_records segments",
+                          "K3 byte_histogram_rows", "Huffman dict batch",
+                          "K4 pack_payload batch"),
+    "sharded video recon": ("K6+K7 search_predict_stripe", "K5 recon_step",
+                            "K1 encode_locals", "K2 pack_segments",
+                            "K4 pack_records segments",
+                            "K3 byte_histogram_rows", "Huffman dict batch",
+                            "K4 pack_payload batch"),
+    "sharded video decode": ("D1 huffman_decode", "D2 walk_video",
+                             "vector read", "D3 decode_blocks", "K7 predict"),
 }
 DECODE_PATHS = ("image decode", "video decode", "image batch decode",
-                "sharded decode")
+                "sharded decode", "sharded video decode")
 # No encode path launches these.
 DECODE = ("D1 huffman_decode", "D2 walk_offsets", "D2 walk_video",
           "vector read", "D3 decode_blocks")
@@ -419,15 +472,20 @@ STREAM_OUT = ("K2 pack_locals", "K2 pack_locals+hist", "K4 pack_records",
 # The same over a batch: one K2 call a batch, its streams in rows.
 BATCH_OUT = ("K2 pack_locals batch", "K2 pack_locals+hist batch",
              "K4 pack_payload batch", "K2 pack_segments",
-             "K4 pack_payload window")
+             "K4 pack_payload window", "K4 pack_records segments")
 # One sharded image encode launches these once each (K3 rows twice with
 # stage 2), and no other.
 SHARDED_CALL = {False: dict.fromkeys(PATHS["sharded image"], 1),
                 True: {"K1 encode_locals": 1, "K2 pack_segments": 1,
                        "K3 byte_histogram_rows": 2, "Huffman dict batch": 1,
                        "K4 pack_payload window": 1}}
+SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep's cycles a second, at most
 SHARDED_SAMPLES = 20  # per sharded timing
 GOP_REPS = 3  # timed GOP-distributed encodes in each process
+# The sharded video in two gloo processes on the card, a (1, 2) mesh: two
+# stripes of 352 rows (720 rows are 45 macroblock rows, which two stripes
+# cannot split).
+VIDEO_PAIR = (1280, 704, 24)
 # One encode_image with Huffman on launches these once each, and no other.
 IMAGE_CALL = ("K1 encode_locals", "K2 pack_locals+hist", "Huffman dict",
               "K4 pack_payload")
@@ -534,6 +592,30 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean CUDA-event milliseconds per call of fn() run back to back
+    behind a spin kernel that keeps the card busy while the host queues
+    the calls: the card's time for them, not the host's launch rate
+    (where fn waits for the card, the host's time shows again)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_s = min(2.0 * reps * (time.perf_counter() - t0), 1.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_rows(fn, reps: int, counts: dict | None = None):
     """(device microseconds per call by operation, host wall ms per call)
     of fn() under torch.profiler; ``counts``, where given, receives the
@@ -567,25 +649,39 @@ def device_rows(fn, reps: int, counts: dict | None = None):
 def profiled_ms(fn, symbol=None, reps: int = 20, tries: int = 3) -> float:
     """Device milliseconds per call of fn() from torch.profiler: the
     kernels whose name contains ``symbol`` (or one of them, for a tuple:
-    a wrapper of several launches), or all device work.  The
-    profiler now and then returns a run without its device records; such
-    a run is profiled again after a pause, up to ``tries`` times in all;
-    if none has them, the time is the CUDA-event time of the whole call,
-    run back to back, and a line says so."""
+    a wrapper of several launches), or all device work.  The profiler
+    now and then drops device records.  Where it keeps some of an
+    operation's (seen a fractional number of times a call), the
+    operation's time a call is its mean over the records kept times its
+    whole count a call (at least 1), and a line says so where that moves
+    the time by more than 5%.  A run without any is profiled again after
+    a pause, up to ``tries`` times in all; if none has them, the time is
+    the CUDA-event time of the call's device work (:func:`queued_ms`),
+    and a line says so."""
     symbols = as_tuple(symbol) if symbol else ()
     for attempt in range(tries):
-        rows, _ = device_rows(fn, reps)
-        us = sum(t for key, t in rows.items()
-                 if not symbols or any(sym in key for sym in symbols))
-        if us > 0.0:
+        counts = {}
+        rows, _ = device_rows(fn, reps, counts)
+        keys = [key for key in rows
+                if not symbols or any(sym in key for sym in symbols)]
+        seen = sum(rows[key] for key in keys)
+        if seen > 0.0:
+            us = sum(rows[key] / counts[key] * max(1, round(counts[key]))
+                     for key in keys if counts[key] > 0)
+            if us > 1.05 * seen:
+                print(f"profiler: some device records of "
+                      f"{symbol or 'the call'} dropped (seen a call: "
+                      + ", ".join(f"{counts[key]:g}" for key in keys)
+                      + f"); {seen / 1e3:.4f} ms seen, {us / 1e3:.4f} ms "
+                      f"from the means of the records kept", flush=True)
             return us / 1e3
         print(f"profiler: no device records for {symbol or 'the call'}; "
               f"profiling again", flush=True)
         time.sleep(0.25 * (attempt + 1))
-    ms = cuda_ms(fn, reps)
+    ms = queued_ms(fn, reps)
     print(f"profiler: no device records for {symbol or 'the call'} in "
-          f"{tries} runs; timed the whole call with CUDA events instead, "
-          f"{ms:.4f} ms", flush=True)
+          f"{tries} runs; timed the call's device work with CUDA events "
+          f"instead (queued behind a spin kernel), {ms:.4f} ms", flush=True)
     return ms
 
 
@@ -719,19 +815,44 @@ def operations(name: str, args: tuple,
         return (blocks * f64_ops_per_block(b * b, name == "K5 recon_step"),
                 F64_OPS_PER_S)
     if name in ("K6 motion_search", "K6+K7 search_predict",
-                "K6+K7 search_residual"):
+                "K6+K7 search_residual", "K6+K7 search_residual_stripe",
+                "K6+K7 search_predict_stripe"):
         # 9 candidates on the first level, 8 on each further one (the
         # centre's SAD is the previous level's best); of a whole video
         # only the P-frames are searched.
         f, h, w = args[0].shape
+        merange = args[-1]
         if name == "K6+K7 search_residual":
             f = len(module("cuda_motion").p_frames(f, args[1]))
-        levels = len(search_steps(args[2]))
+            merange = args[2]
+        elif name == "K6+K7 search_residual_stripe":
+            f = len(stripe_p_frames(args))
+        levels = len(search_steps(merange))
         candidates = 9 + 8 * (levels - 1) if levels else 0
         byte_sads = (f * (h // MACRO) * (w // MACRO) * candidates
                      * MACRO * MACRO)
         return byte_sads / 4, INT32_OPS_PER_S  # 4 bytes a __vsadu4
     return 0.0, 1.0
+
+
+def stripe_p_frames(args) -> list:
+    """The P-frames a stripe search's arguments search (all of its frames
+    but for search_residual_stripe, whose f0 and gop pick them)."""
+    if len(args) == 8:  # cur, ref, row0, halo, h_glob, f0, gop, merange
+        return module("cuda_motion").p_frames(args[0].shape[0], args[6],
+                                              args[5])
+    return list(range(args[0].shape[0]))
+
+
+def stripe_bytes(args, got) -> int:
+    """The bytes a stripe search must move: cur, the reference rows of its
+    searched frames that lie in the frame (its halo rows past the frame's
+    edges are never read), the outputs."""
+    cur, _, row0, halo, h_glob = args[:5]
+    f, h, w = cur.shape
+    rows = min(h_glob, row0 + h + halo) - max(0, row0 - halo)
+    return (cur.numel() + len(stripe_p_frames(args)) * rows * w
+            + tensor_bytes(got))
 
 
 def bincount_ms(words, total_bits) -> float:
@@ -841,6 +962,15 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
         nbytes = ((fields + 7) // 8 + 16 * args[2].numel()
                   + tensor_bytes([args[5], kwargs.get("pred")])
                   + tensor_bytes(got))
+    elif name in ("K6+K7 search_residual_stripe",
+                  "K6+K7 search_predict_stripe"):
+        nbytes = stripe_bytes(args, got)
+    elif name == "K4 pack_records segments":
+        # The widths, the values of the records that are not empty, each
+        # segment's bytes out.
+        live = int((args[1].sum(dim=-1) > 0).sum())
+        nbytes = (tensor_bytes(args[1:2]) + 4 * args[0].shape[-1] * live
+                  + sum((int(t) + 7) // 8 for t in got[-1]))
     elif name in ("K6 motion_search", "K7 predict", "K5 recon_step",
                   "K6+K7 search_predict"):
         nbytes = tensor_bytes(args[:2]) + tensor_bytes(got)
@@ -1426,9 +1556,185 @@ def gop_job(reps: int = 0, **kw) -> dict:
     return out
 
 
+_PAIR_MESH = {}  # the (1, 2) mesh of a spawned process, made once
+
+
+def video_pair_job(ref_mode: str, reps: int = 0) -> dict:
+    """One process's share of the sharded video in a (1, 2) mesh over gloo
+    on the card (run in each process of a gloo world, parallel/dryrun.py):
+    encode_video_sharded of the VIDEO_PAIR video (frames on the card,
+    Huffman on), every kernel call of one encode held against its plain
+    version, and with ``reps`` the median host ms of that many calls (a
+    barrier before each), its device busy ms and its host waits.  Every
+    process makes the same calls in the same order: they meet in the
+    halo exchanges and the all-gathers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import imageencoder_tpu_torch as port
+    from imageencoder_tpu_torch import parallel
+
+    t_job = time.perf_counter()
+    if "mesh" not in _PAIR_MESH:
+        _PAIR_MESH["mesh"] = parallel.make_mesh(2, frame_axis=1,
+                                                device="cuda")
+    mesh = _PAIR_MESH["mesh"]
+    w, h, n = VIDEO_PAIR
+    frames = torch.from_numpy(video_frames(w, h, n, 2)).cuda()
+    quant = port.QuantMatrix(np.array(QUANT, dtype=np.uint32))
+
+    def encode():
+        return parallel.encode_video_sharded(frames, quant, mesh, True, GOP,
+                                             MERANGE, ref_mode=ref_mode)
+
+    wrappers = {name: getattr(module(mod_name), attr)
+                for name, (mod_name, attr, *_) in KERNELS.items()}
+    got = []
+    out = {"counts": launches_of(wrappers, lambda: got.append(encode()))}
+    out["stream"] = got[0]
+    with captured_calls() as calls:
+        encode()
+    out["held"] = {name: len(c) for name, c in calls.items() if c}
+    for name, captured in calls.items():
+        for args, kwargs in captured:
+            held_equal(name, args, kwargs)
+    del calls
+    if reps:
+        t = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode()
+            t.append(time.perf_counter() - t0)
+        out["median_ms"] = quantiles(t)[0]
+        busy, _ = device_rows(encode, 1)
+        out["busy_ms"] = sum(busy.values()) / 1e3 if busy else None
+        out["waits"], out["where"] = host_waits(encode, 1)
+    out["job_s"] = time.perf_counter() - t_job
+    return out
+
+
+def sharded_video_phase(port, quant, mesh, wrappers, rows: dict) -> list:
+    """Phase 9's sharded video in the world of one over NCCL: the 720p25
+    video through encode_video_sharded, raw and recon, Huffman on and off,
+    every stream equal to the one-device encode_frames on the card (phase
+    4 holds that against the plain path), every kernel call of one encode
+    held against its plain version and the new kernels' rows kept; the
+    launches of each path counted from 0; decode_video_sharded of the
+    streams, motion compensation on and off, equal to decode_video; then
+    medians, p90s, device and host profiles and waits beside the one-device
+    calls.  Returns each path's launch counts."""
+    import torch
+
+    from imageencoder_tpu_torch import parallel
+    from imageencoder_tpu_torch.models.video import encode_frames
+
+    vw, vh, vn = VIDEO
+    frames = torch.from_numpy(video_frames(vw, vh, vn, 0)).cuda()
+
+    def sharded(mode, huff=True):
+        return parallel.encode_video_sharded(frames, quant, mesh, True, GOP,
+                                             MERANGE, use_huffman=huff,
+                                             ref_mode=mode)
+
+    def one(mode, huff=True):
+        return encode_frames(frames, vw, vh, quant, True, GOP, MERANGE,
+                             use_huffman=huff, ref_mode=mode, device="cuda")
+
+    counts, streams = [], {}
+    new = {"raw": "K6+K7 search_residual_stripe",
+           "recon": "K6+K7 search_predict_stripe"}
+    for mode in ("raw", "recon"):
+        with captured_calls() as calls:
+            got = sharded(mode)
+        held = {name: len(c) for name, c in calls.items() if c}
+        for name, captured in calls.items():
+            for args, kwargs in captured:
+                held_equal(name, args, kwargs)
+        rows[new[mode]] = check_kernel(new[mode], *calls[new[mode]][0])
+        if mode == "recon":
+            # A world of one searches one stripe, the whole frame (row 0,
+            # no halo): the whole-frame wrapper's launch, timed beside it.
+            args = calls[new[mode]][0][0]
+            whole = profiled_ms(lambda: module("cuda_motion").search_predict(
+                args[0], args[1], args[5]), "motion_search_kernel")
+            rows[new[mode]]["whole_frame_ms"] = whole
+            print(f"K6+K7 search_predict on the same frame and reference "
+                  f"(the whole-frame wrapper): device {whole:.4f} ms",
+                  flush=True)
+        if mode == "raw":
+            rows["K4 pack_records segments"] = check_kernel(
+                "K4 pack_records segments",
+                *calls["K4 pack_records segments"][0])
+        del calls
+        for huff in (True, False):
+            streams[mode, huff] = got if huff else sharded(mode, False)
+            if streams[mode, huff] != one(mode, huff):
+                raise AssertionError(f"encode_video_sharded {mode} (Huffman "
+                                     f"{huff}) differs from the one-device "
+                                     f"encode_frames")
+        print(f"encode_video_sharded {mode} {vw}x{vh}x{vn}, world of one "
+              f"over NCCL, Huffman on and off: streams equal to the "
+              f"one-device encode_frames on the card; every kernel call of "
+              f"one encode bit-equal to its plain version ("
+              + ", ".join(f"{name} {n}" for name, n in held.items())
+              + " calls)", flush=True)
+        one_call = launches_of(wrappers, lambda: sharded(mode))
+        print(f"one encode_video_sharded {mode}, Huffman on: " + ", ".join(
+            f"{name} {n}" for name, n in one_call.items() if n), flush=True)
+        counts.append(phase_of_path(
+            f"sharded video {mode}", wrappers,
+            lambda: [sharded(mode, huff) for huff in (True, False)]))
+    for (mode, huff), data in streams.items():
+        if not huff:
+            continue
+        for mc in (True, False):
+            got = parallel.decode_video_sharded(data, mesh, motioncomp=mc)
+            want = port.decode_video(data, mc, device="cuda")
+            if got[0] != want[0] or got[2] != want[2]:
+                raise AssertionError(f"decode_video_sharded {mode} "
+                                     f"motioncomp={mc} differs from "
+                                     f"decode_video")
+    print(f"decode_video_sharded of the raw and recon streams, motioncomp "
+          f"on and off: YUV420 bytes equal to decode_video on the card",
+          flush=True)
+    raw = streams["raw", True]
+    counts.append(phase_of_path(
+        "sharded video decode", wrappers,
+        lambda: parallel.decode_video_sharded(raw, mesh)))
+    mpix = vw * vh * vn / 1e6
+    timed = {
+        "encode_video_sharded raw": lambda: sharded("raw"),
+        "encode_frames raw (one device)": lambda: one("raw"),
+        "encode_video_sharded recon": lambda: sharded("recon"),
+        "encode_frames recon (one device)": lambda: one("recon"),
+        "decode_video_sharded": lambda: parallel.decode_video_sharded(
+            raw, mesh),
+        "decode_video (one device)": lambda: port.decode_video(
+            raw, device="cuda")}
+    for label, fn in timed.items():
+        t = []
+        for _ in range(SHARDED_SAMPLES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        med, p90 = quantiles(t)
+        print(f"{label} {vw}x{vh}x{vn}: median {med:.3f} ms, p90 "
+              f"{p90:.3f} ms (n={SHARDED_SAMPLES}; {mpix / med * 1e3:.1f} "
+              f"Mpix/s)", flush=True)
+        print_profile(label, fn, 3, waits_wanted=20, at_most=True)
+        if "sharded" in label:
+            host_profile(label, fn)
+    return counts
+
+
 def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
                   image_pixels, vdata, video_streams, wrappers,
-                  rows: dict) -> list:
+                  rows: dict, t_start: float) -> list:
     """Phase 9: the sharded image encode (Huffman by stage 1 and by the
     distributed stage 2) and the sharded decode in a world of one over
     NCCL, the GOP-distributed video encode in two processes over gloo on
@@ -1546,6 +1852,14 @@ def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
             print_profile(label, fn, 3, waits_wanted=0 if decode else 20,
                           at_most=not decode)
             host_profile(label, fn)
+        t_video = time.perf_counter()
+        print(f"phase 9 sharded video, world of one, starts at "
+              f"{t_video - t_start:.1f} s", flush=True)
+        counts += sharded_video_phase(port, quant, mesh, wrappers, rows)
+        world_one_s = time.perf_counter() - t_video
+        print(f"phase 9 sharded video, world of one, done at "
+              f"{time.perf_counter() - t_start:.1f} s ({world_one_s:.1f} s)",
+              flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -1563,6 +1877,9 @@ def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
             for mode in ("raw", "recon")]
     jobs += [("chip_smoke:gop_job", dict(base, data=small, width=sw,
                                          height=sh, ref_mode=mode))
+             for mode in ("raw", "recon")]
+    jobs += [("chip_smoke:video_pair_job", {"ref_mode": mode,
+                                            "reps": GOP_REPS})
              for mode in ("raw", "recon")]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
@@ -1617,10 +1934,56 @@ def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
               f"(by line {r0['where']}); process 1: median "
               f"{ranks[1][k]['median_ms']:.3f} ms; one-process encode_video "
               f"median {one:.3f} ms (n={GOP_REPS * 3})", flush=True)
+    # The sharded video in a (1, 2) mesh: the halo exchange crosses the
+    # two processes.
+    from imageencoder_tpu_torch.models.video import encode_frames
+
+    t_checks = time.perf_counter()
+    pw, ph, pn = VIDEO_PAIR
+    pair_d = torch.from_numpy(video_frames(pw, ph, pn, 2)).cuda()
+    for k, mode in enumerate(("raw", "recon")):
+        want = encode_frames(pair_d, pw, ph, quant, True, GOP, MERANGE,
+                             ref_mode=mode, device="cuda")
+        res = [r[4 + k] for r in ranks]
+        if any(x["stream"] != want for x in res):
+            raise AssertionError(f"the (1, 2) sharded video {mode} differs "
+                                 f"from the one-process encode_frames")
+        held = {name: sum(x["held"].get(name, 0) for x in res)
+                for name in KERNELS}
+        both = {name: sum(x["counts"][name] for x in res) for name in KERNELS}
+        counts.append(check_path(f"sharded video {mode}", both))
+        t = []
+        for _ in range(GOP_REPS * 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode_frames(pair_d, pw, ph, quant, True, GOP, MERANGE,
+                          ref_mode=mode, device="cuda")
+            t.append(time.perf_counter() - t0)
+        print(f"encode_video_sharded {mode} {pw}x{ph}x{pn} on a (1, 2) mesh "
+              f"of two gloo processes on the card (two stripes of {ph // 2} "
+              f"rows, the halo exchange across the processes): stream equal "
+              f"to the one-process encode_frames; every kernel call of one "
+              f"encode in each process bit-equal to its plain version ("
+              + ", ".join(f"{name} {n}" for name, n in held.items() if n)
+              + f" calls); process 0: median {res[0]['median_ms']:.3f} ms a "
+              f"call (n={GOP_REPS}), device busy {res[0]['busy_ms']} ms, host "
+              f"waits {res[0]['waits']} (by line {res[0]['where']}); process "
+              f"1: median {res[1]['median_ms']:.3f} ms; one-process "
+              f"encode_frames median {quantiles(t)[0]:.3f} ms "
+              f"(n={GOP_REPS * 3})", flush=True)
+    checks_s = time.perf_counter() - t_checks
+    pair_s = [max(r[4 + k]["job_s"] for r in ranks) for k in range(2)]
+    print(f"phase 9 sharded video: {world_one_s + sum(pair_s) + checks_s:.1f}"
+          f" s in all: the world of one {world_one_s:.1f} s, the (1, 2) "
+          f"pair's jobs {sum(pair_s):.1f} s (raw {pair_s[0]:.1f}, recon "
+          f"{pair_s[1]:.1f} s, the slower process; start-up not included), "
+          f"the pair's checks here {checks_s:.1f} s", flush=True)
+    print(f"phase 9 video done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     return counts
 
 
-def phase9_alone(port, quant, vdata, dev) -> tuple:
+def phase9_alone(port, quant, vdata, dev, t_start: float) -> tuple:
     """``--phase 9``: phase 9 on the inputs the whole run gives it (the
     serving batch and its one-device encode_image_batch streams, the
     3840x2160 Huffman stream and its decode_image pixels, the 720p25
@@ -1642,7 +2005,7 @@ def phase9_alone(port, quant, vdata, dev) -> tuple:
                 for name, (mod_name, attr, *_) in KERNELS.items()}
     rows = {}
     counts = sharded_phase(port, quant, batch_d, streams, stream, pixels,
-                           vdata, videos, wrappers, rows)
+                           vdata, videos, wrappers, rows, t_start)
     return rows, counts
 
 
@@ -1704,7 +2067,7 @@ def main() -> None:
 
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if alone:
-        rows, counts = phase9_alone(port, quant, vdata, dev)
+        rows, counts = phase9_alone(port, quant, vdata, dev, t_start)
         print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
         finish(rows, counts, list(rows))
@@ -2271,7 +2634,7 @@ def main() -> None:
     # ---- 9. the sharded and multi-process paths ----
     counts += sharded_phase(
         port, quant, batch0_d, huff_streams, streams[1], decoded[1], vdata,
-        video_streams, wrappers, rows)
+        video_streams, wrappers, rows, t_start)
 
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     finish(rows, counts, KERNELS)

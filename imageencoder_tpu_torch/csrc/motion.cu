@@ -57,6 +57,16 @@
 //     video: frame f is searched in frame f - 1, and a GOP's first frame,
 //     which has no reference, is written as its pixels, so no torch op
 //     selects frames, converts them or scatters the residual.
+// The search takes a stripe of the frames (the sharded video encode,
+// parallel/video_sharding.py): cur holds rows row0 .. row0 + h - 1 of each
+// frame, ref is a separate stack whose frame f holds global rows
+// row0 - halo .. row0 + h + halo - 1 of cur[f]'s reference (halo rows from
+// the neighbouring stripes), and every candidate is clamped in global rows
+// to [0, h_glob - 16], so a stripe's vectors are the whole frame's.  A
+// whole frame is the stripe row0 = 0, halo = 0, h_glob = h.  In the raw
+// path's stripe f0 is the chunk's first global frame: frame f is intra
+// where (f0 + f) % gop == 0, and its reference comes from ref like any
+// other (the chunk's first frame's from the previous chunk).
 // predict_kernel, K7 alone with the vectors given, stays for a decoder,
 // which has vectors and no search: one thread copies one 16-byte
 // macroblock row through aligned word loads and a funnel shift.
@@ -130,6 +140,20 @@ __device__ __forceinline__ uint32_t window_bytes(const uint32_t* win, int i,
     return sh ? __funnelshift_r(lo, __ldg(win + i + 1), sh) : lo;
 }
 
+// Where a search's frames lie in the whole frame (see the header).
+struct Stripe {
+    int row0;             // global row of cur's first row
+    int halo;             // rows of ref above row0 (and below the last)
+    int h_glob;           // the frame's height: the clamp
+    long long ref_plane;  // bytes from one ref frame to the next
+    long long f0;         // global index of frame 0 (kResidual)
+};
+
+// P-frames among the frames 0 .. x - 1 of a video in GOPs of gop.
+__device__ __forceinline__ long long p_before(long long x, int gop) {
+    return x - (x + gop - 1) / gop;
+}
+
 // What the search writes besides the vectors.
 constexpr int kVectors = 0;   // nothing: K6 alone
 constexpr int kPredict = 1;   // the predicted block, u8
@@ -146,16 +170,16 @@ __device__ __forceinline__ uint2 residual4(uint32_t cur, uint32_t pred) {
                       ((uint32_t)d[2] & 0xFFFFu) | ((uint32_t)d[3] << 16));
 }
 
-// grid: (ceil(nbx / kSearchWarps), nby, F).  Frame f of cur is searched in
-// frame f of ref.  With gop > 0 (kResidual) cur is a whole video and ref
-// the same video one frame back: frame f with f % gop == 0 is intra, not
-// searched, and the vectors of the others are stored densely, in order.
-// `out` is the prediction u8 [F, H, W] or the residual int16 [F*H, W].
+// grid: (ceil(nbx / kSearchWarps), nby, F).  Frame f of cur (h rows, the
+// stripe st) is searched in frame f of ref.  With gop > 0 (kResidual) frame
+// f with (st.f0 + f) % gop == 0 is intra, not searched, and the vectors of
+// the others are stored densely, in order.  `out` is the prediction u8
+// [F, h, W] or the residual int16 [F*h, W].
 template <bool kSmem, int kOut>
 __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
         const uint8_t* __restrict__ cur, const uint8_t* __restrict__ ref,
-        int h, int w, int merange, int gop, int32_t* __restrict__ mvec,
-        void* __restrict__ out) {
+        int h, int w, int merange, int gop, Stripe st,
+        int32_t* __restrict__ mvec, void* __restrict__ out) {
     extern __shared__ uint4 window_smem[];
 
     const int nbx = w / kMacro;
@@ -164,16 +188,18 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
     const int mbx0 = blockIdx.x * kSearchWarps;
     const int mbx = mbx0 + warp;
     const int last = min(mbx0 + kSearchWarps, nbx) - 1;
-    const int by = blockIdx.y * kMacro;
+    const int by_loc = blockIdx.y * kMacro;  // in cur
+    const int by = st.row0 + by_loc;          // in the frame
+    const int h_glob = st.h_glob;
     const long long f = blockIdx.z;
     const long long plane = (long long)h * w;
     const int c = lane & 3;
     const int r = lane >> 2;
     long long fv = f;  // the frame's place among the vectors
     if constexpr (kOut == kResidual) {
-        if (gop > 0 && f % gop == 0) {  // intra: the pixels, no search
+        if (gop > 0 && (st.f0 + f) % gop == 0) {  // intra: the pixels
             if (mbx >= nbx) return;
-            const long long at = f * plane + (long long)(by + r) * w
+            const long long at = f * plane + (long long)(by_loc + r) * w
                                  + mbx * kMacro + 4 * c;
             int16_t* o = static_cast<int16_t*>(out) + at;
             *reinterpret_cast<uint2*>(o) = residual4(__ldg(
@@ -182,7 +208,7 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
                 reinterpret_cast<const uint32_t*>(cur + at + 8LL * w)), 0u);
             return;
         }
-        if (gop > 0) fv = f - f / gop - 1;
+        if (gop > 0) fv = p_before(st.f0 + f, gop) - p_before(st.f0, gop);
     }
 
     // The window: rows y0 .. y0 + wh - 1, columns xa .. xa + width - 1,
@@ -192,9 +218,10 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
     const int xa = x0 & ~15;
     const int xe = clampi(last * kMacro + span, 0, w - kMacro) + kMacro;
     const int width = min(w, (xe + 15) & ~15) - xa;
-    const int y0 = clampi(by - span, 0, h - kMacro);
-    const int wh = clampi(by + span, 0, h - kMacro) + kMacro - y0;
-    const uint8_t* src = ref + f * plane + (long long)y0 * w + xa;
+    const int y0 = clampi(by - span, 0, h_glob - kMacro);
+    const int wh = clampi(by + span, 0, h_glob - kMacro) + kMacro - y0;
+    const uint8_t* src = ref + f * st.ref_plane
+                         + (long long)(y0 - st.row0 + st.halo) * w + xa;
     const uint32_t* win;
     int pitch;  // bytes
     if constexpr (kSmem) {
@@ -216,7 +243,8 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
 
     // Lane l: column word c = l % 4 of rows r and r + 8, r = l / 4.
     const int bx = mbx * kMacro;
-    const uint8_t* cp = cur + f * plane + (long long)(by + r) * w + bx + 4 * c;
+    const uint8_t* cp = cur + f * plane + (long long)(by_loc + r) * w + bx
+                        + 4 * c;
     const uint32_t cur0 = __ldg(reinterpret_cast<const uint32_t*>(cp));
     const uint32_t cur1 = __ldg(reinterpret_cast<const uint32_t*>(
         cp + 8LL * w));
@@ -235,7 +263,8 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
 #pragma unroll
         for (int k = 0; k < 3; k++) {
             const int px = clampi(bx + offx + (k - 1) * step, 0, w - kMacro);
-            const int py = clampi(by + offy + (k - 1) * step, 0, h - kMacro);
+            const int py = clampi(by + offy + (k - 1) * step, 0,
+                                  h_glob - kMacro);
             colw[k] = (px - xa + 4 * c) >> 2;
             sh[k] = 8u * (unsigned)(px & 3);
             roww[k] = (py - y0 + r) * pitch_w;
@@ -279,12 +308,13 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
         // The winning window, clamped as every candidate was: this lane's
         // words of rows r and r + 8 once more, and out they go.
         const int px = clampi(bx + offx, 0, w - kMacro);
-        const int py = clampi(by + offy, 0, h - kMacro);
+        const int py = clampi(by + offy, 0, h_glob - kMacro);
         const int i = (py - y0 + r) * pitch_w + ((px - xa + 4 * c) >> 2);
         const unsigned sh = 8u * (unsigned)(px & 3);
         const uint32_t p0 = window_bytes<kSmem>(win, i, sh);
         const uint32_t p1 = window_bytes<kSmem>(win, i + row8_w, sh);
-        const long long at = f * plane + (long long)(by + r) * w + bx + 4 * c;
+        const long long at = f * plane + (long long)(by_loc + r) * w + bx
+                             + 4 * c;
         if constexpr (kOut == kPredict) {
             uint8_t* o = static_cast<uint8_t*>(out) + at;
             *reinterpret_cast<uint32_t*>(o) = p0;
@@ -337,12 +367,29 @@ __global__ void __launch_bounds__(kPredictThreads) predict_kernel(
         make_uint4(v[0], v[1], v[2], v[3]);
 }
 
+// The stripe of a whole frame of h rows.
+Stripe whole_frame(int h, int w) {
+    return Stripe{0, 0, h, (long long)h * w, 0};
+}
+
+// Whether ref holds every row a search of the stripe can read: the rows
+// the clamped candidates of its macroblocks reach, +-span around it.
+bool stripe_ok(int h, int merange, const Stripe& st) {
+    if (st.row0 < 0 || st.halo < 0 || st.row0 + h > st.h_glob
+        || st.h_glob % kMacro || st.f0 < 0)
+        return false;
+    const int span = search_span(merange);
+    return st.row0 - st.halo <= std::max(0, st.row0 - span)
+           && st.row0 + h + st.halo >= std::min(st.h_glob, st.row0 + h + span);
+}
+
 template <int kOut>
 int launch_search(const uint8_t* cur, const uint8_t* ref, long long n_frames,
-                  int h, int w, int merange, int gop, int32_t* mvec,
-                  void* out, cudaStream_t s) {
+                  int h, int w, int merange, int gop, const Stripe& st,
+                  int32_t* mvec, void* out, cudaStream_t s) {
     const int nbx = w / kMacro;
     const int nby = h / kMacro;
+    if (!stripe_ok(h, merange, st)) return (int)cudaErrorInvalidValue;
     if (n_frames <= 0 || nbx <= 0 || nby <= 0)
         return (int)cudaGetLastError();
     if (n_frames > 65535 || nby > 65535) return (int)cudaErrorInvalidValue;
@@ -351,17 +398,17 @@ int launch_search(const uint8_t* cur, const uint8_t* ref, long long n_frames,
     const long long span = search_span(merange);
     const long long width = std::min<long long>(
         w, ((kSearchWarps * kMacro + 2 * span + 30) / 16) * 16);
-    const long long rows = std::min<long long>(h, kMacro + 2 * span);
+    const long long rows = std::min<long long>(st.h_glob, kMacro + 2 * span);
     const long long bytes = (width + 16) * rows + 16;  // + a word of slack
     const dim3 grid((unsigned)((nbx + kSearchWarps - 1) / kSearchWarps),
                     (unsigned)nby, (unsigned)n_frames);
     if (bytes <= kWindowSmemMax)
         motion_search_kernel<true, kOut>
             <<<grid, kSearchThreads, (size_t)bytes, s>>>(
-                cur, ref, h, w, merange, gop, mvec, out);
+                cur, ref, h, w, merange, gop, st, mvec, out);
     else
         motion_search_kernel<false, kOut><<<grid, kSearchThreads, 0, s>>>(
-            cur, ref, h, w, merange, gop, mvec, out);
+            cur, ref, h, w, merange, gop, st, mvec, out);
     return (int)cudaGetLastError();
 }
 
@@ -375,7 +422,7 @@ extern "C" int ie_motion_search(const void* cur, const void* ref,
                                 int merange, void* mvec, void* stream) {
     return launch_search<kVectors>(
         (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange, 0,
-        (int32_t*)mvec, nullptr, (cudaStream_t)stream);
+        whole_frame(h, w), (int32_t*)mvec, nullptr, (cudaStream_t)stream);
 }
 
 // As ie_motion_search, and pred: u8 [F, H, W], 4-byte aligned: every
@@ -386,7 +433,23 @@ extern "C" int ie_search_predict(const void* cur, const void* ref,
                                  void* stream) {
     return launch_search<kPredict>(
         (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange, 0,
-        (int32_t*)mvec, pred, (cudaStream_t)stream);
+        whole_frame(h, w), (int32_t*)mvec, pred, (cudaStream_t)stream);
+}
+
+// As ie_search_predict on a stripe: cur u8 [F, h, W], rows row0 .. row0 +
+// h - 1 of frames h_glob rows tall; ref u8 [F, h + 2 * halo, W], frame f's
+// reference from global row row0 - halo (rows outside the frame are never
+// read); pred u8 [F, h, W].  ref must hold the rows the search reaches:
+// halo >= the search's span, or the stripe at the frame's edge.
+extern "C" int ie_search_predict_stripe(const void* cur, const void* ref,
+                                        long long n_frames, int h, int w,
+                                        int row0, int halo, int h_glob,
+                                        int merange, void* mvec, void* pred,
+                                        void* stream) {
+    const Stripe st{row0, halo, h_glob, (long long)(h + 2 * halo) * w, 0};
+    return launch_search<kPredict>(
+        (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange, 0,
+        st, (int32_t*)mvec, pred, (cudaStream_t)stream);
 }
 
 // frames: u8 [F, H, W], 16-byte aligned, a video of GOPs of `gop` >= 1
@@ -402,7 +465,26 @@ extern "C" int ie_search_residual(const void* frames, long long n_frames,
     // Frame 0 is intra, so frame -1 is never read.
     return launch_search<kResidual>(
         cur, cur - (long long)h * w, n_frames, h, w, merange, gop,
-        (int32_t*)mvec, residual, (cudaStream_t)stream);
+        whole_frame(h, w), (int32_t*)mvec, residual, (cudaStream_t)stream);
+}
+
+// As ie_search_residual on a stripe of a chunk of frames: cur u8 [F, h, W]
+// (see ie_search_predict_stripe), global frames f0 .. f0 + F - 1, frame f
+// intra where (f0 + f) % gop == 0; ref u8 [F, h + 2 * halo, W], frame f's
+// reference (the raw frame before it, haloed; for f = 0 the previous
+// chunk's last frame), never read for an intra frame.  mvec: i32
+// [P, (h/16)*(W/16), 2], the chunk's P-frames' vectors in order.
+extern "C" int ie_search_residual_stripe(const void* cur, const void* ref,
+                                         long long n_frames, int h, int w,
+                                         int row0, int halo, int h_glob,
+                                         int merange, long long f0, int gop,
+                                         void* mvec, void* residual,
+                                         void* stream) {
+    if (gop < 1) return (int)cudaErrorInvalidValue;
+    const Stripe st{row0, halo, h_glob, (long long)(h + 2 * halo) * w, f0};
+    return launch_search<kResidual>(
+        (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange,
+        gop, st, (int32_t*)mvec, residual, (cudaStream_t)stream);
 }
 
 // mvec: i32 [F, (H/16)*(W/16), 2], frame f at f * mvec_stride int32s;

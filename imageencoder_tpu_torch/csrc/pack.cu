@@ -30,7 +30,8 @@
 // pack_records_pallas and device_pack.pack_blocks_device): one
 // single-pass packer (pack_tiles) with three front ends that yield each
 // record's length and then its fields, so no field tensor is built first:
-//   pack_records: [N, F] (value, width) fields, the generic form;
+//   pack_records: [N, F] (value, width) fields, the generic form (also
+//                 over segments, each from its own start bit);
 //   pack_payload: the Huffman payload, 16 stream bytes a record, each
 //                 byte's code looked up in shared memory;
 //   pack_coeffs:  a recon video's motion-vector and block records, read
@@ -588,6 +589,26 @@ struct CoeffsFront {
 __global__ void __launch_bounds__(kTile) pack_records_kernel(
         const int32_t* __restrict__ vals, const int32_t* __restrict__ nbits,
         int f, PackOut a) {
+    const RecordsFront fe{vals, nbits, f};
+    pack_tiles<RecordsFront::kItems>(fe, a);
+}
+
+// pack_records over segments: blockIdx.y is the segment, with its own N
+// records of f fields, its own start bit starts[y] (its bit phase in the
+// stream it joins), output row, total, and scratch and edges at the given
+// strides (the sharded video's vector segments, parallel/video_sharding.py).
+__global__ void __launch_bounds__(kTile) pack_records_segments_kernel(
+        const int32_t* __restrict__ vals, const int32_t* __restrict__ nbits,
+        int f, const long long* __restrict__ starts,
+        long long scratch_stride, long long edges_stride, PackOut a) {
+    const long long b = blockIdx.y;
+    vals += b * a.n * f;
+    nbits += b * a.n * f;
+    a.out += b * a.n_words;
+    a.total += b;
+    a.scratch += b * scratch_stride;
+    a.edges += b * edges_stride;
+    a.start_bit = starts[b];
     const RecordsFront fe{vals, nbits, f};
     pack_tiles<RecordsFront::kItems>(fe, a);
 }
@@ -1308,6 +1329,29 @@ extern "C" int ie_pack_records(const void* vals, const void* nbits,
     return launch_pack(pack_records_kernel, RecordsFront::kItems, a,
                        16ll * f, (cudaStream_t)stream, (const int32_t*)vals,
                        (const int32_t*)nbits, f);
+}
+
+// pack_records over n_segments segments of n records each in one launch:
+// vals, nbits i32 [n_segments, n, f]; starts i64 [n_segments] on the
+// device, each segment's start bit; out u32 [n_segments, n_words], 16-byte
+// aligned rows; total i64 [n_segments]; each segment's scratch (u64,
+// zeroed) and edges at strides of scratch_stride and edges_stride words,
+// at least 3 + n_tiles and 2 * n_tiles for n records.  No prefix.
+extern "C" int ie_pack_records_segments(const void* vals, const void* nbits,
+                                        long long n, int f,
+                                        long long n_segments,
+                                        const void* starts, void* out,
+                                        long long n_words, void* scratch,
+                                        long long scratch_stride, void* edges,
+                                        long long edges_stride, void* total,
+                                        void* stream) {
+    const PackOut a = pack_out(n, 0, nullptr, 0, out, n_words, scratch,
+                               edges, total);
+    return launch_pack_streams(
+        pack_records_segments_kernel, RecordsFront::kItems, a, 16ll * f,
+        n_segments, (cudaStream_t)stream, (const int32_t*)vals,
+        (const int32_t*)nbits, f, (const long long*)starts, scratch_stride,
+        edges_stride);
 }
 
 // words: u32 [n_in], 16-byte aligned, the inner stream; table: i32

@@ -47,6 +47,14 @@ SIGNATURES = {
     "ie_motion_search": [_P, _P, _I64, _I32, _I32, _I32, _P, _P],
     "ie_search_predict": [_P, _P, _I64, _I32, _I32, _I32, _P, _P, _P],
     "ie_search_residual": [_P, _I64, _I32, _I32, _I32, _I32, _P, _P, _P],
+    # cur, ref, n_frames, h, w, row0, halo, h_glob, merange, mvec, pred,
+    # stream
+    "ie_search_predict_stripe": [_P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                                 _I32, _P, _P, _P],
+    # cur, ref, n_frames, h, w, row0, halo, h_glob, merange, f0, gop,
+    # mvec, residual, stream
+    "ie_search_residual_stripe": [_P, _P, _I64, _I32, _I32, _I32, _I32,
+                                  _I32, _I32, _I64, _I32, _P, _P, _P],
     # ref, ref_stride, mvec, mvec_stride, n_frames, h, w, pred,
     # pred_stride, stream
     "ie_predict": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _I64, _P],
@@ -59,6 +67,10 @@ SIGNATURES = {
     "ie_pack_locals_scratch": [_I64, _I32],
     "ie_pack_tile": [],
     "ie_pack_records": [_P, _P, _I64, _I32, *_K4_TAIL],
+    # vals, nbits, n, f, n_segments, starts, out, n_words, scratch,
+    # scratch_stride, edges, edges_stride, total, stream
+    "ie_pack_records_segments": [_P, _P, _I64, _I32, _I64, _P, _P, _I64, _P,
+                                 _I64, _P, _I64, _P, _P],
     "ie_pack_payload": [_P, _I64, _P, *_K4_TAIL[3:]],
     # words, n_in, tables, n_streams, out, n_words, scratch,
     # scratch_stride, edges, edges_stride, total, stream

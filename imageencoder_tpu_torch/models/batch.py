@@ -84,7 +84,8 @@ def launch_batch(imgs: torch.Tensor, quant: QuantMatrix, use_rle: bool,
     n = local.shape[0] // b
     # Rows of whole 16-byte vectors: each stream's words start aligned.
     n_words = -(-packed_words_bound(n, block_size * block_size + 2) // 4) * 4
-    args = (local.view(b, n, -1), lens.view(b, n), start_bit, n_words,
+    args = (local.view(b, n, local.shape[1]), lens.view(b, n), start_bit,
+            n_words,
             header)
     if use_huffman:
         return huffman_launch(*cuda_pack.pack_locals_hist_batch(*args))

@@ -301,18 +301,24 @@ def plan_video(data: bytes, block_size: int = BLOCK_SIZE) -> dict:
 
 def decode_into(plan: dict, views: dict, y: torch.Tensor,
                 motioncomp: bool = True, norm: str = "reference",
-                block_size: int = BLOCK_SIZE) -> torch.Tensor:
+                block_size: int = BLOCK_SIZE,
+                gops: tuple[int, int] | None = None) -> torch.Tensor:
     """The device's part of a video decode, on the uploaded stream
     (models/image.py::upload), into ``y`` (u8 [F, H, W] on the views'
     device; its frames may lie apart, as in a YUV420 buffer): D1 (with
     Huffman), D2 over the whole video, the vector read, then frame k of
     every GOP at once: D3 on the I-frames; for k >= 1 K7 from frame k - 1
     and D3 of the residual onto it (with motioncomp=False the frame is
-    the prediction).  Nothing is read back."""
+    the prediction).  With ``gops`` = (g0, g1) only GOPs g0 .. g1 - 1 are
+    decoded, into ``y`` [their frames, H, W] (the walk and the vector read
+    still cover the whole stream: parallel/video_sharding.py).  Nothing is
+    read back."""
     params = plan["params"]
     n_frames, gop = params.frame_count, max(1, params.gop)
     n_micro, w, h = plan["n_blocks"], plan["w"], plan["h"]
-    if n_frames == 0 or n_micro == 0:
+    fr0, fr1 = (0, n_frames) if gops is None else (
+        gops[0] * gop, min(gops[1] * gop, n_frames))
+    if fr1 <= fr0 or n_micro == 0:
         return y
     payload, nbytes = views["stream"], views["nbytes"]
     if plan["huffman"]:
@@ -322,16 +328,16 @@ def decode_into(plan: dict, views: dict, y: torch.Tensor,
     offs, dbits, counts, _, vstart, _ = cuda_decode.walk_video(
         payload, nbytes, plan["start"], n_frames, n_micro, gop,
         plan["vbits"], plan["use_rle"], block_size)
-    recs = [r.view(n_frames, n_micro) for r in (offs, dbits, counts)]
+    recs = [r.view(n_frames, n_micro)[fr0:fr1] for r in (offs, dbits, counts)]
     quant = views["quant"]
     cuda_decode.decode_blocks(payload, nbytes, *(r[0::gop] for r in recs),
                               quant, block_size, norm, h, w, out=y[0::gop])
     if not plan["vbits"]:
         return y
     mvec = cuda_decode.read_vectors(payload, nbytes, vstart, gop,
-                                    plan["n_macro"], plan["mb"])
-    for k in range(1, min(gop, n_frames)):
-        ref = y[k - 1::gop][:len(range(k, n_frames, gop))]
+                                    plan["n_macro"], plan["mb"])[fr0:fr1]
+    for k in range(1, min(gop, fr1 - fr0)):
+        ref = y[k - 1::gop][:len(range(k, fr1 - fr0, gop))]
         if not motioncomp:
             cuda_motion.predict(ref, mvec[k::gop], out=y[k::gop])
             continue

@@ -386,18 +386,20 @@ def decode_blocks_plain(payload: torch.Tensor, nbytes: torch.Tensor,
     from ..models.image import blocks_from_records  # see walk_offsets_plain
 
     bits = to_bits(_host_bytes(payload, nbytes))
-    rows = [r.cpu().numpy().reshape(-1, r.shape[-1])
+    # Frames by records; a frame of no blocks (H or W of 0) has no record.
+    n_frames = 1 if offs.dim() == 1 else offs.shape[0]
+    rows = [r.cpu().numpy().reshape(n_frames, r.shape[-1])
             for r in (offs, dbits, counts)]
     q = quant.cpu().numpy().reshape(block_size, block_size)
-    frames = []
-    for g in range(rows[0].shape[0]):
+    frames = [np.empty((0, h, w), np.uint8)]
+    for g in range(n_frames):
         px = blocks_from_records(bits, rows[0][g], rows[1][g], rows[2][g], q,
                                  norm, block_size, residual=pred is not None)
         px = deblockify(px, h, w)
         if pred is not None:
             px = clamp_to_u8(pred[g].cpu().numpy().astype(np.float64) + px)
-        frames.append(np.ascontiguousarray(px))
-    img = torch.from_numpy(np.stack(frames)).to(payload.device)
+        frames.append(np.ascontiguousarray(px)[None])
+    img = torch.from_numpy(np.concatenate(frames)).to(payload.device)
     if offs.dim() == 1:
         img = img[0]
     return img if out is None else out.copy_(img)

@@ -16,6 +16,14 @@ the vectors given) stay beside them; the video decode
 (models/video.py::decode_frames) runs K7 alone on the vectors it reads
 from the stream.
 
+The sharded video encode (parallel/video_sharding.py) runs both on a
+stripe of the frames: :func:`search_residual_stripe` (a chunk's stripe and
+its haloed reference stack, the chunk's first global frame picking its
+P-frames) and :func:`search_predict_stripe` (the haloed reconstruction
+carry).  Their positions are clamped in global rows, so a stripe's vectors
+are the whole frame's; ops/motion.py's module docstring describes the
+stripe.
+
 The kernels read the frames as 32-bit words and 16-byte vectors, so their
 data must start 16-byte aligned: frames of a contiguous [F, H, W] tensor
 with H * W a multiple of 256 do.
@@ -27,7 +35,7 @@ import torch
 
 from ..kernels import build
 from .motion import (MACRO, motion_search_plain, p_frames,  # noqa: F401
-                     predict_plain)
+                     predict_plain, search_steps)
 
 
 def _check_frames(x: torch.Tensor, name: str) -> None:
@@ -195,3 +203,118 @@ def search_residual(frames: torch.Tensor, gop: int, merange: int):
 
 
 search_residual.launches = 0
+
+
+# ---- on a stripe (the sharded video encode) ----
+
+def _check_stripe(cur: torch.Tensor, ref: torch.Tensor, row0: int,
+                  halo: int, h_glob: int, merange: int) -> None:
+    """cur u8 [F, h, W], rows row0 .. row0 + h - 1 of frames h_glob tall,
+    and ref u8 [F, h + 2 * halo, W] holding every row the search reaches:
+    +-span around the stripe, clipped to the frame."""
+    _check_frames(cur, "cur")
+    f, h, w = cur.shape
+    if ref.dim() != 3 or ref.dtype != torch.uint8 or tuple(ref.shape) != (
+            f, h + 2 * halo, w):
+        raise ValueError(f"ref: expected u8 [{f}, {h + 2 * halo}, {w}], got "
+                         f"{ref.dtype} {tuple(ref.shape)}")
+    span = sum(search_steps(merange))
+    if (row0 < 0 or halo < 0 or row0 + h > h_glob or h_glob % MACRO
+            or row0 - halo > max(0, row0 - span)
+            or row0 + h + halo < min(h_glob, row0 + h + span)):
+        raise ValueError(f"a stripe of rows {row0}..{row0 + h} of "
+                         f"{h_glob} with a halo of {halo} does not hold the "
+                         f"search's reach of {span} rows")
+    if cur.device.type == "cpu":
+        return
+    for name, x in (("cur", cur), ("ref", ref)):
+        build.require(x, name, torch.uint8, 3, cur.device)
+        build.require_aligned(x, name)
+
+
+def search_predict_stripe_plain(cur, ref, row0: int, halo: int, h_glob: int,
+                                merange: int):
+    """The plain version of :func:`search_predict_stripe`, on any device."""
+    mvec = motion_search_plain(cur, ref, merange, row0, halo, h_glob)
+    return mvec, predict_plain(ref, mvec, row0, halo, h_glob)
+
+
+def search_predict_stripe(cur: torch.Tensor, ref: torch.Tensor, row0: int,
+                          halo: int, h_glob: int, merange: int):
+    """:func:`search_predict` on a stripe: cur u8 [F, h, W] (rows row0 ..
+    row0 + h - 1 of frames h_glob rows tall) searched in ref u8
+    [F, h + 2 * halo, W] (from global row row0 - halo), positions clamped
+    in global rows -> (int32 [F, Nmb, 2] vectors, u8 [F, h, W]
+    prediction), in one launch."""
+    _check_stripe(cur, ref, row0, halo, h_glob, merange)
+    if cur.device.type == "cpu":
+        return search_predict_stripe_plain(cur, ref, row0, halo, h_glob,
+                                           merange)
+    dev = cur.device
+    f, h, w = cur.shape
+    mvec = _vectors(f, h, w, dev)
+    pred = torch.empty_like(cur)
+    with torch.cuda.device(dev):
+        code = build.library().ie_search_predict_stripe(
+            cur.data_ptr(), ref.data_ptr(), f, h, w, row0, halo, h_glob,
+            int(merange), mvec.data_ptr(), pred.data_ptr(),
+            build.stream_ptr(dev))
+    build.check(code, "ie_search_predict_stripe")
+    search_predict_stripe.launches += 1
+    return mvec, pred
+
+
+search_predict_stripe.launches = 0
+
+
+def search_residual_stripe_plain(cur, ref, row0: int, halo: int, h_glob: int,
+                                 f0: int, gop: int, merange: int):
+    """The plain version of :func:`search_residual_stripe`, on any
+    device."""
+    f, h, w = cur.shape
+    x = cur.to(torch.int16)
+    p_idx = p_frames(f, gop, f0)
+    if not p_idx:
+        return _vectors(0, h, w, cur.device), x.reshape(f * h, w)
+    pi = torch.tensor(p_idx, device=cur.device)
+    c = cur.index_select(0, pi)
+    mvec, pred = search_predict_stripe_plain(c, ref.index_select(0, pi), row0,
+                                             halo, h_glob, merange)
+    x.index_copy_(0, pi, c.to(torch.int16) - pred)
+    return mvec, x.reshape(f * h, w)
+
+
+def search_residual_stripe(cur: torch.Tensor, ref: torch.Tensor, row0: int,
+                           halo: int, h_glob: int, f0: int, gop: int,
+                           merange: int):
+    """:func:`search_residual` on a stripe of a chunk of frames, in one
+    launch: cur u8 [F, h, W], global frames f0 .. f0 + F - 1 (rows row0 ..
+    row0 + h - 1 of frames h_glob rows tall); ref u8 [F, h + 2 * halo, W],
+    frame f's reference from global row row0 - halo (the raw frame before
+    it, and for f = 0 the previous chunk's last frame; never read for an
+    I-frame, (f0 + f) % gop == 0) -> (int32 [P, Nmb, 2] vectors of the
+    chunk's P-frames in order, int16 [F*h, W]: the pixels on I rows,
+    cur - pred on P rows)."""
+    if gop < 1:
+        raise ValueError(f"gop must be at least 1, got {gop}")
+    if f0 < 0:
+        raise ValueError(f"f0 must be at least 0, got {f0}")
+    _check_stripe(cur, ref, row0, halo, h_glob, merange)
+    if cur.device.type == "cpu":
+        return search_residual_stripe_plain(cur, ref, row0, halo, h_glob, f0,
+                                            gop, merange)
+    dev = cur.device
+    f, h, w = cur.shape
+    mvec = _vectors(len(p_frames(f, gop, f0)), h, w, dev)
+    stack = torch.empty((f * h, w), dtype=torch.int16, device=dev)
+    with torch.cuda.device(dev):
+        code = build.library().ie_search_residual_stripe(
+            cur.data_ptr(), ref.data_ptr(), f, h, w, row0, halo, h_glob,
+            int(merange), int(f0), int(gop), mvec.data_ptr(),
+            stack.data_ptr(), build.stream_ptr(dev))
+    build.check(code, "ie_search_residual_stripe")
+    search_residual_stripe.launches += 1
+    return mvec, stack
+
+
+search_residual_stripe.launches = 0

@@ -15,7 +15,8 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
   * K4 (pack_records_pallas) is one single-pass kernel with three front
     ends, each of which reads its records' fields where they already are:
     :func:`pack_records` [N, F] field tensors of (value, nbits) pairs,
-    fields at most 16 bits wide; :func:`pack_payload` the Huffman payload,
+    fields at most 16 bits wide (:func:`pack_records_segments` B segments
+    of them, each from its own start bit, in one launch); :func:`pack_payload` the Huffman payload,
     each stream byte replaced by its code (huffman._device_stages
     .pack_payload), under the dict kernel's table (ops/dict_table.py);
     :func:`pack_coeffs` a recon video's motion-vector and block records
@@ -392,6 +393,58 @@ def pack_records(vals: torch.Tensor, nbits: torch.Tensor, start_bit: int,
 
 
 pack_records.launches = 0
+
+
+def pack_records_segments_plain(vals, nbits, starts, n_words: int):
+    """The plain version of K4 pack_records over segments:
+    :func:`pack_records_plain`, segment by segment, each from its own
+    start bit."""
+    return _stacked(pack_records_plain(v, nb, int(s), n_words)
+                    for v, nb, s in zip(vals, nbits, starts.tolist()))
+
+
+def pack_records_segments(vals: torch.Tensor, nbits: torch.Tensor,
+                          starts: torch.Tensor, n_words: int):
+    """K4 pack_records over B segments: [B, N, F] int32 fields (values,
+    widths 0..16), segment k from its own start bit ``starts[k]`` (int64
+    [B] on the device: its bit phase in the stream it joins) in its own
+    row -> (words int32 [B, n_words], totals int64 [B]).  One launch (the
+    sharded video's vector segments, parallel/video_sharding.py)."""
+    if vals.dim() != 3 or nbits.shape != vals.shape:
+        raise ValueError(f"expected vals and nbits [B, N, F], got "
+                         f"{tuple(vals.shape)} and {tuple(nbits.shape)}")
+    if not isinstance(starts, torch.Tensor) or starts.shape != vals.shape[:1]:
+        raise ValueError(f"starts: expected a tensor [{vals.shape[0]}]")
+    if vals.device.type == "cpu":
+        return pack_records_segments_plain(vals, nbits, starts, n_words)
+    dev = vals.device
+    build.require(vals, "vals", torch.int32, 3, dev)
+    build.require(nbits, "nbits", torch.int32, 3, dev)
+    starts = starts.to(torch.int64).contiguous()
+    build.require(starts, "starts", torch.int64, 1, dev)
+    if n_words % 4:
+        raise ValueError(f"n_words must be a multiple of 4, got {n_words}")
+    b, n, f = vals.shape
+    lib = build.library()
+    n_tiles = -(-n // lib.ie_pack_tile())
+    scratch_stride, edges_stride = 3 + n_tiles, max(2 * n_tiles, 1)
+    scratch = torch.zeros(b * scratch_stride, dtype=torch.int64, device=dev)
+    edges = torch.empty(b * edges_stride, dtype=torch.int64, device=dev)
+    total = torch.empty(b, dtype=torch.int64, device=dev)
+    out = torch.empty((b, n_words), dtype=torch.int32, device=dev)
+    if b:
+        with torch.cuda.device(dev):
+            code = lib.ie_pack_records_segments(
+                vals.data_ptr(), nbits.data_ptr(), n, f, b, starts.data_ptr(),
+                out.data_ptr(), n_words, scratch.data_ptr(), scratch_stride,
+                edges.data_ptr(), edges_stride, total.data_ptr(),
+                build.stream_ptr(dev))
+        build.check(code, "ie_pack_records_segments")
+        pack_records_segments.launches += 1
+    return out, total
+
+
+pack_records_segments.launches = 0
 
 
 def payload_fields(words: torch.Tensor, nbytes: int, code_w: torch.Tensor,

@@ -106,6 +106,77 @@ def job_decode(mesh, data):
     return decode_image_sharded(data, mesh)
 
 
+def job_video_step(mesh, frames, quant, gop, merange, **kw):
+    from ..models.video import mvec_bits
+    from .video_sharding import make_sharded_video_step
+
+    return make_sharded_video_step(mesh, gop, merange, mvec_bits(merange),
+                                   **kw)(frames, quant)
+
+
+def job_video_packed(mesh, frames, quant, gop, merange, start_bit, **kw):
+    from ..models.video import mvec_bits
+    from .video_sharding import make_sharded_video_packed
+
+    return make_sharded_video_packed(mesh, gop, merange, mvec_bits(merange),
+                                     **kw)(frames, quant, start_bit)
+
+
+def job_video_encode(mesh, frames, quant, frames_per_call=None, **kw):
+    """encode_video_sharded; with ``frames_per_call``, in calls of at most
+    that many frames a rank (MAX_FRAMES_PER_CALL for this job)."""
+    from . import video_sharding
+
+    saved = video_sharding.MAX_FRAMES_PER_CALL
+    if frames_per_call:
+        video_sharding.MAX_FRAMES_PER_CALL = frames_per_call
+    try:
+        return video_sharding.encode_video_sharded(frames, quant, mesh, **kw)
+    finally:
+        video_sharding.MAX_FRAMES_PER_CALL = saved
+
+
+def job_video_huffman(mesh, frames, quant, gop, merange, ref_mode="raw"):
+    """The packed step, then the distributed Huffman stage on its output."""
+    from ..models.headers import VideoParams
+    from ..models.video import mvec_bits, video_header
+    from .video_sharding import (encode_sharded_video_huffman,
+                                 make_sharded_video_packed)
+
+    f, h, w = frames.shape
+    start = video_header(quant, True, w, h, VideoParams(f, gop, merange),
+                         True).position
+    mvw, blw, bits, hist = make_sharded_video_packed(
+        mesh, gop, merange, mvec_bits(merange), ref_mode=ref_mode)(
+        frames, quant.as_float(), start)
+    return encode_sharded_video_huffman(mvw, blw, bits, hist, w, h, quant,
+                                        True, gop, merange, mesh)
+
+
+def job_video_decode_step(mesh, coeffs, mvec, quant, h, w, gop, **kw):
+    from .video_sharding import make_sharded_video_decode
+
+    return make_sharded_video_decode(mesh, h, w, gop, **kw)(coeffs, mvec,
+                                                            quant)
+
+
+def job_video_decode(mesh, data, **kw):
+    from .video_sharding import decode_video_sharded
+
+    stream, params, size = decode_video_sharded(data, mesh, **kw)
+    return stream, (params.frame_count, params.gop, params.merange), size
+
+
+def job_raises(mesh, job, **kw):
+    """Run a mesh job and return the type and message of what it raised
+    (every rank raises alike, before any collective), or None."""
+    try:
+        JOBS[job](mesh, **kw)
+    except Exception as e:  # noqa: BLE001 - reported to the caller
+        return type(e).__name__, str(e)
+    return None
+
+
 def job_gops(data, width, height, quant, use_rle, gop, merange,
              ref_mode="raw", use_huffman=True, device="cpu"):
     """The GOP-distributed encode: this rank's GOPs, the segments gathered
@@ -132,9 +203,12 @@ def job_gops(data, width, height, quant, use_rle, gop, merange,
 JOBS = {"mesh": job_mesh, "encode_step": job_encode_step,
         "encode_packed": job_encode_packed, "huffman": job_huffman,
         "image_batch": job_image_batch, "decode": job_decode,
+        "video_step": job_video_step, "video_packed": job_video_packed,
+        "video_encode": job_video_encode, "video_huffman": job_video_huffman,
+        "video_decode": job_video_decode,
+        "video_decode_step": job_video_decode_step, "raises": job_raises,
         "gops": job_gops}
-MESH_JOBS = {"mesh", "encode_step", "encode_packed", "huffman",
-             "image_batch", "decode"}  # their first argument: the mesh
+MESH_JOBS = set(JOBS) - {"gops"}  # their first argument: the mesh
 
 
 def _job(name: str):
@@ -257,8 +331,9 @@ def dryrun_multichip(n: int = 4, timeout_s: float = TIMEOUT_S) -> dict:
     """The sharded and GOP-distributed paths in a gloo world of ``n`` CPU
     ranks, each held against the one-device path on the CPU: the sharded
     image encode (Huffman from stage 1, and the distributed stage 2), the
-    sharded decode of its streams, and the GOP-distributed video encode.
-    Returns a summary; raises AssertionError on a difference."""
+    sharded decode of its streams, the sharded video encode (raw and
+    recon) and decode, and the GOP-distributed video encode.  Returns a
+    summary; raises AssertionError on a difference."""
     import imageencoder_tpu_torch as port
 
     from .mesh import mesh_shape
@@ -273,6 +348,11 @@ def dryrun_multichip(n: int = 4, timeout_s: float = TIMEOUT_S) -> dict:
     w, h, gop, merange = 48, 32, 2, 4
     video = np.clip(rng.normal(128, 40, (5, h, w)), 0, 255).astype(np.uint8)
     data = b"".join(f.tobytes() + bytes([128]) * (w * h // 2) for f in video)
+    # The sharded video: two frames a chunk (a GOP), 16-row stripes.
+    sharded = np.clip(rng.normal(128, 40, (2 * fa, 16 * sa, w)), 0,
+                      255).astype(np.uint8)
+    sdata = b"".join(f.tobytes() + bytes([128]) * (w * 8 * sa)
+                     for f in sharded)
     want = [port.encode_image(im, quant, use_huffman=True, device="cpu")
             for im in frames]
     jobs = [("mesh", {}),
@@ -283,13 +363,21 @@ def dryrun_multichip(n: int = 4, timeout_s: float = TIMEOUT_S) -> dict:
             ("gops", {"data": data, "width": w, "height": h,
                       "quant": quant, "use_rle": True, "gop": gop,
                       "merange": merange})]
+    jobs += [("video_encode", {"frames": sharded, "quant": quant,
+                               "gop": gop, "merange": merange,
+                               "ref_mode": mode})
+             for mode in ("raw", "recon")]
+    svideo = port.encode_video(sdata, w, 16 * sa, quant, True, gop, merange,
+                               device="cpu")
+    jobs.append(("video_decode", {"data": svideo}))
     ranks = spawn_world(n, jobs, timeout_s=timeout_s)
     for r, got in enumerate(ranks):
         if got[0][:2] != (fa, sa) or not all(
                 _same(a, b) for a, b in zip(got[1:], ranks[0][1:])):
             raise AssertionError(f"rank {r} returned other global results "
                                  f"than rank 0")
-    _, stage1, stage2, pixels, (stream, missing) = ranks[0]
+    _, stage1, stage2, pixels, (stream, missing), raw, recon, decoded = (
+        ranks[0])
     checks = {
         "image batch, stage 1": stage1 == want,
         "image batch, stage 2": stage2 == want,
@@ -297,6 +385,12 @@ def dryrun_multichip(n: int = 4, timeout_s: float = TIMEOUT_S) -> dict:
             pixels, port.decode_image(want[0], device="cpu").numpy()),
         "GOP encode": not missing and stream == port.encode_video(
             data, w, h, quant, True, gop, merange, device="cpu"),
+        "sharded video raw": raw == svideo,
+        "sharded video recon": recon == port.encode_video(
+            sdata, w, 16 * sa, quant, True, gop, merange, ref_mode="recon",
+            device="cpu"),
+        "sharded video decode": decoded[0] == port.decode_video(
+            svideo, device="cpu")[0],
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:

@@ -684,4 +684,4 @@ def decode_image_sharded(data: bytes, mesh, norm: str = "reference",
         cuda_decode.decode_blocks(payload, nbytes, offs[span], dbits[span],
                                   counts[span], views["quant"], b, norm,
                                   real * b, w, out=stripe[:real * b])
-    return all_gather(stripe, mesh).reshape(-1, w)[:h]
+    return all_gather(stripe, mesh).reshape(nd * rows * b, w)[:h]

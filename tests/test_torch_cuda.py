@@ -1563,3 +1563,148 @@ def test_two_process_gop_encode_at_720p25(dev, ref_mode, tmp_path):
         data, w, h, quant, True, 4, 16, backend="numpy", ref_mode=ref_mode))
     for (stream, missing), in ranks:
         assert missing == [] and stream == want
+
+
+# ---- images of zero blocks on the card ----
+
+@pytest.mark.parametrize("shape", [(0, 16), (16, 0), (0, 0)], ids=str)
+@pytest.mark.parametrize("huff", [True, False])
+def test_zero_block_images_on_the_card(dev, shape, huff):
+    """A zero-block image's stream decodes on the card to the empty image
+    (decode_image returns before any launch), and a batch of them encodes
+    to the JAX package's streams through the card's batch path."""
+    from imageencoder_tpu.models import batch as host_batch
+
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    qp = quant_from_numpy(quant.matrix)
+    data = imageencoder_tpu.encode_image(np.zeros(shape, np.uint8), quant,
+                                         use_huffman=huff, backend="numpy")
+    got = imageencoder_tpu_torch.decode_image(data, device="cuda")
+    assert got.device.type == "cuda" and tuple(got.shape) == shape
+    assert [tuple(x.shape) for x in imageencoder_tpu_torch.decode_image_batch(
+        [data], device="cuda")] == [shape]
+    imgs = np.zeros((2, *shape), np.uint8)
+    want = list(host_batch.encode_image_batch(imgs, quant, use_huffman=huff))
+    assert imageencoder_tpu_torch.encode_image_batch(
+        torch.from_numpy(imgs).to(dev), qp, use_huffman=huff,
+        device="cuda") == want == [data, data]
+
+
+# ---- the sharded video (parallel/video_sharding.py) ----
+
+@pytest.mark.parametrize("n_stripes", [1, 2, 4])
+@pytest.mark.parametrize("f0,gop", [(0, 4), (1, 4), (2, 3)])
+def test_stripe_search_kernels_equal_plain(dev, n_stripes, f0, gop):
+    """K6+K7 on a haloed stripe (search_residual_stripe and
+    search_predict_stripe) against their plain versions on the card, and
+    the stripes' vectors against the whole frame's search."""
+    h, w, merange, n = 192, 320, 16, 9
+    video = torch.from_numpy(video_frames(w, h, n + 1, 90 + f0)).to(dev)
+    hs, halo = h // n_stripes, merange
+    padded = torch.zeros((n + 1, h + 2 * halo, w), dtype=torch.uint8,
+                         device=dev)
+    padded[:, halo:halo + h] = video
+    p_idx = cuda_motion.p_frames(n, gop, f0)
+    mvs = []
+    for s in range(n_stripes):
+        cur = video[1:, s * hs:(s + 1) * hs].contiguous()
+        ref = padded[:-1, s * hs:(s + 1) * hs + 2 * halo].contiguous()
+        args = (cur, ref, s * hs, halo, h)
+        for fn, plain, extra in (
+                (cuda_motion.search_residual_stripe,
+                 cuda_motion.search_residual_stripe_plain, (f0, gop)),
+                (cuda_motion.search_predict_stripe,
+                 cuda_motion.search_predict_stripe_plain, ())):
+            before = fn.launches
+            got = fn(*args, *extra, merange)
+            assert fn.launches == before + 1
+            for a, b in zip(got, plain(*args, *extra, merange)):
+                assert torch.equal(a, b)
+        mvs.append(cuda_motion.search_residual_stripe(*args, f0, gop,
+                                                      merange)[0])
+    whole, _ = cuda_motion.search_predict(video[1:][p_idx].contiguous(),
+                                          video[:-1][p_idx].contiguous(),
+                                          merange)
+    got = torch.cat([m.view(len(p_idx), -1, w // 16, 2) for m in mvs], dim=1)
+    assert torch.equal(got.reshape(whole.shape), whole)
+
+
+@pytest.mark.parametrize("n_segments,n", [(18, 3600), (3, 700), (1, 1)])
+def test_pack_records_segments_kernel_equals_plain(dev, n_segments, n):
+    rng = np.random.default_rng(n)
+    vals = torch.from_numpy(rng.integers(-2**15, 2**15, (n_segments, n, 2))
+                            .astype(np.int32))
+    nbits = torch.full_like(vals, 6)
+    starts = torch.from_numpy(rng.integers(0, 32, n_segments))
+    n_words = -(-(2 * n * 6 // 32 + 2) // 4) * 4
+    before = cuda_pack.pack_records_segments.launches
+    got = cuda_pack.pack_records_segments(vals.to(dev), nbits.to(dev),
+                                          starts.to(dev), n_words)
+    assert cuda_pack.pack_records_segments.launches == before + 1
+    want = cuda_pack.pack_records_segments_plain(vals, nbits, starts,
+                                                 n_words)
+    for k in range(n_segments):
+        assert int(got[1][k]) == int(want[1][k])
+        assert torch.equal(cuda_pack.stream_words(got[0][k].cpu(),
+                                                  got[1][k]),
+                           cuda_pack.stream_words(want[0][k], want[1][k]))
+
+
+SHARDED_VIDEO = (cuda_encode.encode_locals, cuda_pack.pack_segments,
+                 cuda_pack.pack_records_segments,
+                 cuda_motion.search_residual_stripe,
+                 cuda_motion.search_predict_stripe, cuda_encode.recon_step)
+
+
+@pytest.mark.parametrize("ref_mode", ["raw", "recon"])
+@pytest.mark.parametrize("huff", [True, False])
+def test_sharded_video_world_of_one_equals_host_engine(nccl_mesh, ref_mode,
+                                                       huff):
+    """encode_video_sharded over NCCL at 320x176x8: the host engine's
+    stream, through the stripe search, K1, K2 and K4 over segments; and
+    decode_video_sharded of it: the host engine's frames."""
+    from imageencoder_tpu_torch.parallel import (decode_video_sharded,
+                                                 encode_video_sharded)
+
+    w, h, n = 320, 176, 8
+    frames = video_frames(w, h, n, 91)
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    data = b"".join(f.tobytes() + bytes([128]) * (w * h // 2) for f in frames)
+    want = bytes(host_video.encode_video(data, w, h, quant, True, 4, 16,
+                                         use_huffman=huff, backend="numpy",
+                                         ref_mode=ref_mode))
+    before = launch_counts(SHARDED_VIDEO)
+    got = encode_video_sharded(torch.from_numpy(frames).cuda(),
+                               quant_from_numpy(quant.matrix), nccl_mesh,
+                               True, 4, 16, use_huffman=huff,
+                               ref_mode=ref_mode)
+    torch.cuda.synchronize()
+    ran = [a - b for a, b in zip(launch_counts(SHARDED_VIDEO), before)]
+    recon = ref_mode == "recon"
+    assert ran == [1, 1, 1, int(not recon), 6 * recon, 6 * recon]
+    assert got == want
+    for mc in (True, False):
+        assert decode_video_sharded(got, nccl_mesh, motioncomp=mc)[0] == (
+            host_video.decode_video(got, motioncomp=mc, backend="numpy")[0])
+
+
+@pytest.mark.parametrize("ref_mode", ["raw", "recon"])
+def test_sharded_video_world_of_one_at_720p25(nccl_mesh, ref_mode):
+    """bench.py's 1280x720x25 video: encode_video_sharded equals the
+    one-device encode_frames on the card, Huffman on and off, and its
+    decode the one-device decode_video."""
+    from imageencoder_tpu_torch.models.video import encode_frames
+    from imageencoder_tpu_torch.parallel import (decode_video_sharded,
+                                                 encode_video_sharded)
+
+    w, h, n = 1280, 720, 25
+    frames = torch.from_numpy(video_frames(w, h, n, 0)).cuda()
+    qp = quant_from_numpy(np.array(JPEG4, np.uint32))
+    for huff in (True, False):
+        got = encode_video_sharded(frames, qp, nccl_mesh, True, 4, 16,
+                                   use_huffman=huff, ref_mode=ref_mode)
+        assert got == encode_frames(frames, w, h, qp, True, 4, 16,
+                                    use_huffman=huff, ref_mode=ref_mode,
+                                    device="cuda")
+    assert decode_video_sharded(got, nccl_mesh)[0] == (
+        imageencoder_tpu_torch.decode_video(got, device="cuda")[0])

@@ -207,11 +207,12 @@ def test_check_int32_bit_capacity():
 
 def test_dryrun_multichip_of_two():
     """The port's dryrun_multichip in a gloo world of 2: the sharded
-    image encode (both stages), the decode and the GOP-distributed encode
-    equal to one device."""
+    image encode (both stages), the decode, the GOP-distributed encode and
+    the sharded video encode (raw and recon) and decode equal to one
+    device."""
     got = dryrun.dryrun_multichip(2, timeout_s=240)
     assert got["world"] == 2 and got["mesh"] == (2, 1)
-    assert len(got["checks"]) == 4
+    assert len(got["checks"]) == 7
 
 
 def test_spawn_world_kills_a_failed_world(tmp_path):

@@ -225,3 +225,117 @@ def test_search_residual_equals_jax_per_p_frame(monkeypatch, n, gop):
     np.testing.assert_array_equal(stack[i_idx], frames[i_idx])
     with pytest.raises(ValueError, match="gop"):
         cuda_motion.search_residual(torch.from_numpy(frames), 0, merange)
+
+
+# ---- on a stripe (the sharded video encode) ----
+
+def stripes_of(video: np.ndarray, n_stripes: int, halo: int):
+    """Each stripe of the frames after the first, and the haloed reference
+    stack of the frame before each (zero rows past the frame's edges):
+    [(row0, cur [F, h, W], ref [F, h + 2 * halo, W])]."""
+    f, h_glob, w = video.shape
+    h = h_glob // n_stripes
+    padded = np.zeros((f, h_glob + 2 * halo, w), np.uint8)
+    padded[:, halo:halo + h_glob] = video
+    out = []
+    for s in range(n_stripes):
+        r0 = s * h
+        out.append((r0, np.ascontiguousarray(video[1:, r0:r0 + h]),
+                    np.ascontiguousarray(padded[:-1, r0:r0 + h + 2 * halo])))
+    return out
+
+
+@pytest.mark.parametrize("n_stripes", [1, 2, 4])
+@pytest.mark.parametrize("f0,gop", [(0, 4), (1, 4), (3, 4), (2, 3)])
+def test_stripes_equal_the_whole_frame_search(monkeypatch, n_stripes, f0,
+                                              gop):
+    """Each stripe's search on its haloed reference, clamped in global
+    rows, gives the whole frame's vectors and residual rows: the wrapping
+    content sends vectors out of the top and bottom stripes' frame edges
+    and across stripe borders; f0 puts a P-frame at a chunk's start."""
+    h, w, merange = 128, 64, 16
+    video = np.concatenate([wrapping_frames(4, h, w, 31),
+                            wrapping_frames(2, h, w, 32)[:, ::-1]])
+    video = np.ascontiguousarray(video)
+    halo = merange
+    p_idx = cuda_motion.p_frames(len(video) - 1, gop, f0)
+    monkeypatch.setattr(jax_vp, "_SAD_MAPS_MODE", "scan")
+    off, pred = jax_vp.sad_motion_search(jnp.asarray(video[1:][p_idx]),
+                                         jnp.asarray(video[:-1][p_idx]),
+                                         merange)
+    off, pred = np.asarray(off), np.asarray(pred)
+    mvs, rows = [], []
+    for r0, cur, ref in stripes_of(video, n_stripes, halo):
+        cur_t, ref_t = torch.from_numpy(cur), torch.from_numpy(ref)
+        mv, stack = cuda_motion.search_residual_stripe(cur_t, ref_t, r0, halo,
+                                                       h, f0, gop, merange)
+        mvs.append(mv.numpy().reshape(len(p_idx), -1, w // 16, 2))
+        rows.append(stack.numpy().reshape(len(cur), -1, w))
+        mv2, pr = cuda_motion.search_predict_stripe(cur_t, ref_t, r0, halo, h,
+                                                    merange)
+        hs = cur.shape[1]
+        np.testing.assert_array_equal(
+            mv2.numpy()[p_idx], mv.numpy())
+        np.testing.assert_array_equal(pr.numpy()[p_idx],
+                                      pred[:, r0:r0 + hs])
+    np.testing.assert_array_equal(
+        np.concatenate(mvs, axis=1).reshape(off.shape), off)
+    want = video[1:].astype(np.int16)
+    want[p_idx] -= pred
+    np.testing.assert_array_equal(np.concatenate(rows, axis=1), want)
+    if n_stripes > 1 and p_idx:  # the clamp at both frame edges is met
+        by = np.repeat(np.arange(h // 16) * 16, w // 16)
+        py = by + off[..., 1]
+        assert (py < 0).any() and (py > h - 16).any()
+
+
+def test_stripe_plain_versions_equal_whole_frame_ones():
+    """A stripe of the whole frame (row0 0, halo 0) is the whole-frame
+    search, prediction and residual."""
+    video = moving_frames(5, 48, 64, 40)
+    cur, ref = torch.from_numpy(video[1:]), torch.from_numpy(video[:-1])
+    for got, want in zip(cuda_motion.search_predict_stripe(cur, ref, 0, 0, 48,
+                                                           8),
+                         cuda_motion.search_predict(cur, ref, 8)):
+        assert torch.equal(got, want)
+    frames = torch.from_numpy(video)
+    ref0 = torch.cat([torch.zeros_like(frames[:1]), frames[:-1]])
+    for got, want in zip(cuda_motion.search_residual_stripe(
+            frames, ref0, 0, 0, 48, 0, 4, 8),
+            cuda_motion.search_residual(frames, 4, 8)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("row0,halo,h_glob", [
+    (16, 4, 64),    # the halo shorter than the search's reach (15 rows)
+    (48, 16, 64),   # past the frame's last row
+    (0, 16, 40),    # a frame of no whole macroblocks
+    (-16, 16, 64)])
+def test_stripe_wrappers_refuse_what_they_cannot_search(row0, halo, h_glob):
+    cur = torch.zeros((2, 32, 32), dtype=torch.uint8)
+    ref = torch.zeros((2, 32 + 2 * halo, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        cuda_motion.search_predict_stripe(cur, ref, row0, halo, h_glob, 16)
+    with pytest.raises(ValueError):
+        cuda_motion.search_residual_stripe(cur, ref, row0, halo, h_glob, 0,
+                                           4, 16)
+
+
+def test_stripe_at_the_frame_edges_needs_no_halo_there():
+    """The top and bottom stripes read no row past the frame's edge: the
+    halo there may be garbage."""
+    h, w, merange = 64, 48, 16
+    video = wrapping_frames(3, h, w, 33)
+    for r0, cur, ref in stripes_of(video, 2, merange):
+        garbage = ref.copy()
+        if r0 == 0:
+            garbage[:, :merange] = 255
+        else:
+            garbage[:, -merange:] = 255
+        for a, b in zip(cuda_motion.search_predict_stripe(
+                torch.from_numpy(cur), torch.from_numpy(ref), r0, merange, h,
+                merange),
+                cuda_motion.search_predict_stripe(
+                torch.from_numpy(cur), torch.from_numpy(garbage), r0,
+                merange, h, merange)):
+            assert torch.equal(a, b)

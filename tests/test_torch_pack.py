@@ -165,6 +165,38 @@ def test_pack_records_matches_scatter(n, f, start, nw):
                                   np.asarray(want_w))
 
 
+@pytest.mark.parametrize("starts", [[0, 13, 31], [5], [31, 0, 0, 7]])
+def test_pack_records_segments_equal_pack_records_row_by_row(starts):
+    """K4 pack_records over segments (the sharded video's vector segments:
+    [n_mb, 2] fields of one width, a start bit a row) is pack_records of
+    each row from its own start bit, and the JAX package's
+    pack_blocks_device of it: a row of no bits (an I-frame's) too."""
+    rng = np.random.default_rng(len(starts))
+    b, n = len(starts), 120
+    vals = rng.integers(-2**15, 2**15, (b, n, 2)).astype(np.int32)
+    nbits = np.full((b, n, 2), 6, np.int32)
+    nbits[-1] = 0 if b > 1 else 6
+    nw = 2 * n * 6 // 32 + 4
+    got_w, got_t = cuda_pack.pack_records_segments(
+        torch.from_numpy(vals), torch.from_numpy(nbits),
+        torch.tensor(starts), nw)
+    for k, start in enumerate(starts):
+        want_w, want_t = cuda_pack.pack_records(
+            torch.from_numpy(vals[k]), torch.from_numpy(nbits[k]), start, nw)
+        assert int(got_t[k]) == int(want_t)
+        assert torch.equal(got_w[k], want_w)
+        jw, jt = pack_blocks_device(jnp.asarray(vals[k]),
+                                    jnp.asarray(nbits[k]), jnp.int32(start),
+                                    nw, method="scatter")
+        assert int(jt) == int(want_t)
+        np.testing.assert_array_equal(want_w.numpy().view(np.uint32),
+                                      np.asarray(jw))
+    with pytest.raises(ValueError, match="starts"):
+        cuda_pack.pack_records_segments(torch.from_numpy(vals),
+                                        torch.from_numpy(nbits),
+                                        torch.tensor(starts + [0]), nw)
+
+
 def test_register_files_match_jax_level_one():
     """Level 1 on fields that straddle word edges at every bit offset."""
     vals, nbits = fields(200, 18, 9)

@@ -547,3 +547,117 @@ def test_bit_splice_equals_jax_original_on_random_segments(seed):
             jax_bitpack.concat_bit_segments(segs))
     with pytest.raises(ValueError):
         bitpack.concat_bit_segments([(b"\x01", 9)])
+
+
+# ---- utils/debug.py and parallel/video_sharding.py ----
+
+def _debug_cases():
+    """(name, args) of every debug function on seeded inputs: blocks with
+    negative coefficients, an all-zero block, 4x4 and 8x8, both norms, and
+    a Huffman dict."""
+    rng = np.random.default_rng(17)
+    cases = []
+    for b in (4, 8):
+        blk = rng.integers(0, 256, (b, b)).astype(np.uint8)
+        coeffs = rng.integers(-300, 300, (b, b)).astype(np.int32)
+        coeffs[rng.random((b, b)) < 0.5] = 0
+        q = rng.integers(1, 40, (b, b)).astype(np.float64)
+        cases += [("format_matrix", (blk, "pixels")),
+                  ("format_matrix", (coeffs,)),
+                  ("format_matrix", (q, "quant")),
+                  ("format_zigzag", (coeffs,)),
+                  ("format_zigzag", (np.zeros((b, b), np.int32),)),
+                  ("format_rle", (coeffs.reshape(-1),)),
+                  ("format_rle", (np.zeros(b * b, np.int32),)),
+                  ("format_rle", (np.array([-1] + [0] * (b * b - 2) + [5]),))]
+        for norm in ("reference", "ortho"):
+            cases.append(("dump_block_pipeline", (blk, q, norm)))
+            cases.append(("dump_block_pipeline",
+                          (np.full((b, b), 128, np.uint8), q, norm)))
+    freqs = np.bincount(rng.integers(0, 40, 3000), minlength=256)
+    _, cw, cl = jax_huffman._dict_and_codes(freqs)
+    entries = [(s, int(cw[s]), int(cl[s])) for s in range(256) if cl[s]]
+    cases.append(("format_huffman_dict", (entries,)))
+    return cases
+
+
+DEBUG_CASES = _debug_cases()
+
+
+@pytest.mark.parametrize("k", range(len(DEBUG_CASES)),
+                         ids=[f"{k}-{name}" for k, (name, _)
+                              in enumerate(DEBUG_CASES)])
+def test_debug_text_equals_jax_original(k):
+    from imageencoder_tpu.utils import debug as jax_debug
+    from imageencoder_tpu_torch.utils import debug
+
+    name, args = DEBUG_CASES[k]
+    assert getattr(debug, name)(*args) == getattr(jax_debug, name)(*args)
+
+
+def test_bits_needed_equals_jax_original():
+    from imageencoder_tpu_torch.utils import debug
+
+    vals = np.arange(-2**15, 2**15)
+    assert [debug.bits_needed(v) for v in vals[::97]] == list(
+        jax_bits.bits_needed(vals[::97]))
+
+
+def test_video_sharding_and_debug_run_with_both_packages_blocked(tmp_path):
+    """parallel/video_sharding.py and utils/debug.py import with jax and
+    imageencoder_tpu blocked; in a world of one over gloo the sharded video
+    encode (raw and recon, Huffman on and off, and the distributed
+    Huffman stage) gives this process's encode_video(backend="numpy")
+    streams, the sharded decode its decode_video frames, and the debug
+    dump its text."""
+    from imageencoder_tpu.utils import debug as jax_debug
+
+    w, h, gop = 32, 32, 2
+    frames = bench_frames(w, h, 4, 13)
+    data = yuv420(frames)
+    quant = QuantMatrix(JPEG4)
+    want = {(mode, huff): bytes(jax_video.encode_video(
+        data, w, h, quant, True, gop, 8, use_huffman=huff, backend="numpy",
+        ref_mode=mode)) for mode in ("raw", "recon") for huff in (True, False)}
+    frames_out = jax_video.decode_video(want["raw", True], backend="numpy")[0]
+    block = frames[1, :4, :4]
+    dump = jax_debug.dump_block_pipeline(block, JPEG4.astype(np.float64))
+    case = tmp_path / "case.pkl"
+    case.write_bytes(pickle.dumps((frames, want, frames_out, block, dump)))
+    code = textwrap.dedent(f"""
+        import pickle, sys
+        import numpy as np
+        sys.modules["jax"] = None
+        sys.modules["imageencoder_tpu"] = None
+        import imageencoder_tpu_torch.parallel as par
+        from imageencoder_tpu_torch.parallel import distributed
+        from imageencoder_tpu_torch.parallel import video_sharding as vs
+        from imageencoder_tpu_torch.utils import debug
+        from imageencoder_tpu_torch import quant_from_numpy
+        frames, want, frames_out, block, dump = pickle.loads(
+            open({str(case)!r}, "rb").read())
+        q = quant_from_numpy({JPEG4.tolist()!r})
+        distributed.initialize(device="cpu")
+        mesh = par.make_mesh(device="cpu")
+        for (mode, huff), stream in want.items():
+            assert par.encode_video_sharded(frames, q, mesh, True, {gop}, 8,
+                                            use_huffman=huff,
+                                            ref_mode=mode) == stream
+        step = par.make_sharded_video_packed(mesh, {gop}, 8, 5)
+        start = vs._header(q, True, {w}, {h}, len(frames), {gop}, 8,
+                           True)[1]
+        mvw, blw, bits, hist = step(frames, q.as_float(), start)
+        assert par.encode_sharded_video_huffman(
+            mvw, blw, bits, hist, {w}, {h}, q, True, {gop}, 8,
+            mesh) == want["raw", True]
+        assert par.decode_video_sharded(want["raw", True], mesh)[0] == (
+            frames_out)
+        assert debug.dump_block_pipeline(block, q.as_float()) == dump
+        assert not [m for m in sys.modules
+                    if m.startswith(("jax.", "imageencoder_tpu."))]
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
