@@ -33,11 +33,15 @@ each of which raises on failure:
      epilogue, the whole video in, held against the plain search,
      prediction and residual), K1 on the int16 residual stack, K2 with its
      vector source (with and without the histogram), the dict and K4
-     pack_payload; and with the recon reference for every K5
-     quantize_image (I-frames), K5 recon_step (the fused P-frame step) and
-     K6+K7 search_predict call, K4 pack_coeffs+hist (the records from the
-     coefficients, and their byte histogram), pack_coeffs alone, the dict
-     and K4 pack_payload; encode_video at 320x176 with 40 frames, which
+     pack_payload; and with the recon reference, stepped by GOP, for its
+     K5 quantize_image call (the 7 I-frames in one launch, a view of every
+     gop-th frame) and its 3 K5 recon_step (the fused P-frame step) and
+     K6+K7 search_predict calls (frame k of every GOP, views too), with
+     the record lengths K5 and the step write, K4 pack_coeffs+hist (launch
+     1 sums those lengths, launch 2 packs the records from the
+     coefficients and the vectors and counts their byte histogram),
+     pack_coeffs alone, and again from the coefficients' own lengths, the
+     dict and K4 pack_payload; encode_video at 320x176 with 40 frames, which
      goes in two chunks spliced on the host, for K3 byte_histogram alone
      (the only path left that runs it) and the dict on its histogram; the
      kernels no path runs on inputs taken from those calls: K6
@@ -72,7 +76,11 @@ each of which raises on failure:
      least once in that path's run, no path but the long video's may
      launch K3, and no encode path may launch K6 or K7 alone (no path
      launches K6 alone).  One encode_image with Huffman on must launch K1,
-     K2+hist, the dict and K4 pack_payload once each and nothing else.
+     K2+hist, the dict and K4 pack_payload once each and nothing else; one
+     720p25 recon encode_video at gop 4, Huffman on, K5 once, the search
+     and the recon step 3 times each (7 launches before the pack), K4
+     pack_coeffs+hist, the dict and K4 pack_payload once each, and
+     nothing else.
      No encode path may launch a decode kernel, and a decode path
      launches its own kernels only: the image decode D1 once a Huffman
      stream, D2 and D3 once a stream; the video decode D1 once a Huffman
@@ -111,8 +119,9 @@ each of which raises on failure:
      K7), decode_frames until its frames are ready and decode_video with
      its copy of the YUV420 frames to the host; for
      video, the whole encode_video of frames on the device, the device
-     window (K6+K7 + K1 + K2, or per frame K6+K7 and the recon step (K5 on
-     I-frames) and then K4 pack_coeffs, until the histogram is counted),
+     window (K6+K7 + K1 + K2, or K5 on the I-frames, per GOP step K6+K7
+     and the recon step, then K4 pack_coeffs's two launches, until the
+     histogram is counted),
      the Huffman stage and the copy of the frames; for the decode of the
      4096x912 and 3840x2160 Huffman streams, the host's parse, the
      stream's upload, the device window (D1-D3) and the whole decode_image
@@ -178,7 +187,9 @@ torch.profiler (the kernel alone; everything the plain version runs);
 ``stage_ms`` is everything the wrapper runs on the device (the kernel and
 its glue: scratch zeroing);
 ``call_ms`` and ``plain_call_ms`` are CUDA-event times of back-to-back
-calls, which include the wrappers' glue and launch overhead.
+calls, which include the wrappers' glue and launch overhead.  K7's ``ms``
+is taken with the L2 flushed before each call (on its paths it reads
+frames just written; ``l2_warm_ms`` is the time without the flush).
 ``bound_ms`` is the larger of the HBM floor (the bytes the function must
 move at 3.35 TB/s) and the operation floor (f64 transforms: their
 separately rounded f64 ops at 64 an SM a clock; K6: its byte SADs, 4 to a
@@ -268,12 +279,15 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                         "pack_payload_kernel",
                         "imageencoder_tpu_torch/csrc/pack.cu",
                         "imageencoder_tpu/ops/pallas_pack.py:55"),
+    # On K2's two launches: the lengths K5 and the recon step
+    # wrote are summed, then the records packed.
     "K4 pack_coeffs": ("cuda_pack", "pack_coeffs", "pack_coeffs_plain",
-                       "pack_coeffs_kernel",
+                       ("tile_sums_kernel", "pack_known_kernel"),
                        "imageencoder_tpu_torch/csrc/pack.cu",
                        "imageencoder_tpu/ops/pallas_pack.py:55"),
     "K4 pack_coeffs+hist": ("cuda_pack", "pack_coeffs_hist",
-                            "pack_coeffs_hist_plain", "pack_coeffs_kernel",
+                            "pack_coeffs_hist_plain",
+                            ("tile_sums_kernel", "pack_known_kernel"),
                             "imageencoder_tpu_torch/csrc/pack.cu",
                             "imageencoder_tpu/ops/pallas_pack.py:55"),
     "K5 quantize_image": ("cuda_encode", "quantize_image",
@@ -480,6 +494,11 @@ SHARDED_CALL = {False: dict.fromkeys(PATHS["sharded image"], 1),
                        "K3 byte_histogram_rows": 2, "Huffman dict batch": 1,
                        "K4 pack_payload window": 1}}
 SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep's cycles a second, at most
+L2_FLUSH_BYTES = 2 * 50 * 2 ** 20  # twice the H100's 50 MB L2
+# Timed with the L2 flushed before each call: on its path K7 reads the
+# reference planes D3 has just written, which its repeated timing would
+# otherwise find in the L2 (and run under its HBM bound).
+COLD = ("K7 predict",)
 SHARDED_SAMPLES = 20  # per sharded timing
 GOP_REPS = 3  # timed GOP-distributed encodes in each process
 # The sharded video in two gloo processes on the card, a (1, 2) mesh: two
@@ -495,6 +514,20 @@ BATCH_CALL = ("K1 encode_locals", "K2 pack_locals+hist batch",
               "Huffman dict batch", "K4 pack_payload batch")
 # D1's payload is defined up to its byte count (its second output).
 PAYLOAD_OUT = ("D1 huffman_decode",)
+# The outputs a wrapper is handed as keywords on the recon path (frame k of
+# every GOP of the loop's buffers): the kernel and its plain version each
+# get fresh ones of the same shapes, so that they neither compare a tensor
+# with itself nor write into the path's buffers.  Any other wrapper's
+# ``out`` is dropped: the wrapper makes its own.
+OUT_KWARGS = {"K5 quantize_image": ("out", "lens"),
+              "K5 recon_step": ("out", "recon", "lens"),
+              "K6+K7 search_predict": ("mvec", "out")}
+# One 720p25 recon encode at gop 4, Huffman on, launches these (counts from
+# 0), and no other: K5 once over the 7 I-frames, then 3 GOP steps of the
+# search and the recon step, each over frame k of every GOP.
+RECON_CALL = {"K5 quantize_image": 1, "K6+K7 search_predict": GOP - 1,
+              "K5 recon_step": GOP - 1, "K4 pack_coeffs+hist": 1,
+              "Huffman dict": 1, "K4 pack_payload": 1}
 
 
 def synthetic(h: int, w: int, seed: int):
@@ -575,6 +608,21 @@ def captured_calls():
     finally:
         for mod, attr, real in saved:
             setattr(mod, attr, real)
+
+
+_FLUSH = {}
+
+
+def flush_l2() -> None:
+    """Write twice the card's L2 of a scratch buffer, so that the next
+    kernel reads its inputs from HBM, not from lines an earlier call left
+    in the L2."""
+    import torch
+
+    if "buf" not in _FLUSH:
+        _FLUSH["buf"] = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                                    device="cuda")
+    _FLUSH["buf"].zero_()
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -737,19 +785,27 @@ def reps_for(fn, budget_s: float = 0.4) -> int:
 def calls_of(name: str, args: tuple, kwargs: dict):
     """(kernel call, plain call): the wrapper and its plain version bound
     to one captured argument list, each returning a tuple."""
+    import torch
+
     mod_name, attr, plain_attr, *_ = KERNELS[name]
     mod = module(mod_name)
     kernel, plain = getattr(mod, attr), getattr(mod, plain_attr)
-    # Both write fresh outputs: an ``out`` the main path passed (a frame
-    # of its coefficient buffer) would make them compare a tensor with
-    # itself.
-    kwargs = {k: v for k, v in kwargs.items() if k != "out"}
+    outs = OUT_KWARGS.get(name, ())
+
+    def fresh() -> dict:
+        """The keywords, each output in ``outs`` a new buffer of its
+        shape, any other ``out`` left to the wrapper (OUT_KWARGS)."""
+        return {k: (torch.empty(v.shape, dtype=v.dtype, device=v.device)
+                    if k in outs and v is not None else v)
+                for k, v in kwargs.items() if k in outs or k != "out"}
+
+    kernel_kw, plain_kw = fresh(), fresh()
 
     def kernel_call():
-        return as_tuple(kernel(*args, **kwargs))
+        return as_tuple(kernel(*args, **kernel_kw))
 
     def plain_call():
-        return as_tuple(plain(*args, **kwargs))
+        return as_tuple(plain(*args, **plain_kw))
 
     return kernel_call, plain_call
 
@@ -904,8 +960,10 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
         nbytes = (fields(args[1])["nbytes"] + tensor_bytes(args[1:2])
                   + (int(got[1]) + 7) // 8)
     elif name in ("K4 pack_coeffs", "K4 pack_coeffs+hist"):
-        nbytes = (tensor_bytes(args[:2]) + (int(got[1]) + 7) // 8
-                  + hist_bytes)
+        # The coefficients, the vectors and the lengths K5 and the recon
+        # step wrote (launch 1 reads those alone).
+        nbytes = (tensor_bytes([*args[:2], kwargs.get("lens")])
+                  + (int(got[1]) + 7) // 8 + hist_bytes)
     elif name == "Huffman dict":
         nbytes = 1024 + 8 + tensor_bytes(got)
     elif name in ("K2 pack_locals batch", "K2 pack_locals+hist batch"):
@@ -983,9 +1041,13 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     plain_call_ms = cuda_ms(plain_call, plain_reps)
     call_ms = (cuda_ms(kernel_call) + cuda_ms(kernel_call)) / 2
     plain_call_ms = (plain_call_ms + cuda_ms(plain_call, plain_reps)) / 2
+    if name in COLD:  # each call after a flush; the flush's rows not summed
+        ms = profiled_ms(lambda: (flush_l2(), kernel_call()), symbol)
+    else:
+        ms = profiled_ms(kernel_call, symbol)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": err,
-           "ms": profiled_ms(kernel_call, symbol),
+           "ms": ms,
            "plain_ms": profiled_ms(plain_call, reps=plain_reps),
            "bound_ms": max(hbm_ms, ops_ms),
            "bound_by": "operations" if ops_ms > hbm_ms else "bytes",
@@ -994,13 +1056,17 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
            "stage_ms": profiled_ms(kernel_call),
            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
            "bytes": nbytes, "ops": ops, "hbm_floor_ms": hbm_ms}
+    if name in COLD:
+        row["l2_warm_ms"] = profiled_ms(kernel_call, symbol)
     shapes = ", ".join(str(tuple(a.shape)) for a in args
                        if isinstance(a, torch.Tensor))
     lib = ("" if row["library_ms"] is None
            else f"; torch.bincount {row['library_ms']:.4f} ms")
+    cold = ("" if name not in COLD else f" with the L2 flushed before each "
+            f"call ({row['l2_warm_ms']:.4f} ms without)")
     print(f"{name} on {shapes}: bit-equal to plain; device {row['ms']:.4f} "
-          f"ms (plain {row['plain_ms']:.4f} ms; the wrapper's whole device "
-          f"work {row['stage_ms']:.4f} ms); per call {call_ms:.4f} ms "
+          f"ms{cold} (plain {row['plain_ms']:.4f} ms; the wrapper's whole "
+          f"device work {row['stage_ms']:.4f} ms); per call {call_ms:.4f} ms "
           f"(plain {plain_call_ms:.4f} ms); bound {row['bound_ms']:.4f} ms "
           f"by {row['bound_by']} (HBM floor {hbm_ms:.4f} ms for {nbytes} "
           f"bytes, op floor {ops_ms:.4f} ms for {ops:.0f} ops){lib}",
@@ -2136,20 +2202,22 @@ def main() -> None:
     with captured_calls() as calls:
         encode_video(vdata, vw, vh, "recon", True)
     n_p = sum(1 for f in range(vn) if f % GOP)
-    for name, want in (("K5 quantize_image", vn - n_p),
-                       ("K5 recon_step", n_p), ("K6+K7 search_predict", n_p),
-                       ("K4 pack_coeffs+hist", 1), ("Huffman dict", 1),
-                       ("K4 pack_payload", 1)):
+    for name, want in RECON_CALL.items():
         if len(calls[name]) != want:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"recon encode_video, expected {want}")
         for args, kwargs in calls[name]:
             held_equal(name, args, kwargs)
-    rows["K5 quantize_image"] = check_kernel("K5 quantize_image",
-                                             *calls["K5 quantize_image"][0])
-    step_args = calls["K5 recon_step"][0][0]
-    rows["K5 recon_step"] = check_kernel("K5 recon_step", step_args, {})
-    # K5 alone on a P-frame residual, the input it took before the step
+    # Frame k of every GOP: the calls take views of the frames, every
+    # GOP-th one (the I-frames: 7 of them; each step's: 6).
+    k5_call = calls["K5 quantize_image"][0]
+    if k5_call[0][0].shape[0] != vn - n_p or k5_call[0][0].is_contiguous():
+        raise AssertionError(f"K5 took {tuple(k5_call[0][0].shape)} frames, "
+                             f"not a view of the {vn - n_p} I-frames")
+    rows["K5 quantize_image"] = check_kernel("K5 quantize_image", *k5_call)
+    step_args, step_kw = calls["K5 recon_step"][0]
+    rows["K5 recon_step"] = check_kernel("K5 recon_step", step_args, step_kw)
+    # K5 alone on the P-frame residuals, the input it took before the step
     # was fused.
     cur, pred, *rest = step_args
     beside(rows["K5 quantize_image"], "p_frame_residual", check_kernel(
@@ -2159,7 +2227,8 @@ def main() -> None:
     (cur, ref, merange), _ = calls[fused][0]
     found = module("cuda_motion").search_predict(cur, ref, merange)[0]
     beside(rows["K6 motion_search"], "video_recon", check_kernel(
-        "K6 motion_search", (cur, ref, merange), {}))
+        "K6 motion_search", (cur.contiguous(), ref.contiguous(), merange),
+        {}))
     k7_search["video_recon_search"] = check_kernel("K7 predict",
                                                    (ref, found), {})
     for name in ("Huffman dict", "K4 pack_payload"):
@@ -2171,15 +2240,25 @@ def main() -> None:
     # The generic front end on the same records, as [N, F] fields built by
     # the plain glue from the captured coefficients and vectors.
     (coeffs, mvecs, gop, nb, b, rle, _lw, start, n_words), kw = coeffs_call
+    if kw.get("lens") is None:
+        raise AssertionError("the recon path gave K4 pack_coeffs no lengths")
+    # Launch 1 as it runs where no lengths are given (the coefficients'
+    # own), launch 2 the same: the same stream.
+    beside(rows["K4 pack_coeffs"], "lengths_from_coefficients", check_kernel(
+        "K4 pack_coeffs", coeffs_call[0],
+        {k: v for k, v in kw.items() if k != "lens"}))
     vals, nbits = module("cuda_pack").coeff_fields(coeffs, mvecs, gop, nb, b,
                                                    rle)
     rows["K4 pack_records"] = check_kernel(
-        "K4 pack_records", (vals, nbits, start, n_words), kw)
-    print(f"recon encode_video: all {vn - n_p} K5, {n_p} recon step, {n_p} "
-          f"K6+K7 search_predict, 1 K4 pack_coeffs+hist, 1 dict and 1 K4 "
-          f"pack_payload calls bit-equal to their plain versions", flush=True)
-    del calls, step_args, cur, pred, rest, coeffs, mvecs, vals, nbits, ref
-    del found, coeffs_call
+        "K4 pack_records", (vals, nbits, start, n_words),
+        {"prefix": kw.get("prefix")})
+    print(f"recon encode_video: its 1 K5 ({vn - n_p} I-frames), "
+          f"{GOP - 1} recon step and {GOP - 1} K6+K7 search_predict calls "
+          f"(frame k of every GOP, {n_p} P-frames), 1 K4 pack_coeffs+hist "
+          f"(from the lengths), 1 dict and 1 K4 pack_payload call "
+          f"bit-equal to their plain versions", flush=True)
+    del calls, step_args, step_kw, cur, pred, rest, coeffs, mvecs, vals
+    del nbits, ref, found, coeffs_call, k5_call
 
     # K3 alone runs where a stream arrives packed: the chunks of a video
     # longer than 32 frames, spliced on the host.
@@ -2304,6 +2383,15 @@ def main() -> None:
         raise AssertionError(f"one encode_image launched {one}")
     print("one encode_image, Huffman on: " + ", ".join(
         f"{name} {one[name]}" for name in KERNELS), flush=True)
+    one = launches_of(wrappers, lambda: encode_video(vdata, vw, vh, "recon",
+                                                     True))
+    if any(one[name] != RECON_CALL.get(name, 0) for name in KERNELS):
+        raise AssertionError(f"one recon encode_video launched {one}, "
+                             f"expected {RECON_CALL}")
+    print(f"one recon encode_video {vw}x{vh}x{vn}, gop {GOP}, Huffman on: "
+          + ", ".join(f"{name} {one[name]}" for name in KERNELS
+                      if one[name]) + f" ({sum(RECON_CALL.values()) - 3} "
+          f"launches before the pack)", flush=True)
     streams = []
     counts = [phase_of_path("image", wrappers, lambda: streams.extend(
         port.encode_image(im, q, use_rle=True, use_huffman=huff,

@@ -67,6 +67,9 @@
 // path's stripe f0 is the chunk's first global frame: frame f is intra
 // where (f0 + f) % gop == 0, and its reference comes from ref like any
 // other (the chunk's first frame's from the previous chunk).
+// Every frame stack may have its own frame stride (the recon path's step k
+// searches frames[k::gop] in the carry and writes its vectors into every
+// (gop - 1)-th P-frame row, mvecs[k - 1::gop - 1]).
 // predict_kernel, K7 alone with the vectors given, stays for a decoder,
 // which has vectors and no search: one thread copies one 16-byte
 // macroblock row through aligned word loads and a funnel shift.
@@ -140,13 +143,17 @@ __device__ __forceinline__ uint32_t window_bytes(const uint32_t* win, int i,
     return sh ? __funnelshift_r(lo, __ldg(win + i + 1), sh) : lo;
 }
 
-// Where a search's frames lie in the whole frame (see the header).
+// Where a search's frames lie in the whole frame (see the header), and
+// in memory.
 struct Stripe {
     int row0;             // global row of cur's first row
     int halo;             // rows of ref above row0 (and below the last)
     int h_glob;           // the frame's height: the clamp
     long long ref_plane;  // bytes from one ref frame to the next
     long long f0;         // global index of frame 0 (kResidual)
+    long long cur_plane;  // the prediction's search (kPredict): elements
+    long long out_plane;  // from one frame to the next of cur, of the
+    long long mvec_plane; // prediction and of the vectors (int32s)
 };
 
 // P-frames among the frames 0 .. x - 1 of a video in GOPs of gop.
@@ -192,7 +199,11 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
     const int by = st.row0 + by_loc;          // in the frame
     const int h_glob = st.h_glob;
     const long long f = blockIdx.z;
+    // Frame strides: the prediction's search takes them (the recon path
+    // steps frame k of every GOP); the others' stacks are dense.
     const long long plane = (long long)h * w;
+    const long long cur_plane = kOut == kPredict ? st.cur_plane : plane;
+    const long long out_plane = kOut == kPredict ? st.out_plane : plane;
     const int c = lane & 3;
     const int r = lane >> 2;
     long long fv = f;  // the frame's place among the vectors
@@ -243,8 +254,8 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
 
     // Lane l: column word c = l % 4 of rows r and r + 8, r = l / 4.
     const int bx = mbx * kMacro;
-    const uint8_t* cp = cur + f * plane + (long long)(by_loc + r) * w + bx
-                        + 4 * c;
+    const uint8_t* cp = cur + f * cur_plane + (long long)(by_loc + r) * w
+                        + bx + 4 * c;
     const uint32_t cur0 = __ldg(reinterpret_cast<const uint32_t*>(cp));
     const uint32_t cur1 = __ldg(reinterpret_cast<const uint32_t*>(
         cp + 8LL * w));
@@ -300,7 +311,9 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
     }
     if (lane == 0) {
         const long long mb = (long long)blockIdx.y * nbx + mbx;
-        int32_t* o = mvec + (fv * (long long)nbx * (h / kMacro) + mb) * 2;
+        int32_t* o = mvec + (kOut == kPredict
+            ? fv * st.mvec_plane + 2 * mb
+            : (fv * (long long)nbx * (h / kMacro) + mb) * 2);
         o[0] = offx;
         o[1] = offy;
     }
@@ -313,8 +326,8 @@ __global__ void __launch_bounds__(kSearchThreads) motion_search_kernel(
         const unsigned sh = 8u * (unsigned)(px & 3);
         const uint32_t p0 = window_bytes<kSmem>(win, i, sh);
         const uint32_t p1 = window_bytes<kSmem>(win, i + row8_w, sh);
-        const long long at = f * plane + (long long)(by_loc + r) * w + bx
-                             + 4 * c;
+        const long long at = f * out_plane + (long long)(by_loc + r) * w
+                             + bx + 4 * c;
         if constexpr (kOut == kPredict) {
             uint8_t* o = static_cast<uint8_t*>(out) + at;
             *reinterpret_cast<uint32_t*>(o) = p0;
@@ -367,9 +380,17 @@ __global__ void __launch_bounds__(kPredictThreads) predict_kernel(
         make_uint4(v[0], v[1], v[2], v[3]);
 }
 
+// A stripe of h rows of W in dense stacks: cur, the output and the
+// vectors a frame after another.
+Stripe dense(int row0, int halo, int h_glob, long long ref_plane,
+             long long f0, int h, int w) {
+    return Stripe{row0, halo, h_glob, ref_plane, f0, (long long)h * w,
+                  (long long)h * w, 2LL * (h / kMacro) * (w / kMacro)};
+}
+
 // The stripe of a whole frame of h rows.
 Stripe whole_frame(int h, int w) {
-    return Stripe{0, 0, h, (long long)h * w, 0};
+    return dense(0, 0, h, (long long)h * w, 0, h, w);
 }
 
 // Whether ref holds every row a search of the stripe can read: the rows
@@ -426,14 +447,23 @@ extern "C" int ie_motion_search(const void* cur, const void* ref,
 }
 
 // As ie_motion_search, and pred: u8 [F, H, W], 4-byte aligned: every
-// macroblock's window at its vector.
-extern "C" int ie_search_predict(const void* cur, const void* ref,
+// macroblock's window at its vector.  Each stack's frames lie its stride
+// apart: cur_stride, ref_stride, pred_stride bytes (multiples of 16), and
+// mvec_stride int32s.
+extern "C" int ie_search_predict(const void* cur, long long cur_stride,
+                                 const void* ref, long long ref_stride,
                                  long long n_frames, int h, int w,
-                                 int merange, void* mvec, void* pred,
-                                 void* stream) {
+                                 int merange, void* mvec,
+                                 long long mvec_stride, void* pred,
+                                 long long pred_stride, void* stream) {
+    Stripe st = whole_frame(h, w);
+    st.cur_plane = cur_stride;
+    st.ref_plane = ref_stride;
+    st.out_plane = pred_stride;
+    st.mvec_plane = mvec_stride;
     return launch_search<kPredict>(
         (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange, 0,
-        whole_frame(h, w), (int32_t*)mvec, pred, (cudaStream_t)stream);
+        st, (int32_t*)mvec, pred, (cudaStream_t)stream);
 }
 
 // As ie_search_predict on a stripe: cur u8 [F, h, W], rows row0 .. row0 +
@@ -446,7 +476,8 @@ extern "C" int ie_search_predict_stripe(const void* cur, const void* ref,
                                         int row0, int halo, int h_glob,
                                         int merange, void* mvec, void* pred,
                                         void* stream) {
-    const Stripe st{row0, halo, h_glob, (long long)(h + 2 * halo) * w, 0};
+    const Stripe st = dense(row0, halo, h_glob, (long long)(h + 2 * halo) * w,
+                            0, h, w);
     return launch_search<kPredict>(
         (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange, 0,
         st, (int32_t*)mvec, pred, (cudaStream_t)stream);
@@ -481,7 +512,8 @@ extern "C" int ie_search_residual_stripe(const void* cur, const void* ref,
                                          void* mvec, void* residual,
                                          void* stream) {
     if (gop < 1) return (int)cudaErrorInvalidValue;
-    const Stripe st{row0, halo, h_glob, (long long)(h + 2 * halo) * w, f0};
+    const Stripe st = dense(row0, halo, h_glob, (long long)(h + 2 * halo) * w,
+                            f0, h, w);
     return launch_search<kResidual>(
         (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange,
         gop, st, (int32_t*)mvec, residual, (cudaStream_t)stream);

@@ -27,24 +27,31 @@
 // record written).
 //
 // K4 replaces pallas_pack.py _pack_call (reached through
-// pack_records_pallas and device_pack.pack_blocks_device): one
-// single-pass packer (pack_tiles) with three front ends that yield each
-// record's length and then its fields, so no field tensor is built first:
+// pack_records_pallas and device_pack.pack_blocks_device).  Its front ends
+// yield each record's length and then its fields, so no field tensor is
+// built first:
 //   pack_records: [N, F] (value, width) fields, the generic form (also
 //                 over segments, each from its own start bit);
 //   pack_payload: the Huffman payload, 16 stream bytes a record, each
 //                 byte's code looked up in shared memory;
 //   pack_coeffs:  a recon video's motion-vector and block records, read
 //                 from the coefficient tensor and the vectors.
+// pack_records and pack_payload run on one single-pass packer
+// (pack_tiles): a record's length costs as much to find as its fields
+// (its 16 bytes' codes, its widths), so each tile finds them once and
+// looks back for its start.  pack_coeffs runs on K2's two launches
+// instead (CoeffsFront below): the transform that wrote the coefficients
+// (transform.cu: K5 and the recon step) also wrote each block's record
+// length, 4 bytes a block, and a vector record's length is arithmetic, so
+// launch 1 sums lengths alone and launch 2 emits with every tile's start
+// known, with K3 folded in as in K2.
 // Bound: HBM bytes.  pack_payload reads 1 byte per coded byte and the
-// payload, pack_coeffs 4 bytes per coefficient; both write the stream.
-// pack_payload reads its codes, the dict, its start bit and its byte count
-// from the dict kernel's table (huffman.cu, dict_table.cuh), so its tiles
-// are bounded by the bytes coded, not by the worst-case word buffer.
-// pack_coeffs can count the byte histogram of the stream it writes (K3 folded
-// in, as in K2): each word where it is stored, the words tiles share at the
-// final merge, where they are whole and the total is known.
-// The design keeps everything else on chip: the scan is one pass
+// payload, pack_coeffs 4 bytes per coefficient and the lengths; both write
+// the stream.  pack_payload reads its codes, the dict, its start bit and
+// its byte count from the dict kernel's table (huffman.cu,
+// dict_table.cuh), so its tiles are bounded by the bytes coded, not by the
+// worst-case word buffer.
+// The single-pass design keeps everything else on chip: the scan is one pass
 // (decoupled look-back over tiles taken in order); a tile's words are
 // composed in shared memory and leave by 16-byte stores; the words tiles
 // share are merged once at the end instead of by global atomics; the
@@ -70,7 +77,7 @@
 
 namespace {
 
-// ---- K4: one single-pass packer, three front ends ----
+// ---- K4: one single-pass packer (pack_records, pack_payload) ----
 
 constexpr int kTile = 256;  // records a tile, threads a CTA
 constexpr unsigned long long kFlagA = 1ull << 62;  // a tile's aggregate
@@ -130,8 +137,7 @@ __device__ __forceinline__ void flush_bins(const int* bins, int32_t* hist) {
 // One pack's outputs and scratch.  scratch: u64 words zeroed by the
 // caller, [0] the tile counter, [1] tiles done, [2] the error flag, [3 + t]
 // tile t's status (flag | value); edges: u64 [2 * n_tiles], each tile's
-// first and last span word as ((word + 1) << 32) | bits, 0 for none; hist:
-// i32 [256], zeroed, the stream's byte histogram (with kHist).
+// first and last span word as ((word + 1) << 32) | bits, 0 for none.
 struct PackOut {
     long long n;  // records
     long long n_tiles;
@@ -143,7 +149,6 @@ struct PackOut {
     unsigned long long* scratch;
     unsigned long long* edges;
     long long* total;
-    int32_t* hist;
     int span_words;       // capacity of the shared span
     int max_record_bits;  // longer records are refused
 
@@ -236,25 +241,19 @@ __device__ __forceinline__ long long look_back(unsigned long long* status,
 // of a shared word ORs in the later tiles' parts of it and stores it, once.
 // No word of the output is written twice or by an atomic, and nothing of
 // it is zeroed first: the words past the stream's last word are left as
-// they were.  With kHist each word's bytes are counted where it is stored,
-// and the CTA's counts leave for a.hist at the end.
-template <int ITEMS, class Front, bool kHist = false>
+// they were.
+template <int ITEMS, class Front>
 __device__ __forceinline__ void pack_tiles(const Front& fe,
                                            const PackOut& a) {
     constexpr long long kRecords = (long long)kTile * ITEMS;
-    constexpr int kWarps = kTile / 32;
-    constexpr long long kAll = 1ll << 62;  // no byte of the word is past the end
     extern __shared__ __align__(16) uint32_t span[];
     __shared__ long long warp_sums[32];
     __shared__ long long s_tile, s_agg, s_excl;
-    __shared__ int bins[kHist ? kWarps * 256 : 1];  // a warp's own 256
     unsigned long long* counter = a.scratch;
     unsigned long long* done = a.scratch + 1;
     unsigned long long* err = a.scratch + 2;
     unsigned long long* status = a.scratch + 3;
     const int tid = threadIdx.x;
-    int* my_bins = bins + (kHist ? (tid >> 5) * 256 : 0);
-    if (kHist) zero_bins<kWarps>(bins);
 
     for (;;) {
         // Take a tile only when about to pack it: a later tile's look-back
@@ -321,31 +320,18 @@ __device__ __forceinline__ void pack_tiles(const Front& fe,
                 const long long a0 = min((lo + 3) & ~3ll, hi);
                 const long long a1 = a0 + ((hi - a0) & ~3ll);
                 // Interior words: every byte lies inside the stream.
-                if (tid < a0 - lo) {
-                    const uint32_t w =
+                if (tid < a0 - lo)
+                    a.out[lo + tid] =
                         span[lo + tid - f] | a.prefix_word(lo + tid);
-                    a.out[lo + tid] = w;
-                    if (kHist) count_bytes(my_bins, w, 4 * (lo + tid), kAll);
-                }
-                if (tid < hi - a1) {
-                    const uint32_t w =
+                if (tid < hi - a1)
+                    a.out[a1 + tid] =
                         span[a1 + tid - f] | a.prefix_word(a1 + tid);
-                    a.out[a1 + tid] = w;
-                    if (kHist) count_bytes(my_bins, w, 4 * (a1 + tid), kAll);
-                }
                 for (long long v = a0 + 4 * tid; v < a1; v += 4 * kTile) {
                     const uint32_t* sp = span + (v - f);
-                    const uint4 q = make_uint4(
+                    *reinterpret_cast<uint4*>(a.out + v) = make_uint4(
                         sp[0] | a.prefix_word(v), sp[1] | a.prefix_word(v + 1),
                         sp[2] | a.prefix_word(v + 2),
                         sp[3] | a.prefix_word(v + 3));
-                    *reinterpret_cast<uint4*>(a.out + v) = q;
-                    if (kHist) {
-                        count_bytes(my_bins, q.x, 4 * v, kAll);
-                        count_bytes(my_bins, q.y, 4 * v + 4, kAll);
-                        count_bytes(my_bins, q.z, 4 * v + 8, kAll);
-                        count_bytes(my_bins, q.w, 4 * v + 12, kAll);
-                    }
                 }
             }
         }
@@ -364,13 +350,8 @@ __device__ __forceinline__ void pack_tiles(const Front& fe,
     // its worst-case buffer): a CTA past the words the final merge writes
     // has nothing to wait for, and leaves instead of polling the counter.
     if (blockIdx.x != 0 && (long long)blockIdx.x * kTile
-                               >= max(2 * a.n_tiles, a.start_bit >> 5)) {
-        if (kHist) {
-            __syncthreads();
-            flush_bins<kWarps>(bins, a.hist);
-        }
+                               >= max(2 * a.n_tiles, a.start_bit >> 5))
         return;
-    }
     // Every tile has been taken by a running CTA: wait for all of them.
     if (tid == 0)
         while (ld_acquire(done) < (unsigned long long)a.n_tiles)
@@ -396,29 +377,15 @@ __device__ __forceinline__ void pack_tiles(const Front& fe,
                 break;
             v |= (uint32_t)ld_relaxed(a.edges + 2 * t2);
         }
-        if (w < a.n_words) {
-            a.out[w] = v;
-            if (kHist) count_bytes(my_bins, v, 4 * w, (total + 7) >> 3);
-        }
+        if (w < a.n_words) a.out[w] = v;
     }
     const long long head = min(a.start_bit >> 5, a.n_words);
-    for (long long w = g; w < head; w += stride) {
-        a.out[w] = a.prefix_word(w);
-        if (kHist) count_bytes(my_bins, a.prefix_word(w), 4 * w, kAll);
-    }
+    for (long long w = g; w < head; w += stride) a.out[w] = a.prefix_word(w);
     if (g == 0) {
         // An empty stream that starts inside a word: that word is prefix.
-        if (total == a.start_bit && (a.start_bit & 31) && head < a.n_words) {
+        if (total == a.start_bit && (a.start_bit & 31) && head < a.n_words)
             a.out[head] = a.prefix_word(head);
-            if (kHist)
-                count_bytes(my_bins, a.prefix_word(head), 4 * head,
-                            (total + 7) >> 3);
-        }
         *a.total = ld_acquire(err) ? -1 : total;
-    }
-    if (kHist) {
-        __syncthreads();
-        flush_bins<kWarps>(bins, a.hist);
     }
 }
 
@@ -511,81 +478,6 @@ struct PayloadFront {
     }
 };
 
-// pack_coeffs: the recon video's records straight from its coefficients,
-// int32 [F, H, W] in place (block (r, c), coefficient (u, v) at
-// [B*r + u, B*c + v]), and motion vectors int32 [P, n_macro, 2].  Per
-// frame: n_macro vector records (x then y, mvec_nbits bits each, on a
-// P-frame; empty on an I-frame), then the frame's blocks in row-major
-// order, each read by rows of 16-byte loads, put in zig-zag order in
-// registers and emitted as K1 emits it (records.cuh).
-template <int B>
-struct CoeffsFront {
-    static constexpr int K = B * B;
-    static constexpr int kItems = B == 4 ? 2 : 1;
-    struct State {
-        int kind;  // 0 empty, 1 vectors (in q[0], q[1]), 2 block
-        int q[K];
-        ie::BlockStats bs;
-    };
-    const int32_t* coeffs;
-    long long height, width, blocks_x, n_macro, per_frame;
-    const int32_t* mvecs;
-    int gop, mvec_nbits, use_rle;
-
-    // Record r's kind (State::kind) and its coefficients in zig-zag order
-    // or its vector pair in q[0], q[1].
-    __device__ __forceinline__ int load(long long r, int* q) const {
-        const long long fi = r / per_frame;
-        const long long j = r - fi * per_frame;
-        if (j < n_macro) {
-            if (fi % gop == 0) return 0;
-            const long long p = fi - fi / gop - 1;  // among the P-frames
-            const int2 v = *reinterpret_cast<const int2*>(
-                mvecs + 2 * (p * n_macro + j));
-            q[0] = v.x;
-            q[1] = v.y;
-            return 1;
-        }
-        const long long b = j - n_macro;
-        const long long by = b / blocks_x;
-        const long long bx = b - by * blocks_x;
-        const int32_t* base = coeffs + (fi * height + by * B) * width + bx * B;
-        int nat[K];
-#pragma unroll
-        for (int rr = 0; rr < B; rr++)
-#pragma unroll
-            for (int c4 = 0; c4 < B / 4; c4++) {
-                const int4 v = *reinterpret_cast<const int4*>(
-                    base + rr * width + 4 * c4);
-                nat[rr * B + 4 * c4] = v.x;
-                nat[rr * B + 4 * c4 + 1] = v.y;
-                nat[rr * B + 4 * c4 + 2] = v.z;
-                nat[rr * B + 4 * c4 + 3] = v.w;
-            }
-        ie::gather_zigzag<B>(nat, q);
-        return 2;
-    }
-
-    __device__ __forceinline__ long long length(long long r,
-                                                State& st) const {
-        st.kind = load(r, st.q);
-        if (st.kind == 0) return 0;
-        if (st.kind == 1) return 2 * mvec_nbits;
-        st.bs = ie::block_stats<K>(st.q, use_rle);
-        return st.bs.len;
-    }
-
-    template <class E>
-    __device__ __forceinline__ void emit(const State& st, E& em) const {
-        if (st.kind == 1) {
-            em.put(mvec_nbits, (uint32_t)st.q[0]);
-            em.put(mvec_nbits, (uint32_t)st.q[1]);
-        } else if (st.kind == 2) {
-            ie::emit_block<K>(em, st.q, st.bs, use_rle);
-        }
-    }
-};
-
 __global__ void __launch_bounds__(kTile) pack_records_kernel(
         const int32_t* __restrict__ vals, const int32_t* __restrict__ nbits,
         int f, PackOut a) {
@@ -653,25 +545,6 @@ __global__ void __launch_bounds__(kTile) pack_payload_kernel(
     pack_tiles<PayloadFront::kItems>(fe, a);
 }
 
-template <int B, bool kHist>
-__global__ void __launch_bounds__(kTile) pack_coeffs_kernel(
-        const int32_t* __restrict__ coeffs, long long height, long long width,
-        const int32_t* __restrict__ mvecs, long long n_macro, int gop,
-        int mvec_nbits, int use_rle, PackOut a) {
-    CoeffsFront<B> fe{};
-    fe.coeffs = coeffs;
-    fe.height = height;
-    fe.width = width;
-    fe.blocks_x = width / B;
-    fe.n_macro = n_macro;
-    fe.per_frame = n_macro + (height / B) * fe.blocks_x;
-    fe.mvecs = mvecs;
-    fe.gop = gop;
-    fe.mvec_nbits = mvec_nbits;
-    fe.use_rle = use_rle;
-    pack_tiles<CoeffsFront<B>::kItems, CoeffsFront<B>, kHist>(fe, a);
-}
-
 // Fills in the launch-side fields of PackOut for tiles of kTile * items
 // records and launches a persistent grid: as many CTAs as fit on the card
 // at once, at most one a tile, so that every CTA that waits for the others
@@ -719,8 +592,7 @@ int launch_pack(void (*kernel)(P...), int items, PackOut a,
 
 PackOut pack_out(long long n, long long start_bit, const void* prefix,
                  long long prefix_words, void* out, long long n_words,
-                 void* scratch, void* edges, void* total,
-                 void* hist = nullptr) {
+                 void* scratch, void* edges, void* total) {
     PackOut a{};
     a.n = n;
     a.start_bit = start_bit;
@@ -731,7 +603,6 @@ PackOut pack_out(long long n, long long start_bit, const void* prefix,
     a.scratch = (unsigned long long*)scratch;
     a.edges = (unsigned long long*)edges;
     a.total = (long long*)total;
-    a.hist = (int32_t*)hist;
     return a;
 }
 
@@ -749,6 +620,7 @@ PackOut pack_out(long long n, long long start_bit, const void* prefix,
 // depend on nothing but its first record's number.
 template <bool kVec>
 struct LocalsFront {
+    static constexpr bool kAllAtomic = false;  // see OwnedSink
     struct State {
         const uint32_t* row;  // a block record's register file, or null
         uint32_t w0, w1;      // the record's first two words
@@ -842,6 +714,15 @@ struct LocalsFront {
         return refused(len) ? -1 : len;
     }
 
+    // The reach past a tile (pack_known_kernel): record i's length, st
+    // filled as far as the reach needs (whole, here), and the rest of st
+    // where the reach emits the record (nothing left).
+    __device__ __forceinline__ int reach_length(long long i,
+                                                State& st) const {
+        return (int)length(i, st);
+    }
+    __device__ __forceinline__ void reach_fill(long long, State&) const {}
+
     // The first record at or after i that may hold bits: past an I-frame's
     // run of empty vector records in one step.
     __device__ __forceinline__ long long skip_empty(long long i) const {
@@ -868,10 +749,170 @@ struct LocalsFront {
     }
 };
 
+// K4 pack_coeffs on K2's two launches: a recon video's records straight
+// from its coefficients, int32 frames [H, W] `frame` elements apart (block
+// (r, c), coefficient (u, v) at [B*r + u, B*c + v]), and its motion
+// vectors int32 [P, n_macro, 2].  In stream order, per frame f: n_macro
+// vector records (x then y, nbits two's-complement bits each, from
+// mvecs[p] of the p-th P-frame; empty on an I-frame, f % gop == 0), then
+// the frame's n_micro block records in row-major order.  A vector
+// record's length is arithmetic.  A block record's is lens[f * n_micro +
+// b] as the transform wrote it (transform.cu, records.cuh's block_stats),
+// which is all launch 1 reads.  Launch 2 reads the block by rows of
+// 16-byte loads and puts it in zig-zag order in registers; it takes the
+// tile's scan from the lengths too (kLengthsFirst), so the scan need not
+// wait for the blocks, and their stats are taken where they are emitted,
+// as K1 emits them (records.cuh).  Launch 2's reach past its tile reads
+// lengths, and loads only the blocks whose bits it takes.  Without
+// lengths each is taken from its block.  A block record longer than lw
+// words is refused.
+template <int B>
+struct CoeffsFront {
+    static constexpr int K = B * B;
+    static constexpr bool kLengthsFirst = true;
+    static constexpr bool kAllAtomic = true;  // see OwnedSink
+    struct State {
+        int kind;  // 0 empty, 1 vectors (x, y in q[0], q[1]), 2 block,
+                   // 3 a block whose length alone was read
+        int q[K];
+    };
+    struct Cursor {
+        unsigned fi, j;  // frame, record in the frame
+        unsigned pf;     // the frame's place among the P-frames
+        bool live;       // a P-frame: its vector records hold bits
+    };
+    const int32_t* coeffs;
+    const int32_t* lens;
+    const int32_t* mvecs;
+    long long width, frame;  // coefficients a row, a frame
+    unsigned blocks_x, n_macro, n_micro;
+    int gop, nbits, use_rle, lw;
+
+    __device__ __forceinline__ void to_stream(long long, long long) {}
+
+    __device__ __forceinline__ void enter_frame(Cursor& c) const {
+        const unsigned g = c.fi / (unsigned)gop;
+        c.live = c.fi != g * (unsigned)gop;
+        c.pf = c.fi - g - 1u;
+    }
+
+    __device__ __forceinline__ Cursor at(long long i) const {
+        Cursor c{};
+        const unsigned per = n_macro + n_micro;
+        c.fi = (unsigned)i / per;
+        c.j = (unsigned)i - c.fi * per;
+        enter_frame(c);
+        return c;
+    }
+
+    // The record at the cursor into st and the cursor one on; its length.
+    // With kFull a block's coefficients are loaded; its length is read
+    // from lens where there are lengths, else taken from them.
+    template <bool kFull>
+    __device__ __forceinline__ int next(Cursor& c, State& st) const {
+        const unsigned j = c.j, fi = c.fi, pf = c.pf;
+        const bool live = c.live;
+        if (++c.j == n_macro + n_micro) {
+            c.j = 0u;
+            c.fi++;
+            enter_frame(c);
+        }
+        if (j < n_macro) {
+            st.kind = live ? 1 : 0;
+            if (!live) return 0;
+            const int2 v = __ldg(reinterpret_cast<const int2*>(mvecs)
+                                 + (long long)pf * n_macro + j);
+            st.q[0] = v.x;
+            st.q[1] = v.y;
+            return 2 * nbits;
+        }
+        const unsigned b = j - n_macro;
+        const int* len_at = lens + (long long)fi * n_micro + b;
+        if (!kFull && lens) {
+            st.kind = 3;
+            return __ldg(len_at);
+        }
+        const unsigned by = b / blocks_x;
+        const int32_t* base = coeffs + fi * frame + (long long)by * B * width
+                              + (long long)(b - by * blocks_x) * B;
+        int nat[K];
+#pragma unroll
+        for (int r = 0; r < B; r++)
+#pragma unroll
+            for (int c4 = 0; c4 < B / 4; c4++) {
+                const int4 v = __ldg(reinterpret_cast<const int4*>(
+                    base + r * width + 4 * c4));
+                nat[r * B + 4 * c4] = v.x;
+                nat[r * B + 4 * c4 + 1] = v.y;
+                nat[r * B + 4 * c4 + 2] = v.z;
+                nat[r * B + 4 * c4 + 3] = v.w;
+            }
+        ie::gather_zigzag<B>(nat, st.q);
+        st.kind = 2;
+        if (kLengthsFirst && lens) return __ldg(len_at);
+        return ie::block_stats<K>(st.q, use_rle).len;
+    }
+
+    __device__ __forceinline__ bool refused(int len) const {
+        return len < 0 || len > 32 * lw;
+    }
+
+    __device__ __forceinline__ long long length(long long i,
+                                                State& st) const {
+        Cursor c = at(i);
+        const int len = next<true>(c, st);
+        return refused(len) ? -1 : len;
+    }
+
+    // The reach past a tile (pack_known_kernel): record i's length (from
+    // lens, st left pending) and, for the records it emits, the rest.
+    __device__ __forceinline__ int reach_length(long long i,
+                                                State& st) const {
+        Cursor c = at(i);
+        const int len = next<!kLengthsFirst>(c, st);
+        return refused(len) ? -1 : len;
+    }
+    __device__ __forceinline__ void reach_fill(long long i,
+                                               State& st) const {
+        if (st.kind == 3) {
+            Cursor c = at(i);
+            next<true>(c, st);
+        }
+    }
+
+    // The first record at or after i that may hold bits: past an I-frame's
+    // run of empty vector records in one step.
+    __device__ __forceinline__ long long skip_empty(long long i) const {
+        if (!n_macro) return i;
+        const Cursor c = at(i);
+        return (c.j < n_macro && !c.live)
+            ? (long long)c.fi * (n_macro + n_micro) + n_macro : i;
+    }
+
+    template <class Sink>
+    __device__ __forceinline__ void emit_words(const State& st, int lead,
+                                               const Sink& sink) const {
+        ie::BitEmitter<Sink> em(sink, lead);
+        if (st.kind == 1) {
+            em.put(nbits, (uint32_t)st.q[0]);
+            em.put(nbits, (uint32_t)st.q[1]);
+        } else if (st.kind == 2) {
+            ie::emit_block<K>(em, st.q, ie::block_stats<K>(st.q, use_rle),
+                              use_rle);
+        }
+        em.finish();
+    }
+};
+
 // A record's words into the words a tile owns, span[0 .. nspan): words
 // outside them belong to a neighbouring tile and are dropped.  The
 // record's first and last word may be shared with its neighbours
-// (shared-memory atomicOr); the interior ones are its alone.
+// (shared-memory atomicOr); the interior ones are its alone, stored, or
+// with kAllAtomic (Front::kAllAtomic) OR'd in as well: pack_coeffs, which
+// emits its records a field at a time, measured 5.7 us faster so on the
+// 720p25 recon video (H100); K2 keeps its stores (tools/k2_variants.py
+// tries all_atomic on it).
+template <bool kAllAtomic>
 struct OwnedSink {
     uint32_t* span;
     int base;
@@ -880,7 +921,7 @@ struct OwnedSink {
     __device__ __forceinline__ void operator()(int k, uint32_t w) const {
         const int i = base + k;
         if ((unsigned)i >= (unsigned)nspan) return;
-        if (k == 0 || k == last) {
+        if (kAllAtomic || k == 0 || k == last) {
             if (w != 0u) atomicOr(span + i, w);
         } else {
             span[i] = w;
@@ -894,8 +935,9 @@ __device__ __forceinline__ void emit_owned(
         const Front& fe, const typename Front::State& st, int len,
         long long pos, long long w0, uint32_t* span, int nspan) {
     const int lead = (int)(pos & 31);
-    fe.emit_words(st, lead, OwnedSink{span, (int)((pos >> 5) - w0),
-                                      ((lead + len + 31) >> 5) - 1, nspan});
+    fe.emit_words(st, lead, OwnedSink<Front::kAllAtomic>{
+                                span, (int)((pos >> 5) - w0),
+                                ((lead + len + 31) >> 5) - 1, nspan});
 }
 
 // One scan-free pack's outputs.  sums: i64 [n_tiles + ceil(n_tiles /
@@ -1097,7 +1139,7 @@ __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
             i = fe.skip_empty(i);
             typename Front::State so;
             const int len = i + tid < a.n
-                ? max((int)fe.length(i + tid, so), 0) : 0;
+                ? max(fe.reach_length(i + tid, so), 0) : 0;
             int upto = len;
 #pragma unroll
             for (int o = 1; o < 32; o <<= 1) {
@@ -1105,8 +1147,10 @@ __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
                 if (tid >= o) upto += up;
             }
             const int at = got + upto - len;
-            if (len > 0 && at < need)
+            if (len > 0 && at < need) {
+                fe.reach_fill(i + tid, so);
                 emit_owned(fe, so, len, s1 + at, w0, span, nspan);
+            }
             got += __shfl_sync(0xffffffffu, upto, 31);
             i += 32;
         }
@@ -1187,13 +1231,32 @@ bool locals_front(const void* local, const void* lens, long long n_blocks,
 // 4 a thread measured slower, the CTAs being fewer and longer.
 int locals_items(int lw) { return lw <= 8 ? 2 : 1; }
 
-template <int ITEMS, bool kVec>
-int launch_locals(const LocalsFront<kVec>& fe, KnownOut a, cudaStream_t s) {
+// Records a thread of K4 pack_coeffs takes: a 4x4 block's state is 17
+// registers, an 8x8 block's 65.
+constexpr int kCoeffsItems4 = 2;
+int coeffs_items(int block_size) {
+    return block_size == 4 ? kCoeffsItems4 : 1;
+}
+
+// Tiles, and the i64 sums launch 1 writes for them.
+long long known_tiles(long long n_records, int items) {
+    const long long records = (long long)kTile * items;
+    return std::max(1ll, (n_records + records - 1) / records);
+}
+
+long long known_sums(long long n_records, int items) {
+    const long long tiles = known_tiles(n_records, items);
+    return tiles + (tiles + kWarps - 1) / kWarps;
+}
+
+// K2's two launches for a front end whose records are at most fe.lw words.
+template <int ITEMS, class Front>
+int launch_known(const Front& fe, KnownOut a, cudaStream_t s) {
     const long long records = (long long)kTile * ITEMS;
-    a.n_tiles = std::max(1ll, (a.n + records - 1) / records);
+    a.n_tiles = known_tiles(a.n, ITEMS);
     const size_t smem = (size_t)(records * fe.lw + 3) * sizeof(uint32_t);
-    auto* kernel = a.hist ? pack_known_kernel<ITEMS, LocalsFront<kVec>, true>
-                          : pack_known_kernel<ITEMS, LocalsFront<kVec>, false>;
+    auto* kernel = a.hist ? pack_known_kernel<ITEMS, Front, true>
+                          : pack_known_kernel<ITEMS, Front, false>;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1222,9 +1285,7 @@ extern "C" const char* ie_error_string(int code) {
 // hist: i32 [256], not zeroed, receives the stream's byte histogram, or
 // null.  Fewer than 2^31 records.
 extern "C" int ie_pack_locals_scratch(long long n_records, int lw) {
-    const long long records = (long long)kTile * locals_items(lw);
-    const long long tiles = std::max(1ll, (n_records + records - 1) / records);
-    return (int)(tiles + (tiles + kWarps - 1) / kWarps);
+    return (int)known_sums(n_records, locals_items(lw));
 }
 
 static KnownOut known_out(long long n_streams, long long start_bit,
@@ -1262,14 +1323,14 @@ extern "C" int ie_pack_locals(const void* local, const void* lens,
     cudaStream_t s = (cudaStream_t)stream;
     const int items = locals_items(lw);
     if (fe.n_macro)
-        return items == 2 ? launch_locals<2>(fe, a, s)
-                          : launch_locals<1>(fe, a, s);
+        return items == 2 ? launch_known<2>(fe, a, s)
+                          : launch_known<1>(fe, a, s);
     LocalsFront<false> blocks{};  // the image path: no vector records
     blocks.local = fe.local;
     blocks.lens = fe.lens;
     blocks.lw = lw;
-    return items == 2 ? launch_locals<2>(blocks, a, s)
-                      : launch_locals<1>(blocks, a, s);
+    return items == 2 ? launch_known<2>(blocks, a, s)
+                      : launch_known<1>(blocks, a, s);
 }
 
 // K2 over a batch of n_streams image streams of n_blocks block records
@@ -1302,8 +1363,8 @@ extern "C" int ie_pack_locals_batch(const void* local, const void* lens,
     blocks.lens = fe.lens;
     blocks.lw = lw;
     cudaStream_t s = (cudaStream_t)stream;
-    return locals_items(lw) == 2 ? launch_locals<2>(blocks, a, s)
-                                 : launch_locals<1>(blocks, a, s);
+    return locals_items(lw) == 2 ? launch_known<2>(blocks, a, s)
+                                 : launch_known<1>(blocks, a, s);
 }
 
 // The K4 entry points share their tail (pack_payload takes its start_bit
@@ -1394,44 +1455,52 @@ extern "C" int ie_pack_payload_batch(const void* words, long long n_in,
                                edges_stride);
 }
 
-// coeffs: i32 [F, H, W], 16-byte aligned, W % 4 == 0; mvecs: i32
-// [P, n_macro, 2], 8-byte aligned, the vectors of the P-frames (f % gop !=
-// 0) in order; a block record longer than lw words is refused.  Records:
-// F * (n_macro + (H / B) * (W / B)).  hist: i32 [256], zeroed (the tail of
-// the scratch serves), receives the stream's byte histogram, or null.
+// K4 pack_coeffs, K2's two launches.  coeffs: i32 [F, H, W], 16-byte
+// aligned, W % 4 == 0; lens: i32 [F, (H / B) * (W / B)], each block's
+// record length as K5 and the recon step write it (ie_quantize_image,
+// ie_recon_step, with the same use_rle), or null to take them from the
+// coefficients; mvecs: i32 [P, n_macro, 2], 8-byte aligned, the vectors of
+// the P-frames (f % gop != 0) in order.  Records: F * (n_macro + (H / B) *
+// (W / B)), fewer than 2^31; a block record longer than lw words is
+// refused.  start_bit, prefix, out and total as for K4 above; sums: i64
+// [ie_pack_coeffs_scratch(records, block_size)], scratch that needs no
+// clearing; hist: i32 [256], not zeroed, receives the stream's byte
+// histogram, or null.
+extern "C" int ie_pack_coeffs_scratch(long long n_records, int block_size) {
+    return (int)known_sums(n_records, coeffs_items(block_size));
+}
+
 extern "C" int ie_pack_coeffs(const void* coeffs, long long frames,
                               long long height, long long width,
-                              int block_size, const void* mvecs,
-                              long long n_macro, int gop, int mvec_nbits,
-                              int use_rle, int lw, long long start_bit,
-                              const void* prefix, long long prefix_words,
-                              void* out, long long n_words, void* scratch,
-                              void* edges, void* total, void* hist,
-                              void* stream) {
-    if ((block_size != 4 && block_size != 8) || width % 4 || gop < 1)
+                              int block_size, const void* lens,
+                              const void* mvecs, long long n_macro, int gop,
+                              int mvec_nbits, int use_rle, int lw,
+                              long long start_bit, const void* prefix,
+                              long long prefix_words, void* out,
+                              long long n_words, void* sums, void* total,
+                              void* hist, void* stream) {
+    if ((block_size != 4 && block_size != 8) || width % 4 || gop < 1
+        || lw < 1 || frames < 0 || n_macro < 0
+        || (n_macro && (mvec_nbits < 1 || mvec_nbits > 16)))
         return (int)cudaErrorInvalidValue;
-    const long long per_frame =
-        n_macro + (height / block_size) * (width / block_size);
-    const PackOut a = pack_out(frames * per_frame, start_bit, prefix,
-                               prefix_words, out, n_words, scratch, edges,
-                               total, hist);
-    const long long bits = std::max(32ll * lw, 2ll * mvec_nbits);
+    const long long blocks_x = width / block_size;
+    const long long n_micro = blocks_x * (height / block_size);
+    KnownOut a = known_out(1, start_bit, prefix, prefix_words, out, n_words,
+                           sums, 0, total, hist);
+    a.n = frames * (n_macro + n_micro);
+    if (a.n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const auto* c = (const int32_t*)coeffs;
-    const auto* m = (const int32_t*)mvecs;
-    if (block_size == 4)
-        return hist ? launch_pack(pack_coeffs_kernel<4, true>,
-                                  CoeffsFront<4>::kItems, a, bits, s, c,
-                                  height, width, m, n_macro, gop, mvec_nbits,
-                                  use_rle)
-                    : launch_pack(pack_coeffs_kernel<4, false>,
-                                  CoeffsFront<4>::kItems, a, bits, s, c,
-                                  height, width, m, n_macro, gop, mvec_nbits,
-                                  use_rle);
-    return hist ? launch_pack(pack_coeffs_kernel<8, true>,
-                              CoeffsFront<8>::kItems, a, bits, s, c, height,
-                              width, m, n_macro, gop, mvec_nbits, use_rle)
-                : launch_pack(pack_coeffs_kernel<8, false>,
-                              CoeffsFront<8>::kItems, a, bits, s, c, height,
-                              width, m, n_macro, gop, mvec_nbits, use_rle);
+    if (block_size == 4) {
+        const CoeffsFront<4> fe{(const int32_t*)coeffs, (const int32_t*)lens,
+                                (const int32_t*)mvecs, width, height * width,
+                                (unsigned)blocks_x, (unsigned)n_macro,
+                                (unsigned)n_micro, gop, mvec_nbits, use_rle,
+                                lw};
+        return launch_known<kCoeffsItems4>(fe, a, s);
+    }
+    const CoeffsFront<8> fe{(const int32_t*)coeffs, (const int32_t*)lens,
+                            (const int32_t*)mvecs, width, height * width,
+                            (unsigned)blocks_x, (unsigned)n_macro,
+                            (unsigned)n_micro, gop, mvec_nbits, use_rle, lw};
+    return launch_known<1>(fe, a, s);
 }

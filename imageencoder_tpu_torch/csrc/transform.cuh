@@ -86,6 +86,14 @@ __device__ __forceinline__ void load_block_vec(const T* p, long long pitch,
     }
 }
 
+// A loop over blocks calls this at the top of each turn: to the compiler it
+// may write any memory, so the tables' loads, the same every turn, are not
+// hoisted out of the loop into registers (hundreds of doubles, spilled).
+// It emits no instruction.
+__device__ __forceinline__ void keep_loads_in_loop() {
+    asm volatile("" ::: "memory");
+}
+
 // Whether a K-coefficient transform keeps its tables in shared memory.
 template <int K>
 constexpr bool kSharedTables = K <= 16;

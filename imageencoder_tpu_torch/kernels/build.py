@@ -42,10 +42,20 @@ _K4_TAIL = [_I64, _P, _I64, _P, _I64, _P, _P, _P, _P]
 SIGNATURES = {
     "ie_encode_locals": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _I32,
                          _I32, _P, _P, _P, _P],
-    "ie_quantize_image": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P],
-    "ie_recon_step": [_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P],
+    # img, dtype, frames, img_stride, h, w, block_size, w, scale, quant,
+    # recip, out, out_stride, lens, lens_stride, use_rle, stream
+    "ie_quantize_image": [_P, _I32, _I64, _I64, _I64, _I64, _I32, _P, _P, _P,
+                          _P, _P, _I64, _P, _I64, _I32, _P],
+    # cur, cur_stride, pred, pred_stride, frames, h, w, block_size, w,
+    # scale, quant, recip, wi, coeffs, coeffs_stride, recon, recon_stride,
+    # lens, lens_stride, use_rle, stream
+    "ie_recon_step": [_P, _I64, _P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P,
+                      _P, _P, _P, _I64, _P, _I64, _P, _I64, _I32, _P],
     "ie_motion_search": [_P, _P, _I64, _I32, _I32, _I32, _P, _P],
-    "ie_search_predict": [_P, _P, _I64, _I32, _I32, _I32, _P, _P, _P],
+    # cur, cur_stride, ref, ref_stride, n_frames, h, w, merange, mvec,
+    # mvec_stride, pred, pred_stride, stream
+    "ie_search_predict": [_P, _I64, _P, _I64, _I64, _I32, _I32, _I32, _P,
+                          _I64, _P, _I64, _P],
     "ie_search_residual": [_P, _I64, _I32, _I32, _I32, _I32, _P, _P, _P],
     # cur, ref, n_frames, h, w, row0, halo, h_glob, merange, mvec, pred,
     # stream
@@ -76,8 +86,12 @@ SIGNATURES = {
     # scratch_stride, edges, edges_stride, total, stream
     "ie_pack_payload_batch": [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P,
                               _I64, _P, _P],
-    "ie_pack_coeffs": [_P, _I64, _I64, _I64, _I32, _P, _I64, _I32, _I32,
-                       _I32, _I32, *_K4_TAIL[:-1], _P, _P],
+    # coeffs, frames, h, w, block_size, lens, mvecs, n_macro, gop,
+    # mvec_nbits, use_rle, lw, start_bit, prefix, prefix_words, out,
+    # n_words, sums, total, hist, stream
+    "ie_pack_coeffs": [_P, _I64, _I64, _I64, _I32, _P, _P, _I64, _I32, _I32,
+                       _I32, _I32, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P],
+    "ie_pack_coeffs_scratch": [_I64, _I32],
     "ie_byte_histogram": [_P, _I64, _P, _P, _P],
     # words, n_words, n_rows, lo, hi, hist, stream
     "ie_byte_histogram_rows": [_P, _I64, _I64, _P, _P, _P, _P],
@@ -229,6 +243,20 @@ def require_frames(t, name: str, dtype, ndim: int, device) -> None:
     require(t[:1], name, dtype, ndim, device)
     if t.stride(0) < 0:
         raise ValueError(f"{name}: negative stride")
+
+
+def frame_stride(t, name: str, dtype, ndim: int, device,
+                 align: int = 16) -> int:
+    """Check a stack of frames that a kernel reads or writes frame by
+    frame (:func:`require_frames`): the first frame ``align``-byte aligned
+    and the others a multiple of ``align`` bytes apart, as frames of a
+    contiguous stack and its views ``x[k::step]`` are.  Returns the frame
+    stride in elements."""
+    require_frames(t, name, dtype, ndim, device)
+    require_aligned(t, name, align)
+    if t.shape[0] > 1 and (t.stride(0) * t.element_size()) % align:
+        raise ValueError(f"{name}: frames must start {align} bytes apart")
+    return t.stride(0)
 
 
 def require_aligned(t, name: str, align: int = 16) -> None:

@@ -163,13 +163,18 @@ def unblocks(blocks: torch.Tensor, h: int, w: int) -> torch.Tensor:
             .reshape(h, w))
 
 
-def _check_input(img: torch.Tensor, block_size: int) -> None:
+def _check_input(img: torch.Tensor, block_size: int,
+                 frames: bool = False) -> None:
+    """An [H, W] image (with ``frames`` also [F, H, W]) of u8 pixels or
+    int16 residuals that tiles into blocks."""
     if img.dtype not in INPUT_DTYPES:
         raise TypeError(f"expected uint8 pixels or int16 residuals, got "
                         f"{img.dtype}")
-    if img.dim() != 2:
-        raise ValueError(f"expected an [H, W] image, got {tuple(img.shape)}")
-    h, w = img.shape
+    if img.dim() != 2 and not (frames and img.dim() == 3):
+        raise ValueError(f"expected an [H, W] image"
+                         f"{' or [F, H, W] frames' if frames else ''}, got "
+                         f"{tuple(img.shape)}")
+    h, w = img.shape[-2:]
     if h % block_size or w % block_size:
         raise ValueError(f"image {h}x{w} is not a multiple of the "
                          f"{block_size}-pixel block")
@@ -294,49 +299,117 @@ def division_sweep(device, k_max: int, n_random: int,
     return {"mismatches": bad, "checks": checks, "y": y, "q": q}
 
 
+def _as_frames(x: torch.Tensor) -> torch.Tensor:
+    """[H, W] as one frame [1, H, W]; [F, H, W] as it is."""
+    return x[None] if x.dim() == 2 else x
+
+
+def record_lengths(coeffs: torch.Tensor, block_size: int,
+                   use_rle: bool) -> torch.Tensor:
+    """Each block's record length in bits, int32 [F, N] (N blocks a frame
+    in row-major order) of int32 [F, H, W] coefficients in place: the
+    port's rle.block_stats of the zig-zag coefficients, what K5 and the
+    recon step write and K4 pack_coeffs sums."""
+    f, h, w = coeffs.shape
+    nat = _blocks(coeffs.reshape(f * h, w), block_size)
+    zz = nat[:, device_constant(zigzag_order(block_size), coeffs.device)]
+    bits = rle.block_stats(zz, use_rle)["total_bits"]
+    return bits.to(torch.int32).view(f, -1)
+
+
+def _written(x: torch.Tensor, into: torch.Tensor | None, one: bool):
+    """x [F, ...] as a single frame where the call took one, copied into
+    ``into`` where given."""
+    if one:
+        x = x[0]
+    return x if into is None else into.copy_(x)
+
+
 def quantize_image_plain(img: torch.Tensor, quant, block_size: int = 4,
                          norm: str = "reference",
-                         out: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain version of K5, on any device: int32 [H, W]."""
-    h, w = img.shape
-    q = unblocks(_transform(img, quant, block_size, norm, zigzag=False), h, w)
-    if out is None:
-        return q
-    return out.copy_(q)
+                         out: torch.Tensor | None = None,
+                         lens: torch.Tensor | None = None,
+                         use_rle: bool = True):
+    """The plain version of K5, on any device: int32 [F, H, W] (or
+    [H, W]), and with ``lens`` the record lengths int32 [F, N] (or [N])
+    too (:func:`record_lengths`)."""
+    x = _as_frames(img)
+    f, h, w = x.shape
+    q = unblocks(_transform(x.reshape(f * h, w), quant, block_size, norm,
+                            zigzag=False), f * h, w).view(f, h, w)
+    one = img.dim() == 2
+    got = _written(q, out, one)
+    if lens is None:
+        return got
+    return got, _written(record_lengths(q, block_size, use_rle), lens, one)
+
+
+def _check_shape(x: torch.Tensor, name: str, dtype, shape) -> None:
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {list(shape)}, got "
+                         f"{x.dtype} {list(x.shape)}")
+
+
+def _lens_on_card(lens, f: int, n: int, dev):
+    """(pointer, row stride) of a lengths output int32 [F, N] (or [N] for
+    one frame) whose rows may lie apart, or (None, 0)."""
+    if lens is None:
+        return None, 0
+    lens = lens.view(f, n)
+    build.require_frames(lens, "lens", torch.int32, 2, dev)
+    return lens.data_ptr(), lens.stride(0)
 
 
 def quantize_image(img: torch.Tensor, quant, block_size: int = 4,
                    norm: str = "reference",
-                   out: torch.Tensor | None = None) -> torch.Tensor:
-    """[H, W] u8 or int16 -> int32 [H, W] quantized coefficients in place,
-    written into ``out`` where given.
+                   out: torch.Tensor | None = None,
+                   lens: torch.Tensor | None = None,
+                   use_rle: bool = True):
+    """F frames u8 or int16 [F, H, W] (or one, [H, W]) -> int32 [F, H, W]
+    (or [H, W]) quantized coefficients in place, written into ``out``
+    where given.  With ``lens`` (int32 [F, N], N blocks a frame) each
+    block's record length under ``use_rle`` is written there too, and
+    (coefficients, lens) returned.  A frame of any of them may lie any
+    whole number of frames from the next: ``frames[k::gop]`` and
+    ``coeffs[k::gop]`` go in as they are.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K5.
+    A CPU tensor runs the plain version; a CUDA tensor launches K5, once
+    for all the frames.
     """
-    _check_input(img, block_size)
-    h, w = img.shape
-    if out is not None and (out.dtype != torch.int32
-                            or tuple(out.shape) != (h, w)):
-        raise ValueError(f"out: expected int32 [{h}, {w}], got {out.dtype} "
-                         f"{tuple(out.shape)}")
+    _check_input(img, block_size, frames=True)
+    x = _as_frames(img)
+    f, h, w = x.shape
+    n = (h // block_size) * (w // block_size)
+    if out is not None:
+        _check_shape(out, "out", torch.int32, img.shape)
+    if lens is not None:
+        _check_shape(lens, "lens", torch.int32,
+                      (n,) if img.dim() == 2 else (f, n))
     if img.device.type == "cpu":
-        return quantize_image_plain(img, quant, block_size, norm, out)
+        return quantize_image_plain(img, quant, block_size, norm, out, lens,
+                                    use_rle)
     _check_kernel_block(block_size, "K5")
     dev = img.device
-    build.require(img, "img", img.dtype, 2, dev)  # device and layout
     wt, scale = _device_tables(block_size, norm, dev, False)
     qv = _quant_vec(quant, block_size, dev, False)
+    rv = _quant_vec(reciprocals(quant), block_size, dev, False)
     if out is None:
-        out = torch.empty((h, w), dtype=torch.int32, device=dev)
-    build.require(out, "out", torch.int32, 2, dev)
-    with torch.cuda.device(dev):
-        code = build.library().ie_quantize_image(
-            img.data_ptr(), INPUT_DTYPES[img.dtype], h, w, block_size,
-            wt.data_ptr(), scale.data_ptr(), qv.data_ptr(), out.data_ptr(),
-            build.stream_ptr(dev))
-    build.check(code, "ie_quantize_image")
-    quantize_image.launches += 1
-    return out
+        out = torch.empty(img.shape, dtype=torch.int32, device=dev)
+    o = _as_frames(out)
+    in_stride = build.frame_stride(x, "img", x.dtype, 3, dev)
+    out_stride = build.frame_stride(o, "out", torch.int32, 3, dev)
+    lens_ptr, lens_stride = _lens_on_card(lens, f, n, dev)
+    if f * n:
+        with torch.cuda.device(dev):
+            code = build.library().ie_quantize_image(
+                x.data_ptr(), INPUT_DTYPES[x.dtype], f, in_stride, h, w,
+                block_size, wt.data_ptr(), scale.data_ptr(), qv.data_ptr(),
+                rv.data_ptr(), o.data_ptr(), out_stride, lens_ptr,
+                lens_stride,
+                int(use_rle), build.stream_ptr(dev))
+        build.check(code, "ie_quantize_image")
+        quantize_image.launches += 1
+    return out if lens is None else (out, lens)
 
 
 quantize_image.launches = 0
@@ -345,7 +418,8 @@ quantize_image.launches = 0
 def reconstruct(coeffs: torch.Tensor, pred: torch.Tensor, quant,
                 block_size: int, norm: str) -> torch.Tensor:
     """A P-frame's reconstruction: int32 [H, W] in-place coefficients and
-    its u8 [H, W] prediction -> u8 [H, W].
+    its u8 [H, W] prediction -> u8 [H, W] (frames stacked as [F*H, W]
+    too).
 
     Dequantize, the inverse DCT in the exact order of ops/dct.py::
     idct2_exact (acc = acc + y[c] * wi[c] for c = 0..K-1, each a rounded
@@ -370,61 +444,90 @@ def reconstruct(coeffs: torch.Tensor, pred: torch.Tensor, quant,
 
 def recon_step_plain(cur: torch.Tensor, pred: torch.Tensor, quant,
                      block_size: int = 4, norm: str = "reference",
-                     out: torch.Tensor | None = None):
+                     out: torch.Tensor | None = None,
+                     recon: torch.Tensor | None = None,
+                     lens: torch.Tensor | None = None,
+                     use_rle: bool = True):
     """The plain version of the recon step, on any device: K5 on the
-    residual cur - pred, then :func:`reconstruct`."""
-    q = quantize_image_plain(cur.to(torch.int16) - pred, quant, block_size,
-                             norm)
-    if out is not None:
-        out.copy_(q)
-        q = out
-    return q, reconstruct(q, pred, quant, block_size, norm)
+    residual cur - pred, then :func:`reconstruct`; with ``lens`` the
+    record lengths too."""
+    c, p = _as_frames(cur), _as_frames(pred)
+    f, h, w = c.shape
+    q = quantize_image_plain((c.to(torch.int16) - p).reshape(f * h, w),
+                             quant, block_size, norm)
+    r = reconstruct(q, p.reshape(f * h, w), quant, block_size, norm)
+    one = cur.dim() == 2
+    q = q.view(f, h, w)
+    got = (_written(q, out, one), _written(r.view(f, h, w), recon, one))
+    if lens is None:
+        return got
+    return got + (_written(record_lengths(q, block_size, use_rle), lens,
+                           one),)
 
 
 def recon_step(cur: torch.Tensor, pred: torch.Tensor, quant,
                block_size: int = 4, norm: str = "reference",
-               out: torch.Tensor | None = None):
-    """A recon P-frame's step: cur and its prediction pred, u8 [H, W] ->
-    (int32 [H, W] coefficients of cur - pred in place, written into
-    ``out`` where given, and the u8 [H, W] reconstruction).
+               out: torch.Tensor | None = None,
+               recon: torch.Tensor | None = None,
+               lens: torch.Tensor | None = None, use_rle: bool = True):
+    """Recon P-frames' step: F frames cur and their predictions pred, u8
+    [F, H, W] (or one, [H, W]) -> (int32 coefficients of cur - pred in
+    place, written into ``out`` where given; the u8 reconstruction,
+    written into ``recon`` where given), and with ``lens`` (int32 [F, N])
+    each block's record length under ``use_rle`` written there and
+    returned third.  As for :func:`quantize_image`, each tensor's frames
+    may lie apart.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the fused
-    kernel of csrc/transform.cu, one launch for the whole step.
+    kernel of csrc/transform.cu, one launch for the whole step of all the
+    frames.
     """
     for name, x in (("cur", cur), ("pred", pred)):
-        if x.dtype != torch.uint8 or x.dim() != 2:
-            raise TypeError(f"{name}: expected u8 [H, W], got {x.dtype} "
-                            f"{tuple(x.shape)}")
+        if x.dtype != torch.uint8 or x.dim() not in (2, 3):
+            raise TypeError(f"{name}: expected u8 [F, H, W] or [H, W], got "
+                            f"{x.dtype} {tuple(x.shape)}")
     if pred.shape != cur.shape:
         raise ValueError(f"pred {tuple(pred.shape)} != cur "
                          f"{tuple(cur.shape)}")
-    _check_input(cur, block_size)
-    h, w = cur.shape
-    if out is not None and (out.dtype != torch.int32
-                            or tuple(out.shape) != (h, w)):
-        raise ValueError(f"out: expected int32 [{h}, {w}], got {out.dtype} "
-                         f"{tuple(out.shape)}")
+    _check_input(cur, block_size, frames=True)
+    f, h, w = _as_frames(cur).shape
+    n = (h // block_size) * (w // block_size)
+    if out is not None:
+        _check_shape(out, "out", torch.int32, cur.shape)
+    if recon is not None:
+        _check_shape(recon, "recon", torch.uint8, cur.shape)
+    if lens is not None:
+        _check_shape(lens, "lens", torch.int32,
+                      (n,) if cur.dim() == 2 else (f, n))
     if cur.device.type == "cpu":
-        return recon_step_plain(cur, pred, quant, block_size, norm, out)
+        return recon_step_plain(cur, pred, quant, block_size, norm, out,
+                                recon, lens, use_rle)
     _check_kernel_block(block_size, "recon step")
     dev = cur.device
     wt, scale = _device_tables(block_size, norm, dev, False)
     qv = _quant_vec(quant, block_size, dev, False)
+    rv = _quant_vec(reciprocals(quant), block_size, dev, False)
     wi = device_constant(_inv_weights(block_size, norm), dev)
-    coeffs = (torch.empty((h, w), dtype=torch.int32, device=dev)
-              if out is None else out)
-    recon = torch.empty((h, w), dtype=torch.uint8, device=dev)
-    for name, x in (("cur", cur), ("pred", pred), ("out", coeffs)):
-        build.require(x, name, x.dtype, 2, dev)
-        build.require_aligned(x, name)
-    with torch.cuda.device(dev):
-        code = build.library().ie_recon_step(
-            cur.data_ptr(), pred.data_ptr(), h, w, block_size, wt.data_ptr(),
-            scale.data_ptr(), qv.data_ptr(), wi.data_ptr(),
-            coeffs.data_ptr(), recon.data_ptr(), build.stream_ptr(dev))
-    build.check(code, "ie_recon_step")
-    recon_step.launches += 1
-    return coeffs, recon
+    if out is None:
+        out = torch.empty(cur.shape, dtype=torch.int32, device=dev)
+    if recon is None:
+        recon = torch.empty(cur.shape, dtype=torch.uint8, device=dev)
+    strides = [build.frame_stride(_as_frames(x), name, x.dtype, 3, dev)
+               for name, x in (("cur", cur), ("pred", pred), ("out", out),
+                               ("recon", recon))]
+    lens_ptr, lens_stride = _lens_on_card(lens, f, n, dev)
+    if f * n:
+        with torch.cuda.device(dev):
+            code = build.library().ie_recon_step(
+                cur.data_ptr(), strides[0], pred.data_ptr(), strides[1], f,
+                h, w, block_size, wt.data_ptr(), scale.data_ptr(),
+                qv.data_ptr(), rv.data_ptr(), wi.data_ptr(), out.data_ptr(),
+                strides[2],
+                recon.data_ptr(), strides[3], lens_ptr, lens_stride,
+                int(use_rle), build.stream_ptr(dev))
+        build.check(code, "ie_recon_step")
+        recon_step.launches += 1
+    return (out, recon) + (() if lens is None else (lens,))
 
 
 recon_step.launches = 0

@@ -26,7 +26,11 @@ stripe.
 
 The kernels read the frames as 32-bit words and 16-byte vectors, so their
 data must start 16-byte aligned: frames of a contiguous [F, H, W] tensor
-with H * W a multiple of 256 do.
+with H * W a multiple of 256 do.  :func:`search_predict` also takes each
+stack as every k-th frame of a larger one (``frames[k::gop]``), and
+writes the vectors and the prediction into buffers the caller gives,
+which may be such views too: the recon path steps its GOPs so
+(ops/video_pipeline.py).
 """
 
 from __future__ import annotations
@@ -111,10 +115,7 @@ def predict(ref: torch.Tensor, mvec: torch.Tensor,
     if out is None:
         out = torch.empty_like(ref, memory_format=torch.contiguous_format)
     for name, x in (("ref", ref), ("out", out)):
-        build.require_frames(x, name, torch.uint8, 3, dev)
-        build.require_aligned(x, name)
-        if x.stride(0) % 16:
-            raise ValueError(f"{name}: frames must start 16 bytes apart")
+        build.frame_stride(x, name, torch.uint8, 3, dev)
     build.require_frames(mvec, "mvec", torch.int32, 3, dev)
     with torch.cuda.device(dev):
         code = build.library().ie_predict(
@@ -129,31 +130,58 @@ predict.launches = 0
 
 
 def search_predict_plain(cur: torch.Tensor, ref: torch.Tensor,
-                         merange: int):
+                         merange: int, mvec: torch.Tensor | None = None,
+                         out: torch.Tensor | None = None):
     """The plain version of :func:`search_predict`, on any device: the
-    plain search, then the plain prediction at its vectors."""
-    mvec = motion_search_plain(cur, ref, merange)
-    return mvec, predict_plain(ref, mvec)
+    plain search, then the plain prediction at its vectors (copied into
+    ``mvec`` and ``out`` where given)."""
+    mv = motion_search_plain(cur, ref, merange)
+    pred = predict_plain(ref, mv)
+    return (mv if mvec is None else mvec.copy_(mv),
+            pred if out is None else out.copy_(pred))
 
 
-def search_predict(cur: torch.Tensor, ref: torch.Tensor, merange: int):
+def search_predict(cur: torch.Tensor, ref: torch.Tensor, merange: int,
+                   mvec: torch.Tensor | None = None,
+                   out: torch.Tensor | None = None):
     """K6 with K7 as its epilogue: cur, ref u8 [F, H, W] -> (int32
     [F, Nmb, 2] vectors, u8 [F, H, W] prediction of cur[f] from ref[f] at
-    them), in one launch."""
-    _check_pair(cur, ref)
-    if cur.device.type == "cpu":
-        return search_predict_plain(cur, ref, merange)
-    dev = cur.device
+    them), in one launch, written into ``mvec`` and ``out`` where given.
+    Each of the four may be every k-th frame of a larger stack
+    (``x[k::step]``): a frame's own data contiguous."""
+    _check_frames(cur, "cur")
+    if ref.shape != cur.shape:
+        raise ValueError(f"ref {tuple(ref.shape)} != cur {tuple(cur.shape)}")
     f, h, w = cur.shape
-    mvec = _vectors(f, h, w, dev)
-    pred = torch.empty_like(cur)
+    if mvec is not None and tuple(mvec.shape) != (
+            f, (h // MACRO) * (w // MACRO), 2):
+        raise ValueError(f"mvec: expected [{f}, {(h // MACRO) * (w // MACRO)}"
+                         f", 2], got {tuple(mvec.shape)}")
+    if out is not None and out.shape != cur.shape:
+        raise ValueError(f"out {tuple(out.shape)} != cur {tuple(cur.shape)}")
+    if cur.device.type == "cpu":
+        return search_predict_plain(cur, ref, merange, mvec, out)
+    dev = cur.device
+    if mvec is None:
+        mvec = _vectors(f, h, w, dev)
+    if out is None:
+        out = torch.empty_like(cur, memory_format=torch.contiguous_format)
+    strides = [build.frame_stride(x, name, dtype, 3, dev, align)
+               for name, x, dtype, align in (
+                   ("cur", cur, torch.uint8, 16),
+                   ("ref", ref, torch.uint8, 16),
+                   ("mvec", mvec, torch.int32, 8),
+                   ("out", out, torch.uint8, 16))]
+    if f == 0:
+        return mvec, out
     with torch.cuda.device(dev):
         code = build.library().ie_search_predict(
-            cur.data_ptr(), ref.data_ptr(), f, h, w, int(merange),
-            mvec.data_ptr(), pred.data_ptr(), build.stream_ptr(dev))
+            cur.data_ptr(), strides[0], ref.data_ptr(), strides[1], f, h, w,
+            int(merange), mvec.data_ptr(), strides[2], out.data_ptr(),
+            strides[3], build.stream_ptr(dev))
     build.check(code, "ie_search_predict")
     search_predict.launches += 1
-    return mvec, pred
+    return mvec, out
 
 
 search_predict.launches = 0

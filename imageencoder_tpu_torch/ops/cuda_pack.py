@@ -12,20 +12,22 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
     batch of image streams in the same two launches, and
     :func:`pack_segments` a sharded stream's segments, each from its own
     start bit;
-  * K4 (pack_records_pallas) is one single-pass kernel with three front
-    ends, each of which reads its records' fields where they already are:
+  * K4 (pack_records_pallas) has three front ends, each of which reads
+    its records' fields where they already are: on a single-pass kernel
     :func:`pack_records` [N, F] field tensors of (value, nbits) pairs,
     fields at most 16 bits wide (:func:`pack_records_segments` B segments
-    of them, each from its own start bit, in one launch); :func:`pack_payload` the Huffman payload,
-    each stream byte replaced by its code (huffman._device_stages
-    .pack_payload), under the dict kernel's table (ops/dict_table.py);
-    :func:`pack_coeffs` a recon video's motion-vector and block records
-    from its coefficient tensor (pipeline.fields_from_coeffs and the
-    vector fields, then the pack), and :func:`pack_coeffs_hist` the same
-    with the stream's byte histogram; :func:`pack_payload_batch` packs a
-    batch of payloads in one launch, :func:`pack_payload_window` a batch
-    of byte windows, each at its own start bit (the sharded Huffman
-    stage).
+    of them, each from its own start bit, in one launch) and
+    :func:`pack_payload` the Huffman payload, each stream byte replaced
+    by its code (huffman._device_stages.pack_payload), under the dict
+    kernel's table (ops/dict_table.py); :func:`pack_payload_batch` packs
+    a batch of payloads in one launch, :func:`pack_payload_window` a
+    batch of byte windows, each at its own start bit (the sharded Huffman
+    stage).  On K2's two launches :func:`pack_coeffs` packs a recon
+    video's motion-vector and block records from its coefficient tensor
+    (pipeline.fields_from_coeffs and the vector fields, then the pack),
+    launch 1 summing the record lengths the transform wrote beside the
+    coefficients, and :func:`pack_coeffs_hist` the same with the
+    stream's byte histogram.
 
 The batched entries (the serving path, models/batch.py) give each stream
 its own row of words, starting on a word boundary: no word holds bits of
@@ -56,9 +58,6 @@ from . import cuda_encode, device_pack, dict_table, rle
 from .cuda_kernels import byte_histogram_plain
 from .motion import p_frames
 from .zigzag import zigzag_order
-
-HIST_SLOTS = 128  # int64 words of K4's zeroed scratch that hold 256 bins
-
 
 def stream_words(words: torch.Tensor, total_bits) -> torch.Tensor:
     """The words that hold a stream of ``total_bits`` bits (0 for a
@@ -342,28 +341,22 @@ def _prefix(prefix, dev):
     return prefix.data_ptr(), prefix.shape[0]
 
 
-def _k4(entry: str, n_records: int, n_words: int, dev, args: tuple,
-        hist: bool | None = None):
-    """Launch a K4 front end on ``args`` (its arguments before ``out``):
-    allocates its output (not zeroed), its zeroed scratch and its edges,
-    and returns (words, total_bits).  An entry that takes a histogram
-    (``hist`` not None) gets its bins in the scratch's zeroed tail where
-    ``hist`` is true, and they are returned too; else a null pointer."""
+def _k4(entry: str, n_records: int, n_words: int, dev, args: tuple):
+    """Launch a single-pass K4 front end on ``args`` (its arguments before
+    ``out``): allocates its output (not zeroed), its zeroed scratch and
+    its edges, and returns (words, total_bits)."""
     lib = build.library()
     n_tiles = -(-n_records // lib.ie_pack_tile())
-    scratch = torch.zeros(3 + n_tiles + (HIST_SLOTS if hist else 0),
-                          dtype=torch.int64, device=dev)
+    scratch = torch.zeros(3 + n_tiles, dtype=torch.int64, device=dev)
     edges = torch.empty(max(2 * n_tiles, 1), dtype=torch.int64, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
     out = torch.empty(n_words, dtype=torch.int32, device=dev)
-    bins = scratch[3 + n_tiles:].view(torch.int32) if hist else None
-    tail = () if hist is None else (bins.data_ptr() if hist else None,)
     with torch.cuda.device(dev):
         code = getattr(lib, entry)(
             *args, out.data_ptr(), n_words, scratch.data_ptr(),
-            edges.data_ptr(), total.data_ptr(), *tail, build.stream_ptr(dev))
+            edges.data_ptr(), total.data_ptr(), build.stream_ptr(dev))
     build.check(code, entry)
-    return (out, total.reshape(())) + ((bins,) if hist else ())
+    return out, total.reshape(())
 
 
 def pack_records_plain(vals, nbits, start_bit: int, n_words: int,
@@ -610,15 +603,19 @@ def coeff_fields(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
 
 def pack_coeffs_plain(coeffs, mvecs, gop: int, mvec_nbits: int,
                       block_size: int, use_rle: bool, lw: int,
-                      start_bit: int, n_words: int, prefix=None):
+                      start_bit: int, n_words: int, prefix=None, lens=None):
     """The plain version of K4 pack_coeffs, on any device: the fields of
     :func:`coeff_fields`, packed; total -1 where a record is longer than
-    lw words."""
+    lw words.  ``lens``, where given, must be the blocks' record lengths
+    (int32 [F, N], cuda_encode.record_lengths): the fields' widths sum to
+    them, and a record they put past lw words is refused."""
     vals, nbits = coeff_fields(coeffs, mvecs, gop, mvec_nbits, block_size,
                                use_rle)
     words, total = pack_records_plain(vals, nbits, start_bit, n_words,
                                       prefix)
     refused = (nbits.to(torch.int64).sum(dim=1) > 32 * lw).any()
+    if lens is not None:
+        refused = refused | (lens.to(torch.int64) > 32 * lw).any()
     return words, torch.where(refused, -1, total)
 
 
@@ -632,14 +629,20 @@ def pack_coeffs_hist_plain(*args, **kwargs):
 def pack_coeffs(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
                 mvec_nbits: int, block_size: int, use_rle: bool, lw: int,
                 start_bit: int, n_words: int,
-                prefix: torch.Tensor | None = None):
+                prefix: torch.Tensor | None = None,
+                lens: torch.Tensor | None = None):
     """Pack a recon video's records (see :func:`coeff_fields`) straight
     from its coefficients int32 [F, H, W] and vectors int32 [P, n_macro,
-    2].  A block record longer than ``lw`` words (coefficients outside the
-    bound that sized it) is refused: the total is -1, on which the host
-    raises (device_pack.host_total)."""
+    2], in K2's two launches: the first sums the records' lengths, read
+    from ``lens`` (int32 [F, N], N blocks a frame, as K5 and the recon
+    step write them with the same ``use_rle``) or, without it, taken from
+    the coefficients; the second packs, every tile's start known.  A block
+    record longer than ``lw`` words (coefficients outside the bound that
+    sized it) is refused: the total is -1, on which the host raises
+    (device_pack.host_total)."""
     return _pack_coeffs(pack_coeffs, False, coeffs, mvecs, gop, mvec_nbits,
-                        block_size, use_rle, lw, start_bit, n_words, prefix)
+                        block_size, use_rle, lw, start_bit, n_words, prefix,
+                        lens)
 
 
 pack_coeffs.launches = 0
@@ -648,13 +651,14 @@ pack_coeffs.launches = 0
 def pack_coeffs_hist(coeffs: torch.Tensor, mvecs: torch.Tensor, gop: int,
                      mvec_nbits: int, block_size: int, use_rle: bool,
                      lw: int, start_bit: int, n_words: int,
-                     prefix: torch.Tensor | None = None):
+                     prefix: torch.Tensor | None = None,
+                     lens: torch.Tensor | None = None):
     """:func:`pack_coeffs` that also counts the byte histogram of the
-    stream it writes, in the same launch: (words, total_bits, hist int32
-    [256])."""
+    stream it writes, in the same two launches: (words, total_bits, hist
+    int32 [256])."""
     return _pack_coeffs(pack_coeffs_hist, True, coeffs, mvecs, gop,
                         mvec_nbits, block_size, use_rle, lw, start_bit,
-                        n_words, prefix)
+                        n_words, prefix, lens)
 
 
 pack_coeffs_hist.launches = 0
@@ -662,8 +666,8 @@ pack_coeffs_hist.launches = 0
 
 def _pack_coeffs(counter, hist: bool, coeffs, mvecs, gop: int,
                  mvec_nbits: int, block_size: int, use_rle: bool, lw: int,
-                 start_bit: int, n_words: int, prefix):
-    """K4 pack_coeffs with or without the histogram; a launch counts on
+                 start_bit: int, n_words: int, prefix, lens):
+    """K4 pack_coeffs with or without the histogram; a call counts on
     ``counter``."""
     if coeffs.dim() != 3 or mvecs.dim() != 3 or mvecs.shape[2] != 2:
         raise ValueError(f"expected coeffs [F, H, W] and mvecs [P, n, 2], "
@@ -674,10 +678,14 @@ def _pack_coeffs(counter, hist: bool, coeffs, mvecs, gop: int,
     if mvecs.shape[0] != n_p:
         raise ValueError(f"mvecs has {mvecs.shape[0]} frames, the video "
                          f"{n_p} P-frames")
+    n_micro = (h // block_size) * (w // block_size)
+    if lens is not None and tuple(lens.shape) != (f, n_micro):
+        raise ValueError(f"lens: expected [{f}, {n_micro}], got "
+                         f"{tuple(lens.shape)}")
     if coeffs.device.type == "cpu":
         plain = pack_coeffs_hist_plain if hist else pack_coeffs_plain
         return plain(coeffs, mvecs, gop, mvec_nbits, block_size, use_rle, lw,
-                     start_bit, n_words, prefix)
+                     start_bit, n_words, prefix, lens)
     if block_size not in (4, 8):
         raise ValueError(f"pack_coeffs takes 4x4 or 8x8 blocks, not "
                          f"{block_size}x{block_size}")
@@ -687,15 +695,28 @@ def _pack_coeffs(counter, hist: bool, coeffs, mvecs, gop: int,
     if h % block_size or w % block_size or w % 4:
         raise ValueError(f"frames {h}x{w} do not tile into "
                          f"{block_size}-pixel blocks")
+    if lens is not None:
+        build.require(lens, "lens", torch.int32, 2, dev)
     mvecs = mvecs.to(torch.int32).contiguous()
     build.require(mvecs, "mvecs", torch.int32, 3, dev)
     if mvecs.numel():
         build.require_aligned(mvecs, "mvecs", 8)
     n_macro = mvecs.shape[1]
-    n_records = f * (n_macro + (h // block_size) * (w // block_size))
-    got = _k4("ie_pack_coeffs", n_records, n_words, dev,
-              (coeffs.data_ptr(), f, h, w, block_size, mvecs.data_ptr(),
-               n_macro, gop, mvec_nbits, int(use_rle), lw, start_bit,
-               *_prefix(prefix, dev)), hist)
+    lib = build.library()
+    n_records = f * (n_macro + n_micro)
+    sums = torch.empty(lib.ie_pack_coeffs_scratch(n_records, block_size),
+                       dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    out = torch.empty(n_words, dtype=torch.int32, device=dev)
+    bins = torch.empty(256, dtype=torch.int32, device=dev) if hist else None
+    with torch.cuda.device(dev):
+        code = lib.ie_pack_coeffs(
+            coeffs.data_ptr(), f, h, w, block_size,
+            None if lens is None else lens.data_ptr(), mvecs.data_ptr(),
+            n_macro, gop, mvec_nbits, int(use_rle), lw, start_bit,
+            *_prefix(prefix, dev), out.data_ptr(), n_words, sums.data_ptr(),
+            total.data_ptr(), bins.data_ptr() if hist else None,
+            build.stream_ptr(dev))
+    build.check(code, "ie_pack_coeffs")
     counter.launches += 1
-    return got
+    return (out, total.reshape(())) + ((bins,) if hist else ())

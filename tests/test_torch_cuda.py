@@ -461,6 +461,107 @@ def test_recon_step_kernel_equals_plain(dev, b, norm):
         torch.from_numpy(res).to(dev), q, b, norm))
 
 
+@pytest.mark.parametrize("b,norm,use_rle", [
+    (4, "reference", True), (4, "reference", False), (8, "ortho", True)])
+def test_gop_step_kernels_equal_plain_on_strided_views(dev, b, norm,
+                                                       use_rle):
+    """The recon loop's kernels over frame k of every GOP at once, on the
+    views it hands them (frames[k::gop], coeffs[k::gop], lens[k::gop],
+    mvecs[k - 1::gop - 1]): K5 over the I-frames, then each step's
+    search_predict and recon step, one launch each, bit-equal to the plain
+    versions with the coefficients, reconstructions and record lengths,
+    and to one-frame calls; then K4 pack_coeffs from those lengths, with
+    and without its histogram, equal to its plain version and to the
+    pack that takes the lengths from the coefficients."""
+    gop, n, h, w = 4, 11, 64, 96  # a short last GOP: frames 8, 9, 10
+    frames = torch.from_numpy(video_frames(w, h, n, b + 11)).to(dev)
+    q = quant_for(b)
+    n_micro = (h // b) * (w // b)
+    n_p = n - len(range(0, n, gop))
+    coeffs = torch.zeros((n, h, w), dtype=torch.int32, device=dev)
+    lens = torch.zeros((n, n_micro), dtype=torch.int32, device=dev)
+    mvecs = torch.zeros((n_p, (h // 16) * (w // 16), 2), dtype=torch.int32,
+                        device=dev)
+    before = cuda_encode.quantize_image.launches
+    got = cuda_encode.quantize_image(frames[0::gop], q, b, norm,
+                                     out=coeffs[0::gop], lens=lens[0::gop],
+                                     use_rle=use_rle)
+    assert cuda_encode.quantize_image.launches == before + 1
+    want = cuda_encode.quantize_image_plain(frames[0::gop], q, b, norm,
+                                            lens=lens[0::gop].clone(),
+                                            use_rle=use_rle)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert torch.equal(coeffs[4], cuda_encode.quantize_image(frames[4], q, b,
+                                                             norm))
+    carry = frames[0::gop][:3]
+    for k in range(1, gop):
+        cur = frames[k::gop]
+        m = cur.shape[0]
+        before = (cuda_motion.search_predict.launches,
+                  cuda_encode.recon_step.launches)
+        mv, pred = cuda_motion.search_predict(cur, carry[:m], 16,
+                                              mvec=mvecs[k - 1::gop - 1])
+        want_mv, want_pred = cuda_motion.search_predict_plain(cur, carry[:m],
+                                                              16)
+        assert torch.equal(mv, want_mv) and torch.equal(pred, want_pred)
+        step = cuda_encode.recon_step(cur, pred, q, b, norm,
+                                      out=coeffs[k::gop], lens=lens[k::gop],
+                                      use_rle=use_rle)
+        want = cuda_encode.recon_step_plain(cur, pred, q, b, norm,
+                                            lens=torch.empty_like(step[2]),
+                                            use_rle=use_rle)
+        assert all(torch.equal(x, y) for x, y in zip(step, want))
+        assert (cuda_motion.search_predict.launches,
+                cuda_encode.recon_step.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+        one = cuda_encode.recon_step(cur[m - 1], pred[m - 1], q, b, norm)
+        assert torch.equal(one[0], coeffs[k + gop * (m - 1)])
+        assert torch.equal(one[1], step[1][m - 1])
+        carry = step[1]
+    lw = cuda_encode.video_lw(b, norm)
+    assert torch.equal(lens, cuda_encode.record_lengths(coeffs, b, use_rle))
+    nw = device_pack.packed_words_bound(n * (mvecs.shape[1] + n_micro),
+                                        b * b + 2)
+    hdr = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    args = (coeffs, mvecs, gop, 6, b, use_rle, lw, 77, nw, hdr)
+    before = cuda_pack.pack_coeffs.launches
+    got = cuda_pack.pack_coeffs(*args, lens=lens)
+    assert cuda_pack.pack_coeffs.launches == before + 1
+    want = cuda_pack.pack_coeffs_plain(*args, lens=lens)
+    assert int(got[1]) == int(want[1]) == int(cuda_pack.pack_coeffs(*args)[1])
+    assert torch.equal(cuda_pack.stream_words(*got),
+                       cuda_pack.stream_words(*want))
+    held_hist_pack(cuda_pack.pack_coeffs_hist,
+                   cuda_pack.pack_coeffs_hist_plain, *args, lens=lens)
+
+
+def test_recon_encode_launches_seven_kernels_before_the_pack(dev):
+    """One 720p25 recon encode at gop 4: K5 once (the 7 I-frames), then 3
+    steps of search_predict and the recon step (frame k of every GOP), then
+    K4 pack_coeffs (+ its histogram), the dict and K4 pack_payload once
+    each; at gop 1 K5 alone, at gop >= F one step a P-frame."""
+    from imageencoder_tpu_torch.models.video import encode_frames
+
+    w, h, n = 1280, 720, 25
+    frames = torch.from_numpy(video_frames(w, h, n, 0)).to(dev)
+    quant = quant_from_numpy(np.array(JPEG4))
+    recon = (cuda_encode.quantize_image, cuda_encode.recon_step,
+             cuda_motion.search_predict, cuda_pack.pack_coeffs,
+             cuda_pack.pack_coeffs_hist, huffman.build_dict,
+             cuda_pack.pack_payload)
+    for gop, huff, want in ((4, True, [1, 3, 3, 0, 1, 1, 1]),
+                            (4, False, [1, 3, 3, 1, 0, 0, 0]),
+                            (1, False, [1, 0, 0, 1, 0, 0, 0]),
+                            (30, False, [1, 24, 24, 1, 0, 0, 0])):
+        before = launch_counts(recon + ENCODE)
+        encode_frames(
+            frames, w, h, quant, True, gop, 16, use_huffman=huff,
+            ref_mode="recon", device=dev)
+        torch.cuda.synchronize()
+        got = [a - b for a, b in zip(launch_counts(recon + ENCODE), before)]
+        assert got == want + [0, 0, 0] + [int(huff)] * 2, (gop, huff, got)
+
+
 def extreme_residuals() -> np.ndarray:
     """cur 255 over pred 0, 0 over 255, and an impulse of +255 in a block
     of -255 (a record of 208 bits: 7 words)."""

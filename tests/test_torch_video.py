@@ -14,9 +14,10 @@ every kernel wrapper runs its plain version.
   * the reconstruction, and the fused recon step's plain version
     (residual, K5, reconstruction), equal runtime/native.py::
     idct_recon_exact_native;
-  * K4's pack_coeffs front end (its plain version here) equals the JAX
-    package's recon fields (pipeline.fields_from_coeffs and the vector
-    fields of video_pipeline.py:353-362) packed by
+  * K4's pack_coeffs front end (its plain version here), from the record
+    lengths beside the coefficients or from the coefficients alone, equals
+    the JAX package's recon fields (pipeline.fields_from_coeffs and the
+    vector fields of video_pipeline.py:353-362) packed by
     device_pack.pack_blocks_device, bit for bit;
   * encode_video(device="cpu") equals imageencoder_tpu's
     encode_video(backend="numpy") byte for byte, raw and recon reference,
@@ -265,11 +266,16 @@ def jax_recon_pack(coeffs, mvecs, gop, mvec_nbits, b, use_rle, start, nw,
     return words, int(total)
 
 
+@pytest.mark.parametrize("lengths", ["given", "from_coeffs"])
 @pytest.mark.parametrize("b,use_rle,gop,n", [
     (4, True, 3, 5), (4, False, 2, 4), (8, True, 3, 4), (8, False, 2, 3),
     (4, True, 1, 3)])
-def test_pack_coeffs_equals_jax_fields_and_pack(b, use_rle, gop, n):
+def test_pack_coeffs_equals_jax_fields_and_pack(b, use_rle, gop, n, lengths):
+    """From the record lengths the transform writes beside the
+    coefficients (the recon path's), and from the coefficients alone."""
     coeffs, mvecs = recon_records(b, n, gop, 10 * b + gop)
+    lens = (cuda_encode.record_lengths(torch.from_numpy(coeffs), b, use_rle)
+            if lengths == "given" else None)
     mvec_nbits = 6
     k = b * b
     rows = n * (mvecs.shape[1] + (32 // b) * (48 // b))
@@ -284,7 +290,8 @@ def test_pack_coeffs_equals_jax_fields_and_pack(b, use_rle, gop, n):
     before = cuda_pack.pack_coeffs.launches
     got_w, got_t = cuda_pack.pack_coeffs(
         torch.from_numpy(coeffs), torch.from_numpy(mvecs), gop, mvec_nbits,
-        b, use_rle, lw, 88, nw, prefix=torch.from_numpy(prefix.view(np.int32)))
+        b, use_rle, lw, 88, nw, prefix=torch.from_numpy(prefix.view(np.int32)),
+        lens=lens)
     assert cuda_pack.pack_coeffs.launches == before  # CPU: plain version
     assert int(got_t) == want_t
     np.testing.assert_array_equal(got_w.numpy().view(np.uint32), want_w)

@@ -4,8 +4,9 @@ Huffman dict kernel, spend their time, on a GPU.
 
     python3 tools/hist_variants.py [--reps N]
 
-K2 (pack_locals_hist) and K4 pack_coeffs (pack_coeffs_hist) count the
-bytes of every word they store into per-warp bins in shared memory, and
+K2 (pack_locals_hist) and K4 pack_coeffs (pack_coeffs_hist), both on
+pack_known_kernel, count the bytes of every word they store into per-warp
+bins in shared memory, and
 each CTA adds its nonzero bins to the global histogram by atomicAdd; the
 dict kernel (csrc/huffman.cu) builds the Huffman tree in one thread.  This
 script derives from pack.cu and huffman.cu, at run time into a temporary
@@ -144,22 +145,18 @@ BRANCH_MERGE = """        int li = 0, ih = 0, it = 0;
             }
         }
 """
-MY_BINS = ("    int* my_bins = bins + (kHist ? (tid >> 5) * 256 : 0);",
-           "    int* my_bins = bins + (kHist ? warp * 256 : 0);")
+MY_BINS = "    int* my_bins = bins + (kHist ? warp * 256 : 0);"
 
 
 def more_bins(k: int) -> list:
     """Substitutions giving each warp k sets of bins, by lane mod k."""
     return [("__shared__ int bins[kHist ? kWarps * 256 : 1];",
-             f"__shared__ int bins[kHist ? {k} * kWarps * 256 : 1];", 2),
-            (MY_BINS[0], MY_BINS[0].replace(
-                "(tid >> 5) * 256", f"((tid >> 5) * {k} + (tid % {k})) * 256"),
-             1),
-            (MY_BINS[1], MY_BINS[1].replace(
-                "warp * 256", f"(warp * {k} + (tid % {k})) * 256"), 1),
-            ("zero_bins<kWarps>(bins)", f"zero_bins<{k} * kWarps>(bins)", 2),
+             f"__shared__ int bins[kHist ? {k} * kWarps * 256 : 1];"),
+            (MY_BINS, MY_BINS.replace(
+                "warp * 256", f"(warp * {k} + (tid % {k})) * 256")),
+            ("zero_bins<kWarps>(bins)", f"zero_bins<{k} * kWarps>(bins)"),
             ("flush_bins<kWarps>(bins, a.hist)",
-             f"flush_bins<{k} * kWarps>(bins, a.hist)", 3)]
+             f"flush_bins<{k} * kWarps>(bins, a.hist)")]
 
 
 VARIANTS = {  # name: (source, [(old, new[, times]), ...])
@@ -180,7 +177,8 @@ VARIANTS = {  # name: (source, [(old, new[, times]), ...])
 }
 EXACT = ("branch_pops",)  # their outputs must equal the kept design's
 ENTRIES = {"pack.cu": ("ie_pack_tile", "ie_pack_locals",
-                       "ie_pack_locals_scratch", "ie_pack_coeffs"),
+                       "ie_pack_locals_scratch", "ie_pack_coeffs",
+                       "ie_pack_coeffs_scratch"),
            "huffman.cu": ("ie_huffman_dict", "ie_dict_table_words")}
 
 
@@ -252,6 +250,34 @@ def pack_locals_hist(lib, bins, local, lens, start_bit, n_words, prefix=None,
     return out, total
 
 
+def pack_coeffs_hist(lib, bins, coeffs, mvecs, gop, mvec_nbits, b, use_rle,
+                     lw, start_bit, n_words, prefix=None, lens=None):
+    """K4 pack_coeffs with its histogram through ``lib``, the bins in
+    ``bins`` (room for the copies); the wrapper's allocations and call."""
+    import torch
+
+    from imageencoder_tpu_torch.kernels import build
+
+    dev = coeffs.device
+    f, h, w = coeffs.shape
+    n_macro = mvecs.shape[1]
+    records = f * (n_macro + (h // b) * (w // b))
+    sums = torch.empty(lib.ie_pack_coeffs_scratch(records, b),
+                       dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    out = torch.empty(n_words, dtype=torch.int32, device=dev)
+    code = lib.ie_pack_coeffs(
+        coeffs.data_ptr(), f, h, w, b,
+        None if lens is None else lens.data_ptr(), mvecs.data_ptr(), n_macro,
+        gop, mvec_nbits, int(use_rle), lw, start_bit,
+        None if prefix is None else prefix.data_ptr(),
+        0 if prefix is None else prefix.shape[0], out.data_ptr(), n_words,
+        sums.data_ptr(), total.data_ptr(), bins.data_ptr(),
+        build.stream_ptr(dev))
+    build.check(code, "ie_pack_coeffs")
+    return out, total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
@@ -263,7 +289,7 @@ def main() -> None:
     import chip_smoke as cs
     import imageencoder_tpu_torch as port
     from imageencoder_tpu_torch.kernels import build
-    from imageencoder_tpu_torch.ops import cuda_pack, huffman
+    from imageencoder_tpu_torch.ops import huffman
     from imageencoder_tpu_torch.utils.device import gpu_identity
 
     if not torch.cuda.is_available():
@@ -299,9 +325,9 @@ def main() -> None:
     coeffs_args = captured["video recon"]["K4 pack_coeffs+hist"][0]
     inputs["K4 pack_coeffs+hist video recon"] = (
         ("pack.cu", "no_count", "no_flush", "copies16", "bins_x2", "bins_x4"),
-        ("pack_coeffs_kernel",),
-        lambda lib: cuda_pack.pack_coeffs_hist(*coeffs_args[0],
-                                               **coeffs_args[1]))
+        ("tile_sums_kernel", "pack_known_kernel"),
+        lambda lib: pack_coeffs_hist(lib, bins, *coeffs_args[0],
+                                     **coeffs_args[1]))
     dict_args = captured["image"]["Huffman dict"][0]
     inputs["dict image"] = (("huffman.cu", "no_tree", "no_ranks",
                              "no_code_ranks", "branch_pops"),
@@ -309,9 +335,7 @@ def main() -> None:
                             lambda lib: huffman.build_dict(*dict_args[0]))
 
     out = {"gpu": gpu_identity(), "reps": reps, "inputs": {}}
-    saved_lib, saved_slots = build.library(), cuda_pack.HIST_SLOTS
-    # K4's bins are the scratch's tail: room for the copies there too.
-    cuda_pack.HIST_SLOTS = COPIES * 128
+    saved_lib = build.library()
     try:
         with tempfile.TemporaryDirectory() as tmp:
             paths = build_all(pathlib.Path(tmp))
@@ -343,7 +367,6 @@ def main() -> None:
                 out["inputs"][label] = res
     finally:
         build._LIB = saved_lib
-        cuda_pack.HIST_SLOTS = saved_slots
     print(json.dumps(out))
 
 

@@ -7,9 +7,11 @@ K2 (imageencoder_tpu_torch/csrc/pack.cu, pack_locals) is reduce, then
 pack: tile_sums_kernel sums each tile's record lengths, and in
 pack_known_kernel every CTA adds up the sums before its own, composes its
 tile's words in shared memory and stores them, reading on past its last
-record for the bits its last word lacks.  This script derives from
-pack.cu, at run time into a temporary directory, the other design and
-variants of the kept one:
+record for the bits its last word lacks.  K4 pack_coeffs runs on the same
+two kernels with its own front end (CoeffsFront: the lengths K5 and the
+recon step wrote, then each block's coefficients).  This script derives
+from pack.cu, at run time into a temporary directory, the other design
+and variants of the kept one:
 
   lookback     design (a): the same front end (LocalsFront) under K4's
                single-pass packer pack_tiles (decoupled look-back over a
@@ -22,17 +24,25 @@ variants of the kept one:
   no_emit      records are not emitted (the words stay zero);
   no_reach     no tile reads past its last record (the words tiles share
                lack the later tile's bits);
-  all_atomic   every word of a record goes into the tile's words by a
-               shared-memory atomicOr, its interior words too;
   ctas6,       the pack is compiled for 6 or 8 resident CTAs an SM (fewer
   ctas8        registers a thread) instead of what its registers allow;
+  all_atomic   K2 writes every word of a record into the tile's words by
+               a shared-memory atomicOr, its interior words too, as
+               pack_coeffs does;
   two_words    a record's words past its first two, the ones read as it is
                emitted, are taken as zero;
+  coeffs_items1,
+  coeffs_items4  pack_coeffs takes 1 or 4 4x4 blocks a thread instead of 2;
+  lengths_last   pack_coeffs's launch 2 takes each length from the block's
+               stats, its scan waiting for the block, and its reach past
+               the tile loads every record it looks at;
 
 builds K2 and each with nvcc (one process each, in parallel), and times
 each on the inputs K2 gets on the main paths, captured from real calls
 (the 4096x912 image's register files; the 720p25 raw video's, with its
-vectors), in turns: the kernels' device time a call and the whole device
+vectors), and pack_coeffs on the 720p25 recon video's coefficients,
+vectors and lengths (all but the lookback design, which is K2's alone),
+in turns: the kernels' device time a call and the whole device
 time a call (the scratch's memset included) from torch.profiler.  The
 lookback design's stream is held equal to K2's; no_emit's, no_reach's and
 two_words' outputs are wrong by design, and only their times are read.
@@ -95,24 +105,27 @@ VARIANTS = {  # name: [(old, new), ...] in pack.cu; None appends the entry
     "lookback": [(KERNEL_AT, LOOKBACK_KERNEL + KERNEL_AT),
                  (None, LOOKBACK_ENTRY)],
     "items4": [(ITEMS, ITEMS.replace("? 2 :", "? 4 :")),
-               ("return items == 2 ? launch_locals<2>(fe, a, s)",
-                "return items == 4 ? launch_locals<4>(fe, a, s)"),
-               ("return items == 2 ? launch_locals<2>(blocks, a, s)",
-                "return items == 4 ? launch_locals<4>(blocks, a, s)")],
+               ("return items == 2 ? launch_known<2>(fe, a, s)",
+                "return items == 4 ? launch_known<4>(fe, a, s)"),
+               ("return items == 2 ? launch_known<2>(blocks, a, s)",
+                "return items == 4 ? launch_known<4>(blocks, a, s)")],
     "items1": [(ITEMS, ITEMS.replace("? 2 :", "? 1 :"))],
     "no_emit": [("            emit_owned(fe, rec[r], lens[r], rs, w0, span, nspan);",
                  "            ;")],
     "no_reach": [(REACH, REACH.replace("tid < 32", "tid < 0"))],
-    "all_atomic": [("        if (k == 0 || k == last) {\n            if (w != 0u) "
-                    "atomicOr(span + i, w);\n        } else {\n            "
-                    "span[i] = w;\n        }\n    }\n};\n\n// Record `st`",
-                    "        if (w != 0u) atomicOr(span + i, w);\n    }\n};\n\n"
-                    "// Record `st`")],
+    "all_atomic": [("    static constexpr bool kAllAtomic = false;  // see "
+                    "OwnedSink",
+                    "    static constexpr bool kAllAtomic = true;")],
     **{f"ctas{n}": [("__launch_bounds__(kTile) pack_known_kernel(",
                      f"__launch_bounds__(kTile, {n}) pack_known_kernel(")]
        for n in (6, 8)},
     "two_words": [(": k == 1 ? st.w1 : __ldg(st.row + k);",
                    ": k == 1 ? st.w1 : 0u;")],
+    "lengths_last": [("    static constexpr bool kLengthsFirst = true;",
+                      "    static constexpr bool kLengthsFirst = false;")],
+    **{f"coeffs_items{n}": [("constexpr int kCoeffsItems4 = 2;",
+                             f"constexpr int kCoeffsItems4 = {n};")]
+       for n in (1, 4)},
 }
 SYMBOLS = ("tile_sums_kernel", "pack_known_kernel",
            "pack_locals_lookback_kernel")
@@ -151,7 +164,8 @@ def load(path: pathlib.Path, lookback: bool) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     sigs = {name: build.SIGNATURES[name]
             for name in ("ie_pack_tile", "ie_pack_locals",
-                         "ie_pack_locals_scratch")}
+                         "ie_pack_locals_scratch", "ie_pack_coeffs",
+                         "ie_pack_coeffs_scratch")}
     if lookback:  # K2's arguments up to the total, then K4's tail
         sigs["ie_pack_locals_lookback"] = (
             build.SIGNATURES["ie_pack_locals"][:9] + build._K4_TAIL)
@@ -210,7 +224,13 @@ def main() -> None:
         with cs.captured_calls() as calls:
             drive()
         # The main paths count the histogram too; K2 alone on its inputs.
-        inputs[label] = calls["K2 pack_locals+hist"][0]
+        inputs[label] = (cuda_pack.pack_locals,
+                         calls["K2 pack_locals+hist"][0])
+    with cs.captured_calls() as calls:
+        port.encode_video(frames, vw, vh, quant, True, cs.GOP, cs.MERANGE,
+                          use_huffman=True, ref_mode="recon", device="cuda")
+    inputs["video recon"] = (cuda_pack.pack_coeffs,
+                             calls["K4 pack_coeffs+hist"][0])
 
     out = {"gpu": gpu_identity(), "reps": reps, "inputs": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -218,22 +238,25 @@ def main() -> None:
                 for name, p in build_all(pathlib.Path(tmp)).items()}
         saved = build.library()
         try:
-            for label, (args, kwargs) in inputs.items():
-                want = cuda_pack.stream_words(
-                    *cuda_pack.pack_locals(*args, **kwargs))
-                build._LIB = libs["lookback"]
-                got = cuda_pack.stream_words(
-                    *pack_locals_lookback(*args, **kwargs))
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{label}: the lookback design's "
-                                         f"stream differs from K2's")
-                times = {name: [] for name in libs}
+            for label, (packer, (args, kwargs)) in inputs.items():
+                names = list(libs)
+                if packer is cuda_pack.pack_locals:
+                    want = cuda_pack.stream_words(*packer(*args, **kwargs))
+                    build._LIB = libs["lookback"]
+                    got = cuda_pack.stream_words(
+                        *pack_locals_lookback(*args, **kwargs))
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{label}: the lookback "
+                                             f"design's stream differs from "
+                                             f"K2's")
+                else:
+                    names.remove("lookback")
+                times = {name: [] for name in names}
                 for turn in range(2):  # K2, variants, variants, K2
-                    for name in (list(libs) if turn == 0
-                                 else list(libs)[::-1]):
+                    for name in (names if turn == 0 else names[::-1]):
                         build._LIB = libs[name]
                         fn = (pack_locals_lookback if name == "lookback"
-                              else cuda_pack.pack_locals)
+                              else packer)
                         call = lambda fn=fn: fn(*args, **kwargs)  # noqa: E731
                         times[name].append(
                             (cs.profiled_ms(call, SYMBOLS, reps) * 1e3,

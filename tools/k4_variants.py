@@ -15,16 +15,15 @@ change a parameter:
                      others, no merge, no total;
   no_merge_lookback  as no_merge, and each tile takes a made-up prefix
                      instead of looking back;
-  items1, items4     the payload and 4x4 coefficient front ends take 1 or
-                     4 records a thread instead of 2;
+  items1, items4     the payload front end takes 1 or 4 records a thread
+                     instead of 2;
 
 builds K4 and each variant with nvcc (one process each, in parallel), and
-times each on the inputs K4's front ends get on the main paths, captured
-from real calls (pack_payload on the 4096x912 image's stream, pack_coeffs
-on the 720p25 recon video), in turns: the kernel's device time a call
-from torch.profiler.  The variants'
-outputs are wrong by design; only their times are read.  Prints one line
-per input and one JSON line last.
+times each on the input pack_payload gets on the main path, captured
+from a real call (the 4096x912 image's stream), in turns: the kernel's
+device time a call from torch.profiler.  The variants' outputs are wrong
+by design; only their times are read.  Prints one line per input and one
+JSON line last.
 """
 
 from __future__ import annotations
@@ -45,21 +44,16 @@ MERGE = ("    // Every tile has been taken by a running CTA: wait for all of "
          "them.\n")
 LOOKBACK = "const long long excl = look_back(status, t, agg, a.start_bit);"
 ITEMS = "    static constexpr int kItems = 2;"
-COEFFS_K = "    static constexpr int K = B * B;"
-COEFFS_ITEMS = "    static constexpr int kItems = B == 4 ? 2 : 1;"
 VARIANTS = {  # name: [(old, new), ...] in pack.cu
     "no_emit": [("fe.emit(st[r], em);", "")],
     "no_merge": [(MERGE, MERGE + "    return;\n")],
     "no_merge_lookback": [(MERGE, MERGE + "    return;\n"),
                           (LOOKBACK, "const long long excl = t * agg;")],
     **{f"items{n}": [(f"struct PayloadFront {{\n{ITEMS}", f"struct "
-                      f"PayloadFront {{\n{ITEMS.replace('2;', f'{n};')}"),
-                     (f"{COEFFS_K}\n{COEFFS_ITEMS}",
-                      f"{COEFFS_K}\n{ITEMS.replace('2;', f'{n};')}")]
+                      f"PayloadFront {{\n{ITEMS.replace('2;', f'{n};')}")]
        for n in (1, 4)},
 }
-ENTRIES = ("ie_pack_tile", "ie_pack_records", "ie_pack_payload",
-           "ie_pack_coeffs")
+ENTRIES = ("ie_pack_tile", "ie_pack_records", "ie_pack_payload")
 
 
 def build_all(tmp: pathlib.Path) -> dict:
@@ -116,19 +110,11 @@ def main() -> None:
         raise SystemExit("k4_variants: no CUDA device")
     quant = port.QuantMatrix(np.array(cs.QUANT, dtype=np.uint32))
     h, w = cs.SHAPES[0]
-    vw, vh, vn = cs.VIDEO
-    frames = cs.yuv420(cs.video_frames(vw, vh, vn, 0))
     with cs.captured_calls() as calls:
         port.encode_image(cs.synthetic(h, w, 2), quant, use_huffman=True,
                           device="cuda")
-        port.encode_video(frames, vw, vh, quant, True, cs.GOP, cs.MERANGE,
-                          use_huffman=True, ref_mode="recon", device="cuda")
     inputs = {"pack_payload image": ("K4 pack_payload",
-                                     calls["K4 pack_payload"][0]),
-              # The recon path counts the histogram too; K4 alone on its
-              # inputs.
-              "pack_coeffs recon": ("K4 pack_coeffs",
-                                    calls["K4 pack_coeffs+hist"][0])}
+                                     calls["K4 pack_payload"][0])}
 
     out = {"gpu": gpu_identity(), "reps": reps, "inputs": {}}
     with tempfile.TemporaryDirectory() as tmp:
