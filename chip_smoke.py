@@ -168,17 +168,22 @@ each of which raises on failure:
      profiles and waits of each call.  Then the sharded video
      (parallel/video_sharding.py): in the world of one,
      encode_video_sharded of the 720p25 video, raw and recon, Huffman on
-     and off (K6+K7 on the stripe, search_residual_stripe or per P-frame
-     search_predict_stripe and the recon step; K1; K2 over the block
-     segments and K4 pack_records over the vector segments; with Huffman
-     the windowed K3 over the spliced stream, the dict and K4), every
-     stream equal to the one-device encode_frames, every kernel call of
-     one encode held against its plain version, and
+     and off (K6+K7 on the stripe, search_residual_stripe, or in recon
+     mode search_predict_stripe and the recon step once a GOP step over
+     frame k of every GOP, 3 of each at gop 4, into the carry's haloed
+     buffer; K1; K2 over the block segments and K4 pack_records over the
+     vector segments; with Huffman the windowed K3 over the spliced
+     stream, the dict and K4), every stream equal to the one-device
+     encode_frames, every kernel call of one encode held against its
+     plain version (the strided outputs on buffers of the same strides),
+     one recon call's launches checked, and
      decode_video_sharded of the streams, motion compensation on and off,
      equal to decode_video, with medians, p90s, profiles and waits beside
      the one-device calls; and in two gloo processes on the card, a
-     (1, 2) mesh whose halo exchange crosses the processes, the 1280x704
-     24-frame video, raw and recon, equal to the one-process encode.
+     (1, 2) mesh whose halo exchange crosses the processes (once a GOP
+     step in recon mode), the 1280x704 24-frame video, raw and recon,
+     equal to the one-process encode, with each process's recon launches
+     checked and its device operations a call printed.
      ``--phase 9`` runs the build and this phase alone, on inputs made by
      the same builders.
 
@@ -514,20 +519,31 @@ BATCH_CALL = ("K1 encode_locals", "K2 pack_locals+hist batch",
               "Huffman dict batch", "K4 pack_payload batch")
 # D1's payload is defined up to its byte count (its second output).
 PAYLOAD_OUT = ("D1 huffman_decode",)
-# The outputs a wrapper is handed as keywords on the recon path (frame k of
-# every GOP of the loop's buffers): the kernel and its plain version each
-# get fresh ones of the same shapes, so that they neither compare a tensor
-# with itself nor write into the path's buffers.  Any other wrapper's
-# ``out`` is dropped: the wrapper makes its own.
+# The outputs a wrapper is handed as keywords on the recon paths (frame k
+# of every GOP of the loop's buffers): the kernel and its plain version
+# each get fresh ones of the same shapes and strides, so that they neither
+# compare a tensor with itself nor write into the path's buffers.  Any
+# other wrapper's ``out`` is dropped: the wrapper makes its own.
 OUT_KWARGS = {"K5 quantize_image": ("out", "lens"),
               "K5 recon_step": ("out", "recon", "lens"),
-              "K6+K7 search_predict": ("mvec", "out")}
+              "K6+K7 search_predict": ("mvec", "out"),
+              "K6+K7 search_predict_stripe": ("mvec", "out")}
 # One 720p25 recon encode at gop 4, Huffman on, launches these (counts from
 # 0), and no other: K5 once over the 7 I-frames, then 3 GOP steps of the
 # search and the recon step, each over frame k of every GOP.
 RECON_CALL = {"K5 quantize_image": 1, "K6+K7 search_predict": GOP - 1,
               "K5 recon_step": GOP - 1, "K4 pack_coeffs+hist": 1,
               "Huffman dict": 1, "K4 pack_payload": 1}
+# One sharded recon encode at gop 4, Huffman on, launches these (counts
+# from 0), and no other, in a world of one and in each process of the
+# (1, 2) pair: the stripe search and the recon step once a GOP step, over
+# frame k of every GOP of the rank's chunk; then K1 on the residual
+# stack, the segments' packers and the Huffman stage.
+SHARDED_RECON_CALL = {"K6+K7 search_predict_stripe": GOP - 1,
+                      "K5 recon_step": GOP - 1, "K1 encode_locals": 1,
+                      "K2 pack_segments": 1, "K4 pack_records segments": 1,
+                      "K3 byte_histogram_rows": 1, "Huffman dict batch": 1,
+                      "K4 pack_payload batch": 1}
 
 
 def synthetic(h: int, w: int, seed: int):
@@ -794,8 +810,10 @@ def calls_of(name: str, args: tuple, kwargs: dict):
 
     def fresh() -> dict:
         """The keywords, each output in ``outs`` a new buffer of its
-        shape, any other ``out`` left to the wrapper (OUT_KWARGS)."""
-        return {k: (torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        shape and strides, any other ``out`` left to the wrapper
+        (OUT_KWARGS)."""
+        return {k: (torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                                        device=v.device)
                     if k in outs and v is not None else v)
                 for k, v in kwargs.items() if k in outs or k != "out"}
 
@@ -1674,12 +1692,23 @@ def video_pair_job(ref_mode: str, reps: int = 0) -> dict:
             t0 = time.perf_counter()
             encode()
             t.append(time.perf_counter() - t0)
-        out["median_ms"] = quantiles(t)[0]
-        busy, _ = device_rows(encode, 1)
+        out["median_ms"], out["p90_ms"] = quantiles(t)
+        ops = {}
+        busy, _ = device_rows(encode, 1, ops)
         out["busy_ms"] = sum(busy.values()) / 1e3 if busy else None
+        out["ops"] = sum(ops.values())
         out["waits"], out["where"] = host_waits(encode, 1)
     out["job_s"] = time.perf_counter() - t_job
     return out
+
+
+def check_sharded_recon_call(counts: dict, where: str) -> None:
+    """Fail unless one sharded recon encode launched SHARDED_RECON_CALL."""
+    if any(counts[name] != SHARDED_RECON_CALL.get(name, 0)
+           for name in KERNELS):
+        raise AssertionError(f"one encode_video_sharded recon {where} "
+                             f"launched {counts}, expected "
+                             f"{SHARDED_RECON_CALL}")
 
 
 def sharded_video_phase(port, quant, mesh, wrappers, rows: dict) -> list:
@@ -1750,6 +1779,8 @@ def sharded_video_phase(port, quant, mesh, wrappers, rows: dict) -> list:
         one_call = launches_of(wrappers, lambda: sharded(mode))
         print(f"one encode_video_sharded {mode}, Huffman on: " + ", ".join(
             f"{name} {n}" for name, n in one_call.items() if n), flush=True)
+        if mode == "recon":
+            check_sharded_recon_call(one_call, "in the world of one")
         counts.append(phase_of_path(
             f"sharded video {mode}", wrappers,
             lambda: [sharded(mode, huff) for huff in (True, False)]))
@@ -2018,6 +2049,10 @@ def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
                 for name in KERNELS}
         both = {name: sum(x["counts"][name] for x in res) for name in KERNELS}
         counts.append(check_path(f"sharded video {mode}", both))
+        if mode == "recon":
+            for r, x in enumerate(res):
+                check_sharded_recon_call(x["counts"], f"in process {r} of "
+                                         f"the (1, 2) pair")
         t = []
         for _ in range(GOP_REPS * 3):
             torch.cuda.synchronize()
@@ -2031,10 +2066,13 @@ def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
               f"to the one-process encode_frames; every kernel call of one "
               f"encode in each process bit-equal to its plain version ("
               + ", ".join(f"{name} {n}" for name, n in held.items() if n)
-              + f" calls); process 0: median {res[0]['median_ms']:.3f} ms a "
-              f"call (n={GOP_REPS}), device busy {res[0]['busy_ms']} ms, host "
-              f"waits {res[0]['waits']} (by line {res[0]['where']}); process "
-              f"1: median {res[1]['median_ms']:.3f} ms; one-process "
+              + f" calls); process 0: median {res[0]['median_ms']:.3f} ms, "
+              f"p90 {res[0]['p90_ms']:.3f} ms a call (n={GOP_REPS}), device "
+              f"busy {res[0]['busy_ms']} ms in {res[0]['ops']:.0f} device "
+              f"operations a call, host waits {res[0]['waits']} (by line "
+              f"{res[0]['where']}); process 1: median "
+              f"{res[1]['median_ms']:.3f} ms, {res[1]['ops']:.0f} device "
+              f"operations a call; one-process "
               f"encode_frames median {quantiles(t)[0]:.3f} ms "
               f"(n={GOP_REPS * 3})", flush=True)
     checks_s = time.perf_counter() - t_checks

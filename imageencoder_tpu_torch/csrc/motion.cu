@@ -470,14 +470,19 @@ extern "C" int ie_search_predict(const void* cur, long long cur_stride,
 // h - 1 of frames h_glob rows tall; ref u8 [F, h + 2 * halo, W], frame f's
 // reference from global row row0 - halo (rows outside the frame are never
 // read); pred u8 [F, h, W].  ref must hold the rows the search reaches:
-// halo >= the search's span, or the stripe at the frame's edge.
-extern "C" int ie_search_predict_stripe(const void* cur, const void* ref,
+// halo >= the search's span, or the stripe at the frame's edge.  The
+// frames of each stack lie its stride apart, as for ie_search_predict.
+extern "C" int ie_search_predict_stripe(const void* cur, long long cur_stride,
+                                        const void* ref, long long ref_stride,
                                         long long n_frames, int h, int w,
                                         int row0, int halo, int h_glob,
-                                        int merange, void* mvec, void* pred,
-                                        void* stream) {
-    const Stripe st = dense(row0, halo, h_glob, (long long)(h + 2 * halo) * w,
-                            0, h, w);
+                                        int merange, void* mvec,
+                                        long long mvec_stride, void* pred,
+                                        long long pred_stride, void* stream) {
+    Stripe st = dense(row0, halo, h_glob, ref_stride, 0, h, w);
+    st.cur_plane = cur_stride;
+    st.out_plane = pred_stride;
+    st.mvec_plane = mvec_stride;
     return launch_search<kPredict>(
         (const uint8_t*)cur, (const uint8_t*)ref, n_frames, h, w, merange, 0,
         st, (int32_t*)mvec, pred, (cudaStream_t)stream);

@@ -57,10 +57,10 @@ SIGNATURES = {
     "ie_search_predict": [_P, _I64, _P, _I64, _I64, _I32, _I32, _I32, _P,
                           _I64, _P, _I64, _P],
     "ie_search_residual": [_P, _I64, _I32, _I32, _I32, _I32, _P, _P, _P],
-    # cur, ref, n_frames, h, w, row0, halo, h_glob, merange, mvec, pred,
-    # stream
-    "ie_search_predict_stripe": [_P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
-                                 _I32, _P, _P, _P],
+    # cur, cur_stride, ref, ref_stride, n_frames, h, w, row0, halo, h_glob,
+    # merange, mvec, mvec_stride, pred, pred_stride, stream
+    "ie_search_predict_stripe": [_P, _I64, _P, _I64, _I64, _I32, _I32, _I32,
+                                 _I32, _I32, _I32, _P, _I64, _P, _I64, _P],
     # cur, ref, n_frames, h, w, row0, halo, h_glob, merange, f0, gop,
     # mvec, residual, stream
     "ie_search_residual_stripe": [_P, _P, _I64, _I32, _I32, _I32, _I32,

@@ -19,18 +19,19 @@ from the stream.
 The sharded video encode (parallel/video_sharding.py) runs both on a
 stripe of the frames: :func:`search_residual_stripe` (a chunk's stripe and
 its haloed reference stack, the chunk's first global frame picking its
-P-frames) and :func:`search_predict_stripe` (the haloed reconstruction
-carry).  Their positions are clamped in global rows, so a stripe's vectors
-are the whole frame's; ops/motion.py's module docstring describes the
-stripe.
+P-frames) and :func:`search_predict_stripe` (frame k of every GOP against
+the haloed reconstruction carry).  Their positions are clamped in global
+rows, so a stripe's vectors are the whole frame's; ops/motion.py's module
+docstring describes the stripe.
 
 The kernels read the frames as 32-bit words and 16-byte vectors, so their
 data must start 16-byte aligned: frames of a contiguous [F, H, W] tensor
-with H * W a multiple of 256 do.  :func:`search_predict` also takes each
-stack as every k-th frame of a larger one (``frames[k::gop]``), and
-writes the vectors and the prediction into buffers the caller gives,
-which may be such views too: the recon path steps its GOPs so
-(ops/video_pipeline.py).
+with H * W a multiple of 256 do.  :func:`search_predict` and
+:func:`search_predict_stripe` also take each stack as every k-th frame of
+a larger one (``frames[k::gop]``), and write the vectors and the
+prediction into buffers the caller gives, which may be such views too:
+the recon paths step their GOPs so (ops/video_pipeline.py,
+parallel/video_sharding.py).
 """
 
 from __future__ import annotations
@@ -63,6 +64,18 @@ def _check_pair(cur: torch.Tensor, ref: torch.Tensor) -> None:
     for name, x in (("cur", cur), ("ref", ref)):
         build.require(x, name, torch.uint8, 3, cur.device)
         build.require_aligned(x, name)
+
+
+def _check_outputs(cur: torch.Tensor, mvec, out) -> None:
+    """The vectors and the prediction a search of cur writes, where the
+    caller gives them: int32 [F, Nmb, 2] and cur's shape."""
+    f, h, w = cur.shape
+    if mvec is not None and tuple(mvec.shape) != (
+            f, (h // MACRO) * (w // MACRO), 2):
+        raise ValueError(f"mvec: expected [{f}, {(h // MACRO) * (w // MACRO)}"
+                         f", 2], got {tuple(mvec.shape)}")
+    if out is not None and out.shape != cur.shape:
+        raise ValueError(f"out {tuple(out.shape)} != cur {tuple(cur.shape)}")
 
 
 def _vectors(n_frames: int, h: int, w: int, dev) -> torch.Tensor:
@@ -152,16 +165,11 @@ def search_predict(cur: torch.Tensor, ref: torch.Tensor, merange: int,
     _check_frames(cur, "cur")
     if ref.shape != cur.shape:
         raise ValueError(f"ref {tuple(ref.shape)} != cur {tuple(cur.shape)}")
-    f, h, w = cur.shape
-    if mvec is not None and tuple(mvec.shape) != (
-            f, (h // MACRO) * (w // MACRO), 2):
-        raise ValueError(f"mvec: expected [{f}, {(h // MACRO) * (w // MACRO)}"
-                         f", 2], got {tuple(mvec.shape)}")
-    if out is not None and out.shape != cur.shape:
-        raise ValueError(f"out {tuple(out.shape)} != cur {tuple(cur.shape)}")
+    _check_outputs(cur, mvec, out)
     if cur.device.type == "cpu":
         return search_predict_plain(cur, ref, merange, mvec, out)
     dev = cur.device
+    f, h, w = cur.shape
     if mvec is None:
         mvec = _vectors(f, h, w, dev)
     if out is None:
@@ -253,43 +261,58 @@ def _check_stripe(cur: torch.Tensor, ref: torch.Tensor, row0: int,
         raise ValueError(f"a stripe of rows {row0}..{row0 + h} of "
                          f"{h_glob} with a halo of {halo} does not hold the "
                          f"search's reach of {span} rows")
-    if cur.device.type == "cpu":
-        return
-    for name, x in (("cur", cur), ("ref", ref)):
-        build.require(x, name, torch.uint8, 3, cur.device)
-        build.require_aligned(x, name)
 
 
 def search_predict_stripe_plain(cur, ref, row0: int, halo: int, h_glob: int,
-                                merange: int):
-    """The plain version of :func:`search_predict_stripe`, on any device."""
-    mvec = motion_search_plain(cur, ref, merange, row0, halo, h_glob)
-    return mvec, predict_plain(ref, mvec, row0, halo, h_glob)
+                                merange: int,
+                                mvec: torch.Tensor | None = None,
+                                out: torch.Tensor | None = None):
+    """The plain version of :func:`search_predict_stripe`, on any device
+    (copied into ``mvec`` and ``out`` where given)."""
+    mv = motion_search_plain(cur, ref, merange, row0, halo, h_glob)
+    pred = predict_plain(ref, mv, row0, halo, h_glob)
+    return (mv if mvec is None else mvec.copy_(mv),
+            pred if out is None else out.copy_(pred))
 
 
 def search_predict_stripe(cur: torch.Tensor, ref: torch.Tensor, row0: int,
-                          halo: int, h_glob: int, merange: int):
+                          halo: int, h_glob: int, merange: int,
+                          mvec: torch.Tensor | None = None,
+                          out: torch.Tensor | None = None):
     """:func:`search_predict` on a stripe: cur u8 [F, h, W] (rows row0 ..
     row0 + h - 1 of frames h_glob rows tall) searched in ref u8
     [F, h + 2 * halo, W] (from global row row0 - halo), positions clamped
     in global rows -> (int32 [F, Nmb, 2] vectors, u8 [F, h, W]
-    prediction), in one launch."""
+    prediction), in one launch, written into ``mvec`` and ``out`` where
+    given.  As for :func:`search_predict`, each of the four may be every
+    k-th frame of a larger stack: a frame's own data contiguous."""
     _check_stripe(cur, ref, row0, halo, h_glob, merange)
+    _check_outputs(cur, mvec, out)
     if cur.device.type == "cpu":
         return search_predict_stripe_plain(cur, ref, row0, halo, h_glob,
-                                           merange)
+                                           merange, mvec, out)
     dev = cur.device
     f, h, w = cur.shape
-    mvec = _vectors(f, h, w, dev)
-    pred = torch.empty_like(cur)
+    if mvec is None:
+        mvec = _vectors(f, h, w, dev)
+    if out is None:
+        out = torch.empty_like(cur, memory_format=torch.contiguous_format)
+    strides = [build.frame_stride(x, name, dtype, 3, dev, align)
+               for name, x, dtype, align in (
+                   ("cur", cur, torch.uint8, 16),
+                   ("ref", ref, torch.uint8, 16),
+                   ("mvec", mvec, torch.int32, 8),
+                   ("out", out, torch.uint8, 16))]
+    if f == 0:
+        return mvec, out
     with torch.cuda.device(dev):
         code = build.library().ie_search_predict_stripe(
-            cur.data_ptr(), ref.data_ptr(), f, h, w, row0, halo, h_glob,
-            int(merange), mvec.data_ptr(), pred.data_ptr(),
-            build.stream_ptr(dev))
+            cur.data_ptr(), strides[0], ref.data_ptr(), strides[1], f, h, w,
+            row0, halo, h_glob, int(merange), mvec.data_ptr(), strides[2],
+            out.data_ptr(), strides[3], build.stream_ptr(dev))
     build.check(code, "ie_search_predict_stripe")
     search_predict_stripe.launches += 1
-    return mvec, pred
+    return mvec, out
 
 
 search_predict_stripe.launches = 0
@@ -332,6 +355,9 @@ def search_residual_stripe(cur: torch.Tensor, ref: torch.Tensor, row0: int,
         return search_residual_stripe_plain(cur, ref, row0, halo, h_glob, f0,
                                             gop, merange)
     dev = cur.device
+    for name, x in (("cur", cur), ("ref", ref)):
+        build.require(x, name, torch.uint8, 3, dev)
+        build.require_aligned(x, name)
     f, h, w = cur.shape
     mvec = _vectors(len(p_frames(f, gop, f0)), h, w, dev)
     stack = torch.empty((f * h, w), dtype=torch.int16, device=dev)

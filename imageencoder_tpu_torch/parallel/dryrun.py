@@ -177,6 +177,34 @@ def job_raises(mesh, job, **kw):
     return None
 
 
+def job_calls(mesh, job, names, **kw):
+    """Run a mesh job and count the calls of ``names``, functions of the
+    port named by module and attribute ("parallel.video_sharding.shift",
+    "ops.cuda_motion.search_predict_stripe"): returns (the job's result,
+    {name: calls})."""
+    import importlib
+
+    counts = dict.fromkeys(names, 0)
+    saved = []
+    for name in names:
+        mod_name, _, attr = name.rpartition(".")
+        mod = importlib.import_module(f"imageencoder_tpu_torch.{mod_name}")
+        real = getattr(mod, attr)
+
+        def counted(*args, _real=real, _name=name, **kwargs):
+            counts[_name] += 1
+            return _real(*args, **kwargs)
+
+        saved.append((mod, attr, real))
+        setattr(mod, attr, counted)
+    try:
+        got = JOBS[job](mesh, **kw)
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    return got, counts
+
+
 def job_gops(data, width, height, quant, use_rle, gop, merange,
              ref_mode="raw", use_huffman=True, device="cpu"):
     """The GOP-distributed encode: this rank's GOPs, the segments gathered
@@ -207,7 +235,7 @@ JOBS = {"mesh": job_mesh, "encode_step": job_encode_step,
         "video_encode": job_video_encode, "video_huffman": job_video_huffman,
         "video_decode": job_video_decode,
         "video_decode_step": job_video_decode_step, "raises": job_raises,
-        "gops": job_gops}
+        "calls": job_calls, "gops": job_gops}
 MESH_JOBS = set(JOBS) - {"gops"}  # their first argument: the mesh
 
 

@@ -20,12 +20,14 @@ The encode of a rank's shard, on a card:
         reconstruction of frame f - 1.  Chunks must be GOP-aligned (each
         opens a GOP; the JAX package also refuses a single chunk of a
         length no multiple of the GOP); the carry is the stripe's
-        reconstruction, whose halo is exchanged at every P-frame step
-        (:344-355);
+        reconstruction.  The JAX package scans the frames and exchanges
+        the carry's halo at every P-frame (:344-355, :433-447); the port
+        steps by GOP, as ops/video_pipeline.py does, with one halo
+        exchange a step for frame k of every GOP;
   * K6+K7 on the haloed stripe, positions clamped in global rows
     (ops/cuda_motion.py: search_residual_stripe, one launch for the
-    chunk in raw mode; search_predict_stripe and the recon step a P-frame
-    in recon mode);
+    chunk in raw mode; in recon mode search_predict_stripe and the recon
+    step, one launch each a GOP step);
   * K1 once on the stripe's residual stack (pixels on I rows, cur - pred
     on P rows): register files;
   * the segments' bits: a frame's wire order is
@@ -76,6 +78,7 @@ from ..ops.device_pack import to_device
 from ..ops.huffman import huffman_encode, huffman_launch
 from ..ops.motion import MACRO, p_frames
 from ..ops.pipeline import make_encode_fields
+from ..ops.video_pipeline import gop_steps
 from ..utils.device import resolve_device
 from ..utils.quant import QuantMatrix
 from .mesh import all_gather, all_reduce, axis_size, mesh_device, shift
@@ -167,32 +170,52 @@ class _Stripes:
 
     def recon_front(self, cur: torch.Tensor, mesh, quant, block_size: int,
                     norm: str):
-        """Recon reference, a frame at a time: an I-frame resets the carry
-        to its pixels; a P-frame exchanges the carry's halo, searches it
-        (K6+K7 search_predict_stripe) and reconstructs its rows (the recon
-        step: K5's transform fused with the exact inverse).  Returns
-        (vectors int32 [P_loc, n_mb, 2], int16 [f_loc * h_loc, W]:
-        cur - pred on P rows, pixels on I rows)."""
-        dev = cur.device
-        preds = torch.zeros_like(cur)
-        scratch = torch.empty((self.h_loc, self.w), dtype=torch.int32,
+        """Recon reference, stepped by GOP (ops/video_pipeline.py's
+        :func:`gop_steps`): the carry opens as the chunk's I-frames, then
+        for k = 1 .. min(gop, f_loc) - 1, over the n_k GOPs that have a
+        frame k, the carry's halo is exchanged, frame k of every GOP is
+        searched in the haloed carry (K6+K7 search_predict_stripe) and
+        reconstructed into the carry (the recon step: K5's transform fused
+        with the exact inverse), one launch each.  Returns (vectors int32
+        [P_loc, n_mb, 2], int16 [f_loc * h_loc, W]: cur - pred on P rows,
+        pixels on I rows)."""
+        dev, gop, halo = cur.device, self.gop, self.halo
+        h, w = self.h_loc, self.w
+        mvecs = torch.empty((len(self.p_local), self.n_mb, 2),
+                            dtype=torch.int32, device=dev)
+        preds = torch.empty_like(cur)
+        preds[0::gop] = 0  # the steps write the P rows
+        # Whether any rank searches.  The steps depend on f_loc and gop
+        # alone, so every rank of a "block" group shifts as often.
+        steps = gop_steps(cur.shape[0], gop) if self.any_p else []
+        if len(steps) > 1:
+            n_1 = steps[1][1]
+            # The carry lives in its haloed buffer: frame g's
+            # reconstruction in rows halo .. halo + h - 1 of buf[g], the
+            # rows of the stripes above and below around it.  One buffer
+            # will do: the search reads the carry and writes preds, the
+            # recon step reads cur and preds, so on one stream the step
+            # may overwrite the carry the search has just read.
+            buf = torch.empty((n_1, h + 2 * halo, w), dtype=torch.uint8,
                               device=dev)
-        mvecs, carry = [], None
-        for i in range(cur.shape[0]):
-            if (self.f0 + i) % self.gop == 0:
-                carry = cur[i]
-                continue
-            ref = self.haloed(carry[None], mesh)
-            mv, pred = cuda_motion.search_predict_stripe(
-                cur[i:i + 1], ref, self.row0, self.halo, self.h, self.m)
-            _, carry = cuda_encode.recon_step(cur[i], pred[0], quant,
-                                              block_size, norm, out=scratch)
-            preds[i] = pred[0]
-            mvecs.append(mv[0])
-        mvec = (torch.stack(mvecs) if mvecs else torch.zeros(
-            (0, self.n_mb, 2), dtype=torch.int32, device=dev))
-        x = cur.to(torch.int16) - preds.to(torch.int16)
-        return mvec, x.reshape(-1, self.w)
+            carry = buf[:, halo:halo + h]
+            carry.copy_(cur[0::gop][:n_1])
+            coeffs = torch.empty((n_1, h, w), dtype=torch.int32, device=dev)
+            for k, n_k in steps[1:]:
+                if halo:  # every step: no stale halo rows survive
+                    buf[:n_k, :halo] = shift(carry[:n_k, h - halo:], mesh,
+                                             "block", 1, cyclic=False)
+                    buf[:n_k, halo + h:] = shift(carry[:n_k, :halo], mesh,
+                                                 "block", -1, cyclic=False)
+                cuda_motion.search_predict_stripe(
+                    cur[k::gop], buf[:n_k], self.row0, halo, self.h, self.m,
+                    mvec=mvecs[k - 1::gop - 1], out=preds[k::gop])
+                cuda_encode.recon_step(cur[k::gop], preds[k::gop], quant,
+                                       block_size, norm, out=coeffs[:n_k],
+                                       recon=carry[:n_k])
+        x = cur.to(torch.int16)
+        x -= preds
+        return mvecs, x.reshape(-1, w)
 
 
 def make_sharded_video_step(mesh, gop: int, merange: int, mvec_nbits: int,

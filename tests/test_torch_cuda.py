@@ -1730,6 +1730,48 @@ def test_stripe_search_kernels_equal_plain(dev, n_stripes, f0, gop):
     assert torch.equal(got.reshape(whole.shape), whole)
 
 
+@pytest.mark.parametrize("n_stripes", [1, 2, 4])
+def test_stripe_search_kernel_on_strided_frames_equals_plain(dev, n_stripes):
+    """search_predict_stripe as the sharded recon steps it: frame k of
+    every GOP of a stripe (cur[k::gop]) searched in references that lie
+    apart, into views of the vectors of every P-frame and the predictions
+    of every frame (mvec[k - 1::gop - 1], out[k::gop]): one launch a step,
+    bit-equal to the plain version on the same views and to the dense
+    call, and no row outside the views written."""
+    h, w, merange, n, gop = 192, 320, 16, 11, 4  # a short last GOP
+    video = torch.from_numpy(video_frames(w, h, n, 93)).to(dev)
+    hs = h // n_stripes
+    halo = merange if n_stripes > 1 else 0
+    padded = torch.zeros((n, h + 2 * halo, w), dtype=torch.uint8,
+                         device=dev)
+    padded[:, halo:halo + h] = video
+    n_p = n - len(range(0, n, gop))
+    n_mb = (hs // 16) * (w // 16)
+    for s in range(n_stripes):
+        cur = video[:, s * hs:(s + 1) * hs].contiguous()
+        refs = padded[0::gop, s * hs:(s + 1) * hs + 2 * halo]
+        mv_buf = torch.full((n_p, n_mb, 2), -7, dtype=torch.int32,
+                            device=dev)
+        out_buf = torch.full_like(cur, 9)
+        for k in range(1, gop):
+            sel = cur[k::gop]
+            ref = refs[:sel.shape[0]]
+            args = (sel, ref, s * hs, halo, h, merange)
+            mvec, out = mv_buf[k - 1::gop - 1], out_buf[k::gop]
+            before = cuda_motion.search_predict_stripe.launches
+            got = cuda_motion.search_predict_stripe(*args, mvec=mvec,
+                                                    out=out)
+            assert cuda_motion.search_predict_stripe.launches == before + 1
+            assert got[0] is mvec and got[1] is out
+            plain = cuda_motion.search_predict_stripe_plain(
+                *args, mvec=torch.empty_like(mvec), out=torch.empty_like(out))
+            dense = cuda_motion.search_predict_stripe(
+                sel.contiguous(), ref.contiguous(), *args[2:])
+            for a, b, c in zip(got, plain, dense):
+                assert torch.equal(a, b) and torch.equal(a, c)
+        assert (out_buf[0::gop] == 9).all()
+
+
 @pytest.mark.parametrize("n_segments,n", [(18, 3600), (3, 700), (1, 1)])
 def test_pack_records_segments_kernel_equals_plain(dev, n_segments, n):
     rng = np.random.default_rng(n)
@@ -1782,7 +1824,8 @@ def test_sharded_video_world_of_one_equals_host_engine(nccl_mesh, ref_mode,
     torch.cuda.synchronize()
     ran = [a - b for a, b in zip(launch_counts(SHARDED_VIDEO), before)]
     recon = ref_mode == "recon"
-    assert ran == [1, 1, 1, int(not recon), 6 * recon, 6 * recon]
+    # Recon: one search and one recon step a GOP step, 3 at gop 4.
+    assert ran == [1, 1, 1, int(not recon), 3 * recon, 3 * recon]
     assert got == want
     for mc in (True, False):
         assert decode_video_sharded(got, nccl_mesh, motioncomp=mc)[0] == (

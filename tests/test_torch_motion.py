@@ -15,7 +15,9 @@ versions.
     vectors and prediction, and search_residual the vectors, and the
     residual cur - pred, of a whole video's P-frames against the frames
     before them, with the I-frames' pixels on their rows: gop 1 (no
-    P-frame), a last GOP cut short, vectors that clamp at all four edges.
+    P-frame), a last GOP cut short, vectors that clamp at all four edges;
+  * the stripe search on frames that lie apart (frame k of every GOP),
+    into views of larger buffers, equal to the dense call.
 
 Inputs are seeded numpy frames.
 """
@@ -304,6 +306,42 @@ def test_stripe_plain_versions_equal_whole_frame_ones():
             frames, ref0, 0, 0, 48, 0, 4, 8),
             cuda_motion.search_residual(frames, 4, 8)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_stripes", [1, 2])
+@pytest.mark.parametrize("k,gop", [(1, 4), (3, 4), (2, 3)])
+def test_stripe_search_takes_frames_that_lie_apart(n_stripes, k, gop):
+    """search_predict_stripe of frame k of every GOP (cur[k::gop]) in the
+    references that lie as far apart, into views of larger buffers
+    (mvec[k - 1::gop - 1], out[k::gop]), as the sharded recon steps: the
+    dense call's vectors and prediction, written into those rows and no
+    other, and returned as the buffers given."""
+    h_glob, w, merange = 64, 48, 16
+    video = wrapping_frames(11, h_glob, w, 35)
+    halo = merange if n_stripes > 1 else 0
+    for r0, cur, ref in stripes_of(video, n_stripes, halo):
+        cur_t, ref_t = torch.from_numpy(cur), torch.from_numpy(ref)
+        sel, sel_ref = cur_t[k::gop], ref_t[k::gop]
+        n = sel.shape[0]
+        mv_buf = torch.full((n * (gop - 1), (cur.shape[1] // 16) * (w // 16),
+                             2), -99, dtype=torch.int32)
+        out_buf = torch.full_like(cur_t, 77)
+        mvec, out = mv_buf[k - 1::gop - 1], out_buf[k::gop]
+        got = cuda_motion.search_predict_stripe(sel, sel_ref, r0, halo,
+                                                h_glob, merange, mvec=mvec,
+                                                out=out)
+        want = cuda_motion.search_predict_stripe(sel.contiguous(),
+                                                 sel_ref.contiguous(), r0,
+                                                 halo, h_glob, merange)
+        assert got[0] is mvec and got[1] is out
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        rest = torch.ones(len(mv_buf), dtype=torch.bool)
+        rest[k - 1::gop - 1] = False
+        assert (mv_buf[rest] == -99).all()
+        rest = torch.ones(len(out_buf), dtype=torch.bool)
+        rest[k::gop] = False
+        assert (out_buf[rest] == 77).all()
 
 
 @pytest.mark.parametrize("row0,halo,h_glob", [

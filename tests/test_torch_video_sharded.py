@@ -6,7 +6,12 @@ CPU processes, at tolerance 0:
     off, and of the distributed Huffman stage, equal to the JAX package's
     encode_video(backend="numpy"): in the (1, 4) world each stripe is
     exactly merange = 16 rows tall, and the gop-3 video puts a P-frame at
-    the start of a chunk in the (2, 2) and (4, 1) worlds;
+    the start of a chunk in the (2, 2) and (4, 1) worlds; recon at gops
+    1 to 8, a short last GOP and one GOP of the whole chunk among them;
+  * the recon encode stepped by GOP: a rank's stripe searches, recon
+    steps and halo shifts counted (one search and one recon step a step,
+    two shifts a step where there is more than one stripe), in the gloo
+    worlds and in a world of one in this process;
   * the frames of decode_video_sharded equal to decode_video(backend=
     "numpy"), with motion compensation on and off, and with GOP counts
     that do not fill the mesh;
@@ -80,7 +85,20 @@ CASES = {"raw": (VIDEO, 4, "raw"), "recon": (VIDEO, 4, "recon"),
          "gop3": (GOP3, 3, "raw"),
          # recon in one chunk of 8 frames at gop 3 ((1, 4) only): the
          # chunk opens the video's first GOP, its last GOP is short
-         "recon_gop3": (GOP3, 3, "recon")}
+         "recon_gop3": (GOP3, 3, "recon"),
+         "recon_gop2": (VIDEO, 2, "recon"),
+         # every frame an I-frame: no GOP step, no halo exchange
+         "recon_gop1": (VIDEO, 1, "recon"),
+         # one chunk ((1, 4) only) in GOPs of 5 and 3 frames: the steps
+         # k = 3, 4 run over one GOP, k = 1, 2 over two
+         "recon_gop5": (GOP3, 5, "recon"),
+         # one chunk ((1, 4) only) of one GOP: every step over one frame
+         "recon_gop8": (GOP3, 8, "recon")}
+RECON_CASES = [k for k, (_, _, mode) in CASES.items() if mode == "recon"]
+# The calls a sharded recon encode makes a GOP step (job "calls").
+COUNTED = ("parallel.video_sharding.shift",
+           "ops.cuda_motion.search_predict_stripe",
+           "ops.cuda_encode.recon_step")
 # The layout cases: a video on which the JAX package's sharded step, whose
 # transform is f32, meets no rounding tie (a seed searched for; its f32
 # transform differs from the exact one in about 1.6% of the blocks of the
@@ -171,6 +189,10 @@ def jobs(fa: int) -> list:
         out.append(("video_huffman", {"frames": frames, "quant": QP,
                                       "gop": gop, "merange": MERANGE,
                                       "ref_mode": mode}))
+        if mode == "recon":
+            out.append(("calls", {"job": "video_encode", "names": COUNTED,
+                                  "frames": frames, "quant": QP, "gop": gop,
+                                  "merange": MERANGE, "ref_mode": mode}))
     for frames, gop, mode in LAYOUT_CASES.values():
         if mode == "recon" and not has_recon(fa, frames, gop):
             out.append(("raises", {"job": "video_packed", "frames": frames,
@@ -228,7 +250,7 @@ def assert_recon_refused(world, frames, gop):
     """The recon encode of frames whose chunks do not all open a GOP is
     refused with the JAX package's message."""
     fa, _ = world
-    got = result(world, "raises", frames=frames, ref_mode="recon")
+    got = result(world, "raises", frames=frames, ref_mode="recon", gop=gop)
     assert got == ("ValueError", f"recon mode needs GOP-aligned frame "
                    f"chunks: {len(frames) // fa} frames/chunk vs gop {gop}")
 
@@ -259,8 +281,62 @@ def test_distributed_huffman_equals_host_engine(world, case):
     if mode == "recon" and not has_recon(world[0], frames, gop):
         assert_recon_refused(world, frames, gop)
         return
-    got = result(world, "video_huffman", frames=frames, ref_mode=mode)
+    got = result(world, "video_huffman", frames=frames, ref_mode=mode,
+                 gop=gop)
     assert got == host_encode(frames, gop, mode)
+
+
+@pytest.mark.parametrize("case", RECON_CASES)
+def test_recon_steps_by_gop(world, case):
+    """A rank's recon encode makes one stripe search and one recon step a
+    GOP step, min(gop, f_loc) - 1 of them, and exchanges the carry's
+    halo in two shifts a step where the "block" axis has more than one
+    stripe: twice the steps, not twice the P-frames."""
+    fa, _ = world
+    frames, gop, _ = CASES[case]
+    if not has_recon(fa, frames, gop):
+        assert_recon_refused(world, frames, gop)
+        return
+    stream, calls = result(world, "calls", frames=frames, gop=gop)
+    assert stream == host_encode(frames, gop, "recon")
+    steps = min(gop, len(frames) // fa) - 1
+    shift, search, recon = COUNTED
+    assert calls == {search: steps, recon: steps,
+                     shift: 2 * steps if 4 // fa > 1 else 0}
+
+
+@pytest.mark.parametrize("gop", [1, 2, 4, 5, 16, 20])
+def test_world_of_one_steps_by_gop(monkeypatch, gop):
+    """In a world of one in this process, one stripe of the whole frame
+    and no halo: the recon encode makes one stripe search and one recon
+    step a GOP step, min(gop, F) - 1 of each, and no shift; its stream is
+    the host engine's (gop 5: a short last GOP; 16 and 20: one GOP)."""
+    from imageencoder_tpu_torch.ops import cuda_encode, cuda_motion
+    from imageencoder_tpu_torch.parallel import distributed
+
+    calls = {"search": 0, "recon": 0, "shift": 0}
+
+    def counted(key, real):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return real(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(cuda_motion, "search_predict_stripe", counted(
+        "search", cuda_motion.search_predict_stripe))
+    monkeypatch.setattr(cuda_encode, "recon_step", counted(
+        "recon", cuda_encode.recon_step))
+    monkeypatch.setattr(port_vs, "shift", counted("shift", port_vs.shift))
+    distributed.initialize(device="cpu")
+    try:
+        got = port_vs.encode_video_sharded(
+            VIDEO, QP, port_mesh.make_mesh(device="cpu"), True, gop,
+            MERANGE, ref_mode="recon")
+    finally:
+        dist.destroy_process_group()
+    steps = min(gop, len(VIDEO)) - 1
+    assert calls == {"search": steps, "recon": steps, "shift": 0}
+    assert got == host_encode(VIDEO, gop, "recon")
 
 
 def test_calls_of_few_frames_give_the_same_stream(world):
