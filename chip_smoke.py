@@ -50,8 +50,12 @@ each of which raises on failure:
      the recon records as fields built by the plain glue; decode_image of
      the 4096x912 Huffman stream written on the card for D1
      huffman_decode, D2 walk_offsets and D3 decode_blocks (D1's payload
-     compared up to its byte count), and for D1 and D2 the chunks their
-     true chain walked whole; decode_frames of the 720p25 raw stream for
+     compared up to its byte count), and for D1 and D2 their stats
+     (cuda_decode.CHAIN_STATS: chunks, chunks walked whole, what D2's
+     sweep did, the rounds that changed a chunk, whether a break was left
+     after them; D1 must take the rounds alone on one of the image and
+     720p25 streams and its table on the other, each held bit-equal);
+     decode_frames of the 720p25 raw stream for
      D1 on a video's payload, D2 walk_video (one chain over the whole
      video), the vector read, every D3 call (the I-frames, then frame k of
      every GOP onto its prediction) and every K7 predict call (frame k
@@ -322,11 +326,15 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                               "imageencoder_tpu_torch/csrc/motion.cu",
                               "imageencoder_tpu/ops/pallas_motion.py:38"),
     # The decode: no TPU kernel; each replaces the JAX package's host
-    # function of its native engine (four launches for D1 and D2: walk,
-    # check, stitch, emit).
+    # function of its native engine (D1: walk, check, the rounds, the
+    # table of entry offsets with its top and apply, stitch, emit; D2:
+    # walk, check, stitch, emit).
     "D1 huffman_decode": ("cuda_decode", "huffman_decode",
                           "huffman_decode_plain",
                           ("huffman_walk_kernel", "huffman_check_kernel",
+                           "huffman_round_kernel", "huffman_table_kernel",
+                           "huffman_table_top_kernel",
+                           "huffman_table_apply_kernel",
                            "huffman_stitch_kernel", "huffman_emit_kernel"),
                           "imageencoder_tpu_torch/csrc/huffman_decode.cu",
                           "imageencoder_tpu/runtime/native/runtime.cpp:1227"),
@@ -591,6 +599,35 @@ def serving_batch():
     return np.stack([synthetic(bh, bw, 100 + k) for k in range(bq - 1)]
                     + [np.random.default_rng(9).integers(
                         0, 256, (bh, bw), dtype=np.uint8)])
+
+
+def chain_stats(name: str, args, kwargs, label: str) -> dict:
+    """D1's or D2's stats (cuda_decode.CHAIN_STATS) on a captured call's
+    inputs, printed; the output with stats must equal the output without
+    (the call check_kernel held against the plain version).  breaks_left
+    says which path D1 took: 0, the rounds settled every break; 1, the
+    table settled what they left (D1 has no sweep: its sweep entries are
+    0)."""
+    import torch
+
+    cd = module("cuda_decode")
+    stats = torch.zeros(len(cd.CHAIN_STATS), dtype=torch.int64,
+                        device=args[0].device)
+    got = getattr(cd, KERNELS[name][1])(*args, **kwargs, stats=stats)
+    want = getattr(cd, KERNELS[name][1])(*args, **kwargs)
+    if name == "D1 huffman_decode":
+        n = int(want[1])
+        same = int(got[1]) == n and torch.equal(got[0][:n], want[0][:n])
+    else:
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+    if not same:
+        raise AssertionError(f"{name} ({label}) with stats differs from "
+                             f"the call without")
+    st = dict(zip(cd.CHAIN_STATS, stats.tolist()))
+    rounds = cd.CHAIN_ROUNDS if name == "D1 huffman_decode" else 0
+    print(f"{name} ({label}, {rounds} rounds): "
+          + ", ".join(f"{k} {v}" for k, v in st.items()), flush=True)
+    return {f"chain_{k}": v for k, v in st.items()}
 
 
 def module(name: str):
@@ -2324,15 +2361,8 @@ def main() -> None:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"decode_image, expected 1")
         rows[name] = check_kernel(name, *calls[name][0])
-    for name in PATHS["image decode"][:2]:  # the chains: chunks walked whole
-        stats = torch.zeros(2, dtype=torch.int64, device=dev)
-        args, kwargs = calls[name][0]
-        getattr(module("cuda_decode"), KERNELS[name][1])(
-            *args, **kwargs, stats=stats)
-        chunks, whole = stats.tolist()
-        rows[name].update(chunks=chunks, chunks_walked_whole=whole)
-        print(f"{name}: {chunks} chunks, {whole} walked whole from their "
-              f"true entry", flush=True)
+    for name in PATHS["image decode"][:2]:  # the chains' stats
+        rows[name].update(chain_stats(name, *calls[name][0], "image"))
     del calls
 
     # The decode of the 720p25 raw stream: K7 alone on its first path.
@@ -2357,15 +2387,26 @@ def main() -> None:
            check_kernel("D3 decode_blocks", *calls["D3 decode_blocks"][0]))
     beside(rows["D3 decode_blocks"], "video_p_frames",
            check_kernel("D3 decode_blocks", *calls["D3 decode_blocks"][1]))
-    stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    args, kwargs = calls["D2 walk_video"][0]
-    module("cuda_decode").walk_video(*args, **kwargs, stats=stats)
-    chunks, whole = stats.tolist()
-    rows["D2 walk_video"].update(chunks=chunks, chunks_walked_whole=whole)
+    rows["D1 huffman_decode"]["video"].update(chain_stats(
+        "D1 huffman_decode", *calls["D1 huffman_decode"][0], "video"))
+    # D1's two paths, each held bit-equal above: the rounds alone and the
+    # table after them.
+    paths = {rows["D1 huffman_decode"]["chain_breaks_left"],
+             rows["D1 huffman_decode"]["video"]["chain_breaks_left"]}
+    print(f"D1 breaks left after the rounds: image "
+          f"{rows['D1 huffman_decode']['chain_breaks_left']}, video "
+          f"{rows['D1 huffman_decode']['video']['chain_breaks_left']} "
+          f"(1: the table settled them)", flush=True)
+    if paths != {0, 1}:
+        raise AssertionError(f"D1 took one path on both streams (breaks "
+                             f"left {paths}): the rounds alone and the "
+                             f"table are not both held against the plain "
+                             f"version")
+    rows["D2 walk_video"].update(chain_stats(
+        "D2 walk_video", *calls["D2 walk_video"][0], "video"))
     print(f"decode_frames {vw}x{vh}x{vn}: every D1, D2 walk_video, vector "
           f"read, D3 ({steps}) and K7 ({steps - 1}) call bit-equal to its "
-          f"plain version; D2 walk_video: {chunks} chunks, {whole} walked "
-          f"whole from their true entry", flush=True)
+          f"plain version", flush=True)
     del calls, k7_search
 
     # The serving path: one encode_image_batch of 16 images at 4096x912,

@@ -30,7 +30,7 @@
 // vector bits as records and resynchronize later, which is harmless: the
 // stitch's sweep (chain.cuh) takes the breaks and the jumps in the
 // chain's order (a warp scan of the chunks' and groups' counts finds the
-// chunk that holds a frame's last record; one thread walks the true chain
+// chunk that holds a frame's last record; the warp walks the true chain
 // there to it, jumps, and re-enters the chunks after until the chain
 // meets a walker again), and the emitter, which knows its records'
 // indices, takes the same jumps and writes each frame's vector start bit
@@ -38,7 +38,10 @@
 // alone.  An image is a video of one frame.  A chain without the jumps
 // would parse the vector bits as records and, misaligned, take refused
 // records of up to 15 * 32767 bits: it need never meet a walker again, so
-// the breaks are not followed before the jumps are known.
+// the breaks are not followed before the jumps are known.  D2 runs no
+// rounds (chain.cuh 3): on the 4096x912 image the check leaves no break,
+// and on 3840x2160 two rounds were slower than none (PERF.md); the sweep
+// fixes what the check leaves, where it leaves any.
 //
 // Bound: bytes, the payload read once and 16 bytes a record written (1.5
 // MB and 3.7 MB for the 4096x912 image: about 1.6 us at 3.35 TB/s).  The
@@ -102,13 +105,13 @@ struct Frames {
     __device__ __forceinline__ long long jump(long long idx) const {
         return (idx / n_micro) % gop ? vbits : 0;
     }
-    __device__ long long next(long long idx) const {
+    __host__ __device__ long long next(long long idx) const {
         if (vbits == 0 || gop < 2) return ie::kNever;
         long long f = idx / n_micro + 1;
         if (f % gop == 0) f++;  // an I-frame: no vectors before it
         return f < n_frames ? f * n_micro : ie::kNever;
     }
-    __device__ long long first() const { return next(0); }
+    __host__ __device__ long long first() const { return next(0); }
     __device__ long long bits(long long) const { return vbits; }
 };
 
@@ -156,18 +159,28 @@ struct RecordSink {
     long long n;
 };
 
-__global__ void __launch_bounds__(ie::kStitchThreads)
-offset_stitch_kernel(Args a, RecordSink sink, long long* stats) {
+// The stitch, one warp: it sweeps where the check left a break or the
+// chain jumps, then scans the counts.  kCount: the sweep counts what it
+// does (only where stats are asked for).
+template <bool kCount>
+__global__ void __launch_bounds__(ie::kSweepThreads)
+offset_stitch_kernel(Args a, RecordSink sink, long long* stats,
+                     int n_stats) {
     const ChainScratch s(a.scratch, a.n_max, (int)a.chunk_bits);
-    ie::chain_stitch(walk_of(a), geom_of(a), s, nullptr, stats, a.fr);
+    const ChainGeom g = geom_of(a);
+    ie::SweepCounts n;
+    if (a.fr.first() != ie::kNever || s.flags[0] != 0)
+        ie::chain_sweep<kCount>(walk_of(a), g, s, a.fr, n);
+    __syncthreads();
+    ie::chain_scan(g, s, 0, nullptr, stats, n_stats, n);
     if (threadIdx.x == 0 && sink.vstart != nullptr) {
         sink.vstart[0] = a.start;
         sink.rstart[0] = a.start;
     }
 }
 
-// 4. Chunk c's records from its true entry (chain.cuh's chain_emit, with
-// the frames' jumps and start bits).
+// 6. Chunk c's records from its true entry, with the frames' jumps and
+// start bits.
 __global__ void __launch_bounds__(ie::kChainThreads)
 offset_emit_kernel(Args a, RecordSink sink) {
     const ChainScratch s(a.scratch, a.n_max, (int)a.chunk_bits);
@@ -221,9 +234,11 @@ read_vectors_kernel(const uint8_t* data, const long long* nbytes_p,
 
 }  // namespace
 
-// int64 words of scratch for n_chunks chunks of chunk_bits (D1 and D2).
-extern "C" int ie_chain_scratch_words(long long n_chunks, int chunk_bits) {
-    return (int)ChainScratch::words(n_chunks, chunk_bits);
+// int64 words of scratch for n_chunks chunks of chunk_bits: D1's with its
+// table (with_table 1), D2's without.
+extern "C" int ie_chain_scratch_words(long long n_chunks, int chunk_bits,
+                                      int with_table) {
+    return (int)ChainScratch::words(n_chunks, chunk_bits, with_table != 0);
 }
 
 // D2 over a video.  data: the payload (u8, `nbytes` int64 on the device);
@@ -234,8 +249,9 @@ extern "C" int ie_chain_scratch_words(long long n_chunks, int chunk_bits) {
 // [1]; vstart, rstart: int64 [n_frames], each frame's vector and record
 // start bits (equal for an I-frame), or both null (an image is a video of
 // one frame, gop 1 and no vector bits); scratch: int64
-// [ie_chain_scratch_words(n_chunks, chunk_bits)]; stats: int64 [2] or
-// null.  Four launches on `stream`, nothing read back.
+// [ie_chain_scratch_words(n_chunks, chunk_bits, 0)]; stats: int64
+// [n_stats] (ie::ChainStat, the first n_stats) or null.  4 launches on
+// `stream`, nothing read back.
 extern "C" int ie_walk_video(const void* data, const void* nbytes,
                              long long start_bit, long long n_chunks,
                              int chunk_bits, long long n_micro,
@@ -243,8 +259,8 @@ extern "C" int ie_walk_video(const void* data, const void* nbytes,
                              int use_rle, int block_size, void* offs,
                              void* dbits, void* counts, void* end,
                              void* vstart, void* rstart, void* scratch,
-                             void* stats, void* stream) {
-    if (n_micro < 1 || n_frames < 1 || gop < 1 || vbits < 0)
+                             void* stats, int n_stats, void* stream) {
+    if (n_micro < 1 || n_frames < 1 || gop < 1 || vbits < 0 || n_stats < 0)
         return (int)cudaErrorInvalidValue;
     const Args a{(const uint8_t*)data, (const long long*)nbytes,
                  block_size * block_size, use_rle != 0, start_bit,
@@ -262,8 +278,12 @@ extern "C" int ie_walk_video(const void* data, const void* nbytes,
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     offset_check_kernel<<<grid, ie::kChainThreads, 0, st>>>(a);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    offset_stitch_kernel<<<1, ie::kStitchThreads, 0, st>>>(
-        a, sink, (long long*)stats);
+    if (stats != nullptr)
+        offset_stitch_kernel<true><<<1, ie::kSweepThreads, 0, st>>>(
+            a, sink, (long long*)stats, n_stats);
+    else
+        offset_stitch_kernel<false><<<1, ie::kSweepThreads, 0, st>>>(
+            a, sink, nullptr, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     offset_emit_kernel<<<grid, ie::kChainThreads, 0, st>>>(a, sink);
     return (int)cudaGetLastError();

@@ -100,15 +100,16 @@ SIGNATURES = {
     "ie_dict_table_words": [],
     "ie_div_sweep": [_P, _I64, _I64, _I32, _U64, _P, _P],
     # data, nbytes, start_bit, n_chunks, chunk_bits, table, max_len, out,
-    # cap, count, scratch, stats, stream
+    # cap, count, scratch, rounds, stats, n_stats, stream
     "ie_huffman_decode": [_P, _P, _I64, _I64, _I32, _P, _I32, _P, _I64, _P,
-                          _P, _P, _P],
+                          _P, _I32, _P, _I32, _P],
     # data, nbytes, start_bit, n_chunks, chunk_bits, n_micro, n_frames,
     # gop, vbits, use_rle, block_size, offs, dbits, counts, end, vstart,
-    # rstart, scratch, stats, stream
+    # rstart, scratch, stats, n_stats, stream
     "ie_walk_video": [_P, _P, _I64, _I64, _I32, _I64, _I64, _I32, _I64, _I32,
-                      _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "ie_chain_scratch_words": [_I64, _I32],
+                      _I32, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _P],
+    # n_chunks, chunk_bits, with_table
+    "ie_chain_scratch_words": [_I64, _I32, _I32],
     # data, nbytes, vstart, n_frames, gop, n_fields, mb, out, stream
     "ie_read_vectors": [_P, _P, _P, _I64, _I32, _I64, _I32, _P, _P],
     # data, nbytes, offs, dbits, counts, n_blocks, n_frames, rec_stride,

@@ -324,7 +324,8 @@ def decode_into(plan: dict, views: dict, y: torch.Tensor,
     if plan["huffman"]:
         payload, nbytes = cuda_decode.huffman_decode(
             payload, nbytes, plan["dict_end"], views["table"],
-            plan["max_len"], plan["cap"])
+            plan["max_len"], plan["cap"],
+            chunk_bits=cuda_decode.CHUNK_BITS_HUFFMAN_VIDEO)
     offs, dbits, counts, _, vstart, _ = cuda_decode.walk_video(
         payload, nbytes, plan["start"], n_frames, n_micro, gop,
         plan["vbits"], plan["use_rle"], block_size)

@@ -26,11 +26,20 @@ after the other with nothing read back between them:
     one launch takes a set of frames.
 
 D1 and D2 walk a serial chain in parallel (csrc/chain.cuh): chunks of
-``chunk_bits`` walk speculatively from their first bit, a stitch on the
-card finds each chunk's true entry and adopts the speculative walk from
-where the true chain meets it, and an emission pass writes the outputs.
-``stats``, where given (int64 [2] on the device), receives the number of
-chunks and how many of them the true chain had to walk whole.
+``chunk_bits`` walk speculatively from their first bit, and a check
+follows the true chain through each chunk from its likely entry.  In D1,
+:data:`CHAIN_ROUNDS` rounds then pass each break's true exit on to the
+chunk after (one chunk a round, on the whole card), and where they leave
+a break its table settles it (a step is at most ``max_len`` bits, so a
+chunk's true entry lies in its first ``max_len`` bits: the chunk is
+followed from each, and a scan of the maps from entry to exit offsets
+gives every chunk's true entry).  D2's stitch sweeps the chain in order
+where the check left a break, as it does to take a video's jumps.  An
+emission pass writes the outputs.  ``stats``, where given (int64 [n >= 2]
+on the device), receives the first n of :data:`CHAIN_STATS`: the chunks,
+how many of them the true chain walked whole, what D2's sweep did, the
+rounds that changed a chunk, and whether a break was left after the
+rounds (D1: the table ran) or the check (D2: the sweep fixed it).
 
 Reads past the payload's byte count (a device tensor: D1's output, or
 the stream's length) give zero bits, whatever the buffer holds there.
@@ -58,11 +67,22 @@ from .zigzag import zigzag_order
 
 # Chunk sizes from tools/decode_chunks.py on the H100 (PERF.md): shorter
 # chunks give more threads, but more of them end before their walker
-# meets the true chain, and each such chunk costs a serial step of the
-# stitch.
-CHUNK_BITS_HUFFMAN = 512  # D1: about 70 symbols of the image
+# meets the true chain, and each such chunk costs a round (D1) or a step
+# of the sweep (D2).
+CHUNK_BITS_HUFFMAN = 256  # D1 on an image: about 35 symbols
+CHUNK_BITS_HUFFMAN_VIDEO = 512  # D1 on a video: where the table runs
 CHUNK_BITS_WALK = 2048  # D2: about 100 records of the image
 MAX_CHUNK_BITS = 1 << 20
+# Round launches D1 takes after the check: a break moves one chunk a
+# round, and two leave no break on the smoke's 4096x912 image (PERF.md); a
+# round after one that moved nothing returns at once.  What they leave,
+# the table settles.  Only tests set another count (0 to 32, chain.cuh's
+# kMaxRounds), to force the table.
+CHAIN_ROUNDS = 2
+# The entries of ``stats`` (chain.cuh's ChainStat), in order.
+CHAIN_STATS = ("chunks", "walked_whole", "sweep_breaks", "sweep_rewalked",
+               "sweep_skipped", "scan_turns", "jumps", "rounds_changed",
+               "longest_run", "breaks_left")
 
 
 def payload_capacity(payload_bits: int, min_len: int) -> int:
@@ -90,18 +110,21 @@ def _n_chunks(span_bits: int, chunk_bits: int) -> int:
     return max(1, -(-span_bits // chunk_bits))
 
 
-def _scratch(lib, n_chunks: int, chunk_bits: int, dev) -> torch.Tensor:
-    words = lib.ie_chain_scratch_words(n_chunks, chunk_bits)
+def _scratch(lib, n_chunks: int, chunk_bits: int, dev,
+             table: bool) -> torch.Tensor:
+    """A chain's scratch; D1's holds its table too."""
+    words = lib.ie_chain_scratch_words(n_chunks, chunk_bits, int(table))
     return torch.empty(words, dtype=torch.int64, device=dev)
 
 
-def _check_stats(stats, dev) -> int | None:
+def _check_stats(stats, dev) -> tuple[int | None, int]:
+    """(the pointer, the entries the kernel writes)."""
     if stats is None:
-        return None
+        return None, 0
     build.require(stats, "stats", torch.int64, 1, dev)
     if stats.shape[0] < 2:
         raise ValueError("stats: expected at least 2 int64")
-    return stats.data_ptr()
+    return stats.data_ptr(), min(stats.shape[0], len(CHAIN_STATS))
 
 
 # ---- D1: the Huffman payload ----
@@ -152,18 +175,18 @@ def huffman_decode(stream: torch.Tensor, nbytes: torch.Tensor,
     build.require(stream, "stream", torch.uint8, 1, dev)
     build.require(nbytes, "nbytes", torch.int64, 1, dev)
     build.require(table, "table", torch.int16, 1, dev)
-    stats_ptr = _check_stats(stats, dev)
+    stats_ptr, n_stats = _check_stats(stats, dev)
     lib = build.library()
     n_chunks = _n_chunks(8 * stream.shape[0] - start_bit, chunk_bits)
-    scratch = _scratch(lib, n_chunks, chunk_bits, dev)
+    scratch = _scratch(lib, n_chunks, chunk_bits, dev, True)
     out = torch.empty(cap, dtype=torch.uint8, device=dev)
     count = torch.empty(1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         code = lib.ie_huffman_decode(
             stream.data_ptr(), nbytes.data_ptr(), start_bit, n_chunks,
             chunk_bits, table.data_ptr(), max_len, out.data_ptr(), cap,
-            count.data_ptr(), scratch.data_ptr(), stats_ptr,
-            build.stream_ptr(dev))
+            count.data_ptr(), scratch.data_ptr(), CHAIN_ROUNDS, stats_ptr,
+            n_stats, build.stream_ptr(dev))
     build.check(code, "ie_huffman_decode")
     huffman_decode.launches += 1
     return out, count
@@ -216,7 +239,7 @@ def walk_offsets(payload: torch.Tensor, nbytes: torch.Tensor,
     dev = payload.device
     build.require(payload, "payload", torch.uint8, 1, dev)
     build.require(nbytes, "nbytes", torch.int64, 1, dev)
-    stats_ptr = _check_stats(stats, dev)
+    stats_ptr, n_stats = _check_stats(stats, dev)
     offs = torch.empty(n_blocks, dtype=torch.int64, device=dev)
     dbits = torch.empty(n_blocks, dtype=torch.int32, device=dev)
     counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
@@ -226,14 +249,14 @@ def walk_offsets(payload: torch.Tensor, nbytes: torch.Tensor,
     end = torch.empty(1, dtype=torch.int64, device=dev)  # the last record's
     lib = build.library()
     n_chunks = _n_chunks(8 * payload.shape[0] - start_bit, chunk_bits)
-    scratch = _scratch(lib, n_chunks, chunk_bits, dev)
+    scratch = _scratch(lib, n_chunks, chunk_bits, dev, False)
     with torch.cuda.device(dev):  # a video of one frame
         code = lib.ie_walk_video(
             payload.data_ptr(), nbytes.data_ptr(), start_bit, n_chunks,
             chunk_bits, n_blocks, 1, 1, 0, int(use_rle), block_size,
             offs.data_ptr(), dbits.data_ptr(), counts.data_ptr(),
             end.data_ptr(), None, None, scratch.data_ptr(), stats_ptr,
-            build.stream_ptr(dev))
+            n_stats, build.stream_ptr(dev))
     build.check(code, "ie_walk_video")
     walk_offsets.launches += 1
     return offs, dbits, counts, end
@@ -292,7 +315,7 @@ def walk_video(payload: torch.Tensor, nbytes: torch.Tensor, start_bit: int,
     dev = payload.device
     build.require(payload, "payload", torch.uint8, 1, dev)
     build.require(nbytes, "nbytes", torch.int64, 1, dev)
-    stats_ptr = _check_stats(stats, dev)
+    stats_ptr, n_stats = _check_stats(stats, dev)
     n = n_frames * n_micro
     offs = torch.empty(n, dtype=torch.int64, device=dev)
     dbits = torch.empty(n, dtype=torch.int32, device=dev)
@@ -301,14 +324,14 @@ def walk_video(payload: torch.Tensor, nbytes: torch.Tensor, start_bit: int,
     starts = torch.empty((2, n_frames), dtype=torch.int64, device=dev)
     lib = build.library()
     n_chunks = _n_chunks(8 * payload.shape[0] - start_bit, chunk_bits)
-    scratch = _scratch(lib, n_chunks, chunk_bits, dev)
+    scratch = _scratch(lib, n_chunks, chunk_bits, dev, False)
     with torch.cuda.device(dev):
         code = lib.ie_walk_video(
             payload.data_ptr(), nbytes.data_ptr(), start_bit, n_chunks,
             chunk_bits, n_micro, n_frames, gop, vbits, int(use_rle),
             block_size, offs.data_ptr(), dbits.data_ptr(),
             counts.data_ptr(), end.data_ptr(), starts[0].data_ptr(),
-            starts[1].data_ptr(), scratch.data_ptr(), stats_ptr,
+            starts[1].data_ptr(), scratch.data_ptr(), stats_ptr, n_stats,
             build.stream_ptr(dev))
     build.check(code, "ie_walk_video")
     walk_video.launches += 1

@@ -27,7 +27,7 @@ from imageencoder_tpu_torch.ops import (cuda_decode, cuda_encode,
 from imageencoder_tpu_torch.utils.exceptions import StreamFormatError
 
 from test_torch_decode import (STREAMS, d1_args,  # tests/ is on the path
-                               dict_stream, record_stream)
+                               dict_stream, one_bit_bytes, record_stream)
 from test_torch_huffman import (KINDS, histogram, random_histogram)
 from test_torch_image import CASES
 
@@ -984,9 +984,12 @@ def test_huffman_decode_kernel_equals_plain(dev, name, chunk_bits):
     """D1 on streams whose chunks start out of sync (3-bit codes at 32-bit
     chunks never meet the codeword grid), incomplete trees and padding
     that decodes to symbols; the stream's buffer holds 0xFF past its byte
-    count, which the kernel must not read."""
+    count, which the kernel must not read.  A break is left after the
+    rounds (and the table settles it) only where every round changed a
+    chunk."""
     args = on_dev(d1_args(STREAMS[name], tail=64), dev)
-    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    stats = torch.zeros(len(cuda_decode.CHAIN_STATS), dtype=torch.int64,
+                        device=dev)
     before = cuda_decode.huffman_decode.launches
     out, count = cuda_decode.huffman_decode(*args, chunk_bits=chunk_bits,
                                             stats=stats)
@@ -995,10 +998,15 @@ def test_huffman_decode_kernel_equals_plain(dev, name, chunk_bits):
     n = int(want_count)
     assert int(count) == n
     assert torch.equal(out[:n], want[:n])
-    chunks, whole = stats.tolist()
-    assert chunks == -(-(8 * len(STREAMS[name]) - args[2]) // chunk_bits)
+    st = dict(zip(cuda_decode.CHAIN_STATS, stats.tolist()))
+    assert st["chunks"] == -(-(8 * len(STREAMS[name]) - args[2])
+                             // chunk_bits)
+    assert st["rounds_changed"] <= cuda_decode.CHAIN_ROUNDS
+    assert (not st["breaks_left"]
+            or st["rounds_changed"] == cuda_decode.CHAIN_ROUNDS)
     if name == "equal lengths" and chunk_bits == 32:
-        assert whole > 0  # walked whole from the true entry, still equal
+        # walked whole from the true entry, the table ran, still equal
+        assert st["walked_whole"] > 0 and st["breaks_left"] == 1
 
 
 @pytest.mark.parametrize("kind,use_rle,chunk_bits", [
@@ -1170,6 +1178,172 @@ def test_video_walk_kernel_equals_plain(dev, gop, merange, use_rle, huff,
                                       plan["n_macro"], plan["mb"])
         assert torch.equal(mv, cuda_decode.read_vectors_plain(
             payload, nbytes, got[4], gop, plan["n_macro"], plan["mb"]))
+
+
+def chain_stats(dev) -> torch.Tensor:
+    return torch.zeros(len(cuda_decode.CHAIN_STATS), dtype=torch.int64,
+                       device=dev)
+
+
+def named(stats: torch.Tensor) -> dict:
+    return dict(zip(cuda_decode.CHAIN_STATS, stats.tolist()))
+
+
+def test_walk_offsets_breaks_go_to_the_sweep(dev):
+    """Records of 244 bits at chunks of 32 bits: each spans 8 chunks, so
+    walkers stay out of phase for many chunks; D2 runs no round, and after
+    each break the sweep walks a run of chunks again."""
+    data, n = record_stream("long", 300, 11, True, lead=5)
+    payload = torch.tensor(list(data) + [0xFF] * 256, dtype=torch.uint8,
+                           device=dev)
+    nbytes = torch.tensor([len(data)], dtype=torch.int64, device=dev)
+    stats = chain_stats(dev)
+    got = cuda_decode.walk_offsets(payload, nbytes, 5, n, True, 4, 32, stats)
+    want = cuda_decode.walk_offsets_plain(payload, nbytes, 5, n, True, 4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    st = named(stats)
+    assert st["breaks_left"] == 1 and st["rounds_changed"] == 0
+    assert st["sweep_breaks"] > 0 and st["sweep_rewalked"] > 0
+    assert st["longest_run"] > 1
+    assert st["jumps"] == 0 and st["scan_turns"] > 0
+
+
+@pytest.mark.parametrize("chunk_bits", [128, 2048])
+def test_huffman_decode_emit_past_its_shared_stage(dev, chunk_bits):
+    """Codes of about one bit: at chunks of 2048 bits a CTA's symbols
+    overflow the emit's shared stage (each thread stores its own), at 128
+    (16 Kbit a CTA) they fit."""
+    data = huffman.huffman_encode(one_bit_bytes(), "cpu")
+    args = on_dev(d1_args(data, tail=64), dev)
+    out, count = cuda_decode.huffman_decode(*args, chunk_bits=chunk_bits)
+    want, want_count = cuda_decode.huffman_decode_plain(*args)
+    n = int(want_count)
+    assert int(count) == n and torch.equal(out[:n], want[:n])
+
+
+@pytest.mark.parametrize("rounds", [0, 2, 8])
+@pytest.mark.parametrize("name", ["equal lengths", "port image",
+                                  "skewed bytes"])
+def test_huffman_decode_table_settles_what_the_rounds_leave(
+        dev, monkeypatch, name, rounds):
+    """D1 at chunks of 32 bits with 0 to 8 rounds: where they leave a
+    break the table of entry offsets settles it (3-bit codes, whose
+    chains never resynchronize, always); a break is left only where every
+    round changed a chunk."""
+    monkeypatch.setattr(cuda_decode, "CHAIN_ROUNDS", rounds)
+    args = on_dev(d1_args(STREAMS[name], tail=64), dev)
+    stats = chain_stats(dev)
+    out, count = cuda_decode.huffman_decode(*args, chunk_bits=32,
+                                            stats=stats)
+    want, want_count = cuda_decode.huffman_decode_plain(*args)
+    n = int(want_count)
+    assert int(count) == n and torch.equal(out[:n], want[:n])
+    st = named(stats)
+    assert st["rounds_changed"] <= rounds
+    assert not st["breaks_left"] or st["rounds_changed"] == rounds
+    if name == "equal lengths":
+        assert st["breaks_left"] == 1 and st["rounds_changed"] == rounds
+
+
+@pytest.mark.parametrize("kind,use_rle,chunk_bits", [
+    ("random", True, 32), ("random", False, 32), ("long", True, 64),
+    ("long", False, 32), ("corrupt", True, 32), ("random", True, 2048)])
+def test_walk_offsets_sweep_equal_plain(dev, kind, use_rle, chunk_bits):
+    """D2 on an image, RLE on and off, with stats (the sweep counts) and
+    without (it does not): equal to the plain walk; no round; the sweep
+    runs, and fixes a break, exactly where the check left one."""
+    data, n = record_stream(kind, 300, 11, use_rle, lead=5)
+    payload = torch.tensor(list(data) + [0xFF] * 256, dtype=torch.uint8,
+                           device=dev)
+    nbytes = torch.tensor([len(data)], dtype=torch.int64, device=dev)
+    want = cuda_decode.walk_offsets_plain(payload, nbytes, 5, n, use_rle, 4)
+    stats = chain_stats(dev)
+    for s in (stats, None):
+        got = cuda_decode.walk_offsets(payload, nbytes, 5, n, use_rle, 4,
+                                       chunk_bits, s)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    st = named(stats)
+    assert st["rounds_changed"] == 0 and st["jumps"] == 0
+    assert (st["sweep_breaks"] > 0) == (st["breaks_left"] == 1)
+    assert (st["scan_turns"] > 0) == (st["breaks_left"] == 1)
+    if chunk_bits == 32:
+        assert st["breaks_left"] == 1
+
+
+@pytest.mark.parametrize("gop", [1, 4, 5])
+def test_walk_video_sweep_takes_the_jumps(dev, gop):
+    """D2 over a video at gop 1 (no P-frame: the sweep only where the
+    check left a break), 4 and 5 (the sweep takes each jump it reaches),
+    chunks of 32 and 256 bits: equal to the plain walk, no round."""
+    data = small_video(dev, gop, 8, True, True)
+    plan, payload, nbytes = payload_of(dev, data)
+    n = plan["params"].frame_count
+    args = (payload, nbytes, plan["start"], n, plan["n_blocks"], gop,
+            plan["vbits"], True, 4)
+    want = cuda_decode.walk_video_plain(*args)
+    n_p = n - len(range(0, n, gop))
+    for chunk_bits in (32, 256):
+        stats = chain_stats(dev)
+        got = cuda_decode.walk_video(*args, chunk_bits, stats)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        st = named(stats)
+        assert st["rounds_changed"] == 0
+        if gop == 1:
+            assert st["jumps"] == 0
+            assert (st["sweep_breaks"] > 0) == (st["breaks_left"] == 1)
+        else:
+            assert 0 < st["jumps"] <= n_p
+
+
+def test_chain_stats_layout(dev):
+    """stats: the first n entries of CHAIN_STATS, however many are given;
+    entries past them stay as they were; two entries are the chunks and
+    those walked whole, as before the rounds."""
+    args = on_dev(d1_args(STREAMS["equal lengths"], tail=64), dev)
+    long = torch.full((len(cuda_decode.CHAIN_STATS) + 3,), -1,
+                      dtype=torch.int64, device=dev)
+    short = torch.full((2,), -1, dtype=torch.int64, device=dev)
+    cuda_decode.huffman_decode(*args, chunk_bits=32, stats=long)
+    cuda_decode.huffman_decode(*args, chunk_bits=32, stats=short)
+    k = len(cuda_decode.CHAIN_STATS)
+    assert long[k:].tolist() == [-1, -1, -1]
+    assert short.tolist() == long[:2].tolist()
+    assert long[0] == -(-(8 * len(STREAMS["equal lengths"]) - args[2])
+                        // 32)
+    assert (long[:k] >= 0).all()
+    with pytest.raises(ValueError):
+        cuda_decode.huffman_decode(*args, stats=short[:1])
+
+
+def test_decode_image_and_frames_make_no_host_wait(dev):
+    """decode_image and decode_frames launch D1's rounds and table and
+    leave the pixels on the card without waiting on it: the sync debug
+    mode raises at any wait, and an event wait raises too."""
+    data = imageencoder_tpu_torch.encode_image(
+        image(96, 128, 4), quant_from_numpy(np.array(JPEG4, np.uint32)),
+        use_huffman=True, device=dev)
+    video = small_video(dev, 4, 16, True, True)
+    want = (imageencoder_tpu_torch.decode_image(data, device=dev),
+            imageencoder_tpu_torch.decode_frames(video, device=dev))
+    torch.cuda.synchronize()
+
+    def no_wait(event):
+        raise AssertionError("an event wait in a decode")
+
+    real = torch.cuda.Event.synchronize
+    torch.cuda.Event.synchronize = no_wait
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (imageencoder_tpu_torch.decode_image(data, device=dev),
+               imageencoder_tpu_torch.decode_frames(video, device=dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.Event.synchronize = real
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("merange,mb", [(1, 2), (16, 6), (300, 10),

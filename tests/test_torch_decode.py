@@ -127,7 +127,25 @@ def huffman_streams():
         "padding symbols": padded,
         "skewed bytes": jax_huffman.huffman_encode(bytes(np.minimum(
             rng.geometric(0.05, 3000), 255).astype(np.uint8))),
+        "fifteen-bit codes": jax_huffman.huffman_encode(fifteen_bit_bytes()),
     }
+
+
+def one_bit_bytes(n: int = 300_000) -> bytes:
+    """n bytes of one symbol but for 1 in 64 random ones: its code is one
+    bit, so a CTA of 128 chunks of 2048 bits decodes past 24 KB."""
+    rng = np.random.default_rng(7)
+    data = np.full(n, 42, np.uint8)
+    some = rng.random(n) < 1 / 64
+    data[some] = rng.integers(0, 256, int(some.sum()))
+    return data.tobytes()
+
+
+def fifteen_bit_bytes() -> bytes:
+    """Symbol i 2**i times for i < 16, shuffled: codes of 1 to 15 bits,
+    the longest the dict allows."""
+    data = np.repeat(np.arange(16, dtype=np.uint8), 1 << np.arange(16))
+    return np.random.default_rng(6).permutation(data).tobytes()
 
 
 STREAMS = huffman_streams()

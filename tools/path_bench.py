@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""An encode path's device window, kernels and launches, on a GPU.
+"""An encode or decode path's device window, kernels and launches, on a
+GPU.
 
     python3 tools/path_bench.py [--path recon|raw|image|sharded_recon|
-                                        pair_recon] [--root DIR]
-                                [--samples N]
+                                        pair_recon|decode_image|
+                                        decode_video|decode_image_batch]
+                                [--root DIR] [--samples N]
 
 Imports the port (imageencoder_tpu_torch) from ``DIR`` (this checkout by
 default; a tree unpacked by ``git archive`` for another commit), with JAX
@@ -40,6 +42,22 @@ runs it in two gloo processes on the card, a (1, 2) mesh over the
 0's front and whole call, host clock with a barrier before each, and one
 whole call's device operations.
 
+``--path decode_image`` reads the decode of the 4096x912 Huffman stream
+(written on the card from the seeded image): the device window of
+models/image.py::decode_uploaded (D1, D2, D3 on the uploaded stream), D1's
+and D2's device time and launches a call by kind (walk, check, round,
+table, stitch, emit; each kind's row), and the whole decode_image until
+its pixels are ready.
+``--path decode_video`` reads the same of the 720p25 raw stream:
+models/video.py::decode_into (D1, D2 over the video, the vector read, D3,
+K7) and the whole decode_frames.  Both also print the ``stats`` that D1
+and D2 write (cuda_decode.CHAIN_STATS of the tree; a tree without it
+writes two: the chunks and those walked whole).
+``--path decode_image_batch`` reads models/batch.py::decode_image_batch
+of chip_smoke.py's 16 serving images (4096x912, Huffman on, written on
+the card): the whole call (each stream's parse, upload and D1-D3) is
+both the window and the call, and its device time by kernel group.
+
 Prints one JSON line.  To compare two commits, run it on each in one chip
 call, in the order parent, change, change, parent.
 """
@@ -55,6 +73,8 @@ import time
 sys.modules["jax"] = None
 sys.modules["imageencoder_tpu"] = None
 
+CHAIN_LAUNCHES = ("walk", "check", "round", "table", "table_top",
+                  "table_apply", "stitch", "emit")
 # A kernel's group: the first whose every part is in its name (pack_coeffs
 # and K2 share tile_sums_kernel and pack_known_kernel, their front ends
 # tell them apart).
@@ -64,7 +84,12 @@ GROUPS = (("K1", ("encode_locals_kernel",)),
           ("search", ("motion_search_kernel",)),
           ("pack_coeffs", ("pack_coeffs_kernel",)),
           ("pack_coeffs", ("CoeffsFront",)),
-          ("K2", ("LocalsFront",)))
+          ("K2", ("LocalsFront",)),
+          *(("D1", (f"huffman_{k}_kernel",)) for k in CHAIN_LAUNCHES),
+          *(("D2", (f"offset_{k}_kernel",)) for k in CHAIN_LAUNCHES),
+          ("D3", ("decode_blocks_kernel",)),
+          ("vector read", ("read_vectors_kernel",)),
+          ("K7", ("predict_kernel",)))
 PROFILED_CALLS = 10
 
 
@@ -166,13 +191,85 @@ def pair_recon(samples: int) -> dict:
                 samples=samples)
 
 
+def decode_path(path: str, quant, dev):
+    """(the device window's call, the whole call ending in a synchronize,
+    the size, {"stats": D1's and D2's stats}) for ``--path
+    decode_image|decode_video``."""
+    import torch
+
+    import chip_smoke as cs
+    import imageencoder_tpu_torch as port
+    from imageencoder_tpu_torch.models import video
+    from imageencoder_tpu_torch.models.image import (decode_uploaded,
+                                                     parse_stream, upload)
+    from imageencoder_tpu_torch.ops import cuda_decode
+
+    if path == "decode_image":
+        h, w = cs.SHAPES[0]
+        size = [w, h]
+        data = port.encode_image(cs.synthetic(h, w, 2), quant,
+                                 use_huffman=True, device="cuda")
+        plan = parse_stream(data)
+        views = upload(plan, dev)
+
+        def call():
+            return decode_uploaded(plan, views)
+
+        def whole():
+            port.decode_image(data, device=dev)
+            torch.cuda.synchronize()
+    else:
+        w, h, n = cs.VIDEO
+        size = [w, h, n]
+        data = port.encode_video(cs.yuv420(cs.video_frames(w, h, n, 0)), w,
+                                 h, quant, True, cs.GOP, cs.MERANGE,
+                                 use_huffman=True, ref_mode="raw",
+                                 device="cuda")
+        plan = video.plan_video(data)
+        views = upload(plan, dev)
+        y = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+
+        def call():
+            return video.decode_into(plan, views, y)
+
+        def whole():
+            video.decode_frames(data, device=dev)
+            torch.cuda.synchronize()
+    names = getattr(cuda_decode, "CHAIN_STATS", ("chunks", "walked_whole"))
+    stats = [torch.zeros(len(names), dtype=torch.int64, device=dev)
+             for _ in range(2)]
+    d1_chunks = cuda_decode.CHUNK_BITS_HUFFMAN
+    if path == "decode_video":  # as models/video.py passes it
+        d1_chunks = getattr(cuda_decode, "CHUNK_BITS_HUFFMAN_VIDEO",
+                            d1_chunks)
+    payload, count = cuda_decode.huffman_decode(
+        views["stream"], views["nbytes"], plan["dict_end"], views["table"],
+        plan["max_len"], plan["cap"], chunk_bits=d1_chunks, stats=stats[0])
+    if path == "decode_image":
+        cuda_decode.walk_offsets(payload, count, plan["start"],
+                                 plan["n_blocks"], plan["use_rle"], 4,
+                                 stats=stats[1])
+    else:
+        p = plan["params"]
+        cuda_decode.walk_video(payload, count, plan["start"], p.frame_count,
+                               plan["n_blocks"], p.gop, plan["vbits"],
+                               plan["use_rle"], 4, stats=stats[1])
+    extra = {"stats": {k: dict(zip(names, s.tolist()))
+                       for k, s in zip(("D1", "D2"), stats)},
+             "chain_rounds": getattr(cuda_decode, "CHAIN_ROUNDS", 0),
+             "chunk_bits": [d1_chunks, cuda_decode.CHUNK_BITS_WALK]}
+    return call, whole, size, extra
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve()
                                           .parent.parent))
     ap.add_argument("--samples", type=int, default=30)
     ap.add_argument("--path", choices=("recon", "raw", "image",
-                                       "sharded_recon", "pair_recon"),
+                                       "sharded_recon", "pair_recon",
+                                       "decode_image", "decode_video",
+                                       "decode_image_batch"),
                     default="recon")
     opts = ap.parse_args()
     root = pathlib.Path(opts.root).resolve()
@@ -223,6 +320,21 @@ def main() -> None:
 
         def whole():
             port.encode_image(img, quant, use_huffman=True, device=dev)
+    elif opts.path in ("decode_image", "decode_video"):
+        call, whole, size, extra = decode_path(opts.path, quant, dev)
+    elif opts.path == "decode_image_batch":
+        streams = [port.encode_image(torch.from_numpy(img).to(dev), quant,
+                                     use_huffman=True, device=dev)
+                   for img in cs.serving_batch()]
+        bq, bh, bw = cs.BATCHES[0]
+        size = [bq, bw, bh]
+
+        def call():
+            return port.decode_image_batch(streams, device=dev)
+
+        def whole():
+            call()
+            torch.cuda.synchronize()
     elif opts.path == "sharded_recon":
         from imageencoder_tpu_torch import parallel
         from imageencoder_tpu_torch.parallel import distributed
@@ -296,7 +408,8 @@ def main() -> None:
         t0 = time.perf_counter()
         whole()
         t.append((time.perf_counter() - t0) * 1e3)
-    extra = {}
+    if opts.path not in ("decode_image", "decode_video"):
+        extra = {}
     if opts.path == "sharded_recon":  # the whole call's device work too
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
