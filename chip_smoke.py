@@ -25,7 +25,8 @@ each of which raises on failure:
      pack_locals+hist (K2 with K3 folded in: the stream and its byte
      histogram), the Huffman dict kernel (csrc/huffman.cu: the codes, the
      dict and the totals from the histogram) and K4 pack_payload (the
-     Huffman payload under the dict's table), K2 pack_locals alone on the
+     Huffman payload under the dict's table, on K2's two launches, its
+     row their sum), K2 pack_locals alone on the
      same records; the dict kernel also on the histogram of a small noise
      image that takes the raw-copy fallback; encode_video at 1280x720, 25
      frames, gop 4, merange 16, Huffman on, with the raw reference for
@@ -63,9 +64,10 @@ each of which raises on failure:
      encode_image_batch of 16 seeded 4096x912 images (the last one noise)
      for K1 on the stacked images and the batched K2 (with and without
      the histograms), dict kernel and K4 pack_payload (a batch's stream
-     the grid's y), and of 4 128x256 images under quant all ones, whose
-     noise image takes the raw-copy fallback inside the batch, for the
-     batched dict and K4 again.  The packers' words are compared up to
+     the grid's y; K4 on K2's two launches, its row their sum), and of 4
+     128x256 images under quant all ones, whose noise image takes the
+     raw-copy fallback inside the batch, for the batched K2, dict and K4
+     again.  The packers' words are compared up to
      each stream's last word, which is all the kernels define.  K3 is
      also timed against torch.bincount over the same stream bytes, the
      one PyTorch call that computes its function;
@@ -285,7 +287,7 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                         "imageencoder_tpu_torch/csrc/pack.cu",
                         "imageencoder_tpu/ops/pallas_pack.py:55"),
     "K4 pack_payload": ("cuda_pack", "pack_payload", "pack_payload_plain",
-                        "pack_payload_kernel",
+                        ("tile_sums_kernel", "pack_known_kernel"),
                         "imageencoder_tpu_torch/csrc/pack.cu",
                         "imageencoder_tpu/ops/pallas_pack.py:55"),
     # On K2's two launches: the lengths K5 and the recon step
@@ -359,7 +361,8 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                     "imageencoder_tpu_torch/csrc/walk.cu",
                     "imageencoder_tpu/runtime/native/runtime.cpp:1472"),
     # Serving: the same kernels over a batch of streams, the stream the
-    # grid's y (K2's two launches, the dict a CTA a stream, K4 one launch).
+    # grid's y (K2's two launches, the dict a CTA a stream, K4 pack_payload
+    # on K2's two launches).
     "K2 pack_locals batch": ("cuda_pack", "pack_locals_batch",
                              "pack_locals_batch_plain",
                              ("tile_sums_kernel", "pack_known_kernel"),
@@ -376,7 +379,7 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                            "imageencoder_tpu/ops/huffman.py:194"),
     "K4 pack_payload batch": ("cuda_pack", "pack_payload_batch",
                               "pack_payload_batch_plain",
-                              "pack_payload_kernel",
+                              ("tile_sums_kernel", "pack_known_kernel"),
                               "imageencoder_tpu_torch/csrc/pack.cu",
                               "imageencoder_tpu/ops/pallas_pack.py:55"),
     # The sharded paths (parallel/sharding.py): K2 over a rank's segments,
@@ -398,7 +401,7 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                                "imageencoder_tpu/ops/pallas_kernels.py:37"),
     "K4 pack_payload window": ("cuda_pack", "pack_payload_window",
                                "pack_payload_batch_plain",
-                               "pack_payload_kernel",
+                               ("tile_sums_kernel", "pack_known_kernel"),
                                "imageencoder_tpu_torch/csrc/pack.cu",
                                "imageencoder_tpu/ops/pallas_pack.py:55"),
     # The sharded video (parallel/video_sharding.py): the search with the
@@ -997,8 +1000,10 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     # reads the lengths, the register-file words its records fill and,
     # for a video, the vectors.  K4
     # pack_records reads a record's values only where the record is not
-    # empty; pack_payload reads the nbytes stream bytes and the dict's
-    # table; pack_coeffs 4 bytes a coefficient and the vectors.  A packer
+    # empty; pack_payload the nbytes stream bytes once (its design reads
+    # them in both launches: that second read is its loss, not its bound)
+    # and the dict's table; pack_coeffs 4 bytes a coefficient
+    # and the vectors.  A packer
     # with the histogram also writes its 256 bins.  The dict kernel reads
     # the histogram and the total and writes the table.
     hist_bytes = 1024 if name.endswith("+hist") else 0
@@ -1010,6 +1015,7 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
         nbytes = (tensor_bytes(args[1:2]) + 4 * args[0].shape[1] * live
                   + (int(got[1]) + 7) // 8)
     elif name == "K4 pack_payload":
+        # The bytes it codes, once; the table; the codes.
         from imageencoder_tpu_torch.ops.dict_table import fields
 
         nbytes = (fields(args[1])["nbytes"] + tensor_bytes(args[1:2])
@@ -1032,11 +1038,11 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
         nbytes = (1024 + 8) * args[0].shape[0] + tensor_bytes(got)
     elif name in ("K4 pack_payload batch", "K4 pack_payload window"):
         # The bytes each row codes ([first_byte, nbytes) of its table),
-        # the tables, the codes out.
+        # once; the tables; the codes out.
         from imageencoder_tpu_torch.ops.dict_table import fields
 
         nbytes = (sum(max(f["nbytes"] - f["first_byte"], 0)
-                      for f in map(fields, args[1]))
+                          for f in map(fields, args[1]))
                   + tensor_bytes(args[1:2])
                   + sum((int(t) + 7) // 8 for t in got[-1]))
     elif name == "K2 pack_segments":
@@ -1800,6 +1806,11 @@ def sharded_video_phase(port, quant, mesh, wrappers, rows: dict) -> list:
             rows["K4 pack_records segments"] = check_kernel(
                 "K4 pack_records segments",
                 *calls["K4 pack_records segments"][0])
+        # The batch packers at this path's shapes: the block segments and
+        # the spliced stream's payload.
+        for name in ("K2 pack_segments", "K4 pack_payload batch"):
+            keep_row(rows, name, f"sharded_video_{mode}",
+                     check_kernel(name, *calls[name][0]))
         del calls
         for huff in (True, False):
             streams[mode, huff] = got if huff else sharded(mode, False)
@@ -1925,6 +1936,9 @@ def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
                 # K3 here counts each spliced stream whole.
                 for name in ("K2 pack_segments", "K3 byte_histogram_rows"):
                     rows[name] = check_kernel(name, *calls[name][0])
+                keep_row(rows, "K4 pack_payload batch", "sharded_stage1",
+                         check_kernel("K4 pack_payload batch",
+                                      *calls["K4 pack_payload batch"][0]))
             del calls
             if got != huff_streams:
                 bad = [k for k, (a, b) in enumerate(zip(got, huff_streams))
@@ -2437,7 +2451,8 @@ def main() -> None:
     kinds = [bool(st[0] & 0x80) for st in fallback_batch]
     if kinds != [True] * (fb - 1) + [False]:
         raise AssertionError(f"the small batch's Huffman flags are {kinds}")
-    for name in ("Huffman dict batch", "K4 pack_payload batch"):
+    for name in ("K2 pack_locals+hist batch", "Huffman dict batch",
+                 "K4 pack_payload batch"):
         beside(rows[name], "fallback_batch", check_kernel(name,
                                                           *calls[name][0]))
     if fallback_batch != [port.encode_image(im, q_ones, use_huffman=True,

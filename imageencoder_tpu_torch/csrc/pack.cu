@@ -36,21 +36,27 @@
 //                 byte's code looked up in shared memory;
 //   pack_coeffs:  a recon video's motion-vector and block records, read
 //                 from the coefficient tensor and the vectors.
-// pack_records and pack_payload run on one single-pass packer
-// (pack_tiles): a record's length costs as much to find as its fields
-// (its 16 bytes' codes, its widths), so each tile finds them once and
-// looks back for its start.  pack_coeffs runs on K2's two launches
-// instead (CoeffsFront below): the transform that wrote the coefficients
+// pack_records runs on a single-pass packer (pack_tiles): a record's
+// length costs as much to find as its fields (its widths), so each tile
+// finds them once and looks back for its start.  pack_coeffs and
+// pack_payload run on K2's two launches instead.  pack_coeffs
+// (CoeffsFront below): the transform that wrote the coefficients
 // (transform.cu: K5 and the recon step) also wrote each block's record
 // length, 4 bytes a block, and a vector record's length is arithmetic, so
 // launch 1 sums lengths alone and launch 2 emits with every tile's start
-// known, with K3 folded in as in K2.
-// Bound: HBM bytes.  pack_payload reads 1 byte per coded byte and the
-// payload, pack_coeffs 4 bytes per coefficient and the lengths; both write
-// the stream.  pack_payload reads its codes, the dict, its start bit and
-// its byte count from the dict kernel's table (huffman.cu,
-// dict_table.cuh), so its tiles are bounded by the bytes coded, not by the
-// worst-case word buffer.
+// known, with K3 folded in as in K2.  pack_payload (PayloadFront), one
+// stream or a batch of streams or of byte windows: launch 1 reads the
+// bytes once more to sum their codes' lengths, which costs less than the
+// single pass's look-back, its wait for the last tile and its merge (over
+// a batch each stream's CTAs waited on their own, a share of a persistent
+// grid); its grid is not persistent, and a CTA past its stream's bytes
+// leaves, so the card's CTAs go to whichever stream has work.
+// Bound: HBM bytes.  pack_payload reads 1 byte per coded byte twice (both
+// launches read the bytes) and writes the payload, pack_coeffs 4 bytes
+// per coefficient and the lengths, and writes the stream.  pack_payload
+// reads its codes, the dict, its start bit and its byte count from the
+// dict kernel's table (huffman.cu, dict_table.cuh), so its tiles are
+// bounded by the bytes coded, not by the worst-case word buffer.
 // The single-pass design keeps everything else on chip: the scan is one pass
 // (decoupled look-back over tiles taken in order); a tile's words are
 // composed in shared memory and leave by 16-byte stores; the words tiles
@@ -59,9 +65,9 @@
 //
 // A batch of image streams (the serving path, models/batch.py) takes K2
 // and pack_payload once each: blockIdx.y is the stream, and each stream has
-// its own register files, output words, sums or look-back state, total and
-// histogram at a fixed stride, so no tile composes a word from two streams
-// and every stream ends where its own records do.
+// its own register files or bytes, output words, sums, total and histogram
+// at a fixed stride, so no tile composes a word from two streams and every
+// stream ends where its own records do.
 //
 // The TPU kernel's merge tree, its bit-reversal pre-permute, the capped
 // level schedule and the row splice are workarounds for a machine without
@@ -77,7 +83,7 @@
 
 namespace {
 
-// ---- K4: one single-pass packer (pack_records, pack_payload) ----
+// ---- K4: the single-pass packer (pack_records) ----
 
 constexpr int kTile = 256;  // records a tile, threads a CTA
 constexpr unsigned long long kFlagA = 1ull << 62;  // a tile's aggregate
@@ -108,12 +114,15 @@ __device__ __forceinline__ void st_release(unsigned long long* p,
 }
 
 // Counts the bytes of word w, the stream's bytes b0 .. b0 + 3, that lie
-// before byte `end`, into the shared bins.
+// before byte `end`, into the shared bins.  The count, not the flush, is
+// the histogram's cost, and it is bound by instructions: the word's place
+// against the end is taken once, not a byte at a time.
 __device__ __forceinline__ void count_bytes(int* bins, uint32_t w,
                                             long long b0, long long end) {
+    const int live = (int)max(min(end - b0, 4ll), 0ll);
 #pragma unroll
     for (int j = 0; j < 4; j++)
-        if (b0 + j < end) atomicAdd(bins + ((w >> (24 - 8 * j)) & 0xFFu), 1);
+        if (j < live) atomicAdd(bins + ((w >> (24 - 8 * j)) & 0xFFu), 1);
 }
 
 // Zeroes kWarps sets of 256 bins (a warp's own), or adds them up and into
@@ -346,9 +355,8 @@ __device__ __forceinline__ void pack_tiles(const Front& fe,
         }
     }
 
-    // The grid is sized by the most records there can be (pack_payload's by
-    // its worst-case buffer): a CTA past the words the final merge writes
-    // has nothing to wait for, and leaves instead of polling the counter.
+    // A CTA past the words the final merge writes has nothing to wait for,
+    // and leaves instead of polling the counter.
     if (blockIdx.x != 0 && (long long)blockIdx.x * kTile
                                >= max(2 * a.n_tiles, a.start_bit >> 5))
         return;
@@ -423,14 +431,31 @@ struct RecordsFront {
     }
 };
 
-// pack_payload: 16 stream bytes a record, one 16-byte load, taken in the
-// order w>>24, >>16, >>8, &0xFF, each replaced by its code from a table in
-// shared memory ((length << 16) | code); bytes before first or at or past
-// nbytes have width 0.
+// pack_payload on K2's two launches (pack_known_kernel below): 16 stream
+// bytes a record, one 16-byte load, taken in the order w>>24, >>16, >>8,
+// &0xFF, each replaced by its code from a table in shared memory ((length
+// << 16) | code); bytes before first or at or past nbytes have width 0.
+// Over a batch of streams of n_in words each, at a stride of n_in words
+// and of one table a stream: to_stream reads the stream's start bit (the
+// dict's bits), its dict words, its first byte and its byte count from its
+// table, and so its records, which bound its tiles (a CTA past them
+// leaves); enter loads its codes into shared memory.  A record's length
+// costs its 16 bytes' codes, so launch 1 reads the bytes once to sum them
+// and launch 2 again to emit them.
 struct PayloadFront {
-    static constexpr int kItems = 2;
+    // Records a thread: 4 over a batch (tiles of 16 KB of bytes, half the
+    // CTAs, and still enough of them to fill the card), 2 for one stream
+    // (whose tiles would otherwise be too few).
+    static constexpr int kItemsOne = 2;
+    static constexpr int kItemsBatch = 4;
+    static constexpr int lw = 8;  // a record is at most 16 codes of 16 bits
+    static constexpr bool kAllAtomic = true;  // emitted a code at a time
+    static constexpr bool kStrided = true;    // see tile_sums_kernel
     struct State {
         uint32_t w[4];
+        long long r;
+    };
+    struct Cursor {
         long long r;
     };
     const uint32_t* words;
@@ -438,6 +463,7 @@ struct PayloadFront {
     long long nbytes;
     const uint32_t* tab;
     long long first;
+    const int32_t* table;  // the known launches' tables, one a stream
 
     __device__ __forceinline__ void load(long long r, uint32_t* w) const {
         const long long b = 4 * r;
@@ -450,31 +476,132 @@ struct PayloadFront {
                 w[k] = b + k < n_in ? words[b + k] : 0u;
         }
     }
-    // The table entry of byte k of the record, 0 outside [first, nbytes).
+    // The table entry of byte k of the record.
+    __device__ __forceinline__ uint32_t code(const uint32_t* w, int k) const {
+        return tab[(w[k >> 2] >> (24 - 8 * (k & 3))) & 0xFFu];
+    }
+    // The same, 0 outside [first, nbytes).
     __device__ __forceinline__ uint32_t entry(const uint32_t* w, long long r,
                                               int k) const {
         const long long b = 16 * r + k;
-        return b >= first && b < nbytes
-            ? tab[(w[k >> 2] >> (24 - 8 * (k & 3))) & 0xFFu] : 0u;
+        return b >= first && b < nbytes ? code(w, k) : 0u;
+    }
+    // Whether all 16 bytes of record r lie in [first, nbytes): all but a
+    // window's first and last record, which alone take a check a byte.
+    __device__ __forceinline__ bool whole(long long r) const {
+        return 16 * r >= first && 16 * r + 16 <= nbytes;
     }
 
-    __device__ __forceinline__ long long length(long long r,
-                                                State& st) const {
-        st.r = r;
-        load(r, st.w);
-        long long len = 0;
+    // Record r's length from its loaded words.
+    __device__ __forceinline__ int length_of(const uint32_t* w,
+                                             long long r) const {
+        int len = 0;
+        if (whole(r)) {
 #pragma unroll
-        for (int k = 0; k < 16; k++) len += entry(st.w, r, k) >> 16;
+            for (int k = 0; k < 16; k++) len += (int)(code(w, k) >> 16);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 16; k++) len += (int)(entry(w, r, k) >> 16);
+        }
         return len;
     }
 
-    template <class E>
-    __device__ __forceinline__ void emit(const State& st, E& em) const {
+    // Stream k of a batch: its words, and from its table its start bit,
+    // dict words, byte window and records.
+    template <class Out>
+    __device__ __forceinline__ void to_stream(long long k, Out& a) {
+        words += k * n_in;
+        table += k * ie::kTableWords;
+        const long long* meta =
+            reinterpret_cast<const long long*>(table + ie::kTableMeta);
+        nbytes = min(meta[ie::kMetaNbytes], 4 * n_in);
+        first = max(meta[ie::kMetaFirstByte], 0ll);
+        a.start_bit = meta[ie::kMetaDictBits];
+        a.prefix = reinterpret_cast<const uint32_t*>(table + ie::kTableDict);
+        a.prefix_words = ie::kDictWords;
+        a.n = max((nbytes + 15) / 16, 0ll);
+    }
+
+    // The codes into shared memory, once the CTA's records are asked for:
+    // one entry a byte value, (length << 16) | code.
+    __device__ __forceinline__ void enter() {
+        __shared__ uint32_t codes[256];
+        for (int k = threadIdx.x; k < 256; k += blockDim.x)
+            codes[k] =
+                ((uint32_t)min(max(table[ie::kTableCodeL + k], 0), 0xFFFF)
+                 << 16)
+                | ((uint32_t)table[ie::kTableCodeW + k] & 0xFFFFu);
+        tab = codes;
+        __syncthreads();
+    }
+
+    __device__ __forceinline__ Cursor at(long long i) const {
+        return Cursor{i};
+    }
+
+    // Launch 2: the record's words are asked for; its length waits for
+    // the codes (settle, after enter).
+    template <bool kWords>
+    __device__ __forceinline__ int next(Cursor& c, State& st) const {
+        st.r = c.r++;
+        load(st.r, st.w);
+        return 0;
+    }
+    __device__ __forceinline__ int settle(const State& st, int) const {
+        return length_of(st.w, st.r);
+    }
+
+    // Launch 1: the lengths of a thread's kCount records, every step-th
+    // from `first`, all loads in flight at once; the codes come into
+    // shared memory meanwhile.
+    template <int kCount>
+    __device__ __forceinline__ void strided_lengths(long long first,
+                                                    long long step,
+                                                    long long n, int* len) {
+        uint32_t w[kCount][4];
 #pragma unroll
-        for (int k = 0; k < 16; k++) {
-            const uint32_t e = entry(st.w, st.r, k);
-            em.put((int)(e >> 16), e & 0xFFFFu);
+        for (int j = 0; j < kCount; j++)
+            if (first + step * j < n) load(first + step * j, w[j]);
+        enter();
+#pragma unroll
+        for (int j = 0; j < kCount; j++) {
+            const long long r = first + step * j;
+            len[j] = r < n ? length_of(w[j], r) : 0;
         }
+    }
+
+    __device__ __forceinline__ bool refused(int len) const {
+        return len < 0 || len > 32 * lw;
+    }
+
+    __device__ __forceinline__ int reach_length(long long i,
+                                                State& st) const {
+        st.r = i;
+        load(i, st.w);
+        const int len = length_of(st.w, i);
+        return refused(len) ? -1 : len;
+    }
+    __device__ __forceinline__ void reach_fill(long long, State&) const {}
+    __device__ __forceinline__ long long skip_empty(long long i) const {
+        return i;
+    }
+
+    // Two codes a put (at most 32 bits): half the emitter's steps.
+    template <class Sink>
+    __device__ __forceinline__ void emit_words(const State& st, int lead,
+                                               const Sink& sink) const {
+        ie::BitEmitter<Sink> em(sink, lead);
+        const bool all = whole(st.r);
+#pragma unroll
+        for (int k = 0; k < 16; k += 2) {
+            const uint32_t e0 = all ? code(st.w, k) : entry(st.w, st.r, k);
+            const uint32_t e1 =
+                all ? code(st.w, k + 1) : entry(st.w, st.r, k + 1);
+            const int n1 = (int)(e1 >> 16);
+            em.put((int)(e0 >> 16) + n1,
+                   ((e0 & 0xFFFFu) << n1) | (e1 & 0xFFFFu & ((1u << n1) - 1u)));
+        }
+        em.finish();
     }
 };
 
@@ -503,46 +630,6 @@ __global__ void __launch_bounds__(kTile) pack_records_segments_kernel(
     a.start_bit = starts[b];
     const RecordsFront fe{vals, nbits, f};
     pack_tiles<RecordsFront::kItems>(fe, a);
-}
-
-// The codes, the dict words, the start bit (the dict's bits) and the bytes
-// to code come from the dict kernel's table; every CTA sizes the pack from
-// the byte count alike, and one with no tile to take leaves at once.  A
-// table may also name the first byte to code (0 from the dict kernel): the
-// sharded encode's stage 2 codes the window of inner bytes a segment owns,
-// at the segment's final output bit, under a table whose dict words are 0
-// (parallel/sharding.py).
-// blockIdx.y is the stream of a batch: its words, table, output and total,
-// and its scratch and edges at the given strides.
-__global__ void __launch_bounds__(kTile) pack_payload_kernel(
-        const uint32_t* __restrict__ words, long long n_in,
-        const int32_t* __restrict__ table, long long scratch_stride,
-        long long edges_stride, PackOut a) {
-    constexpr long long kRecords = (long long)kTile * PayloadFront::kItems;
-    const long long b = blockIdx.y;
-    words += b * n_in;
-    table += b * ie::kTableWords;
-    a.out += b * a.n_words;
-    a.total += b;
-    a.scratch += b * scratch_stride;
-    a.edges += b * edges_stride;
-    __shared__ uint32_t tab[256];
-    for (int k = threadIdx.x; k < 256; k += kTile)
-        tab[k] = ((uint32_t)min(max(table[ie::kTableCodeL + k], 0), 0xFFFF)
-                  << 16)
-                 | ((uint32_t)table[ie::kTableCodeW + k] & 0xFFFFu);
-    const long long* meta =
-        reinterpret_cast<const long long*>(table + ie::kTableMeta);
-    const long long nbytes = min(meta[ie::kMetaNbytes], 4 * n_in);
-    const long long first = max(meta[ie::kMetaFirstByte], 0ll);
-    a.start_bit = meta[ie::kMetaDictBits];
-    a.prefix = reinterpret_cast<const uint32_t*>(table + ie::kTableDict);
-    a.prefix_words = ie::kDictWords;
-    a.n = (nbytes + 15) / 16;
-    a.n_tiles = (a.n + kRecords - 1) / kRecords;
-    __syncthreads();
-    const PayloadFront fe{words, n_in, nbytes, tab, first};
-    pack_tiles<PayloadFront::kItems>(fe, a);
 }
 
 // Fills in the launch-side fields of PackOut for tiles of kTile * items
@@ -621,6 +708,7 @@ PackOut pack_out(long long n, long long start_bit, const void* prefix,
 template <bool kVec>
 struct LocalsFront {
     static constexpr bool kAllAtomic = false;  // see OwnedSink
+    static constexpr bool kStrided = false;    // see tile_sums_kernel
     struct State {
         const uint32_t* row;  // a block record's register file, or null
         uint32_t w0, w1;      // the record's first two words
@@ -645,10 +733,15 @@ struct LocalsFront {
         c.pf = c.fi - g - 1u;
     }
 
-    // Stream k of a batch of block records (no vectors), n records each.
-    __device__ __forceinline__ void to_stream(long long k, long long n) {
-        local += k * n * lw;
-        lens += k * n;
+    // Stream k of a batch of block records (no vectors), a.n records each.
+    template <class Out>
+    __device__ __forceinline__ void to_stream(long long k, const Out& a) {
+        local += k * a.n * lw;
+        lens += k * a.n;
+    }
+    __device__ __forceinline__ void enter() const {}
+    __device__ __forceinline__ int settle(const State&, int len) const {
+        return len;
     }
 
     __device__ __forceinline__ Cursor at(long long i) const {
@@ -771,6 +864,7 @@ struct CoeffsFront {
     static constexpr int K = B * B;
     static constexpr bool kLengthsFirst = true;
     static constexpr bool kAllAtomic = true;  // see OwnedSink
+    static constexpr bool kStrided = false;   // see tile_sums_kernel
     struct State {
         int kind;  // 0 empty, 1 vectors (x, y in q[0], q[1]), 2 block,
                    // 3 a block whose length alone was read
@@ -788,7 +882,12 @@ struct CoeffsFront {
     unsigned blocks_x, n_macro, n_micro;
     int gop, nbits, use_rle, lw;
 
-    __device__ __forceinline__ void to_stream(long long, long long) {}
+    template <class Out>
+    __device__ __forceinline__ void to_stream(long long, const Out&) const {}
+    __device__ __forceinline__ void enter() const {}
+    __device__ __forceinline__ int settle(const State&, int len) const {
+        return len;
+    }
 
     __device__ __forceinline__ void enter_frame(Cursor& c) const {
         const unsigned g = c.fi / (unsigned)gop;
@@ -945,9 +1044,11 @@ __device__ __forceinline__ void emit_owned(
 // where one holds a refused record; total: i64 [1]; hist: i32 [256], the
 // stream's byte histogram, or null.  A batch of n_streams streams has
 // these for each stream, out and sums at strides of n_words and
-// sums_stride; n and n_tiles are a stream's; starts, where not null, i64
-// [n_streams] on the device, each stream's own start bit in place of
-// start_bit.
+// sums_stride; n_tiles is a stream's tiles at most, which sizes the grid
+// and its sums, n a stream's records (the front end's to_stream may set a
+// stream's own n, start bit and prefix: pack_payload's from its table);
+// starts, where not null, i64 [n_streams] on the device, each stream's own
+// start bit in place of start_bit.
 struct KnownOut {
     long long n;  // records
     long long n_tiles;
@@ -975,52 +1076,91 @@ struct KnownOut {
         total += k;
         if (hist) hist += 256 * k;
     }
+
+    // The stream's own tiles of kTile * items records (at least one, which
+    // writes the total): CTAs past them leave.
+    __device__ __forceinline__ long long tiles(int items) const {
+        const long long records = (long long)kTile * items;
+        return max(1ll, (n + records - 1) / records);
+    }
 };
 
 constexpr int kWarps = kTile / 32;
 
-// Launch 1: the bits of each tile of kTile * ITEMS records, a warp a
-// tile and kWarps tiles (a group) a CTA: tile t's into sums[t], group g's
-// into sums[n_tiles + g]; -1 for one that holds a refused record.  CTA 0
-// also zeroes the histogram that launch 2 counts into.  grid:
-// (ceil(n_tiles / kWarps), n_streams).
+// Launch 1: the bits of each tile of kTile * ITEMS records into sums[t],
+// -1 for one that holds a refused record.  A warp a tile and kWarps tiles
+// (a group) a CTA, each lane consecutive records (one cursor), group g's
+// bits into sums[n_tiles + g]; or, with Front::kStrided, a CTA a tile, its
+// threads' records every kTile-th (pack_payload: 16-byte loads side by
+// side, the codes coming into shared memory meanwhile; a sum needs no
+// order) and no group sums: a group of its tiles (64 KB of bytes) was too
+// much work for one CTA, and too few CTAs left the SMs unevenly loaded.
+// CTA 0 also zeroes the histogram that launch 2 counts into; a CTA past
+// its stream's tiles leaves.  grid: (ceil(n_tiles / kWarps), n_streams),
+// with kStrided (n_tiles, n_streams).
 template <int ITEMS, class Front>
 __global__ void __launch_bounds__(kTile) tile_sums_kernel(Front fe,
                                                           KnownOut a) {
     constexpr int kPerLane = kWarps * ITEMS;  // kTile * ITEMS / 32
     __shared__ long long warp_sum[kWarps];
-    fe.to_stream(blockIdx.y, a.n);
     a.to_stream(blockIdx.y);
+    fe.to_stream(blockIdx.y, a);
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
-    const long long t = (long long)blockIdx.x * kWarps + warp;
-    if (a.hist && blockIdx.x == 0) a.hist[threadIdx.x] = 0;  // kTile == 256
-    const long long first = (t * 32 + lane) * kPerLane;
-    typename Front::Cursor c = fe.at(first);
-    int len[kPerLane];
+    if constexpr (Front::kStrided) {
+        const long long t = blockIdx.x;
+        if (t >= a.tiles(ITEMS)) return;
+        if (a.hist && t == 0) a.hist[threadIdx.x] = 0;  // kTile == 256
+        int len[ITEMS];
+        fe.template strided_lengths<ITEMS>(t * kTile * ITEMS + threadIdx.x,
+                                           kTile, a.n, len);
+        int sum = 0;
+        int bad = 0;
 #pragma unroll
-    for (int r = 0; r < kPerLane; r++) {
-        typename Front::State st;
-        len[r] = first + r < a.n ? fe.template next<false>(c, st) : 0;
-    }
-    int sum = 0;  // a tile's bits fit: kTile * ITEMS records of <= 32 * lw
-    int bad = 0;
+        for (int r = 0; r < ITEMS; r++)
+            if (fe.refused(len[r])) bad = 1; else sum += len[r];
+        sum = __reduce_add_sync(0xffffffffu, sum);
+        bad = __any_sync(0xffffffffu, bad);
+        if (lane == 0) warp_sum[warp] = bad ? -1 : sum;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            long long tile = 0;
+            for (int k = 0; k < kWarps; k++)
+                tile = (tile < 0 || warp_sum[k] < 0) ? -1 : tile + warp_sum[k];
+            a.sums[t] = tile;
+        }
+    } else {
+        if ((long long)blockIdx.x * kWarps >= a.tiles(ITEMS)) return;
+        const long long t = (long long)blockIdx.x * kWarps + warp;
+        if (a.hist && blockIdx.x == 0) a.hist[threadIdx.x] = 0;
+        const long long first = (t * 32 + lane) * kPerLane;
+        typename Front::Cursor c = fe.at(first);
+        int len[kPerLane];
 #pragma unroll
-    for (int r = 0; r < kPerLane; r++)
-        if (fe.refused(len[r])) bad = 1; else sum += len[r];
-    sum = __reduce_add_sync(0xffffffffu, sum);
-    bad = __any_sync(0xffffffffu, bad);
-    const long long tile = bad ? -1 : sum;
-    if (lane == 0) {
-        if (t < a.n_tiles) a.sums[t] = tile;
-        warp_sum[warp] = tile;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        long long group = 0;
-        for (int k = 0; k < kWarps; k++)
-            group = (group < 0 || warp_sum[k] < 0) ? -1 : group + warp_sum[k];
-        a.sums[a.n_tiles + blockIdx.x] = group;
+        for (int r = 0; r < kPerLane; r++) {
+            typename Front::State st;
+            len[r] = first + r < a.n ? fe.template next<false>(c, st) : 0;
+        }
+        int sum = 0;  // a tile's bits fit: kTile * ITEMS records of <= 32 lw
+        int bad = 0;
+#pragma unroll
+        for (int r = 0; r < kPerLane; r++)
+            if (fe.refused(len[r])) bad = 1; else sum += len[r];
+        sum = __reduce_add_sync(0xffffffffu, sum);
+        bad = __any_sync(0xffffffffu, bad);
+        const long long tile = bad ? -1 : sum;
+        if (lane == 0) {
+            if (t < a.n_tiles) a.sums[t] = tile;
+            warp_sum[warp] = tile;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            long long group = 0;
+            for (int k = 0; k < kWarps; k++)
+                group = (group < 0 || warp_sum[k] < 0) ? -1
+                                                       : group + warp_sum[k];
+            a.sums[a.n_tiles + blockIdx.x] = group;
+        }
     }
 }
 
@@ -1032,12 +1172,14 @@ __global__ void __launch_bounds__(kTile) tile_sums_kernel(Front fe,
 // records that follow, read by warp 0; then the words leave, the prefix
 // OR'd in.  A tile with a refused record writes nothing and the last tile
 // reports the total as -1.  Everything a thread reads up front (its
-// records' lengths and first two words, the sums) is asked for before the
-// one barrier that the starts need, so a CTA waits for memory once; a
-// record's further words are read as it is emitted.  With kHist the bytes
+// records' lengths and first two words, the sums; pack_payload's records
+// and codes, the lengths settled from them after the codes' barrier) is
+// asked for before the one barrier that the starts need, so a CTA waits
+// for memory once; a record's further words are read as it is emitted.  With kHist the bytes
 // of every word it stores are counted (the stream's end, where it lies in
 // the tile's last word, is where warp 0's reach past the tile runs out of
-// records) and added to a.hist.  grid: (n_tiles, n_streams).
+// records) and added to a.hist.  A CTA past its stream's tiles leaves.
+// grid: (n_tiles, n_streams).
 template <int ITEMS, class Front, bool kHist>
 __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
                                                            KnownOut a) {
@@ -1053,10 +1195,12 @@ __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
     const int lane = tid & 31;
     const int warp = tid >> 5;
     const long long t = blockIdx.x;
+    a.to_stream(blockIdx.y);
+    fe.to_stream(blockIdx.y, a);
+    const long long tiles = a.tiles(ITEMS);
+    if (t >= tiles) return;
     int* my_bins = bins + (kHist ? warp * 256 : 0);
     if (kHist) zero_bins<kWarps>(bins);
-    fe.to_stream(blockIdx.y, a.n);
-    a.to_stream(blockIdx.y);
 
     const long long first = t * kRecords + (long long)tid * ITEMS;
     typename Front::Cursor c = fe.at(first);
@@ -1067,16 +1211,22 @@ __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
         lens[r] = first + r < a.n ? fe.template next<true>(c, rec[r]) : 0;
 
     // The bits before this tile: the groups before its own, then the
-    // tiles before it in its group.
+    // tiles before it in its group (with Front::kStrided every tile before
+    // it: launch 1 wrote no group sums).
     const long long mine = a.sums[t];
-    const long long group = t / kWarps;
+    const long long group = Front::kStrided ? 0 : t / kWarps;
+    const long long ahead = Front::kStrided ? t : group + t % kWarps;
     long long before = 0;
     int bad = 0;
-    for (long long u = tid; u < group + t % kWarps; u += kTile) {
+    for (long long u = tid; u < ahead; u += kTile) {
         const long long v =
             a.sums[u < group ? a.n_tiles + u : group * kWarps + u - group];
         if (v < 0) bad = 1; else before += v;
     }
+    fe.enter();
+#pragma unroll
+    for (int r = 0; r < ITEMS; r++)
+        if (first + r < a.n) lens[r] = fe.settle(rec[r], lens[r]);
     int sum = 0;
 #pragma unroll
     for (int r = 0; r < ITEMS; r++) {
@@ -1113,7 +1263,7 @@ __global__ void __launch_bounds__(kTile) pack_known_kernel(Front fe,
         if (k < warp) excl += warp_bits[k];
     }
     const long long s1 = s0 + max(mine, 0ll);
-    if (t == a.n_tiles - 1 && tid == 0)
+    if (t == tiles - 1 && tid == 0)
         *a.total = (bad || mine < 0) ? -1 : s1;
     const long long w0 = t == 0 ? a.start_bit >> 5 : (s0 + 31) >> 5;
     const long long w1 = (s1 + 31) >> 5;
@@ -1262,10 +1412,11 @@ int launch_known(const Front& fe, KnownOut a, cudaStream_t s) {
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    const long long groups = (a.n_tiles + kWarps - 1) / kWarps;
+    const long long sums_grid = Front::kStrided
+        ? a.n_tiles : (a.n_tiles + kWarps - 1) / kWarps;  // tiles or groups
     const unsigned streams = (unsigned)a.n_streams;
-    tile_sums_kernel<ITEMS><<<dim3((unsigned)groups, streams), kTile, 0, s>>>(
-        fe, a);
+    tile_sums_kernel<ITEMS><<<dim3((unsigned)sums_grid, streams), kTile, 0,
+                              s>>>(fe, a);
     kernel<<<dim3((unsigned)a.n_tiles, streams), kTile, smem, s>>>(fe, a);
     return (int)cudaGetLastError();
 }
@@ -1367,8 +1518,7 @@ extern "C" int ie_pack_locals_batch(const void* local, const void* lens,
                                  : launch_known<1>(blocks, a, s);
 }
 
-// The K4 entry points share their tail (pack_payload takes its start_bit
-// and prefix from its table): start_bit; prefix, u32
+// K4 pack_records' entry points share their tail: start_bit; prefix, u32
 // [prefix_words] OR'd into the first words (the header or dict; may be
 // null); out, u32 [n_words], 16-byte aligned, not zeroed: the stream's
 // words are written up to its last, the rest is left as it was; scratch,
@@ -1415,44 +1565,49 @@ extern "C" int ie_pack_records_segments(const void* vals, const void* nbits,
         edges_stride);
 }
 
-// words: u32 [n_in], 16-byte aligned, the inner stream; table: i32
-// [ie_dict_table_words()], the dict kernel's output (dict_table.cuh): the
-// codes and lengths (<= 16) of the bytes, the dict words OR'd in before the
-// start bit (the dict's bits), and the number of the stream's bytes to
-// code.  Records are 16 bytes: scratch and edges are sized for
-// ceil(n_in / 4) of them, the pack takes the byte count's.  No start_bit or
-// prefix argument: both come from the table.
-extern "C" int ie_pack_payload(const void* words, long long n_in,
-                               const void* table, void* out,
-                               long long n_words, void* scratch, void* edges,
-                               void* total, void* stream) {
-    const PackOut a = pack_out((n_in + 3) / 4, 0, nullptr, 0, out, n_words,
-                               scratch, edges, total);
-    return launch_pack(pack_payload_kernel, PayloadFront::kItems, a,
-                       16ll * 16, (cudaStream_t)stream,
-                       (const uint32_t*)words, n_in, (const int32_t*)table,
-                       0ll, 0ll);
+// K4 pack_payload, K2's two launches (PayloadFront), over
+// one stream or a batch of n_streams: words u32 [n_streams, n_in], 16-byte
+// aligned, the inner streams (n_in % 4 == 0 where n_streams > 1); table
+// i32 [n_streams, ie_dict_table_words()], 8-byte aligned, the dict
+// kernel's output (dict_table.cuh): the codes and lengths (<= 16) of the
+// bytes, the dict words OR'd in before the start bit (the dict's bits),
+// the first byte and the number of the stream's bytes to code; out u32
+// [n_streams, n_words], 16-byte aligned rows, not zeroed: each stream's
+// words are written up to its last, the rest is left as it was; sums i64
+// [n_streams, ie_pack_payload_scratch(n_in)], scratch that needs no
+// clearing; total i64 [n_streams]: each stream's end bit (the dict's bits
+// included), or -1 if a record was refused.  The grid is sized by the
+// records n_in words allow; each stream is bounded by its own table's
+// byte count, and a CTA past it leaves at once.  No start_bit or prefix
+// argument: both come from the table.
+extern "C" int ie_pack_payload_scratch(long long n_in) {
+    return (int)known_sums((n_in + 3) / 4, PayloadFront::kItemsOne);
 }
 
-// pack_payload over a batch of n_streams streams in one launch: words u32
-// [n_streams, n_in], tables i32 [n_streams, ie_dict_table_words()], out u32
-// [n_streams, n_words], total i64 [n_streams]; each stream's scratch (u64,
-// zeroed) and edges at strides of scratch_stride and edges_stride words, at
-// least 3 + n_tiles and 2 * n_tiles for one stream of n_in words.  Each
-// stream is bounded by its own table's byte count.
 extern "C" int ie_pack_payload_batch(const void* words, long long n_in,
                                      const void* table, long long n_streams,
                                      void* out, long long n_words,
-                                     void* scratch, long long scratch_stride,
-                                     void* edges, long long edges_stride,
-                                     void* total, void* stream) {
-    const PackOut a = pack_out((n_in + 3) / 4, 0, nullptr, 0, out, n_words,
-                               scratch, edges, total);
-    return launch_pack_streams(pack_payload_kernel, PayloadFront::kItems, a,
-                               16ll * 16, n_streams, (cudaStream_t)stream,
-                               (const uint32_t*)words, n_in,
-                               (const int32_t*)table, scratch_stride,
-                               edges_stride);
+                                     void* sums, void* total, void* stream) {
+    if (n_streams < 1 || n_streams > 65535 || n_in < 0)
+        return (int)cudaErrorInvalidValue;
+    PayloadFront fe{};
+    fe.words = (const uint32_t*)words;
+    fe.n_in = n_in;
+    fe.table = (const int32_t*)table;
+    KnownOut a = known_out(n_streams, 0, nullptr, 0, out, n_words, sums,
+                           ie_pack_payload_scratch(n_in), total, nullptr);
+    a.n = (n_in + 3) / 4;
+    cudaStream_t s = (cudaStream_t)stream;
+    return n_streams > 1 ? launch_known<PayloadFront::kItemsBatch>(fe, a, s)
+                         : launch_known<PayloadFront::kItemsOne>(fe, a, s);
+}
+
+extern "C" int ie_pack_payload(const void* words, long long n_in,
+                               const void* table, void* out,
+                               long long n_words, void* sums, void* total,
+                               void* stream) {
+    return ie_pack_payload_batch(words, n_in, table, 1, out, n_words, sums,
+                                 total, stream);
 }
 
 // K4 pack_coeffs, K2's two launches.  coeffs: i32 [F, H, W], 16-byte

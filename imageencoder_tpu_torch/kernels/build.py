@@ -81,11 +81,11 @@ SIGNATURES = {
     # scratch_stride, edges, edges_stride, total, stream
     "ie_pack_records_segments": [_P, _P, _I64, _I32, _I64, _P, _P, _I64, _P,
                                  _I64, _P, _I64, _P, _P],
-    "ie_pack_payload": [_P, _I64, _P, *_K4_TAIL[3:]],
-    # words, n_in, tables, n_streams, out, n_words, scratch,
-    # scratch_stride, edges, edges_stride, total, stream
-    "ie_pack_payload_batch": [_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P,
-                              _I64, _P, _P],
+    # words, n_in, table, out, n_words, sums, total, stream
+    "ie_pack_payload": [_P, _I64, _P, _P, _I64, _P, _P, _P],
+    # words, n_in, tables, n_streams, out, n_words, sums, total, stream
+    "ie_pack_payload_batch": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P],
+    "ie_pack_payload_scratch": [_I64],
     # coeffs, frames, h, w, block_size, lens, mvecs, n_macro, gop,
     # mvec_nbits, use_rle, lw, start_bit, prefix, prefix_words, out,
     # n_words, sums, total, hist, stream

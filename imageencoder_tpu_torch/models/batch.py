@@ -82,8 +82,7 @@ def launch_batch(imgs: torch.Tensor, quant: QuantMatrix, use_rle: bool,
     local, lens, _ = cuda_encode.encode_locals(
         imgs.reshape(b * h, w), quant.as_float(), block_size, use_rle, norm)
     n = local.shape[0] // b
-    # Rows of whole 16-byte vectors: each stream's words start aligned.
-    n_words = -(-packed_words_bound(n, block_size * block_size + 2) // 4) * 4
+    n_words = packed_words_bound(n, local.shape[1])
     args = (local.view(b, n, local.shape[1]), lens.view(b, n), start_bit,
             n_words,
             header)

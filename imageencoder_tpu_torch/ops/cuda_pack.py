@@ -16,13 +16,13 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
     its records' fields where they already are: on a single-pass kernel
     :func:`pack_records` [N, F] field tensors of (value, nbits) pairs,
     fields at most 16 bits wide (:func:`pack_records_segments` B segments
-    of them, each from its own start bit, in one launch) and
-    :func:`pack_payload` the Huffman payload, each stream byte replaced
-    by its code (huffman._device_stages.pack_payload), under the dict
-    kernel's table (ops/dict_table.py); :func:`pack_payload_batch` packs
-    a batch of payloads in one launch, :func:`pack_payload_window` a
-    batch of byte windows, each at its own start bit (the sharded Huffman
-    stage).  On K2's two launches :func:`pack_coeffs` packs a recon
+    of them, each from its own start bit, in one launch).  On K2's two
+    launches :func:`pack_payload` the Huffman payload, each stream byte
+    replaced by its code (huffman._device_stages.pack_payload), under the
+    dict kernel's table (ops/dict_table.py); :func:`pack_payload_batch`
+    a batch of payloads, :func:`pack_payload_window` a batch of byte
+    windows, each at its own start bit (the sharded Huffman stage); and
+    :func:`pack_coeffs` a recon
     video's motion-vector and block records from its coefficient tensor
     (pipeline.fields_from_coeffs and the vector fields, then the pack),
     launch 1 summing the record lengths the transform wrote beside the
@@ -45,8 +45,9 @@ wrappers run the plain versions, which return zeros past the stream.  On
 a CUDA tensor they launch csrc/pack.cu, which writes the stream's words up
 to its last one and leaves the rest of the buffer as allocated
 (:func:`stream_words` is the part that is defined).  The wrappers run
-nothing on the device but their kernels (K4 also clears its scratch), and
-the total and every start stay there: nothing waits on the host.
+nothing on the device but their kernels (pack_records also clears its
+scratch), and the total and every start stay there: nothing waits on the
+host.
 """
 
 from __future__ import annotations
@@ -479,7 +480,8 @@ def pack_payload(words: torch.Tensor, table: torch.Tensor, n_words: int):
     first 0 from the dict kernel), in stream order, replaced by its code of
     the table (lengths at most 16), 16 bytes a record, after the dict's
     bits, the dict's words OR'd into the first words.  Nothing of the table
-    is read on the host."""
+    is read on the host.  K2's two launches: the first sums each tile's
+    code lengths, the second packs with every tile's start known."""
     if words.device.type == "cpu":
         return pack_payload_plain(words, table, n_words)
     dev = words.device
@@ -490,10 +492,19 @@ def pack_payload(words: torch.Tensor, table: torch.Tensor, n_words: int):
     if table.shape[0] != dict_table.TABLE_WORDS:
         raise ValueError(f"table: expected {dict_table.TABLE_WORDS} words, "
                          f"got {table.shape[0]}")
-    got = _k4("ie_pack_payload", -(-words.shape[0] // 4), n_words, dev,
-              (words.data_ptr(), words.shape[0], table.data_ptr()))
+    n_in = words.shape[0]
+    lib = build.library()
+    sums = torch.empty(lib.ie_pack_payload_scratch(n_in), dtype=torch.int64,
+                       device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    out = torch.empty(n_words, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.ie_pack_payload(words.data_ptr(), n_in, table.data_ptr(),
+                                   out.data_ptr(), n_words, sums.data_ptr(),
+                                   total.data_ptr(), build.stream_ptr(dev))
+    build.check(code, "ie_pack_payload")
     pack_payload.launches += 1
-    return got
+    return out, total.reshape(())
 
 
 pack_payload.launches = 0
@@ -510,8 +521,10 @@ def pack_payload_batch(words: torch.Tensor, tables: torch.Tensor,
                        n_words: int):
     """:func:`pack_payload` of B inner streams int32 [B, W] under their
     dict tables int32 [B, TABLE_WORDS]: (payloads int32 [B, n_words],
-    totals int64 [B]).  One launch; each stream packs its own table's
-    byte count, with its own look-back state."""
+    totals int64 [B]).  K2's two launches, whatever B is: the first sums
+    each tile's code lengths, the second packs with every tile's start
+    known; each stream packs its own table's byte count, and the CTAs
+    past it leave."""
     return _pack_payload_batch(pack_payload_batch, words, tables, n_words)
 
 
@@ -534,17 +547,15 @@ def _pack_payload_batch(counter, words, tables, n_words: int):
         raise ValueError(f"W and n_words must be multiples of 4, got {w} "
                          f"and {n_words}")
     lib = build.library()
-    n_tiles = -(-(-(-w // 4)) // lib.ie_pack_tile())
-    scratch_stride, edges_stride = 3 + n_tiles, max(2 * n_tiles, 1)
-    scratch = torch.zeros(b * scratch_stride, dtype=torch.int64, device=dev)
-    edges = torch.empty(b * edges_stride, dtype=torch.int64, device=dev)
+    sums = torch.empty(b * lib.ie_pack_payload_scratch(w), dtype=torch.int64,
+                       device=dev)
     total = torch.empty(b, dtype=torch.int64, device=dev)
     out = torch.empty((b, n_words), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         code = lib.ie_pack_payload_batch(
             words.data_ptr(), w, tables.data_ptr(), b, out.data_ptr(),
-            n_words, scratch.data_ptr(), scratch_stride, edges.data_ptr(),
-            edges_stride, total.data_ptr(), build.stream_ptr(dev))
+            n_words, sums.data_ptr(), total.data_ptr(),
+            build.stream_ptr(dev))
     build.check(code, "ie_pack_payload_batch")
     counter.launches += 1
     return out, total
@@ -560,7 +571,7 @@ def pack_payload_window(words: torch.Tensor, tables: torch.Tensor,
     and its start bit (dict_bits), their dict words zero: each row's codes
     from its start bit (the sharded encode's stage 2, each row a segment's
     owned bytes at its output bit phase, parallel/sharding.py).  One
-    launch; the plain version is pack_payload_batch's."""
+    batch's two launches; the plain version is pack_payload_batch's."""
     return _pack_payload_batch(pack_payload_window, words, tables, n_words)
 
 

@@ -19,9 +19,10 @@ word travels as an int32 tensor holding the same 32 bits (``as_int32`` /
 ``as_uint``).  Shift amounts are clamped below 32 where a wider shift
 would be undefined on the card.
 
-The numpy helpers at the top (header words, buffer bounds, word
+The numpy helpers at the top (header words, register-file words, word
 serialization) are the port's copies of imageencoder_tpu/ops/
-device_pack.py's.
+device_pack.py's; packed_words_bound is the port's own, sized from K1's
+register file.
 """
 
 from __future__ import annotations
@@ -39,9 +40,12 @@ def local_words(n_fields: int) -> int:
     return (n_fields * MAX_FIELD_BITS + 31) // 32
 
 
-def packed_words_bound(n_records: int, n_fields: int) -> int:
-    """Output words covering any record content plus the header."""
-    return n_records * local_words(n_fields) + HEADER_WORDS
+def packed_words_bound(n_records: int, lw: int) -> int:
+    """Output words of a stream of n_records records of at most lw words
+    each (K1's register file: a longer record is refused) after its
+    header, in whole 16-byte vectors so that each row of a batch starts
+    aligned.  K4 sizes its grid by the stream's words."""
+    return -(-(n_records * lw + HEADER_WORDS) // 4) * 4
 
 
 def header_to_words(header: bytes) -> np.ndarray:

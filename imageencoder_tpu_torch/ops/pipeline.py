@@ -83,18 +83,16 @@ def make_encode_fields_from_blocks(block_size: int = 4, use_rle: bool = True,
 def make_encode_packed(block_size: int = 4, use_rle: bool = True,
                        norm: str = "reference", with_hist: bool = False):
     """f(img u8 [H, W], quant [B, B], start_bit, header_words int32 [64])
-    -> (words int32 [9N + 64], total_bits int64 0-d tensor, -1 where K1
-    refused a record: K2 refuses it too), and with ``with_hist`` the
-    stream's byte histogram int32 [256] after them."""
-    k = block_size * block_size
-
+    -> (words int32 [packed_words_bound(N, lw)], total_bits int64 0-d
+    tensor, -1 where K1 refused a record: K2 refuses it too), and with
+    ``with_hist`` the stream's byte histogram int32 [256] after them."""
     def encode_packed(img, quant, start_bit: int, header_words):
         local, lens, _ = cuda_encode.encode_locals(img, quant, block_size,
                                                    use_rle, norm)
         pack = cuda_pack.pack_locals_hist if with_hist else \
             cuda_pack.pack_locals
         return pack(local, lens, start_bit,
-                    packed_words_bound(local.shape[0], k + 2),
+                    packed_words_bound(*local.shape),
                     prefix=header_words)
 
     return encode_packed

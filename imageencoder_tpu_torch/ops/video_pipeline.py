@@ -77,7 +77,6 @@ def make_encode_video_packed(gop: int, merange: int, mvec_nbits: int,
                              with_hist: bool = False):
     """The raw-reference device encoder (see the module docstring)."""
     b = block_size
-    k = b * b
 
     def encode_video_packed(frames, quant, start_bit: int, header_words):
         f, h, w = frames.shape
@@ -94,7 +93,8 @@ def make_encode_video_packed(gop: int, merange: int, mvec_nbits: int,
         n_rows = local.shape[0] + f * n_macro
         pack = cuda_pack.pack_locals_hist if with_hist else \
             cuda_pack.pack_locals
-        return pack(local, lens, start_bit, packed_words_bound(n_rows, k + 2),
+        return pack(local, lens, start_bit,
+                    packed_words_bound(n_rows, local.shape[1]),
                     prefix=header_words, mvecs=mvecs, n_frames=f, gop=gop,
                     mvec_nbits=mvec_nbits)
 
@@ -142,9 +142,9 @@ def make_encode_video_packed_recon(gop: int, merange: int, mvec_nbits: int,
         # two launches, no fields tensor.
         pack = cuda_pack.pack_coeffs_hist if with_hist else \
             cuda_pack.pack_coeffs
-        return pack(coeffs, mvecs, gop, mvec_nbits, b, use_rle,
-                    cuda_encode.video_lw(b, norm), start_bit,
-                    packed_words_bound(f * (n_macro + n_micro), b * b + 2),
+        lw = cuda_encode.video_lw(b, norm)
+        return pack(coeffs, mvecs, gop, mvec_nbits, b, use_rle, lw,
+                    start_bit, packed_words_bound(f * (n_macro + n_micro), lw),
                     prefix=header_words, lens=lens)
 
     return encode_video_packed

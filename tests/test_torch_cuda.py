@@ -20,6 +20,8 @@ import imageencoder_tpu_torch
 from imageencoder_tpu.models import video as host_video
 from imageencoder_tpu.utils.quant import QuantMatrix
 from imageencoder_tpu_torch import quant_from_numpy
+from imageencoder_tpu_torch.models.image import \
+    stream_header as image_stream_header
 from imageencoder_tpu_torch.ops import (cuda_decode, cuda_encode,
                                         cuda_kernels, cuda_motion, cuda_pack,
                                         device_pack, dict_table, huffman,
@@ -257,7 +259,7 @@ def test_pack_coeffs_kernel_equals_plain(dev, b, use_rle, gop, h, w, n):
     c, m = torch.from_numpy(coeffs).to(dev), torch.from_numpy(mvecs).to(dev)
     lw = cuda_encode.video_lw(b, "reference")
     nw = device_pack.packed_words_bound(n * (n_macro + h * w // (b * b)),
-                                        b * b + 2)
+                                        device_pack.local_words(b * b + 2))
     hdr = torch.full((3,), -1, dtype=torch.int32, device=dev)
     args = (c, m, gop, 6, b, use_rle, lw, 91, nw, hdr)
     before = cuda_pack.pack_coeffs.launches
@@ -521,7 +523,7 @@ def test_gop_step_kernels_equal_plain_on_strided_views(dev, b, norm,
     lw = cuda_encode.video_lw(b, norm)
     assert torch.equal(lens, cuda_encode.record_lengths(coeffs, b, use_rle))
     nw = device_pack.packed_words_bound(n * (mvecs.shape[1] + n_micro),
-                                        b * b + 2)
+                                        device_pack.local_words(b * b + 2))
     hdr = torch.full((3,), -1, dtype=torch.int32, device=dev)
     args = (coeffs, mvecs, gop, 6, b, use_rle, lw, 77, nw, hdr)
     before = cuda_pack.pack_coeffs.launches
@@ -808,7 +810,7 @@ def test_pack_coeffs_hist_kernel_equals_plain(dev, b, use_rle, gop, h, w, n,
     c, m = torch.from_numpy(coeffs).to(dev), torch.from_numpy(mvecs).to(dev)
     lw = cuda_encode.video_lw(b, "reference")
     nw = device_pack.packed_words_bound(n * (n_macro + h * w // (b * b)),
-                                        b * b + 2)
+                                        device_pack.local_words(b * b + 2))
     hdr = torch.full((3,), -1, dtype=torch.int32, device=dev)
     held_hist_pack(cuda_pack.pack_coeffs_hist,
                    cuda_pack.pack_coeffs_hist_plain, c, m, gop, 6, b, use_rle,
@@ -1735,6 +1737,96 @@ def test_pack_payload_window_kernel_equals_plain(dev, n_in, windows):
         assert torch.equal(cuda_pack.stream_words(got[0][k].cpu(),
                                                   got[1][k]),
                            cuda_pack.stream_words(want[0][k], want[1][k]))
+
+
+RAGGED = {  # id: image kinds, (H, W), quant kind
+    "ragged": (("smooth", "noise", "flat", "smooth"), (96, 256), "jpeg"),
+    "fallback_batch": (("smooth",) * 3 + ("noise",), (128, 256), "ones"),
+    "one": (("smooth",), (96, 256), "jpeg"),
+    "seventeen": (tuple(("smooth", "noise", "flat")[k % 3]
+                        for k in range(17)), (64, 128), "jpeg"),
+    # Payloads of many tiles and groups of tiles, of very different lengths.
+    "long": (("noise", "smooth", "flat", "noise"), (912, 1024), "jpeg"),
+}
+
+
+def ragged_images(kinds, h: int, w: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return np.stack([
+        rng.integers(0, 256, (h, w), np.uint8) if kind == "noise"
+        else np.full((h, w), 90 + k, np.uint8) if kind == "flat"
+        else image(h, w, seed + k) for k, kind in enumerate(kinds)])
+
+
+@pytest.mark.parametrize("case", list(RAGGED))
+def test_batch_packers_on_ragged_batches(dev, case):
+    """K2 with the histograms over a ragged batch, then K4 pack_payload
+    over its payloads (K2's two launches each, into dirtied buffers),
+    each against its plain version on the same inputs; the batch's
+    streams equal the host engine's."""
+    kinds, (h, w), qkind = RAGGED[case]
+    imgs = ragged_images(kinds, h, w, len(kinds))
+    b = len(imgs)
+    quant = QuantMatrix(np.asarray(quant_for(4, qkind), np.uint32))
+    pq = quant_from_numpy(quant.matrix)
+    start, header = image_stream_header(pq, True, w, h, True, dev)
+    local, lens, _ = cuda_encode.encode_locals(
+        torch.from_numpy(imgs.reshape(b * h, w)).to(dev), pq.as_float(), 4,
+        True, "reference")
+    n = local.shape[0] // b
+    nw = device_pack.packed_words_bound(n, local.shape[1])
+    args = (local.view(b, n, -1), lens.view(b, n), start, nw, header)
+    dirtied(dev, b * nw)
+    got = cuda_pack.pack_locals_hist_batch(*args)
+    held_stream_rows(got, cuda_pack.pack_locals_hist_batch_plain(*args))
+    tables = huffman.build_dict_batch(got[2], got[1])
+    pnw = round4(huffman.payload_words(nw))
+    dirtied(dev, b * pnw)
+    before = cuda_pack.pack_payload_batch.launches
+    pay = cuda_pack.pack_payload_batch(got[0], tables, pnw)
+    assert cuda_pack.pack_payload_batch.launches == before + 1
+    held_stream_rows(pay, cuda_pack.pack_payload_batch_plain(got[0], tables,
+                                                             pnw))
+    nbytes = [dict_table.fields(t)["nbytes"] for t in tables]
+    if case in ("ragged", "fallback_batch"):
+        assert min(nbytes) == 0 < max(nbytes)  # one stream codes no byte
+    if case == "long":  # 20 tiles and more, and a short stream
+        assert max(nbytes) > 20 * 8192 and min(nbytes) < max(nbytes) // 4
+    streams = imageencoder_tpu_torch.encode_image_batch(imgs, pq, device=dev)
+    assert streams == [imageencoder_tpu.encode_image(
+        img, quant, use_rle=True, use_huffman=True, backend="numpy")
+        for img in imgs]
+
+
+@pytest.mark.parametrize("b", [1, 3, 17])
+def test_pack_payload_window_on_ragged_windows(dev, b):
+    """K4 pack_payload over B byte windows of rows long enough for many
+    tiles, each from a first byte past 0 at an odd start bit (one window
+    empty, one over a whole row), into a dirtied buffer: each row as its
+    plain version writes it."""
+    rng = np.random.default_rng(100 + b)
+    n_in = 24000
+    words = torch.from_numpy((rng.integers(0, 2 ** 32, (b, n_in),
+                                           dtype=np.uint64) & 0x3F0F1F7F)
+                             .astype(np.uint32).view(np.int32))
+    freqs = np.bincount(words.numpy().view(np.uint32).astype(">u4")
+                        .view(np.uint8).reshape(-1), minlength=256) + 1
+    _, cw, cl = huffman._dict_and_codes(freqs)
+    first = rng.integers(1, 9, b)
+    last = np.minimum(first + rng.integers(0, 4 * n_in, b), 4 * n_in)
+    last[0] = 4 * n_in
+    if b > 1:
+        last[1] = first[1]
+    tables = torch.stack([dict_table.make_table(
+        cw, cl, np.zeros(256), "cpu", dict_bits=2 * int(rng.integers(16)) + 1,
+        nbytes=int(hi), first_byte=int(lo)) for lo, hi in zip(first, last)])
+    n_words = round4(4 * n_in * 16 // 32 + 2)
+    dirtied(dev, b * n_words)
+    got = cuda_pack.pack_payload_window(words.to(dev), tables.to(dev),
+                                        n_words)
+    held_stream_rows([x.cpu() for x in got],
+                     cuda_pack.pack_payload_batch_plain(words, tables,
+                                                        n_words))
 
 
 @pytest.fixture(scope="module")

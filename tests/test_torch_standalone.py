@@ -199,7 +199,8 @@ HELPERS = {
                                        16).tobytes()),
     "header words and bounds": (
         lambda: (device_pack.header_to_words(b"\xab\xcd\xef").tolist(),
-                 device_pack.packed_words_bound(1000, 18),
+                 device_pack.packed_words_bound(
+                     1000, device_pack.local_words(18)),
                  device_pack.local_words(3)),
         lambda: (jax_device_pack.header_to_words(b"\xab\xcd\xef").tolist(),
                  jax_device_pack.packed_words_bound(1000, 18),

@@ -279,7 +279,7 @@ def test_pack_coeffs_equals_jax_fields_and_pack(b, use_rle, gop, n, lengths):
     mvec_nbits = 6
     k = b * b
     rows = n * (mvecs.shape[1] + (32 // b) * (48 // b))
-    nw = device_pack.packed_words_bound(rows, k + 2)
+    nw = device_pack.packed_words_bound(rows, device_pack.local_words(k + 2))
     prefix = np.random.default_rng(n).integers(0, 2 ** 32, 3,
                                                dtype=np.uint64)
     prefix = prefix.astype(np.uint32)

@@ -21,6 +21,8 @@ directory, variants of the kept design:
              address;
   bins_x2,   each warp counts into 2 or 4 sets of bins (by lane mod 2 or 4),
   bins_x4    so fewer lanes of one atomic instruction meet on one bin;
+  byte_checks  each byte's place against the stream's end is checked
+             before its atomic (64-bit compares), not the word's once;
   no_tree    the dict kernel replaces its serial merge, one thread's 255
              steps, by a flat tree (every node a child of the root; its
              table is wrong);
@@ -37,8 +39,9 @@ builds the kept libraries and each variant with nvcc (one process each, in
 parallel), and times each on the inputs the main paths give the kernels,
 captured from real calls (the 4096x912 image's and the 720p25 raw video's
 register files for K2; the 720p25 recon video's coefficients for K4; the
-image's histogram for the dict), in turns (kept, variants, variants,
-kept): the kernels' device time a call from torch.profiler.  The
+image's histogram for the dict; the serving batch's 16 4096x912
+register files for K2 over a batch, ie_pack_locals_batch with a histogram a
+stream), in turns (kept, variants, variants, kept): the kernels' device time a call from torch.profiler.  The
 variants' outputs are wrong by design; only their times are read.
 Prints one line per input and one JSON line last.
 """
@@ -58,7 +61,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 COPIES = 16
-COUNT = "        if (b0 + j < end) atomicAdd(bins + ((w >> (24 - 8 * j)) & 0xFFu), 1);"
+COUNT = "        if (j < live) atomicAdd(bins + ((w >> (24 - 8 * j)) & 0xFFu), 1);"
 FLUSH = "        if (c) atomicAdd(hist + k, c);"
 TREE = "        for (int node = n; node <= root; node++) {"
 RANKS = "        for (int t = 0; t < kSyms; t++) rank += keys[t] < key;"
@@ -146,8 +149,6 @@ BRANCH_MERGE = """        int li = 0, ih = 0, it = 0;
         }
 """
 MY_BINS = "    int* my_bins = bins + (kHist ? warp * 256 : 0);"
-
-
 def more_bins(k: int) -> list:
     """Substitutions giving each warp k sets of bins, by lane mod k."""
     return [("__shared__ int bins[kHist ? kWarps * 256 : 1];",
@@ -166,6 +167,8 @@ VARIANTS = {  # name: (source, [(old, new[, times]), ...])
                               f"(blockIdx.x % {COPIES}) + k, c);")]),
     "bins_x2": ("pack.cu", more_bins(2)),
     "bins_x4": ("pack.cu", more_bins(4)),
+    "byte_checks": ("pack.cu", [(COUNT, COUNT.replace("j < live",
+                                                      "b0 + j < end"))]),
     "no_tree": ("huffman.cu", [(TREE, "        for (int i = 0; i < root; i++) "
                                 "up[i] = root;\n"
                                 "        for (int node = n; node < 0; "
@@ -175,8 +178,10 @@ VARIANTS = {  # name: (source, [(old, new[, times]), ...])
         "for (int t = 0; t < s; t++) r += lens[t] == len;", ""))]),
     "branch_pops": ("huffman.cu", [(MERGE, BRANCH_MERGE)]),
 }
-EXACT = ("branch_pops",)  # their outputs must equal the kept design's
+# Their outputs must equal the kept design's.
+EXACT = ("branch_pops", "byte_checks")
 ENTRIES = {"pack.cu": ("ie_pack_tile", "ie_pack_locals",
+                       "ie_pack_locals_batch",
                        "ie_pack_locals_scratch", "ie_pack_coeffs",
                        "ie_pack_coeffs_scratch"),
            "huffman.cu": ("ie_huffman_dict", "ie_dict_table_words")}
@@ -250,6 +255,31 @@ def pack_locals_hist(lib, bins, local, lens, start_bit, n_words, prefix=None,
     return out, total
 
 
+def pack_locals_hist_batch(lib, bins, local, lens, start_bit, n_words,
+                           prefix=None):
+    """K2 with its histograms over a batch through ``lib``, stream k's
+    bins at ``bins[256 * k:]`` (room for the copies past the last); the
+    wrapper's allocations and call."""
+    import torch
+
+    from imageencoder_tpu_torch.kernels import build
+
+    dev = local.device
+    b, n, lw = local.shape
+    sums = torch.empty(b * lib.ie_pack_locals_scratch(n, lw),
+                       dtype=torch.int64, device=dev)
+    total = torch.empty(b, dtype=torch.int64, device=dev)
+    out = torch.empty((b, n_words), dtype=torch.int32, device=dev)
+    code = lib.ie_pack_locals_batch(
+        local.data_ptr(), lens.data_ptr(), n, lw, b, start_bit, None,
+        None if prefix is None else prefix.data_ptr(),
+        0 if prefix is None else prefix.shape[0], out.data_ptr(), n_words,
+        sums.data_ptr(), total.data_ptr(), bins.data_ptr(),
+        build.stream_ptr(dev))
+    build.check(code, "ie_pack_locals_batch")
+    return out, total
+
+
 def pack_coeffs_hist(lib, bins, coeffs, mvecs, gop, mvec_nbits, b, use_rle,
                      lw, start_bit, n_words, prefix=None, lens=None):
     """K4 pack_coeffs with its histogram through ``lib``, the bins in
@@ -276,6 +306,15 @@ def pack_coeffs_hist(lib, bins, coeffs, mvecs, gop, mvec_nbits, b, use_rle,
         build.stream_ptr(dev))
     build.check(code, "ie_pack_coeffs")
     return out, total
+
+
+def exact_view(result) -> list:
+    """What a variant that must not change the result is held to: the
+    dict's table, or a pack's totals and bins (the words past a stream
+    are left as allocated, and differ from call to call)."""
+    if not isinstance(result, tuple):
+        return [result.clone()]
+    return [x.clone() for x in result[1:]]
 
 
 def main() -> None:
@@ -317,17 +356,31 @@ def main() -> None:
     inputs = {  # label: (libraries timed, kernel symbols, call(lib))
         f"K2+hist {label}": (
             ("pack.cu", "no_count", "no_flush", "copies16", "bins_x2",
-             "bins_x4"),
+             "bins_x4", "byte_checks"),
             ("tile_sums_kernel", "pack_known_kernel"),
             lambda lib, a=captured[label]["K2 pack_locals+hist"][0]:
-            pack_locals_hist(lib, bins, *a[0], **a[1]))
+            (*pack_locals_hist(lib, bins, *a[0], **a[1]), bins[:256]))
         for label in ("image", "video raw")}
     coeffs_args = captured["video recon"]["K4 pack_coeffs+hist"][0]
     inputs["K4 pack_coeffs+hist video recon"] = (
-        ("pack.cu", "no_count", "no_flush", "copies16", "bins_x2", "bins_x4"),
+        ("pack.cu", "no_count", "no_flush", "copies16", "bins_x2", "bins_x4",
+         "byte_checks"),
         ("tile_sums_kernel", "pack_known_kernel"),
-        lambda lib: pack_coeffs_hist(lib, bins, *coeffs_args[0],
-                                     **coeffs_args[1]))
+        lambda lib: (*pack_coeffs_hist(lib, bins, *coeffs_args[0],
+                                       **coeffs_args[1]), bins[:256]))
+    batch = torch.from_numpy(cs.serving_batch()).cuda()
+    with cs.captured_calls() as calls:
+        port.encode_image_batch(batch, quant, device="cuda")
+    batch_args = calls["K2 pack_locals+hist batch"][0]
+    batch_bins = torch.zeros((batch.shape[0] + COPIES) * 256,
+                             dtype=torch.int32, device=batch.device)
+    inputs["K2+hist batch"] = (
+        ("pack.cu", "no_count", "no_flush", "copies16", "bins_x2",
+         "byte_checks"),
+        ("tile_sums_kernel", "pack_known_kernel"),
+        lambda lib: (*pack_locals_hist_batch(lib, batch_bins, *batch_args[0],
+                                             **batch_args[1]),
+                     batch_bins[:batch.shape[0] * 256]))
     dict_args = captured["image"]["Huffman dict"][0]
     inputs["dict image"] = (("huffman.cu", "no_tree", "no_ranks",
                              "no_code_ranks", "branch_pops"),
@@ -345,9 +398,10 @@ def main() -> None:
                 for name in EXACT:
                     if name in names:
                         build._LIB = libs[names[0]]
-                        want = call(libs[names[0]])
+                        want = exact_view(call(libs[names[0]]))
                         build._LIB = libs[name]
-                        if not torch.equal(call(libs[name]), want):
+                        got = exact_view(call(libs[name]))
+                        if not all(map(torch.equal, got, want)):
                             raise AssertionError(f"{label}: {name} differs "
                                                  f"from the kept design")
                 times = {name: [] for name in names}

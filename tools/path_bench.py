@@ -4,7 +4,8 @@ GPU.
 
     python3 tools/path_bench.py [--path recon|raw|image|sharded_recon|
                                         pair_recon|decode_image|
-                                        decode_video|decode_image_batch]
+                                        decode_video|decode_image_batch|
+                                        image_batch|sharded_image]
                                 [--root DIR] [--samples N]
 
 Imports the port (imageencoder_tpu_torch) from ``DIR`` (this checkout by
@@ -58,6 +59,18 @@ of chip_smoke.py's 16 serving images (4096x912, Huffman on, written on
 the card): the whole call (each stream's parse, upload and D1-D3) is
 both the window and the call, and its device time by kernel group.
 
+``--path image_batch`` reads models/batch.py::encode_image_batch of the
+same 16 serving images on the card, Huffman on: the window is
+launch_batch (K1 on the stacked images, K2 with the histograms over the
+16 streams, the dict kernel and K4 pack_payload over them, and the
+lengths' copy), the whole call encode_image_batch, its device time by
+kernel group (K2 and K4 pack_payload by their front ends, each of the
+two-launch packers' launches in its own row).  ``--path sharded_image``
+reads parallel/sharding.py's encode_sharded_image_batch of the same
+images with the distributed stage 2, in a world of one over NCCL (K2
+over segments, the windowed K3, the dict, K4 pack_payload over the
+owned byte windows): the whole call is the window.
+
 Prints one JSON line.  To compare two commits, run it on each in one chip
 call, in the order parent, change, change, parent.
 """
@@ -85,6 +98,9 @@ GROUPS = (("K1", ("encode_locals_kernel",)),
           ("pack_coeffs", ("pack_coeffs_kernel",)),
           ("pack_coeffs", ("CoeffsFront",)),
           ("K2", ("LocalsFront",)),
+          ("K4 pack_payload", ("PayloadFront",)),
+          ("K4 pack_payload", ("pack_payload_kernel",)),
+          ("dict", ("huffman_dict_kernel",)),
           *(("D1", (f"huffman_{k}_kernel",)) for k in CHAIN_LAUNCHES),
           *(("D2", (f"offset_{k}_kernel",)) for k in CHAIN_LAUNCHES),
           ("D3", ("decode_blocks_kernel",)),
@@ -269,7 +285,8 @@ def main() -> None:
     ap.add_argument("--path", choices=("recon", "raw", "image",
                                        "sharded_recon", "pair_recon",
                                        "decode_image", "decode_video",
-                                       "decode_image_batch"),
+                                       "decode_image_batch", "image_batch",
+                                       "sharded_image"),
                     default="recon")
     opts = ap.parse_args()
     root = pathlib.Path(opts.root).resolve()
@@ -331,6 +348,35 @@ def main() -> None:
 
         def call():
             return port.decode_image_batch(streams, device=dev)
+
+        def whole():
+            call()
+            torch.cuda.synchronize()
+    elif opts.path == "image_batch":
+        from imageencoder_tpu_torch.models.batch import launch_batch
+
+        imgs = torch.from_numpy(cs.serving_batch()).to(dev)
+        bq, bh, bw = cs.BATCHES[0]
+        size = [bq, bw, bh]
+
+        def call():
+            return launch_batch(imgs, quant, True, True, "reference", 4)
+
+        def whole():
+            port.encode_image_batch(imgs, quant, device=dev)
+    elif opts.path == "sharded_image":
+        from imageencoder_tpu_torch import parallel
+        from imageencoder_tpu_torch.parallel import distributed
+
+        distributed.initialize(device="cuda")
+        mesh = parallel.make_mesh(1, device="cuda")
+        imgs = torch.from_numpy(cs.serving_batch()).to(dev)
+        bq, bh, bw = cs.BATCHES[0]
+        size = [bq, bw, bh]
+
+        def call():
+            return parallel.encode_sharded_image_batch(imgs, quant, mesh,
+                                                       device_entropy=True)
 
         def whole():
             call()
@@ -423,6 +469,7 @@ def main() -> None:
                      getattr(e, "self_device_time_total", None)
                      or e.self_cuda_time_total for e in ops)
                  / PROFILED_CALLS}
+    if opts.path in ("sharded_recon", "sharded_image"):
         import torch.distributed as dist
 
         dist.destroy_process_group()
