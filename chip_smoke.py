@@ -67,7 +67,15 @@ each of which raises on failure:
      the grid's y; K4 on K2's two launches, its row their sum), and of 4
      128x256 images under quant all ones, whose noise image takes the
      raw-copy fallback inside the batch, for the batched K2, dict and K4
-     again.  The packers' words are compared up to
+     again; the dict kernel, one stream and a batch, on adversarial
+     histograms (Fibonacci and power-of-two chains, merged serially and
+     in rounds, through the 15-bit limit; geometric counts up to 2^30;
+     ties; two, one and no byte values; all 256 equal; a refused stream);
+     D3 on the 4096x912 image's records with its payload cut to two
+     thirds (reads past the byte count are zero) and with the payload 3
+     bytes past a 16-byte boundary, and on a 4096x912 noise image in 8x8
+     blocks under quant all ones without RLE (64 wide fields a record,
+     its own row).  The packers' words are compared up to
      each stream's last word, which is all the kernels define.  K3 is
      also timed against torch.bincount over the same stream bytes, the
      one PyTorch call that computes its function;
@@ -2177,6 +2185,93 @@ def finish(rows: dict, counts: list, names) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def dict_histograms() -> dict:
+    """{label: (byte counts int64 [256], stream bits)}: the dict kernel's
+    hard cases.  Chains of Fibonacci and power-of-two counts (trees as
+    deep as their bytes: the serial merge at 30 and 31 bytes, the rounds
+    at 33, each through the 15-bit limit), geometric counts up to 2^30,
+    few distinct counts, two, one and no byte values, all 256 equal, and
+    a refused stream (-1 bits: no dict)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    out = {}
+    for name, n in (("fibonacci", 30), ("pow2", 31), ("fibonacci", 33)):
+        f = np.zeros(256, np.int64)
+        a, b = 1, 1
+        for i in range(n):
+            f[(3 + 7 * i) % 256] = 1 << i if name == "pow2" else a
+            a, b = b, a + b
+        out[f"{name} chain of {n}"] = f
+    out["geometric up to 2^30"] = np.floor(
+        2.0 ** rng.uniform(0, 30, 256)).astype(np.int64)
+    out["ties"] = rng.choice([0, 1, 2, 3, 8], 256).astype(np.int64)
+    out["40 ones, 40 twos"] = np.repeat(np.array([1, 2, 0], np.int64),
+                                        [40, 40, 176])
+    out["uniform"] = rng.integers(0, 10 ** 6, 256).astype(np.int64)
+    out["two byte values"] = np.zeros(256, np.int64)
+    out["two byte values"][[3, 200]] = [1, 10 ** 9]
+    out["one byte value"] = np.eye(256, dtype=np.int64)[77] * 5
+    out["no byte"] = np.zeros(256, np.int64)
+    out["all 256 equal"] = np.full(256, 5, np.int64)
+    cases = {k: (f, 8 * int(f.sum())) for k, f in out.items()}
+    cases["refused"] = (out["ties"], -1)
+    return cases
+
+
+def check_dict_cases(dev) -> None:
+    """The dict kernel, one stream and one batch of them all, bit-equal to
+    its plain version on dict_histograms()."""
+    import numpy as np
+    import torch
+
+    cases = dict_histograms()
+    hists = torch.from_numpy(np.stack([f for f, _ in cases.values()])
+                             .astype(np.int32)).to(dev)
+    totals = torch.tensor([t for _, t in cases.values()], dtype=torch.int64,
+                          device=dev)
+    for k in range(len(cases)):
+        held_equal("Huffman dict", (hists[k].clone(), totals[k:k + 1]), {})
+    held_equal("Huffman dict batch", (hists, totals), {})
+    print(f"Huffman dict: {len(cases)} hard histograms ("
+          + ", ".join(cases) + "), one stream each and one batch, "
+          f"bit-equal to the plain version", flush=True)
+
+
+def check_d3_cases(port, image_call, rows: dict) -> None:
+    """D3 on the image's records with its payload cut short and with the
+    payload off a 16-byte boundary, and on an 8x8 noise image's records
+    (its row beside D3's)."""
+    import numpy as np
+    import torch
+
+    (payload, nbytes, *rest), kwargs = image_call
+    cut = torch.full_like(nbytes, 2 * int(nbytes) // 3)
+    held_equal("D3 decode_blocks", (payload, cut, *rest), kwargs)
+    room = torch.zeros(payload.numel() + 16, dtype=torch.uint8,
+                       device=payload.device)
+    moved = room[3:3 + payload.numel()]
+    moved.copy_(payload)
+    held_equal("D3 decode_blocks", (moved, nbytes, *rest), kwargs)
+    h, w = SHAPES[0]
+    noise = np.random.default_rng(12).integers(0, 256, (h, w),
+                                               dtype=np.uint8)
+    stream = port.encode_image(noise, port.QuantMatrix(np.ones(
+        (8, 8), dtype=np.uint32)), use_rle=False, use_huffman=False,
+        block_size=8, device="cuda")
+    with captured_calls() as calls:
+        port.decode_image(stream, block_size=8, device="cuda")
+    if len(calls["D3 decode_blocks"]) != 1:
+        raise AssertionError("an 8x8 decode_image did not launch D3 once")
+    beside(rows["D3 decode_blocks"], "b8_noise_quant_ones", check_kernel(
+        "D3 decode_blocks", *calls["D3 decode_blocks"][0]))
+    widest = int(calls["D3 decode_blocks"][0][0][3].max())
+    print(f"D3 bit-equal to plain on the 4096x912 image's records with the "
+          f"payload cut to two thirds and 3 bytes off a 16-byte boundary, "
+          f"and on {w}x{h} noise in 8x8 blocks (fields up to {widest} "
+          f"bits)", flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2377,6 +2472,7 @@ def main() -> None:
         rows[name] = check_kernel(name, *calls[name][0])
     for name in PATHS["image decode"][:2]:  # the chains' stats
         rows[name].update(chain_stats(name, *calls[name][0], "image"))
+    check_d3_cases(port, calls["D3 decode_blocks"][0], rows)
     del calls
 
     # The decode of the 720p25 raw stream: K7 alone on its first path.
@@ -2462,6 +2558,7 @@ def main() -> None:
           f"the noise image took the fallback inside the batch, every "
           f"stream equal to the plain path", flush=True)
     del calls
+    check_dict_cases(dev)
 
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 

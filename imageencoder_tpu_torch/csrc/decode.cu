@@ -10,10 +10,20 @@
 // differ at ties, this one is the exact f64 engine's.
 //
 // One thread a block: min(count, B*B) fields of b bits at off + j*b,
-// each read bounded by the payload's byte count in device memory (zero
-// past it), sign-extended; row-major coefficient c is zig-zag field
-// izz[c], so the coefficients come out of zig-zag order as they are read
-// and no register array is indexed by data.  Then y[c] = (double)coef *
+// sign-extended; row-major coefficient c is zig-zag field izz[c], so the
+// coefficients come out of zig-zag order as they are read and no register
+// array is indexed by data.  The fields are read from shared memory: a
+// warp's 32 consecutive blocks have consecutive records, so their fields
+// lie in one span of the payload, from the lowest record start to the
+// highest field end.  The warp stages that span (16-byte loads, aligned,
+// each a coalesced share of the warp's; every byte at or past the payload's
+// byte count reads as zero) into its own shared buffer as MSB-first words,
+// and each field is then two 32-bit shared loads and a funnel shift.  The
+// buffer holds the widest span a stream can give (32 records of B*B
+// 15-bit fields with their headers); a warp whose span is wider (records
+// that are not consecutive, or a corrupt count that jumps the next record
+// far ahead) reads its fields from device memory, four bounded byte
+// loads a field, as before.  Then y[c] = (double)coef *
 // quant[c] (one rounded multiply), the inverse in idct2_exact's order
 // (transform.cuh::exact_matvec: acc = 0, then acc = acc + y[c] * W[c][t]
 // for c = 0..K-1, each a __dmul_rn and a __dadd_rn; the library builds
@@ -26,8 +36,10 @@
 //
 // One launch decodes a set of frames: G frames of n_blocks records each,
 // frame g's records at g * rec_stride, its prediction and its pixels at
-// g * the frames' strides.  The video decode takes frame k of every GOP in
-// one launch, so a video takes gop launches.
+// g * the frames' strides.  The frame is the grid's y and a frame's blocks
+// its x, so no warp spans two frames (whose records may lie far apart).
+// The video decode takes frame k of every GOP in one launch, so a video
+// takes gop launches.
 //
 // The host engine skips zero coefficients (runtime.cpp:813); this sums
 // all K.  A zero coefficient adds a product of +-0 to the sum: x + (+-0)
@@ -49,7 +61,22 @@
 
 namespace {
 
-constexpr int kDecodeThreads = 128;
+// A CTA's threads: 128 at 4x4; 256 at 8x8, which read 19% faster so on
+// a 4096x912 noise image on an H100 (tools/d3_variants.py), and no faster
+// at 4x4.
+template <int B>
+constexpr int kDecodeThreads = B == 4 ? 128 : 256;
+constexpr unsigned kAll = 0xffffffffu;
+
+// A warp's staging buffer.  The widest span of 32 valid records: its
+// first field at most 127 bits past the 16-byte boundary below it, then
+// 32 records of at most B*B fields of at most 15 bits, 31 of them followed
+// by the next record's 4-bit width and count of at most 15 bits; and the
+// word after the last field's, which its read takes too.
+template <int B>
+constexpr long long kSpanBits = 127 + 32LL * 15 * B * B + 31 * (4 + 15);
+template <int B>
+constexpr int kSpanWords = (int)(((kSpanBits<B> + 31) / 32 + 1 + 3) / 4 * 4);
 
 struct Frames {
     long long n_blocks;    // records (blocks) a frame
@@ -58,8 +85,60 @@ struct Frames {
     long long pred_stride, img_stride;  // bytes from frame to frame
 };
 
+__device__ __forceinline__ uint32_t swap_bytes(uint32_t w) {
+    return __byte_perm(w, 0u, 0x0123);
+}
+
+// The warp's bytes [first, first + 16 * n16) as MSB-first words into
+// span, n16 vectors a lane at a time; bytes outside [0, nbytes) read 0.
+__device__ __forceinline__ void stage_span(const uint8_t* data,
+                                           long long nbytes, long long first,
+                                           int n16, uint32_t* span,
+                                           int lane) {
+    const bool aligned = ((uintptr_t)data & 15) == 0;
+    for (int i = lane; i < n16; i += 32) {
+        const long long at = first + 16LL * i;
+        uint4 v;
+        if (aligned && at >= 0 && at + 16 <= nbytes) {
+            v = __ldg(reinterpret_cast<const uint4*>(data + at));
+        } else {
+            uint32_t w[4] = {};
+#pragma unroll
+            for (int k = 0; k < 16; k++) {
+                const long long bi = at + k;
+                const uint32_t byte =
+                    bi >= 0 && bi < nbytes ? (uint32_t)__ldg(data + bi) : 0u;
+                w[k / 4] |= byte << (8 * (k % 4));  // as a little-endian load
+            }
+            v = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+        reinterpret_cast<uint4*>(span)[i] =
+            make_uint4(swap_bytes(v.x), swap_bytes(v.y), swap_bytes(v.z),
+                       swap_bytes(v.w));
+    }
+}
+
+// y[c] = coefficient c (row-major), dequantized: field s_izz[c] of the
+// record, read by field(j) (raw, b bits), sign-extended.
+template <int K, class Field>
+__device__ __forceinline__ void read_coeffs(const int* s_izz, int b, int cnt,
+                                            const double* quant, Field field,
+                                            double* y) {
+#pragma unroll
+    for (int c = 0; c < K; c++) {
+        const int j = s_izz[c];
+        int v = 0;
+        if (b > 0 && j < cnt) {
+            uint32_t u = field(j);
+            if (u & (1u << (b - 1))) u |= ~0u << b;  // sign-extend
+            v = (int)u;
+        }
+        y[c] = __dmul_rn((double)v, quant[c]);
+    }
+}
+
 template <int B, bool kPred>
-__global__ void __launch_bounds__(kDecodeThreads) decode_blocks_kernel(
+__global__ void __launch_bounds__(kDecodeThreads<B>) decode_blocks_kernel(
         const uint8_t* data, const long long* nbytes_p,
         const long long* offs, const int32_t* dbits, const int32_t* counts,
         Frames fr, const double* quant, const double* wi,
@@ -67,31 +146,52 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_blocks_kernel(
         uint8_t* img) {
     constexpr int K = B * B;
     __shared__ int s_izz[K];
+    __shared__ __align__(16)
+        uint32_t s_span[kDecodeThreads<B> / 32][kSpanWords<B>];
     for (int i = threadIdx.x; i < K; i += blockDim.x) s_izz[i] = izz[i];
     __syncthreads();
     const double* const mats[1] = {wi};
     const double* const vecs[1] = {quant};
     const ie::TableCache<K, 1, 1> tables(mats, vecs);
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= fr.n_blocks * fr.n_frames) return;
-    const long long g = t / fr.n_blocks, n = t - g * fr.n_blocks;
+    const int lane = threadIdx.x & 31;
+    const long long g = blockIdx.y;  // the frame
+    const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const bool valid = n < fr.n_blocks;
     const long long r = g * fr.rec_stride + n;
     const long long nbytes = *nbytes_p;
-    const long long off = offs[r];
-    const int b = dbits[r];
-    const int cnt = counts[r] < K ? counts[r] : K;
+    const long long off = valid ? offs[r] : 0;
+    const int b = valid ? dbits[r] : 0;
+    const int cnt = valid ? (counts[r] < K ? counts[r] : K) : 0;
+    const long long nf = b > 0 && cnt > 0 ? cnt : 0;  // fields to read
+
+    // The warp's span: from the 16-byte boundary below its first record's
+    // start, up to the highest field end.
+    const long long first = (__shfl_sync(kAll, off, 0) >> 3) & ~15LL;
+    const long long rel = off - 8 * first;
+    const long long end = rel + nf * b;
+    const bool fits = nf == 0 || (rel >= 0 && end <= kSpanBits<B>);
     double y[K];
-#pragma unroll
-    for (int c = 0; c < K; c++) {
-        const int j = s_izz[c];
-        int v = 0;
-        if (b > 0 && j < cnt) {
-            uint32_t u = ie::bits_at(data, nbytes, off + (long long)j * b, b);
-            if (u & (1u << (b - 1))) u |= ~0u << b;  // sign-extend
-            v = (int)u;
-        }
-        y[c] = __dmul_rn((double)v, tables.vec[0][c]);
+    if (__all_sync(kAll, fits)) {
+        const unsigned last = __reduce_max_sync(
+            kAll, nf == 0 ? 0u : (unsigned)end);
+        // Words 0 .. (last - 1) / 32 + 1: a field's read takes its first
+        // word and the next.
+        const int n16 = last == 0 ? 0 : (int)(((last + 31) / 32 + 1 + 3) / 4);
+        uint32_t* span = s_span[threadIdx.x >> 5];
+        stage_span(data, nbytes, first, n16, span, lane);
+        __syncwarp();
+        const int at = (int)rel;
+        read_coeffs<K>(s_izz, b, cnt, tables.vec[0], [&](int j) {
+            const int p = at + j * b;
+            return __funnelshift_l(span[(p >> 5) + 1], span[p >> 5], p & 31)
+                   >> (32 - b);
+        }, y);
+    } else {
+        read_coeffs<K>(s_izz, b, cnt, tables.vec[0], [&](int j) {
+            return ie::bits_at(data, nbytes, off + (long long)j * b, b);
+        }, y);
     }
+    if (!valid) return;
     double acc[K];
     ie::exact_matvec<K>(y, tables.mat[0], acc);
     const long long wb = width / B;
@@ -130,23 +230,32 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_blocks_kernel(
     }
 }
 
+// The frames in launches of at most 65,535 (the grid's y).
 template <int B>
 void launch(const uint8_t* data, const long long* nbytes,
             const long long* offs, const int32_t* dbits,
-            const int32_t* counts, const Frames& fr, const double* quant,
+            const int32_t* counts, Frames fr, const double* quant,
             const double* wi, const int32_t* izz, long long width,
             const uint8_t* pred, uint8_t* img, cudaStream_t st) {
-    const long long n = fr.n_blocks * fr.n_frames;
-    const unsigned grid = (unsigned)((n + kDecodeThreads - 1)
-                                     / kDecodeThreads);
-    if (pred != nullptr)
-        decode_blocks_kernel<B, true><<<grid, kDecodeThreads, 0, st>>>(
-            data, nbytes, offs, dbits, counts, fr, quant, wi, izz, width,
-            pred, img);
-    else
-        decode_blocks_kernel<B, false><<<grid, kDecodeThreads, 0, st>>>(
-            data, nbytes, offs, dbits, counts, fr, quant, wi, izz, width,
-            pred, img);
+    const unsigned gx = (unsigned)((fr.n_blocks + kDecodeThreads<B> - 1)
+                                   / kDecodeThreads<B>);
+    const long long all = fr.n_frames;
+    for (long long g0 = 0; g0 < all; g0 += 65535) {
+        fr.n_frames = all - g0 < 65535 ? all - g0 : 65535;
+        const dim3 grid(gx, (unsigned)fr.n_frames);
+        const long long r0 = g0 * fr.rec_stride;
+        uint8_t* im = img + g0 * fr.img_stride;
+        if (pred != nullptr)
+            decode_blocks_kernel<B, true><<<grid, kDecodeThreads<B>, 0,
+                                            st>>>(
+                data, nbytes, offs + r0, dbits + r0, counts + r0, fr, quant,
+                wi, izz, width, pred + g0 * fr.pred_stride, im);
+        else
+            decode_blocks_kernel<B, false><<<grid, kDecodeThreads<B>, 0,
+                                             st>>>(
+                data, nbytes, offs + r0, dbits + r0, counts + r0, fr, quant,
+                wi, izz, width, pred, im);
+    }
 }
 
 }  // namespace

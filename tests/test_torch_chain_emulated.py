@@ -19,7 +19,7 @@ import pytest
 
 from imageencoder_tpu_torch import QuantMatrix, encode_image, encode_video
 from imageencoder_tpu_torch.models import image
-from imageencoder_tpu_torch.ops import cuda_decode, huffman
+from imageencoder_tpu_torch.ops import bitpack, cuda_decode, huffman
 
 from test_torch_decode import (equal_length_stream,  # tests/ is on the path
                                fifteen_bit_bytes, one_bit_bytes)
@@ -183,3 +183,109 @@ def test_d2_video_jumps_equal_plain(emu):
     ok, walk_ok, vec_ok, stats = mod.video_case(lib, data, 32)
     assert ok and walk_ok and vec_ok
     assert stat(stats, "rounds_changed") == 0 and stat(stats, "jumps") > 0
+
+
+def valid_records(n: int, seed: int, k: int = 16) -> bytes:
+    """3 lead bits, then n records as an RLE stream writes them: a 4-bit
+    width b, a b-bit count of at most k, that many b-bit fields."""
+    rng = np.random.default_rng(seed)
+    vals, nb = [0], [3]
+    for _ in range(n):
+        b = int(rng.integers(0, 16))
+        cnt = int(rng.integers(0, min(k, (1 << b) - 1) + 1))
+        vals += [b, cnt] + rng.integers(0, 1 << b, cnt).tolist()
+        nb += [4, b] + [b] * cnt
+    return bitpack.pack_fields(vals, nb)[0]
+
+
+def walked(payload: bytes, n: int, use_rle: bool, b: int, start: int = 3):
+    """The records (offs, dbits, counts) of n blocks from ``start``, by the
+    plain walk."""
+    return image.walk_block_offsets(None, start, n, use_rle, b,
+                                    packed=payload)[:3]
+
+
+def widest_span(records, k: int) -> int:
+    """Bits from the lowest record start to the highest field end of a
+    warp's 32 consecutive records, the widest over the warps."""
+    offs, dbits, counts = (np.asarray(r, np.int64) for r in records)
+    ends = offs + np.minimum(counts, k) * dbits
+    return max(int(ends[i:i + 32].max() - offs[i:i + 32].min())
+               for i in range(0, len(offs), 32))
+
+
+def span_capacity(b: int) -> int:
+    """csrc/decode.cu's kSpanBits<b>: past it a warp reads its fields from
+    device memory."""
+    return 127 + 32 * 15 * b * b + 31 * (4 + 15)
+
+
+D3_CASES = ["8x8 widest fields", "8x8 noise under quant ones",
+            "blocks not a multiple of 32", "frame k of every gop",
+            "cut short", "cut short, misaligned", "corrupt counts",
+            "zero blocks", "zero frames"]
+
+
+@pytest.mark.parametrize("case", D3_CASES)
+def test_d3_staged_span_equals_plain(emu, case):
+    """D3 stages each warp's span of the payload in shared memory (the
+    widest a stream can give: 32 records of 64 15-bit fields fill the 8x8
+    buffer), reads zero past the payload's byte count, leaves the warps of
+    a partial last tile, takes the frame from the grid's y (frame k of
+    every GOP lies far apart in the payload), and reads from device memory
+    where a corrupt count puts a warp's records too far apart; each case
+    equals the plain block decode."""
+    mod, lib = emu
+    rng = np.random.default_rng(D3_CASES.index(case))
+    if case == "8x8 widest fields":  # b = 15, 64 fields: 979-bit records
+        payload = mod.records("long", 40, 3, True, 64)
+        recs = walked(payload, 40, True, 8)
+        assert widest_span(recs, 64) > span_capacity(8) - 32 * 19 - 127
+        assert mod.d3(lib, payload, recs, np.ones((8, 8)), 8, "reference",
+                      40, 64) is not None
+    elif case == "8x8 noise under quant ones":
+        noise = rng.integers(0, 256, (40, 72), np.uint8)
+        data = encode_image(noise, QuantMatrix(np.ones((8, 8))), False, False,
+                            "reference", 8, device="cpu")
+        plan = image.parse_stream(data, 8)
+        recs = walked(data, plan["n_blocks"], False, 8, plan["start"])
+        assert int(np.max(recs[1])) >= 10
+        assert mod.d3(lib, data, recs, np.ones((8, 8)), 8, "reference", 40,
+                      72) is not None
+    elif case == "blocks not a multiple of 32":  # 35 blocks: 32 + 3
+        payload = valid_records(35, 4)
+        assert mod.d3(lib, payload, walked(payload, 35, True, 4), JPEG4, 4,
+                      "reference", 20, 28) is not None
+    elif case == "frame k of every gop":  # 8 frames of 35 blocks, gop 4
+        payload = valid_records(280, 5)
+        recs = [r.reshape(8, 35) for r in walked(payload, 280, True, 4)]
+        for k in range(4):
+            pred = (None if k == 0 else
+                    rng.integers(0, 256, (2, 20, 28), np.uint8))
+            assert mod.d3(lib, payload, [r[k:] for r in recs], JPEG4, 4,
+                          "reference", 20, 28, pred, step=4) is not None
+    elif case.startswith("cut short"):  # the last third reads zeros
+        payload = valid_records(232, 6)
+        recs = walked(payload, 232, True, 4)
+        assert widest_span(recs, 16) <= span_capacity(4)
+        cut = 2 * len(payload) // 3
+        for nbytes in range(cut, cut + 16):  # the count at each 16-byte phase
+            assert mod.d3(lib, payload[:nbytes], recs, JPEG4, 4, "reference",
+                          32, 116, misalign=5 if "misaligned" in case else 0
+                          ) is not None, nbytes
+    elif case == "corrupt counts":
+        payload = mod.records("corrupt", 232, 1, True, 16)
+        recs = walked(payload, 232, True, 4)
+        assert widest_span(recs, 16) > span_capacity(4)
+        assert mod.d3(lib, payload, recs, JPEG4, 4, "reference", 32,
+                      116) is not None
+    elif case == "zero blocks":
+        empty = [np.zeros(0, np.int64), np.zeros(0, np.int32),
+                 np.zeros(0, np.int32)]
+        got = mod.d3(lib, b"\x12\x34", empty, JPEG4, 4, "reference", 0, 16)
+        assert got is not None and got.shape == (1, 0, 16)
+    else:  # zero frames
+        empty = [np.zeros((0, 35), np.int64), np.zeros((0, 35), np.int32),
+                 np.zeros((0, 35), np.int32)]
+        got = mod.d3(lib, b"\x12\x34", empty, JPEG4, 4, "reference", 20, 28)
+        assert got is not None and got.shape == (0, 20, 28)

@@ -199,6 +199,148 @@ def test_merged_nodes_come_in_key_order(kind, seed):
     assert len(set(made)) == len(made)
 
 
+def heap_tree(freqs: np.ndarray):
+    """heapq's build of the dict's tree: (the internal keys in the order
+    made, {child id: parent id})."""
+    import heapq
+
+    syms = [s for s in range(256) if freqs[s] > 0]
+    heap = [(int(freqs[s]) << 17) | (s << 9) | i for i, s in enumerate(syms)]
+    heapq.heapify(heap)
+    made, parent = [], {}
+    while len(heap) > 1:
+        e1, e2 = heapq.heappop(heap), heapq.heappop(heap)
+        made.append(node_key(e1, e2, len(syms) + len(made)))
+        parent[e1 & 0x1FF] = parent[e2 & 0x1FF] = made[-1] & 0x1FF
+        heapq.heappush(heap, made[-1])
+    return made, parent
+
+
+def node_key(e1: int, e2: int, node: int) -> int:
+    tie = min((e1 >> 9) & 0xFF, (e2 >> 9) & 0xFF)
+    return (((e1 >> 17) + (e2 >> 17)) << 17) | (tie << 9) | node
+
+
+def round_tree(freqs: np.ndarray, window: int):
+    """The dict kernel's merge in rounds (csrc/huffman.cu, merge_rounds),
+    modelled: each round takes the ``window`` smallest live keys (the
+    merge of the next ``window`` leaves and internal nodes), n1 the node
+    the two smallest make and c the count of those keys below n1's key,
+    and makes max(1, c // 2) nodes, node j from keys 2j and 2j + 1.
+    Returns (the internal keys as made, {child: parent}, rounds)."""
+    syms = [s for s in range(256) if freqs[s] > 0]
+    n = len(syms)
+    leaf = sorted((int(freqs[s]) << 17) | (s << 9) | i
+                  for i, s in enumerate(syms))
+    made, parent = [], {}
+    li = ih = rounds = 0
+    while len(made) < n - 1:
+        x = sorted(leaf[li:li + window] + made[ih:ih + window])[:window]
+        node = n + len(made)
+        n1 = node_key(x[0], x[1], node)
+        k = max(1, sum(v < n1 for v in x) // 2)
+        for j in range(k):
+            made.append(node_key(x[2 * j], x[2 * j + 1], node + j))
+            parent[x[2 * j] & 0x1FF] = parent[x[2 * j + 1] & 0x1FF] = \
+                node + j
+        leaves = sum((v & 0x1FF) < n for v in x[:2 * k])
+        li, ih, rounds = li + leaves, ih + 2 * k - leaves, rounds + 1
+    return made, parent, rounds
+
+
+def image_histogram() -> np.ndarray:
+    """The byte histogram of a seeded 256x128 image's inner stream, as
+    the port writes it (RLE on, Huffman off)."""
+    inner = imageencoder_tpu_torch.encode_image(
+        smooth_image(128, 256, 5), quant_from_numpy(np.array(JPEG4)),
+        use_huffman=False, device="cpu")
+    return np.bincount(np.frombuffer(inner, np.uint8), minlength=256)
+
+
+@pytest.mark.parametrize("window", [32, 64])
+@pytest.mark.parametrize("kind,seed", [
+    (k, s) for k, s in KINDS if k not in ("one", "none")]
+    + [("random", s) for s in range(12)] + [("image", 0)])
+def test_round_merge_equals_heap_build(kind, seed, window):
+    """The dict kernel's merge in rounds makes the nodes of heapq's build,
+    in its order, with its parents.  Rounds at a window of 32 (64) against
+    the n - 1 nodes a serial merge steps through: the image's histogram
+    (256 bytes) 21 (14), chip_smoke.py's 4096x912 image's 21 (14) and its
+    noise image's 19 (12), uniform counts 22 (16), all 256 equal 19 (12),
+    geometric counts up to 2^30 34 (34); the Fibonacci chains (30 bytes)
+    29 (29), one node a round, which the kernel merges serially."""
+    freqs = {"random": random_histogram, "image": lambda s: image_histogram()
+             }.get(kind, lambda s: histogram(kind, s))(seed)
+    made, parent = heap_tree(freqs)
+    got_made, got_parent, rounds = round_tree(freqs, window)
+    assert got_made == made and got_parent == parent
+    assert 1 <= rounds <= len(made)
+
+
+def limit_steps(counts: list, max_len: int):
+    """The dict kernel's 15-bit limit (csrc/huffman.cu, limit_lengths),
+    modelled: _limit_lengths's steps, the depth to split scanned for only
+    where it can have moved.  The counts by length, or None on either of
+    its failures."""
+    lim = list(counts)
+    for ln in range(max_len, huffman.MAX_CODE_LEN, -1):
+        left, j = lim[ln], ln - 2
+        while j > 0 and lim[j] == 0:
+            j -= 1
+        while left > 1:
+            if j == 0:
+                return None
+            lim[ln - 1] += 1
+            lim[j + 1] += 2
+            lim[j] -= 1
+            if j < ln - 2:
+                j += 1
+            elif lim[j] == 0:
+                while j > 0 and lim[j] == 0:
+                    j -= 1
+            left -= 2
+        lim[ln] = left
+        if left == 1:
+            return None
+    return lim
+
+
+@pytest.mark.parametrize("kind", ["huffman", "any"])
+@pytest.mark.parametrize("seed", range(3))
+def test_limit_steps_equal_limit_lengths(kind, seed):
+    """The kernel's limit gives _limit_lengths's counts by length, and
+    fails where it raises: on the depths of deep Huffman trees (skewed,
+    Fibonacci-like and geometric counts), and on arbitrary depth
+    profiles, most of which no tree has (both failures)."""
+    rng = np.random.default_rng(seed)
+    checked = failed = 0
+    while checked < 300:
+        if kind == "huffman":
+            f = np.floor(2.0 ** rng.uniform(0, rng.uniform(12, 31), 256))
+            f = (f * (rng.random(256) < rng.uniform(0.1, 1))).astype(np.int64)
+            if (f > 0).sum() < 2:
+                continue
+            lengths = huffman._code_lengths_tree(f)
+        else:
+            lengths = np.zeros(256, np.int32)
+            m = int(rng.integers(2, 257))
+            lengths[:m] = rng.integers(1, 40, m)
+        if lengths.max() <= huffman.MAX_CODE_LEN:
+            continue
+        counts = np.bincount(lengths[lengths > 0], minlength=64).tolist()
+        got = limit_steps(counts, int(lengths.max()))
+        try:
+            want = np.bincount(huffman._limit_lengths(
+                lengths, huffman.MAX_CODE_LEN)[lengths > 0],
+                minlength=64).tolist()
+        except ValueError:
+            want = None
+        assert got == want
+        checked += 1
+        failed += want is None
+    assert (failed > 0) == (kind == "any")
+
+
 def test_dict_plain_of_a_refused_stream():
     """A stream whose pack refused a record (total -1): no dict, the
     fallback flag, and the total kept for the host to raise on."""

@@ -7,10 +7,13 @@ card and no nvcc.
 Compiles csrc/huffman_decode.cu, walk.cu and decode.cu with g++ against a
 small emulation of the CUDA they use: every CUDA thread of a block is a
 fiber (ucontext) on one OS thread, run in turn, blocks run one after
-another, __syncthreads is a block barrier and ballots and shuffles
-exchange through a per-warp barrier, each a yield until every thread has
-arrived, and a launch `k<<<grid, block, smem, stream>>>(args)` becomes a
-call that runs the grid.  Then it holds each kernel's output against its plain version
+another over a grid of one or two dimensions, __syncthreads is a block
+barrier and ballots, shuffles and warp reductions exchange through a
+per-warp barrier, each a yield until every thread has arrived, dynamic
+shared memory (`emu_dyn`) is filled with garbage at each block, and a
+launch `k<<<grid, block, smem, stream>>>(args)` becomes a call that runs
+the grid.  tools/emulate_pack.py and tools/emulate_dict.py build on this
+emulation.  Then it holds each kernel's output against its plain version
 (ops/cuda_decode.py) on streams written by the port's encoder on the CPU
 and on records built to keep speculative walkers out of phase, with many
 small chunks, and prints the chunks each chain walked whole.  For videos
@@ -70,7 +73,11 @@ SHIM = r"""
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 #define __launch_bounds__(...)
-struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct dim3 {
+    unsigned x = 0, y = 0, z = 0;
+    dim3() = default;
+    dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -99,11 +106,26 @@ inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c);
 inline double __ddiv_rn(double a, double b) { volatile double r = a / b; return r; }
 inline double __int2double_rn(int a) { return a; }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 inline long long min(long long a, long long b) { return a < b ? a : b; }
 inline long long max(long long a, long long b) { return a > b ? a : b; }
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+    return {a, b, c, d};
+}
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
+    return (unsigned)(((((unsigned long long)hi) << 32) | lo)
+                      >> (32 - (s & 31)));
+}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+    const unsigned long long v = ((unsigned long long)y << 32) | x;
+    unsigned r = 0;
+    for (int i = 0; i < 4; i++)
+        r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFFu) << (8 * i);
+    return r;
+}
 struct double2 { double x, y; };
 // A block's threads are fibers on one OS thread, run in turn; a barrier
 // yields until every thread of its warp or block has arrived.
@@ -190,17 +212,42 @@ inline unsigned __ballot_sync(unsigned, bool p) {
     __syncwarp();
     return r;
 }
+inline bool __all_sync(unsigned m, int p) {
+    return __ballot_sync(m, p) == 0xffffffffu;
+}
+inline bool __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
+template <class T> inline T emu_reduce(T v, bool take_max) {
+    const int t = threadIdx.x, w = t / 32;
+    __syncwarp();
+    g_emu->slot[t] = (unsigned long long)(long long)v;
+    __syncwarp();
+    T r = v;
+    for (int l = 0; l < 32; l++) {
+        const T x = (T)(long long)g_emu->slot[w * 32 + l];
+        r = take_max ? (x > r ? x : r) : (x < r ? x : r);
+    }
+    __syncwarp();
+    return r;
+}
+inline int __reduce_max_sync(unsigned, int v) { return emu_reduce(v, true); }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+    return emu_reduce(v, true);
+}
+inline int __reduce_min_sync(unsigned, int v) { return emu_reduce(v, false); }
 inline void emu_fiber_main() {
     EmuBlock* b = g_emu;
     b->run(b->job);
     b->fibers[b->current].done = true;
     emu_yield();
 }
+// Dynamic shared memory: a block's own, garbage at its start.
+inline std::vector<unsigned> emu_dyn;
 template <class F>
-inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t,
+inline void emu_launch(dim3 grid, unsigned block, size_t smem, cudaStream_t,
                        F f) {
     blockDim.x = block;
-    gridDim.x = grid;
+    gridDim.x = grid.x;
+    gridDim.y = grid.y;
     EmuBlock eb;
     eb.block.n = block;
     eb.warp.assign((block + 31) / 32, EmuBarrier{32});
@@ -209,8 +256,11 @@ inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t,
     eb.run = [](void* j) { (*static_cast<F*>(j))(); };
     eb.job = &f;
     g_emu = &eb;
-    for (unsigned b = 0; b < grid; b++) {
+    for (unsigned y = 0; y < grid.y; y++)
+    for (unsigned b = 0; b < grid.x; b++) {
         blockIdx.x = b;
+        blockIdx.y = y;
+        emu_dyn.assign(smem / 4 + 4, 0xA5A5A5A5u);
         for (auto& fb : eb.fibers) {
             fb.stack.resize(1 << 16);
             fb.done = false;
@@ -231,6 +281,8 @@ inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t,
             }
         }
     }
+    blockIdx.y = 0;
+    gridDim.y = 0;
 }
 """
 
@@ -324,14 +376,20 @@ def d2(lib, payload: bytes, start: int, n_blocks: int, use_rle: bool,
 
 def d3(lib, payload: bytes, records, quant: np.ndarray, block_size: int,
        norm: str, h: int, w: int, pred: np.ndarray | None = None,
-       step: int = 1) -> np.ndarray | None:
+       step: int = 1, misalign: int = 0) -> np.ndarray | None:
     """D3 on a payload's records (one frame's, or [G * step, N] of which
     every ``step``-th row), with a prediction u8 [G, h, w] or none, into
     every ``step``-th frame of a buffer: its frames if equal to the plain
-    block decode, else None."""
-    buf, nb = buffer(payload, 64), np.array([len(payload)], np.int64)
+    block decode, else None.  The payload starts ``misalign`` bytes past
+    a 16-byte boundary."""
+    room = np.zeros(len(payload) + 64 + 32, np.uint8)
+    at = -room.ctypes.data % 16 + misalign
+    buf = room[at:at + len(payload) + 64]
+    buf[:] = buffer(payload, 64)
+    nb = np.array([len(payload)], np.int64)
     offs, dbits, counts = (np.ascontiguousarray(r) for r in records)
-    rows = offs.reshape(-1, offs.shape[-1])
+    rows = offs.reshape(offs.shape[0] if offs.ndim == 2 else 1,
+                        offs.shape[-1])
     n_frames = -(-rows.shape[0] // step)
     wi = np.ascontiguousarray(_inv_weights(block_size, norm))
     zz = zigzag_order(block_size)

@@ -7,8 +7,8 @@ nvcc.
 Compiles csrc/pack.cu with g++ against tools/emulate_decode.py's
 emulation of CUDA (each CUDA thread of a block a fiber on one OS thread,
 run in turn; barriers, ballots and shuffles yield until every thread has
-arrived), widened here to two-dimensional grids, dynamic shared memory
-(filled with garbage at each block) and the intrinsics and atomics the
+arrived; two-dimensional grids; dynamic shared memory filled with
+garbage at each block), widened here to the intrinsics and atomics the
 packers use.  Then it holds K2 over a batch (ie_pack_locals_batch, with
 and without the histograms, from one start bit or one a stream) and K4
 pack_payload over a batch (ie_pack_payload_batch: the payloads of a batch
@@ -56,10 +56,6 @@ JPEG4 = np.array([[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
 EXTRA = r"""
 struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
-inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
-    return {a, b, c, d};
-}
-inline int max(int a, int b) { return a > b ? a : b; }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
     const unsigned old = *p;
@@ -87,7 +83,6 @@ inline void __nanosleep(unsigned) {}
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
     return (unsigned)(((((unsigned long long)hi) << 32) | lo) >> (s & 31));
 }
-inline bool __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
 inline int __reduce_add_sync(unsigned, int v) {
     const int t = threadIdx.x, w = t / 32;
     __syncwarp();
@@ -117,20 +112,6 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
     return cudaSuccess;
 }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
-// Dynamic shared memory: a block's own, garbage at its start.
-inline std::vector<unsigned> emu_dyn;
-template <class F>
-inline void emu_launch(dim3 grid, unsigned block, size_t smem,
-                       cudaStream_t s, F f) {
-    gridDim.y = grid.y;
-    for (unsigned y = 0; y < grid.y; y++) {
-        blockIdx.y = y;
-        emu_dyn.assign(smem / 4 + 4, 0xA5A5A5A5u);
-        emu_launch(grid.x, block, smem, s, f);
-    }
-    blockIdx.y = 0;
-    gridDim.y = 0;
-}
 """
 
 
@@ -143,14 +124,7 @@ def load_decode_emulation():
 
 
 def shim(base: str) -> str:
-    """The decode emulation's shim with two-dimensional grids and the
-    extras above."""
-    old = "struct dim3 { unsigned x = 0, y = 0, z = 0; };"
-    if base.count(old) != 1:
-        raise RuntimeError("emulate_decode.py's dim3 changed")
-    base = base.replace(old, "struct dim3 { unsigned x = 0, y = 0, z = 0; "
-                             "dim3() = default; dim3(unsigned a, unsigned "
-                             "b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };")
+    """The decode emulation's shim with the extras above."""
     return base + EXTRA
 
 

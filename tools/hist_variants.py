@@ -1,16 +1,15 @@
 #!/usr/bin/env python3
-"""Where the byte histogram folded into K2 and K4 pack_coeffs, and the
-Huffman dict kernel, spend their time, on a GPU.
+"""Where the byte histogram folded into K2 and K4 pack_coeffs spends its
+time, on a GPU.
 
     python3 tools/hist_variants.py [--reps N]
 
 K2 (pack_locals_hist) and K4 pack_coeffs (pack_coeffs_hist), both on
 pack_known_kernel, count the bytes of every word they store into per-warp
 bins in shared memory, and
-each CTA adds its nonzero bins to the global histogram by atomicAdd; the
-dict kernel (csrc/huffman.cu) builds the Huffman tree in one thread.  This
-script derives from pack.cu and huffman.cu, at run time into a temporary
-directory, variants of the kept design:
+each CTA adds its nonzero bins to the global histogram by atomicAdd.  This
+script derives from pack.cu, at run time into a temporary directory,
+variants of the kept design:
 
   no_count   the packers count no byte: no shared-memory atomics, and so
              no bin to add to the global histogram;
@@ -23,26 +22,17 @@ directory, variants of the kept design:
   bins_x4    so fewer lanes of one atomic instruction meet on one bin;
   byte_checks  each byte's place against the stream's end is checked
              before its atomic (64-bit compares), not the word's once;
-  no_tree    the dict kernel replaces its serial merge, one thread's 255
-             steps, by a flat tree (every node a child of the root; its
-             table is wrong);
-  no_ranks   it takes the leaves in byte order instead of counting their
-             ranks (256 compares a thread; its table is wrong);
-  no_code_ranks  it gives every byte the first code of its length instead
-             of counting its place among them (its table is wrong);
-  branch_pops  the merge as first written: a branch a pop, a refill load
-             waited for within two pops, the internal nodes kept sorted by
-             insertion (its table is right: the design the kept one
-             replaced);
 
 builds the kept libraries and each variant with nvcc (one process each, in
 parallel), and times each on the inputs the main paths give the kernels,
 captured from real calls (the 4096x912 image's and the 720p25 raw video's
 register files for K2; the 720p25 recon video's coefficients for K4; the
-image's histogram for the dict; the serving batch's 16 4096x912
-register files for K2 over a batch, ie_pack_locals_batch with a histogram a
-stream), in turns (kept, variants, variants, kept): the kernels' device time a call from torch.profiler.  The
-variants' outputs are wrong by design; only their times are read.
+serving batch's 16 4096x912 register files for K2 over a batch,
+ie_pack_locals_batch with a histogram a stream), in turns (kept,
+variants, variants, kept): the kernels' device time a call from
+torch.profiler.  The variants' outputs are wrong by design, but for
+byte_checks, which must equal the kept design's; only their times are
+read.  The dict kernel's variants are tools/dict_variants.py's.
 Prints one line per input and one JSON line last.
 """
 
@@ -63,91 +53,6 @@ sys.path.insert(0, str(ROOT))
 COPIES = 16
 COUNT = "        if (j < live) atomicAdd(bins + ((w >> (24 - 8 * j)) & 0xFFu), 1);"
 FLUSH = "        if (c) atomicAdd(hist + k, c);"
-TREE = "        for (int node = n; node <= root; node++) {"
-RANKS = "        for (int t = 0; t < kSyms; t++) rank += keys[t] < key;"
-CODE_RANKS = """        int r = 0;  // the byte's place among those of its length
-        for (int t = 0; t < s; t++) r += lens[t] == len;"""
-# The kept merge, and the one it replaced: a branch a pop, the internal
-# nodes kept sorted by insertion (the shift never runs: they are made in key
-# order).
-MERGE = """        int li = 0, ih = 0, it = 0;
-        unsigned long long l0 = leaf[0], l1 = leaf[1];  // n >= 2
-        unsigned long long i0 = kNone, i1 = kNone;
-        for (int node = n; node <= root; node++) {
-            const unsigned long long l2 = li + 2 < n ? leaf[li + 2] : kNone;
-            const unsigned long long l3 = li + 3 < n ? leaf[li + 3] : kNone;
-            const unsigned long long i2 = ih + 2 < it ? inode[ih + 2] : kNone;
-            const unsigned long long i3 = ih + 3 < it ? inode[ih + 3] : kNone;
-            const bool a = l0 < i0;  // the first pop takes a leaf
-            const unsigned long long e0 = a ? l0 : i0;
-            const unsigned long long lh = a ? l1 : l0, nh = a ? i0 : i1;
-            const bool b = lh < nh;  // the second pop takes a leaf
-            const unsigned long long e1 = b ? lh : nh;
-            const int nl = (int)a + (int)b;  // leaves taken
-            up[e0 & 0x1FFu] = node;
-            up[e1 & 0x1FFu] = node;
-            const unsigned long long tie =
-                min((e0 >> 9) & 0xFFull, (e1 >> 9) & 0xFFull);
-            const unsigned long long nk = (((e0 >> 17) + (e1 >> 17)) << 17)
-                                          | (tie << 9) | (unsigned)node;
-            const unsigned long long nl0 = nl == 0 ? l0 : nl == 1 ? l1 : l2;
-            const unsigned long long nl1 = nl == 0 ? l1 : nl == 1 ? l2 : l3;
-            const unsigned long long ni0 = nl == 2 ? i0 : nl == 1 ? i1 : i2;
-            const unsigned long long ni1 = nl == 2 ? i1 : nl == 1 ? i2 : i3;
-            li += nl;
-            ih += 2 - nl;
-            inode[it] = nk;  // the largest key made so far
-            l0 = nl0;
-            l1 = nl1;
-            i0 = it == ih ? nk : ni0;
-            i1 = it == ih + 1 ? nk : ni1;
-            it++;
-        }
-"""
-BRANCH_MERGE = """        int li = 0, ih = 0, it = 0;
-        unsigned long long l0 = leaf[0], l1 = leaf[1];  // n >= 2
-        unsigned long long i0 = kNone, i1 = kNone, tail = 0ull;
-        for (int node = n; node <= root; node++) {
-            unsigned long long e[2];
-#pragma unroll
-            for (int k = 0; k < 2; k++) {
-                if (l0 < i0) {
-                    e[k] = l0;
-                    l0 = l1;
-                    l1 = li + 2 < n ? leaf[li + 2] : kNone;
-                    li++;
-                } else {
-                    e[k] = i0;
-                    i0 = i1;
-                    i1 = ih + 2 < it ? inode[ih + 2] : kNone;
-                    ih++;
-                }
-            }
-            up[e[0] & 0x1FFu] = node;
-            up[e[1] & 0x1FFu] = node;
-            const unsigned long long tie =
-                min((e[0] >> 9) & 0xFFull, (e[1] >> 9) & 0xFFull);
-            const unsigned long long nk = (((e[0] >> 17) + (e[1] >> 17)) << 17)
-                                          | (tie << 9) | (unsigned)node;
-            int p = it;
-            if (ih < it && nk < tail) {
-                while (p > ih && inode[p - 1] > nk) {
-                    inode[p] = inode[p - 1];
-                    p--;
-                }
-            } else {
-                tail = nk;
-            }
-            inode[p] = nk;
-            it++;
-            if (p == ih) {
-                i1 = i0;
-                i0 = nk;
-            } else if (p == ih + 1) {
-                i1 = nk;
-            }
-        }
-"""
 MY_BINS = "    int* my_bins = bins + (kHist ? warp * 256 : 0);"
 def more_bins(k: int) -> list:
     """Substitutions giving each warp k sets of bins, by lane mod k."""
@@ -169,27 +74,18 @@ VARIANTS = {  # name: (source, [(old, new[, times]), ...])
     "bins_x4": ("pack.cu", more_bins(4)),
     "byte_checks": ("pack.cu", [(COUNT, COUNT.replace("j < live",
                                                       "b0 + j < end"))]),
-    "no_tree": ("huffman.cu", [(TREE, "        for (int i = 0; i < root; i++) "
-                                "up[i] = root;\n"
-                                "        for (int node = n; node < 0; "
-                                "node++) {")]),
-    "no_ranks": ("huffman.cu", [(RANKS, "        rank = id;")]),
-    "no_code_ranks": ("huffman.cu", [(CODE_RANKS, CODE_RANKS.replace(
-        "for (int t = 0; t < s; t++) r += lens[t] == len;", ""))]),
-    "branch_pops": ("huffman.cu", [(MERGE, BRANCH_MERGE)]),
 }
 # Their outputs must equal the kept design's.
-EXACT = ("branch_pops", "byte_checks")
+EXACT = ("byte_checks",)
 ENTRIES = {"pack.cu": ("ie_pack_tile", "ie_pack_locals",
                        "ie_pack_locals_batch",
                        "ie_pack_locals_scratch", "ie_pack_coeffs",
-                       "ie_pack_coeffs_scratch"),
-           "huffman.cu": ("ie_huffman_dict", "ie_dict_table_words")}
+                       "ie_pack_coeffs_scratch")}
 
 
 def build_all(tmp: pathlib.Path) -> dict:
-    """{name: shared library path}: "pack.cu" and "huffman.cu" for the
-    kept sources, then each variant of one of them."""
+    """{name: shared library path}: "pack.cu" for the kept source,
+    then each variant of it."""
     from imageencoder_tpu_torch.kernels import build
 
     csrc = build.CSRC
@@ -309,11 +205,9 @@ def pack_coeffs_hist(lib, bins, coeffs, mvecs, gop, mvec_nbits, b, use_rle,
 
 
 def exact_view(result) -> list:
-    """What a variant that must not change the result is held to: the
-    dict's table, or a pack's totals and bins (the words past a stream
-    are left as allocated, and differ from call to call)."""
-    if not isinstance(result, tuple):
-        return [result.clone()]
+    """What a variant that must not change the result is held to: a
+    pack's totals and bins (the words past a stream are left as
+    allocated, and differ from call to call)."""
     return [x.clone() for x in result[1:]]
 
 
@@ -328,7 +222,6 @@ def main() -> None:
     import chip_smoke as cs
     import imageencoder_tpu_torch as port
     from imageencoder_tpu_torch.kernels import build
-    from imageencoder_tpu_torch.ops import huffman
     from imageencoder_tpu_torch.utils.device import gpu_identity
 
     if not torch.cuda.is_available():
@@ -381,12 +274,6 @@ def main() -> None:
         lambda lib: (*pack_locals_hist_batch(lib, batch_bins, *batch_args[0],
                                              **batch_args[1]),
                      batch_bins[:batch.shape[0] * 256]))
-    dict_args = captured["image"]["Huffman dict"][0]
-    inputs["dict image"] = (("huffman.cu", "no_tree", "no_ranks",
-                             "no_code_ranks", "branch_pops"),
-                            ("huffman_dict_kernel",),
-                            lambda lib: huffman.build_dict(*dict_args[0]))
-
     out = {"gpu": gpu_identity(), "reps": reps, "inputs": {}}
     saved_lib = build.library()
     try:
