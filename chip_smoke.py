@@ -75,11 +75,27 @@ each of which raises on failure:
      thirds (reads past the byte count are zero) and with the payload 3
      bytes past a 16-byte boundary, and on a 4096x912 noise image in 8x8
      blocks under quant all ones without RLE (64 wide fields a record,
-     its own row).  The packers' words are compared up to
-     each stream's last word, which is all the kernels define.  K3 is
-     also timed against torch.bincount over the same stream bytes, the
-     one PyTorch call that computes its function;
-  3. drive each path with every kernel's launch count set to 0 just
+     its own row); the wire emit (csrc/wire.cu: every encode's final
+     streams as wire-order bytes on the card, the raw-copy fallback's
+     one 0 bit and one-bit shift included) on the tails of the image
+     (Huffman on; the small noise image, which falls back; a full-size
+     fallback, a seeded random inner stream of the 4096x912 image's
+     Huffman stream size through huffman.huffman_encode, since no
+     full-size image falls back), the raw and recon video,
+     the 40-frame video's chunks and stream, both batches (the small one
+     mixes coded and fallback streams), the stream of 16, a checkpointed
+     320x176x8 encode and, in phase 9, the sharded paths, its buffer
+     compared up to its last stream's padded end.  The packers' words are
+     compared up to each stream's last word, which is all the kernels
+     define.  K3 is also timed against torch.bincount over the same
+     stream bytes, and the emit against torch.flip of its source words
+     as bytes (the byte swap alone), the PyTorch calls that compute their
+     functions;
+  3. from here on device_pack.words_to_bytes and huffman._fallback, the
+     host serialization the emit replaced, raise wherever the port binds
+     them (in the spawned processes of phase 9 too; the CLI's
+     subprocesses of phase 8 excepted): every path below runs without
+     them.  Drive each path with every kernel's launch count set to 0 just
      before it and read just after: encode_image(..., device="cuda") on
      seeded 4096x912 and 3840x2160 images with Huffman on and off and on
      a small noise image that takes the raw-copy fallback; encode_video at
@@ -90,11 +106,11 @@ each of which raises on failure:
      least once in that path's run, no path but the long video's may
      launch K3, and no encode path may launch K6 or K7 alone (no path
      launches K6 alone).  One encode_image with Huffman on must launch K1,
-     K2+hist, the dict and K4 pack_payload once each and nothing else; one
-     720p25 recon encode_video at gop 4, Huffman on, K5 once, the search
-     and the recon step 3 times each (7 launches before the pack), K4
-     pack_coeffs+hist, the dict and K4 pack_payload once each, and
-     nothing else.
+     K2+hist, the dict, K4 pack_payload and the emit once each and
+     nothing else; one 720p25 recon encode_video at gop 4, Huffman on, K5
+     once, the search and the recon step 3 times each (7 launches before
+     the pack), K4 pack_coeffs+hist, the dict, K4 pack_payload and the
+     emit once each, and nothing else.
      No encode path may launch a decode kernel, and a decode path
      launches its own kernels only: the image decode D1 once a Huffman
      stream, D2 and D3 once a stream; the video decode D1 once a Huffman
@@ -142,7 +158,10 @@ each of which raises on failure:
      until its pixels are ready; for serving, on the 16 4096x912 images
      on the device, encode_image_batch, 16 back-to-back encode_image
      calls, encode_image_stream and decode_image_batch of the batch's
-     streams, each with its Mpix/s;
+     streams, each with its Mpix/s; for the image and the batch, the
+     tail's host ms split into its launch, its copy (the lengths' wait and
+     the one copy) and its bytes (the copy's wait and one bytes a
+     stream);
   7. profile a few calls of each path and print the device time per call
      by operation and the device operations per call: where the device
      time goes.  A video profile with a row of K7 alone, or a raw one with
@@ -150,11 +169,13 @@ each of which raises on failure:
      path, the device-to-host copies a call (profiler rows) and the host's
      waits for the device a call (PyTorch's sync debug mode counts each
      one): one of each is the stream's own copy, and the path fails with
-     more than one wait before it.  A decode_image or decode_frames that
+     more than one wait before it or with more than two copies (its
+     lengths', then its bytes' one copy, whatever the batch; the stream
+     two an image).  A decode_image or decode_frames that
      waits on the device at all fails: it leaves its pixels there; a
      decode_video waits once, for its frames' copy.  A wait on an event
      is counted too (the debug mode does not see it): encode_image_batch
-     waits at most twice whatever B (its lengths, then its copies),
+     waits at most twice whatever B (its lengths, then its copy),
      encode_image_stream at most once an image and once at its end, and
      decode_image_batch never;
   8. the command line: python -m imageencoder_tpu_torch as a subprocess
@@ -236,6 +257,7 @@ from __future__ import annotations
 import contextlib
 import json
 import sys
+import tempfile
 import time
 
 sys.modules["jax"] = None  # any import of JAX fails loudly
@@ -249,6 +271,7 @@ VIDEO_SMALL = (320, 176, 8)  # held against the plain path on the host
 VIDEO_LONG = (320, 176, 40)  # two chunks: K3 on the spliced stream
 BATCHES = ((16, 912, 4096), (8, 2160, 3840))  # serving: B, H, W
 FALLBACK_BATCH = (4, 128, 256)  # 3 smooth images and a noise image
+FULL_FALLBACK_BYTES = 2_637_546  # the 4096x912 image's Huffman stream
 STREAM_DEPTH = 2
 SERVING_SAMPLES = 20  # per serving timing (16 images a sample)
 GOP, MERANGE = 4, 16
@@ -435,47 +458,55 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                                  "pack_records_segments_kernel",
                                  "imageencoder_tpu_torch/csrc/pack.cu",
                                  "imageencoder_tpu/ops/pallas_pack.py:55"),
+    # No TPU kernel: the JAX package's host serialization of the final
+    # stream (words_to_bytes, and _fallback where the stream falls back),
+    # now a kernel that writes wire-order bytes, every encode path's last.
+    "wire emit": ("cuda_pack", "emit_wire", "emit_wire_plain",
+                  "emit_wire_kernel", "imageencoder_tpu_torch/csrc/wire.cu",
+                  "imageencoder_tpu/ops/device_pack.py:261 and "
+                  "imageencoder_tpu/ops/huffman.py:295"),
 }
 PATHS = {  # path: the kernels it runs (Huffman on and off)
     "image": ("K1 encode_locals", "K2 pack_locals", "K2 pack_locals+hist",
-              "Huffman dict", "K4 pack_payload"),
+              "Huffman dict", "K4 pack_payload", "wire emit"),
     "video raw": ("K1 encode_locals", "K2 pack_locals", "K2 pack_locals+hist",
-                  "Huffman dict", "K4 pack_payload", "K6+K7 search_residual"),
+                  "Huffman dict", "K4 pack_payload", "K6+K7 search_residual",
+                  "wire emit"),
     "video recon": ("K4 pack_coeffs", "K4 pack_coeffs+hist", "Huffman dict",
                     "K4 pack_payload", "K5 quantize_image", "K5 recon_step",
-                    "K6+K7 search_predict"),
+                    "K6+K7 search_predict", "wire emit"),
     "video long": ("K1 encode_locals", "K2 pack_locals", "K3 byte_histogram",
                    "Huffman dict", "K4 pack_payload",
-                   "K6+K7 search_residual"),
+                   "K6+K7 search_residual", "wire emit"),
     "image decode": ("D1 huffman_decode", "D2 walk_offsets",
                      "D3 decode_blocks"),
     "video decode": ("D1 huffman_decode", "D2 walk_video", "vector read",
                      "D3 decode_blocks", "K7 predict"),
     "image batch": ("K1 encode_locals", "K2 pack_locals batch",
                     "K2 pack_locals+hist batch", "Huffman dict batch",
-                    "K4 pack_payload batch"),
+                    "K4 pack_payload batch", "wire emit"),
     "image stream": ("K1 encode_locals", "K2 pack_locals+hist",
-                     "Huffman dict", "K4 pack_payload"),
+                     "Huffman dict", "K4 pack_payload", "wire emit"),
     "image batch decode": ("D1 huffman_decode", "D2 walk_offsets",
                            "D3 decode_blocks"),
     # Phase 9: a world of one over NCCL; the GOP encode in two processes.
     "sharded image": ("K1 encode_locals", "K2 pack_segments",
                       "K3 byte_histogram_rows", "Huffman dict batch",
-                      "K4 pack_payload batch"),
+                      "K4 pack_payload batch", "wire emit"),
     "sharded image stage 2": ("K1 encode_locals", "K2 pack_segments",
                               "K3 byte_histogram_rows", "Huffman dict batch",
-                              "K4 pack_payload window"),
+                              "K4 pack_payload window", "wire emit"),
     "sharded decode": ("D1 huffman_decode", "D2 walk_offsets",
                        "D3 decode_blocks"),
     # Each GOP's payload from bit 0, then the spliced stream's Huffman
     # stage: K3 alone counts it.
     "gop encode raw": ("K1 encode_locals", "K2 pack_locals",
                        "K6+K7 search_residual", "K3 byte_histogram",
-                       "Huffman dict", "K4 pack_payload"),
+                       "Huffman dict", "K4 pack_payload", "wire emit"),
     "gop encode recon": ("K5 quantize_image", "K5 recon_step",
                          "K6+K7 search_predict", "K4 pack_coeffs",
                          "K3 byte_histogram", "Huffman dict",
-                         "K4 pack_payload"),
+                         "K4 pack_payload", "wire emit"),
     # The sharded video in a world of one (Huffman on and off): the
     # stripe's search, K1 on its residual stack, K2 and K4 over the block
     # and vector segments; with Huffman the windowed K3 over the spliced
@@ -483,12 +514,12 @@ PATHS = {  # path: the kernels it runs (Huffman on and off)
     "sharded video raw": ("K6+K7 search_residual_stripe", "K1 encode_locals",
                           "K2 pack_segments", "K4 pack_records segments",
                           "K3 byte_histogram_rows", "Huffman dict batch",
-                          "K4 pack_payload batch"),
+                          "K4 pack_payload batch", "wire emit"),
     "sharded video recon": ("K6+K7 search_predict_stripe", "K5 recon_step",
                             "K1 encode_locals", "K2 pack_segments",
                             "K4 pack_records segments",
                             "K3 byte_histogram_rows", "Huffman dict batch",
-                            "K4 pack_payload batch"),
+                            "K4 pack_payload batch", "wire emit"),
     "sharded video decode": ("D1 huffman_decode", "D2 walk_video",
                              "vector read", "D3 decode_blocks", "K7 predict"),
 }
@@ -511,12 +542,14 @@ STREAM_OUT = ("K2 pack_locals", "K2 pack_locals+hist", "K4 pack_records",
 BATCH_OUT = ("K2 pack_locals batch", "K2 pack_locals+hist batch",
              "K4 pack_payload batch", "K2 pack_segments",
              "K4 pack_payload window", "K4 pack_records segments")
+# The emit's buffer is defined up to its last stream's padded end.
+WIRE_OUT = ("wire emit",)
 # One sharded image encode launches these once each (K3 rows twice with
 # stage 2), and no other.
 SHARDED_CALL = {False: dict.fromkeys(PATHS["sharded image"], 1),
                 True: {"K1 encode_locals": 1, "K2 pack_segments": 1,
                        "K3 byte_histogram_rows": 2, "Huffman dict batch": 1,
-                       "K4 pack_payload window": 1}}
+                       "K4 pack_payload window": 1, "wire emit": 1}}
 SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep's cycles a second, at most
 L2_FLUSH_BYTES = 2 * 50 * 2 ** 20  # twice the H100's 50 MB L2
 # Timed with the L2 flushed before each call: on its path K7 reads the
@@ -531,11 +564,11 @@ GOP_REPS = 3  # timed GOP-distributed encodes in each process
 VIDEO_PAIR = (1280, 704, 24)
 # One encode_image with Huffman on launches these once each, and no other.
 IMAGE_CALL = ("K1 encode_locals", "K2 pack_locals+hist", "Huffman dict",
-              "K4 pack_payload")
-# So does one encode_image_batch, whatever its B; without Huffman, K1 and
-# K2 pack_locals batch.
+              "K4 pack_payload", "wire emit")
+# So does one encode_image_batch, whatever its B; without Huffman, K1, K2
+# pack_locals batch and the emit.
 BATCH_CALL = ("K1 encode_locals", "K2 pack_locals+hist batch",
-              "Huffman dict batch", "K4 pack_payload batch")
+              "Huffman dict batch", "K4 pack_payload batch", "wire emit")
 # D1's payload is defined up to its byte count (its second output).
 PAYLOAD_OUT = ("D1 huffman_decode",)
 # The outputs a wrapper is handed as keywords on the recon paths (frame k
@@ -552,7 +585,7 @@ OUT_KWARGS = {"K5 quantize_image": ("out", "lens"),
 # search and the recon step, each over frame k of every GOP.
 RECON_CALL = {"K5 quantize_image": 1, "K6+K7 search_predict": GOP - 1,
               "K5 recon_step": GOP - 1, "K4 pack_coeffs+hist": 1,
-              "Huffman dict": 1, "K4 pack_payload": 1}
+              "Huffman dict": 1, "K4 pack_payload": 1, "wire emit": 1}
 # One sharded recon encode at gop 4, Huffman on, launches these (counts
 # from 0), and no other, in a world of one and in each process of the
 # (1, 2) pair: the stripe search and the recon step once a GOP step, over
@@ -562,7 +595,7 @@ SHARDED_RECON_CALL = {"K6+K7 search_predict_stripe": GOP - 1,
                       "K5 recon_step": GOP - 1, "K1 encode_locals": 1,
                       "K2 pack_segments": 1, "K4 pack_records segments": 1,
                       "K3 byte_histogram_rows": 1, "Huffman dict batch": 1,
-                      "K4 pack_payload batch": 1}
+                      "K4 pack_payload batch": 1, "wire emit": 1}
 
 
 def synthetic(h: int, w: int, seed: int):
@@ -900,6 +933,9 @@ def held_equal(name: str, args: tuple, kwargs: dict):
     if name in PAYLOAD_OUT:
         got = (got[0][:int(got[1])], got[1])
         want = (want[0][:int(want[1])], want[1])
+    if name in WIRE_OUT:
+        end = wire_end(args)
+        got, want = (got[0][:end],), (want[0][:end],)
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain "
@@ -975,6 +1011,84 @@ def stripe_bytes(args, got) -> int:
     rows = min(h_glob, row0 + h + halo) - max(0, row0 - halo)
     return (cur.numel() + len(stripe_p_frames(args)) * rows * w
             + tensor_bytes(got))
+
+
+def wire_sources_of(args) -> list:
+    """(bits, fallback) of each stream of the wire emit's arguments
+    (words, total_bits, tables, payload), as the emit reads them."""
+    return module("cuda_pack").wire_sources(*args[1:3])
+
+
+def wire_end(args) -> int:
+    """The end of the emit's last stream, padded to 16 bytes: every byte
+    of its buffer before it is defined."""
+    nbytes, offsets, _ = module("cuda_pack").wire_layout(
+        wire_sources_of(args), args[0].shape[1])
+    return offsets[-1] + -(-nbytes[-1] // 16) * 16 if nbytes else 0
+
+
+def wire_bytes_moved(args) -> int:
+    """The bytes the emit must move: each stream's source bytes read once
+    and its wire bytes written once, and the 8 bytes a stream of its total
+    or its table's fields it reads."""
+    cp = module("cuda_pack")
+    sources = wire_sources_of(args)
+    return sum((bits + 7) // 8 + cp.wire_nbytes(bits, fb) + 8
+               for bits, fb in sources if bits >= 0)
+
+
+def flip_ms(args) -> float:
+    """Device ms of torch.flip over each stream's source words seen as
+    bytes, four to a word: the byte swap alone, one PyTorch call on the
+    same bytes (gathered beforehand where the batch has several streams),
+    checked against the emit's bytes on a stream that does not fall
+    back."""
+    import torch
+
+    words, _, tables, payload = (*args, None, None)[:4]
+    srcs, check = [], None
+    for k, (bits, fb) in enumerate(wire_sources_of(args)):
+        if bits < 0:
+            continue
+        row = words[k] if tables is None or fb else payload[k]
+        srcs.append(row[:-(-((bits + 7) // 8) // 4)])
+        if check is None and not fb:
+            check = (srcs[-1], (bits + 7) // 8,
+                     module("cuda_pack").wire_bytes(row, bits))
+    src = torch.cat(srcs) if len(srcs) > 1 else srcs[0].contiguous()
+    if check is not None:
+        row, nbytes, want = check
+        got = torch.flip(row.contiguous().view(torch.uint8).view(-1, 4),
+                         [1]).reshape(-1)[:nbytes]
+        if not torch.equal(got, want):
+            raise AssertionError("torch.flip disagrees with the emit")
+    return profiled_ms(lambda: torch.flip(src.view(torch.uint8).view(-1, 4),
+                                          [1]))
+
+
+def block_host_serialization() -> None:
+    """Replace device_pack.words_to_bytes and huffman._fallback, the host
+    serialization the wire emit replaced, by functions that raise, in
+    every module of the port that binds them: a path that still called
+    them fails the run.  Once a process; they stay blocked."""
+    import importlib
+
+    dp, hf = module("device_pack"), module("huffman")
+    for attr, owner in (("words_to_bytes", dp), ("_fallback", hf)):
+        real = getattr(owner, attr)
+        if getattr(real, "blocked", False):
+            continue
+
+        def refuse(*args, _attr=attr, **kwargs):
+            raise AssertionError(f"{_attr} was called: the wire emit "
+                                 f"takes its place on every path")
+
+        refuse.blocked = True
+        for name in list(sys.modules):
+            if name.startswith("imageencoder_tpu_torch"):
+                mod = importlib.import_module(name)
+                if getattr(mod, attr, None) is real:
+                    setattr(mod, attr, refuse)
 
 
 def bincount_ms(words, total_bits) -> float:
@@ -1101,6 +1215,8 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
     elif name in ("K6 motion_search", "K7 predict", "K5 recon_step",
                   "K6+K7 search_predict"):
         nbytes = tensor_bytes(args[:2]) + tensor_bytes(got)
+    elif name == "wire emit":
+        nbytes = wire_bytes_moved(args)
     else:
         nbytes = tensor_bytes(args[:1]) + tensor_bytes(got)
     ops, rate = operations(name, args, kwargs)
@@ -1120,8 +1236,9 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
            "plain_ms": profiled_ms(plain_call, reps=plain_reps),
            "bound_ms": max(hbm_ms, ops_ms),
            "bound_by": "operations" if ops_ms > hbm_ms else "bytes",
-           "library_ms": (bincount_ms(*args)
-                          if name == "K3 byte_histogram" else None),
+           "library_ms": (bincount_ms(*args) if name == "K3 byte_histogram"
+                          else flip_ms(args) if name == "wire emit"
+                          else None),
            "stage_ms": profiled_ms(kernel_call),
            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
            "bytes": nbytes, "ops": ops, "hbm_floor_ms": hbm_ms}
@@ -1129,8 +1246,9 @@ def check_kernel(name: str, args: tuple, kwargs: dict) -> dict:
         row["l2_warm_ms"] = profiled_ms(kernel_call, symbol)
     shapes = ", ".join(str(tuple(a.shape)) for a in args
                        if isinstance(a, torch.Tensor))
-    lib = ("" if row["library_ms"] is None
-           else f"; torch.bincount {row['library_ms']:.4f} ms")
+    lib = ("" if row["library_ms"] is None else
+           f"; {'torch.flip' if name == 'wire emit' else 'torch.bincount'} "
+           f"{row['library_ms']:.4f} ms")
     cold = ("" if name not in COLD else f" with the L2 flushed before each "
             f"call ({row['l2_warm_ms']:.4f} ms without)")
     print(f"{name} on {shapes}: bit-equal to plain; device {row['ms']:.4f} "
@@ -1425,13 +1543,41 @@ def time_serving(imgs_d, quant, dev) -> list:
     }
     busy = profiled_ms(lambda: port.encode_image_batch(imgs_d, quant,
                                                        device=dev), reps=5)
+    from imageencoder_tpu_torch.models.batch import launch_batch
+
+    tail_ms = time_tail(lambda: launch_batch(imgs_d, quant, True, True,
+                                             "reference", 4))
     print(f"serving {b}x{w}x{h}, Huffman on: " + "; ".join(
         f"{label} median {med:.3f} ms, p90 {p90:.3f} ms "
         f"({mpix / med * 1e3:.1f} Mpix/s)"
         for label, (med, p90) in got.items())
           + f" (n={SERVING_SAMPLES}); encode_image_batch device busy "
-          f"{busy:.4f} ms a call", flush=True)
+          f"{busy:.4f} ms a call; {tail_ms}", flush=True)
     return streams
+
+
+def time_tail(launch) -> str:
+    """The host's ms of a tail (ops/huffman.py::Tail) after launch(), its
+    kernels queued: median over SAMPLES of the launch, of Tail.copy (the
+    wait for the lengths and the one copy queued) and of Tail.result (the
+    copy's wait, where it has not landed, and one bytes a stream)."""
+    import torch
+
+    t = []
+    for _ in range(SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tail = launch()
+        t1 = time.perf_counter()
+        tail.copy()
+        t2 = time.perf_counter()
+        tail.result()
+        t.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    launch_ms, copy_ms, bytes_ms = (quantiles([x[k] for x in t])[0]
+                                    for k in range(3))
+    return (f"tail medians: launch {launch_ms:.3f} ms, copy (the lengths' "
+            f"wait, the one copy) {copy_ms:.3f} ms, bytes (the copy's wait, "
+            f"a bytes a stream) {bytes_ms:.3f} ms (n={SAMPLES})")
 
 
 def cli_phase(image, frames) -> None:
@@ -1571,7 +1717,8 @@ def host_waits(fn, calls: int):
 
 
 def print_profile(label: str, fn, calls: int, absent: tuple = (),
-                  waits_wanted: int = 2, at_most: bool = False) -> None:
+                  waits_wanted: int = 2, at_most: bool = False,
+                  d2h_wanted: int | None = None) -> None:
     """Phase 7: device time per call by operation, the number of device
     operations (kernels and copies) per call, the device-to-host copies
     and the host's waits per call.  Fails if a device row's name contains
@@ -1579,7 +1726,10 @@ def print_profile(label: str, fn, calls: int, absent: tuple = (),
     times a call (with ``at_most``, more than that in any call): an encode
     (the median of the calls) for the dict table's totals and at the
     stream's own copy, a decode (every call: it leaves its pixels on the
-    device) never."""
+    device) never; or, with ``d2h_wanted``, if the device-to-host copies
+    a call are more than it (an encode: its lengths' copy and its bytes'
+    one copy, whatever the batch; the profiler may drop records, never
+    add them)."""
     counts = {}
     by_op, wall_ms = device_rows(fn, calls, counts)
     for key in by_op:
@@ -1600,6 +1750,9 @@ def print_profile(label: str, fn, calls: int, absent: tuple = (),
           f"waits for the device a call (profiler; sync debug mode; median "
           f"of the calls; each call's waits {per_call}, by line {where})",
           flush=True)
+    if d2h_wanted is not None and d2h > d2h_wanted + 0.5:
+        raise AssertionError(f"{label}: {d2h:g} device-to-host copies a "
+                             f"call, expected {d2h_wanted}")
     if at_most and max(per_call) > waits_wanted:
         raise AssertionError(f"{label}: {per_call} host waits a call, "
                              f"expected at most {waits_wanted}")
@@ -1660,6 +1813,7 @@ def gop_job(reps: int = 0, **kw) -> dict:
 
     from imageencoder_tpu_torch.parallel import dryrun
 
+    block_host_serialization()
     wrappers = {name: getattr(module(mod_name), attr)
                 for name, (mod_name, attr, *_) in KERNELS.items()}
     got = []
@@ -1711,6 +1865,7 @@ def video_pair_job(ref_mode: str, reps: int = 0) -> dict:
     from imageencoder_tpu_torch import parallel
 
     t_job = time.perf_counter()
+    block_host_serialization()
     if "mesh" not in _PAIR_MESH:
         _PAIR_MESH["mesh"] = parallel.make_mesh(2, frame_axis=1,
                                                 device="cuda")
@@ -1816,7 +1971,8 @@ def sharded_video_phase(port, quant, mesh, wrappers, rows: dict) -> list:
                 *calls["K4 pack_records segments"][0])
         # The batch packers at this path's shapes: the block segments and
         # the spliced stream's payload.
-        for name in ("K2 pack_segments", "K4 pack_payload batch"):
+        for name in ("K2 pack_segments", "K4 pack_payload batch",
+                     "wire emit"):
             keep_row(rows, name, f"sharded_video_{mode}",
                      check_kernel(name, *calls[name][0]))
         del calls
@@ -1940,6 +2096,8 @@ def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
                 keep_row(rows, "Huffman dict batch", "sharded_stage2",
                          check_kernel("Huffman dict batch",
                                       *calls["Huffman dict batch"][0]))
+                keep_row(rows, "wire emit", "sharded_stage2",
+                         check_kernel("wire emit", *calls["wire emit"][0]))
             else:
                 # K3 here counts each spliced stream whole.
                 for name in ("K2 pack_segments", "K3 byte_histogram_rows"):
@@ -1947,6 +2105,8 @@ def sharded_phase(port, quant, batch0_d, huff_streams, image_stream,
                 keep_row(rows, "K4 pack_payload batch", "sharded_stage1",
                          check_kernel("K4 pack_payload batch",
                                       *calls["K4 pack_payload batch"][0]))
+                keep_row(rows, "wire emit", "sharded_stage1",
+                         check_kernel("wire emit", *calls["wire emit"][0]))
             del calls
             if got != huff_streams:
                 bad = [k for k, (a, b) in enumerate(zip(got, huff_streams))
@@ -2155,6 +2315,8 @@ def phase9_alone(port, quant, vdata, dev, t_start: float) -> tuple:
     path on the host.  Returns the paths' launch counts; adds the rows."""
     import torch
 
+    block_host_serialization()
+
     batch_d = torch.from_numpy(serving_batch()).to(dev)
     streams = port.encode_image_batch(batch_d, quant, device="cuda")
     stream = port.encode_image(smoke_images()[1], quant, use_rle=True,
@@ -2286,8 +2448,11 @@ def main() -> None:
     from imageencoder_tpu_torch.kernels import build
     from imageencoder_tpu_torch.models.image import stream_header
     from imageencoder_tpu_torch.models.video import encode_frames
-    from imageencoder_tpu_torch.ops.huffman import huffman_encode_from_hist
+    from imageencoder_tpu_torch.ops.huffman import (huffman_encode_from_hist,
+                                                    huffman_launch)
     from imageencoder_tpu_torch.ops.pipeline import make_encode_packed_hist
+    from imageencoder_tpu_torch.utils.checkpoint import (
+        encode_video_checkpointed)
     from imageencoder_tpu_torch.utils.device import gpu_identity
 
     dev = torch.device("cuda", 0)
@@ -2331,6 +2496,8 @@ def main() -> None:
     noise = np.random.default_rng(9).integers(0, 256, (128, 256),
                                               dtype=np.uint8)
     q_ones = port.QuantMatrix(np.ones((4, 4), dtype=np.uint32))
+    full_fallback = np.random.default_rng(11).integers(
+        0, 256, FULL_FALLBACK_BYTES, dtype=np.uint8).tobytes()
     with captured_calls() as calls:
         port.encode_image(images[0], quant, use_rle=True, use_huffman=True,
                           device="cuda")
@@ -2352,12 +2519,30 @@ def main() -> None:
                              "through one dict launch")
     beside(rows["Huffman dict"], "fallback_image",
            check_kernel("Huffman dict", *calls["Huffman dict"][0]))
+    beside(rows["wire emit"], "fallback_image",
+           check_kernel("wire emit", *calls["wire emit"][0]))
     del calls
+    # A full-size fallback.  No full-size image falls back (the records'
+    # headers skew the byte histogram), so a seeded random inner stream of
+    # the 4096x912 image's Huffman stream size goes through
+    # huffman.huffman_encode, the Huffman entry of a long video's spliced
+    # chunks.
+    with captured_calls() as calls:
+        fallback = module("huffman").huffman_encode(full_fallback, "cuda")
+    if (fallback[0] & 0x80 or len(calls["wire emit"]) != 1
+            or fallback != module("huffman").huffman_encode(full_fallback,
+                                                            "cpu")):
+        raise AssertionError("a full-size random stream did not take the "
+                             "fallback through one emit, equal to the "
+                             "plain path's")
+    beside(rows["wire emit"], "fallback_full",
+           check_kernel("wire emit", *calls["wire emit"][0]))
+    del calls, fallback
 
     with captured_calls() as calls:
         raw_stream = encode_video(vdata, vw, vh, "raw", True)
     for name in ("K1 encode_locals", "K2 pack_locals+hist", "Huffman dict",
-                 "K4 pack_payload", "K6+K7 search_residual"):
+                 "K4 pack_payload", "K6+K7 search_residual", "wire emit"):
         if len(calls[name]) != 1:
             raise AssertionError(f"{name}: {len(calls[name])} calls in one "
                                  f"raw encode_video, expected 1")
@@ -2415,7 +2600,7 @@ def main() -> None:
         {}))
     k7_search["video_recon_search"] = check_kernel("K7 predict",
                                                    (ref, found), {})
-    for name in ("Huffman dict", "K4 pack_payload"):
+    for name in ("Huffman dict", "K4 pack_payload", "wire emit"):
         beside(rows[name], "video_recon", check_kernel(name, *calls[name][0]))
     coeffs_call = calls["K4 pack_coeffs+hist"][0]
     rows["K4 pack_coeffs+hist"] = check_kernel("K4 pack_coeffs+hist",
@@ -2458,6 +2643,12 @@ def main() -> None:
                                              *calls["K3 byte_histogram"][0])
     beside(rows["Huffman dict"], "video_long",
            check_kernel("Huffman dict", *calls["Huffman dict"][0]))
+    # The emit brings each chunk to the host for the splice, then the
+    # Huffman stream.
+    for args, kwargs in calls["wire emit"][:-1]:
+        held_equal("wire emit", args, kwargs)
+    beside(rows["wire emit"], "video_long",
+           check_kernel("wire emit", *calls["wire emit"][-1]))
     del calls
 
     # The decode of the 4096x912 Huffman stream, written on the card.
@@ -2533,8 +2724,10 @@ def main() -> None:
                                  f"encode_image_batch, expected 1")
     beside(rows["K1 encode_locals"], "batch",
            check_kernel("K1 encode_locals", *calls["K1 encode_locals"][0]))
-    for name in BATCH_CALL[1:]:
+    for name in BATCH_CALL[1:-1]:
         rows[name] = check_kernel(name, *calls[name][0])
+    beside(rows["wire emit"], "batch",
+           check_kernel("wire emit", *calls["wire emit"][0]))
     rows["K2 pack_locals batch"] = check_kernel(
         "K2 pack_locals batch", *calls["K2 pack_locals+hist batch"][0])
     del calls
@@ -2548,7 +2741,7 @@ def main() -> None:
     if kinds != [True] * (fb - 1) + [False]:
         raise AssertionError(f"the small batch's Huffman flags are {kinds}")
     for name in ("K2 pack_locals+hist batch", "Huffman dict batch",
-                 "K4 pack_payload batch"):
+                 "K4 pack_payload batch", "wire emit"):
         beside(rows[name], "fallback_batch", check_kernel(name,
                                                           *calls[name][0]))
     if fallback_batch != [port.encode_image(im, q_ones, use_huffman=True,
@@ -2558,11 +2751,33 @@ def main() -> None:
           f"the noise image took the fallback inside the batch, every "
           f"stream equal to the plain path", flush=True)
     del calls
+    # The emit on the stream's and the checkpointed encode's calls: every
+    # one held against its plain version.
+    with captured_calls() as calls:
+        list(port.encode_image_stream(batch0_d, quant, depth=STREAM_DEPTH,
+                                      device="cuda"))
+        with tempfile.TemporaryDirectory() as ckpt:
+            sw, sh, sn = VIDEO_SMALL
+            encode_video_checkpointed(
+                yuv420(video_frames(sw, sh, sn, 1)), sw, sh, quant, True,
+                GOP, MERANGE, ckpt, device="cuda")
+    if len(calls["wire emit"]) < bq + 2:
+        raise AssertionError(f"{len(calls['wire emit'])} emits in the stream "
+                             f"of {bq} images and a checkpointed encode")
+    for args, kwargs in calls["wire emit"]:
+        held_equal("wire emit", args, kwargs)
+    print(f"encode_image_stream of {bq} images and a checkpointed "
+          f"{sw}x{sh}x{sn} encode_video: each of their "
+          f"{len(calls['wire emit'])} emits bit-equal to its plain version",
+          flush=True)
+    del calls
     check_dict_cases(dev)
 
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 3. each path, counts from 0 ----
+    # From here on the host serialization the emit replaced raises.
+    block_host_serialization()
     cases = ([(im, quant, True) for im in images]
              + [(im, quant, False) for im in images]
              + [(noise, q_ones, True)])
@@ -2581,7 +2796,7 @@ def main() -> None:
                              f"expected {RECON_CALL}")
     print(f"one recon encode_video {vw}x{vh}x{vn}, gop {GOP}, Huffman on: "
           + ", ".join(f"{name} {one[name]}" for name in KERNELS
-                      if one[name]) + f" ({sum(RECON_CALL.values()) - 3} "
+                      if one[name]) + f" ({sum(RECON_CALL.values()) - 4} "
           f"launches before the pack)", flush=True)
     streams = []
     counts = [phase_of_path("image", wrappers, lambda: streams.extend(
@@ -2635,7 +2850,8 @@ def main() -> None:
                        for n, fn in wrappers.items()
                        if fn.launches != before[n]}
                 want = dict.fromkeys(BATCH_CALL if huff else (
-                    "K1 encode_locals", "K2 pack_locals batch"), 1)
+                    "K1 encode_locals", "K2 pack_locals batch",
+                    "wire emit"), 1)
                 if ran != want:
                     raise AssertionError(f"encode_image_batch of "
                                          f"{imgs.shape} (Huffman {huff}) "
@@ -2831,6 +3047,7 @@ def main() -> None:
             huffman_encode_from_hist(*packed)
             t.append(time.perf_counter() - t0)
         huff = quantiles(t)
+        tail_ms = time_tail(lambda: huffman_launch(*packed))
 
         t = []
         for _ in range(SAMPLES):
@@ -2847,8 +3064,8 @@ def main() -> None:
               f"with Huffman, image on device: median {e2e[0]:.3f} ms, p90 "
               f"{e2e[1]:.3f} ms (n={SAMPLES}; "
               f"{mpix / e2e[0] * 1e3:.1f} Mpix/s); H2D copy median "
-              f"{h2d[0]:.3f} ms, p90 {h2d[1]:.3f} ms (n={SAMPLES})",
-              flush=True)
+              f"{h2d[0]:.3f} ms, p90 {h2d[1]:.3f} ms (n={SAMPLES}); "
+              f"{tail_ms}", flush=True)
     for (hh, ww), im in zip(SHAPES, images):
         time_decode(port.encode_image(im, quant, use_rle=True,
                                       use_huffman=True, device="cuda"),
@@ -2867,7 +3084,7 @@ def main() -> None:
     print_profile(f"encode_image at {SHAPES[0][1]}x{SHAPES[0][0]}",
                   lambda: port.encode_image(img_d, quant, use_huffman=True,
                                             device="cuda"), PROFILE_CALLS,
-                  at_most=True)
+                  at_most=True, d2h_wanted=2)
     fr_d = torch.from_numpy(vframes).to(dev)
     for mode, absent in (("raw", ("predict_kernel", "scan")),
                          ("recon", ("predict_kernel",))):
@@ -2876,7 +3093,7 @@ def main() -> None:
             lambda mode=mode: encode_frames(
                 fr_d, vw, vh, quant, True, GOP, MERANGE, use_huffman=True,
                 ref_mode=mode, device=dev), VIDEO_PROFILE_CALLS, absent,
-            at_most=True)
+            at_most=True, d2h_wanted=2)
 
     print_profile(f"decode_image at {SHAPES[0][1]}x{SHAPES[0][0]}",
                   lambda: port.decode_image(h_stream, device="cuda"),
@@ -2893,11 +3110,12 @@ def main() -> None:
     print_profile(f"encode_image_batch of {bq} at {bw}x{bh}",
                   lambda: port.encode_image_batch(batch0_d, quant,
                                                   device="cuda"),
-                  VIDEO_PROFILE_CALLS, at_most=True)
+                  VIDEO_PROFILE_CALLS, at_most=True, d2h_wanted=2)
     print_profile(f"encode_image_stream of {bq} at {bw}x{bh}",
                   lambda: list(port.encode_image_stream(
                       batch0_d, quant, depth=STREAM_DEPTH, device="cuda")),
-                  VIDEO_PROFILE_CALLS, waits_wanted=bq + 1, at_most=True)
+                  VIDEO_PROFILE_CALLS, waits_wanted=bq + 1, at_most=True,
+                  d2h_wanted=2 * bq)
     print_profile(f"decode_image_batch of {bq} at {bw}x{bh}",
                   lambda: port.decode_image_batch(serving_streams,
                                                   device="cuda"),

@@ -95,6 +95,9 @@ SIGNATURES = {
     "ie_byte_histogram": [_P, _I64, _P, _P, _P],
     # words, n_words, n_rows, lo, hi, hist, stream
     "ie_byte_histogram_rows": [_P, _I64, _I64, _P, _P, _P, _P],
+    # inner, inner_stride, inner_words, payload, payload_stride,
+    # payload_words, tables, totals, n_streams, out, stream
+    "ie_emit_wire": [_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I64, _P, _P],
     "ie_huffman_dict": [_P, _P, _P, _P],
     "ie_huffman_dict_batch": [_P, _P, _P, _I64, _P],
     "ie_dict_table_words": [],

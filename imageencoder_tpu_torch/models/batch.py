@@ -10,13 +10,14 @@ kernel once for the whole batch: K1, K2 over B streams (each in its own
 row of words from the shared header's end bit: no word holds bits of two
 images, and no pseudo-record stands between them, unlike the TPU path's
 gap and pad records), then with Huffman the dict kernel and K4
-pack_payload over B streams.  The host waits once for the B streams'
-lengths and at most once for their copies (ops/huffman.py::Tail),
-whatever B is.
+pack_payload over B streams, then the wire emit (every stream's bytes in
+wire order in one buffer on the device).  The host waits once for the B
+streams' lengths and at most once for their one copy
+(ops/huffman.py::Tail), whatever B is.
 
 :func:`encode_image_stream` is a pipeline over an iterable of images:
 image i + depth is uploaded and launched before image i is finished, and
-each image's copies are chained after the previous image's, so the host
+each image's copy is chained after the previous image's, so the host
 waits once per image (and once more at the end of the stream).
 
 :func:`decode_image_batch` issues each stream's decode (models/image.py:
@@ -73,8 +74,8 @@ def launch_batch(imgs: torch.Tensor, quant: QuantMatrix, use_rle: bool,
                  use_huffman: bool, norm: str, block_size: int) -> Tail:
     """The device half of a batch encode of u8 [B, H, W] on the device:
     K1 once on the stacked images, K2 over the B streams, with Huffman
-    the dict kernel and K4 over them; the lengths' copy started.  Nothing
-    waits."""
+    the dict kernel and K4 over them; the lengths' copy started, then the
+    wire emit.  Nothing waits."""
     b, h, w = imgs.shape
     dev = imgs.device
     start_bit, header = stream_header(quant, use_rle, w, h, use_huffman,
@@ -88,9 +89,7 @@ def launch_batch(imgs: torch.Tensor, quant: QuantMatrix, use_rle: bool,
             header)
     if use_huffman:
         return huffman_launch(*cuda_pack.pack_locals_hist_batch(*args))
-    tail = Tail(*cuda_pack.pack_locals_batch(*args))
-    tail.read_lengths()
-    return tail
+    return Tail(*cuda_pack.pack_locals_batch(*args), read=True)
 
 
 def encode_image_batch(imgs, quant: QuantMatrix, use_rle: bool = True,

@@ -98,7 +98,7 @@ def encode_image(img, quant: QuantMatrix, use_rle: bool = True,
             return huffman_encode_from_hist(*got)
     with profiling.stage("device encode+pack"):
         words, total = make_encode_packed(block_size, use_rle, norm)(*args)
-        return Tail(words[None], total.reshape(1)).finish()[0]
+        return Tail(words[None], total.reshape(1), read=True).finish()[0]
 
 
 def encode_blocks(blocks_u8, quant: QuantMatrix, use_rle: bool,

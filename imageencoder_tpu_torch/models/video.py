@@ -38,7 +38,7 @@ from ..ops import bitpack, cuda_decode, cuda_motion
 from ..ops.bitpack import BitReader, BitWriter
 from ..ops.device_pack import (header_to_words, host_total, stream_bytes,
                                to_device)
-from ..ops.huffman import (huffman_decode, huffman_encode,
+from ..ops.huffman import (Tail, huffman_decode, huffman_encode,
                            huffman_encode_from_hist)
 from ..ops.motion import MACRO
 from ..ops.video_pipeline import (make_encode_video_packed,
@@ -163,7 +163,7 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
             with profiling.stage("huffman"):
                 return huffman_encode_from_hist(*got)
         words, total = got
-        return stream_bytes(words, host_total(total))
+        return Tail(words[None], total.reshape(1), read=True).finish()[0]
 
     # Long videos: GOP-aligned chunks (GOPs are independent) encoded at bit
     # 0 and spliced after the header on the host, then Huffman over the

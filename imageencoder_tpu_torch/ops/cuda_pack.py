@@ -48,9 +48,18 @@ to its last one and leaves the rest of the buffer as allocated
 nothing on the device but their kernels (pack_records also clears its
 scratch), and the total and every start stay there: nothing waits on the
 host.
+
+:func:`emit_wire` (csrc/wire.cu) replaces no TPU kernel: it writes the
+packers' final streams, one or a batch, as wire-order bytes on the card,
+where the JAX package serializes words on the host
+(imageencoder_tpu/ops/device_pack.py:261 words_to_bytes, and
+ops/huffman.py:295 _fallback for a stream that takes the raw-copy
+fallback).  :func:`wire_offsets` is the layout both it and the host use.
 """
 
 from __future__ import annotations
+
+import sys
 
 import torch
 
@@ -731,3 +740,186 @@ def _pack_coeffs(counter, hist: bool, coeffs, mvecs, gop: int,
     build.check(code, "ie_pack_coeffs")
     counter.launches += 1
     return (out, total.reshape(())) + ((bins,) if hist else ())
+
+
+# ---- the wire emit ----
+
+
+def wire_nbytes(bits: int, fallback: bool = False) -> int:
+    """A stream's wire bytes: ceil(bits / 8), and one more where the
+    raw-copy fallback puts a 0 bit before the inner stream; 0 where
+    nothing is written (bits < 0: a refused stream or a failed dict)."""
+    if bits < 0:
+        return 0
+    return (bits + 7) // 8 + bool(fallback)
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def wire_offsets(nbytes) -> tuple[list[int], int]:
+    """The wire buffer's layout of streams of ``nbytes`` wire bytes each,
+    in order: each stream's first byte, the bytes of the streams before it
+    each rounded up to 16 (no 16-byte store holds bytes of two streams),
+    and the end of the last stream (the bytes the host copies)."""
+    offsets, at, end = [], 0, 0
+    for n in nbytes:
+        offsets.append(at)
+        end = at + n
+        at += _pad16(n)
+    return offsets, end
+
+
+def wire_capacity(n_streams: int, n_words: int) -> int:
+    """The wire buffer's bytes for streams of ``n_words`` inner words each:
+    a stream's wire bytes are at most 4 * n_words + 1 (a coded stream is
+    never longer than its inner one; the fallback adds a byte), each
+    rounded up to 16."""
+    return n_streams * _pad16(4 * n_words + 1)
+
+
+def table_sources(metas) -> list[tuple[int, bool]]:
+    """Per stream (bits, fallback) as the emit reads the dict tables'
+    fields (rows of host ints in dict_table.META_FIELDS order): the inner
+    bits with a 0 bit before them on the fallback, else the out total;
+    bits -1 (nothing written) for a refused stream or an error word."""
+    got = []
+    for row in metas:
+        f = dict(zip(dict_table.META_FIELDS, (int(x) for x in row)))
+        if f["inner_bits"] < 0 or f["error"]:
+            got.append((-1, False))
+        elif f["fallback"]:
+            got.append((f["inner_bits"], True))
+        else:
+            got.append((f["out_total"], False))
+    return got
+
+
+def wire_sources(total_bits, tables=None) -> list[tuple[int, bool]]:
+    """Per stream (bits, fallback) of the emit's arguments, read on the
+    host: the totals, or the tables' fields (:func:`table_sources`)."""
+    if tables is None:
+        return [(int(t), False) for t in total_bits.tolist()]
+    return table_sources(tables[:, dict_table.META:].contiguous()
+                         .view(torch.int64).tolist())
+
+
+def wire_layout(sources, n_words: int) -> tuple[list[int], list[int], int]:
+    """(each stream's wire bytes, :func:`wire_offsets`) of streams given as
+    (bits, fallback) over inner rows of ``n_words`` words.  Raises where a
+    stream would not fit its share of :func:`wire_capacity` (the dict
+    kernel never codes a stream longer than its inner one)."""
+    nbytes = [wire_nbytes(bits, fb) for bits, fb in sources]
+    if any(n > 4 * n_words + 1 for n in nbytes):
+        raise RuntimeError(f"a stream of {max(nbytes)} bytes is longer than "
+                           f"its {n_words} inner words")
+    offsets, end = wire_offsets(nbytes)
+    return nbytes, offsets, end
+
+
+def wire_bytes(row: torch.Tensor, bits: int,
+               fallback: bool = False) -> torch.Tensor:
+    """One stream's wire bytes, u8 [wire_nbytes(bits, fallback)], from its
+    words (int32 bit patterns of big-endian u32 words, any device): the
+    first ceil(bits / 8) bytes, the bytes past them read as zero; on the
+    fallback one 0 bit first (each word takes the last bit of the word
+    before), then zeros to the byte.  On int64 values by shifts and masks;
+    each word's bytes are then reversed, because a little-endian view of
+    a word as bytes reverses them: the view gives stream order."""
+    nbytes = (bits + 7) // 8
+    nw = -(-nbytes // 4)
+    if nw > row.shape[0]:
+        raise ValueError(f"a stream of {bits} bits in {row.shape[0]} words")
+    v = device_pack.as_uint(row[:nw])
+    if nw:
+        v[-1] &= (device_pack.MASK32 << (8 * (4 * nw - nbytes))) \
+            & device_pack.MASK32
+    if fallback:
+        zero = v.new_zeros(1)
+        v = (((torch.cat([zero, v]) << 31) & device_pack.MASK32)
+             | (torch.cat([v, zero]) >> 1))
+    swapped = (((v & 0xFF) << 24) | ((v & 0xFF00) << 8)
+               | ((v >> 8) & 0xFF00) | (v >> 24))
+    return device_pack.as_int32(swapped).view(torch.uint8)[
+        :wire_nbytes(bits, fallback)]
+
+
+def _wire_args(words, total_bits, tables, payload):
+    """Raise unless the emit's arguments fit one another."""
+    if words.dim() != 2:
+        raise ValueError(f"words: expected [B, W], got {tuple(words.shape)}")
+    b = words.shape[0]
+    if tables is None:
+        if total_bits is None or tuple(total_bits.shape) != (b,):
+            raise ValueError(f"total_bits: expected [{b}] without tables")
+    elif (tuple(tables.shape) != (b, dict_table.TABLE_WORDS)
+          or payload is None or payload.dim() != 2
+          or payload.shape[0] != b):
+        raise ValueError(f"expected tables [{b}, {dict_table.TABLE_WORDS}] "
+                         f"and a payload [{b}, P], got tables "
+                         f"{tuple(tables.shape)}")
+
+
+def emit_wire_plain(words, total_bits, tables=None, payload=None):
+    """The plain version of the wire emit, on any device: the lengths read
+    on the host, then each stream's :func:`wire_bytes` at its
+    :func:`wire_offsets` offset; zeros elsewhere."""
+    _wire_args(words, total_bits, tables, payload)
+    if sys.byteorder != "little":
+        raise RuntimeError("emit_wire_plain views words as little-endian "
+                           "bytes")
+    b, n = words.shape
+    out = torch.zeros(wire_capacity(b, n), dtype=torch.uint8,
+                      device=words.device)
+    sources = wire_sources(total_bits, tables)
+    nbytes, offsets, _ = wire_layout(sources, n)
+    for k, ((bits, fb), m, at) in enumerate(zip(sources, nbytes, offsets)):
+        if m:
+            row = words[k] if tables is None or fb else payload[k]
+            out[at:at + m] = wire_bytes(row, bits, fb)
+    return out
+
+
+def emit_wire(words: torch.Tensor, total_bits: torch.Tensor | None,
+              tables: torch.Tensor | None = None,
+              payload: torch.Tensor | None = None) -> torch.Tensor:
+    """B final streams as wire-order bytes: u8 [wire_capacity(B, W)], each
+    stream at its :func:`wire_offsets` offset.  words: int32 [B, W], the
+    inner streams' words; without Huffman total_bits int64 [B] gives each
+    stream's bits; with it the dict tables [B, TABLE_WORDS] pick each
+    stream's source, its inner words with one 0 bit first on the fallback
+    or its payload int32 [B, P] (total_bits is then not read).  A refused
+    stream, or a failed dict, takes no bytes.  On the card one launch of
+    csrc/wire.cu, whatever B is; nothing is read on the host, and the
+    buffer past the last stream's padded end is left as allocated."""
+    _wire_args(words, total_bits, tables, payload)
+    if words.device.type == "cpu":
+        return emit_wire_plain(words, total_bits, tables, payload)
+    dev = words.device
+    b, n = words.shape
+    out = torch.empty(wire_capacity(b, n), dtype=torch.uint8, device=dev)
+    if b == 0:
+        return out
+    inner_stride = build.frame_stride(words, "words", torch.int32, 2, dev)
+    if tables is None:
+        totals = total_bits.to(torch.int64).contiguous()
+        build.require(totals, "total_bits", torch.int64, 1, dev)
+        pay, pay_stride, pay_words, tab = None, 0, 0, None
+    else:
+        build.require(tables, "tables", torch.int32, 2, dev)
+        pay_stride = build.frame_stride(payload, "payload", torch.int32, 2,
+                                        dev)
+        pay, pay_words, tab, totals = (payload.data_ptr(), payload.shape[1],
+                                       tables.data_ptr(), None)
+    with torch.cuda.device(dev):
+        code = build.library().ie_emit_wire(
+            words.data_ptr(), inner_stride, n, pay, pay_stride, pay_words,
+            tab, None if totals is None else totals.data_ptr(), b,
+            out.data_ptr(), build.stream_ptr(dev))
+    build.check(code, "ie_emit_wire")
+    emit_wire.launches += 1
+    return out
+
+
+emit_wire.launches = 0

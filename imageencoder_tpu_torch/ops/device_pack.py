@@ -22,7 +22,9 @@ would be undefined on the card.
 The numpy helpers at the top (header words, register-file words, word
 serialization) are the port's copies of imageencoder_tpu/ops/
 device_pack.py's; packed_words_bound is the port's own, sized from K1's
-register file.
+register file.  :func:`words_to_bytes` is the host serialization that
+the wire emit (ops/cuda_pack.py::emit_wire) replaces on every path; the
+tests hold the emit against it.
 """
 
 from __future__ import annotations
@@ -118,10 +120,15 @@ def host_total(total_bits) -> int:
 
 
 def stream_bytes(words: torch.Tensor, total_bits: int) -> bytes:
-    """The first ceil(total_bits / 8) stream bytes; copies only the words
-    that hold them to the host."""
-    nw = ((total_bits + 7) // 8 + 3) // 4
-    return words_to_bytes(words_to_numpy(words[:nw]), total_bits)
+    """The first ceil(total_bits / 8) bytes of the stream ``words``
+    (int32 [W], any device) whose total the host already holds: the wire
+    emit and one exact copy (ops/huffman.py::Tail), with no wait for the
+    lengths."""
+    from .huffman import Tail  # huffman imports this module
+
+    lengths = torch.tensor([host_total(total_bits)], dtype=torch.int64)
+    return Tail(words[None], to_device(lengths.numpy(), words.device),
+                lengths=lengths).finish()[0]
 
 
 def words_to_u8(words: torch.Tensor) -> torch.Tensor:

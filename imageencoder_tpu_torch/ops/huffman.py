@@ -19,15 +19,18 @@ pack_coeffs, with K3 folded in; ops/cuda_pack.py), or from K3 for a stream
 that arrives packed; the dict kernel (csrc/huffman.cu, :func:`build_dict`)
 turns it into the dict table (ops/dict_table.py): codes, dict words, the
 out total and the fallback flag; K4's pack_payload front end packs the
-payload under the table.  :func:`huffman_launch` runs those and copies
-the table's totals towards pinned memory without waiting;
-:meth:`Tail.finish` waits for them (an event), copies the final words, or
-on the fallback flag the inner words, exactly, into pinned memory and
-waits for that copy unless it has landed (its event): at most two waits
-for the device, none of them for work queued after the stream's.  A
-batch of streams (models/batch.py) goes through :func:`build_dict_batch`
-and cuda_pack.pack_payload_batch, one launch each, and one
-:class:`Tail`: the same waits, whatever the batch's size.
+payload under the table.  :func:`huffman_launch` runs those, copies the
+table's totals towards pinned memory without waiting and queues the wire
+emit (cuda_pack.emit_wire: the payload, or on the fallback flag one 0 bit
+and the inner stream, as wire-order bytes on the device);
+:meth:`Tail.finish` waits for the totals (an event), copies exactly the
+stream's bytes into pinned memory and waits for that copy unless it has
+landed (its event): at most two waits for the device, none of them for
+work queued after the stream's.  A batch of streams (models/batch.py)
+goes through :func:`build_dict_batch`, cuda_pack.pack_payload_batch and
+the emit, one launch each, and one :class:`Tail`: the same waits and one
+copy, whatever the batch's size.  :func:`_fallback` is the host's form
+of the fallback, kept as the reference the tests hold the emit against.
 
 The decode half is the port's copy of the JAX package's host decode:
 :func:`parse_dict_bytes`, :func:`validate_dict_entries` (the Python
@@ -50,7 +53,7 @@ from ..kernels import build
 from . import cuda_kernels, cuda_pack, dict_table
 from ..utils.exceptions import StreamFormatError
 from .bitpack import BitReader, pack_fields
-from .device_pack import bytes_to_words, host_total, to_device, words_to_bytes
+from .device_pack import bytes_to_words, host_total, to_device
 
 KEY_BITS = 8
 MAX_CODE_LEN = 15  # must fit the 4-bit dict header field
@@ -308,32 +311,42 @@ class Tail:
     tables [B, TABLE_WORDS] and the payloads [B, P] (ops/dict_table.py:
     each stream's fallback flag picks its inner words or its payload).
 
-    Three steps, each waiting for the device once at most, and never for
-    more than the work queued before its own event:
+    Made, it queues the wire emit (cuda_pack.emit_wire: every stream's
+    final bytes in wire order in one device buffer, the raw-copy fallback
+    included), after the lengths' copy where ``read``.  Then three steps,
+    each waiting for the device once at most, and never for more than the
+    work queued before its own event:
 
       :meth:`read_lengths`  a copy of the lengths (with Huffman the
                             tables' fields) into pinned memory that does
-                            not wait, and an event after it;
-      :meth:`copy`          waits on that event, then copies each stream's
-                            exact words into one pinned buffer and records
-                            an event after them;
-      :meth:`result`        waits on that event unless it has fired: the
-                            streams' bytes.
+                            not wait, and an event after it; ``lengths``,
+                            where the host already holds them, takes its
+                            place;
+      :meth:`copy`          waits on that event, then makes one copy of
+                            the wire bytes up to the last stream's end
+                            (cuda_pack.wire_offsets) into one pinned
+                            buffer and records an event after it;
+      :meth:`result`        waits on that event unless it has fired, and
+                            cuts the buffer into each stream's bytes.
 
     A copy queued before another tail's lengths is complete once those are
     read, so :meth:`result` after the next tail's :meth:`copy` does not
     wait (models/batch.py::encode_image_stream chains its images so).  On
-    the CPU every step is a plain read.
+    the CPU the emit is its plain version and the steps plain reads.
     """
 
-    def __init__(self, words: torch.Tensor, total_bits: torch.Tensor,
+    def __init__(self, words: torch.Tensor, total_bits: torch.Tensor | None,
                  tables: torch.Tensor | None = None,
-                 payload: torch.Tensor | None = None):
+                 payload: torch.Tensor | None = None, read: bool = False,
+                 lengths: torch.Tensor | None = None):
         self.words, self.total_bits = words, total_bits
         self.tables, self.payload = tables, payload
         self.cuda = words.device.type == "cuda"
-        self.lengths = self.lengths_ready = None
+        self.lengths, self.lengths_ready = lengths, None
         self.buffer = self.copied = self.parts = None
+        if read:
+            self.read_lengths()
+        self.wire = cuda_pack.emit_wire(words, total_bits, tables, payload)
 
     def read_lengths(self) -> None:
         """Start the copy of what sizes the streams (once)."""
@@ -355,49 +368,40 @@ class Tail:
         self.lengths_ready.record()
 
     def _sources(self) -> list:
-        """Per stream (words, bits, fallback) from the lengths read;
-        raises on a refused stream or a failed length limit."""
+        """Per stream (bits, fallback) from the lengths read, as the emit
+        takes them; raises on a refused stream or a failed length limit."""
         self.read_lengths()
         if self.lengths_ready is not None:
             self.lengths_ready.synchronize()
         if self.tables is None:
-            return [(w, host_total(t), False)
-                    for w, t in zip(self.words, self.lengths.tolist())]
-        tw = dict_table.TABLE_WORDS
+            return [(host_total(t), False) for t in self.lengths.tolist()]
+        tw, n = dict_table.TABLE_WORDS, 2 * dict_table.N_META
         flat = self.lengths.numpy()
-        parts = []
-        for b, (inner, out) in enumerate(zip(self.words, self.payload)):
-            meta = dict(zip(dict_table.META_FIELDS, flat[
-                b * tw:b * tw + 2 * dict_table.N_META].view(np.int64)
-                .tolist()))
-            inner_bits = host_total(meta["inner_bits"])
-            if meta["error"]:
+        metas = [flat[b * tw:b * tw + n].view(np.int64)
+                 for b in range(self.tables.shape[0])]
+        for meta in metas:
+            fields = dict(zip(dict_table.META_FIELDS, meta.tolist()))
+            host_total(fields["inner_bits"])
+            if fields["error"]:
                 raise RuntimeError("the Huffman code-length limit found no "
                                    "valid code profile for this histogram")
-            parts.append((inner, inner_bits, True) if meta["fallback"]
-                         else (out, meta["out_total"], False))
-        return parts
+        return cuda_pack.table_sources(metas)
 
     def copy(self, out: torch.Tensor | None = None) -> None:
-        """Wait for the lengths, then copy each stream's words into one
-        pinned buffer (``out`` where it is large enough, else a new one,
-        kept as :attr:`buffer`) without waiting."""
-        parts = self._sources()
-        sizes = [((bits + 7) // 8 + 3) // 4 for _, bits, _ in parts]
+        """Wait for the lengths, then copy the wire bytes up to the last
+        stream's end into one pinned buffer (``out`` where it is large
+        enough, else a new one, kept as :attr:`buffer`) without waiting."""
+        nbytes, offsets, end = cuda_pack.wire_layout(self._sources(),
+                                                     self.words.shape[1])
+        self.parts = list(zip(offsets, nbytes))
         if not self.cuda:
-            self.parts = [(w[:n], bits, fb)
-                          for (w, bits, fb), n in zip(parts, sizes)]
+            self.buffer = self.wire
             return
-        need = sum(sizes)
-        if out is None or out.numel() < need:
-            out = torch.empty(max(need, 1), dtype=torch.int32,
+        if out is None or out.numel() < end:
+            out = torch.empty(max(end, 1), dtype=torch.uint8,
                               pin_memory=True)
-        self.buffer, self.parts, at = out, [], 0
-        for (w, bits, fb), n in zip(parts, sizes):
-            dst = out[at:at + n]
-            dst.copy_(w[:n], non_blocking=True)
-            self.parts.append((dst, bits, fb))
-            at += n
+        self.buffer = out
+        out[:end].copy_(self.wire[:end], non_blocking=True)
         self.copied = torch.cuda.Event()
         self.copied.record()
 
@@ -405,11 +409,8 @@ class Tail:
         """The streams' bytes, after :meth:`copy`."""
         if self.copied is not None and not self.copied.query():
             self.copied.synchronize()
-        got = []
-        for words, bits, fb in self.parts:
-            data = words_to_bytes(words.numpy().view(np.uint32), bits)
-            got.append(_fallback(data) if fb else data)
-        return got
+        data = self.buffer.numpy()
+        return [data[at:at + n].tobytes() for at, n in self.parts]
 
     def finish(self) -> list[bytes]:
         """:meth:`copy`, then :meth:`result`."""
@@ -422,23 +423,20 @@ def huffman_launch(words: torch.Tensor, total_bits: torch.Tensor,
     """The device half of the Huffman tail of an inner stream (words
     int32 [W], total a tensor of one element, histogram int32 [256], as
     the packers with a histogram return them) or of a batch (words [B, W],
-    totals [B], histograms [B, 256]): the dict kernel, K4 pack_payload
-    and, with ``read``, the lengths' copy (:meth:`Tail.read_lengths`).
-    Nothing waits; :meth:`Tail.finish` gives the final streams."""
+    totals [B], histograms [B, 256]): the dict kernel, K4 pack_payload,
+    with ``read`` the lengths' copy (:meth:`Tail.read_lengths`), and the
+    wire emit.  Nothing waits; :meth:`Tail.finish` gives the final
+    streams."""
     if words.dim() == 1:
         table = build_dict(hist, total_bits)
         out, _ = cuda_pack.pack_payload(words, table,
                                         payload_words(words.shape[0]))
-        tail = Tail(words[None], total_bits.reshape(1), table[None],
-                    out[None])
-    else:
-        tables = build_dict_batch(hist, total_bits)
-        out, _ = cuda_pack.pack_payload_batch(
-            words, tables, _round4(payload_words(words.shape[1])))
-        tail = Tail(words, total_bits, tables, out)
-    if read:
-        tail.read_lengths()
-    return tail
+        return Tail(words[None], total_bits.reshape(1), table[None],
+                    out[None], read)
+    tables = build_dict_batch(hist, total_bits)
+    out, _ = cuda_pack.pack_payload_batch(
+        words, tables, _round4(payload_words(words.shape[1])))
+    return Tail(words, total_bits, tables, out, read)
 
 
 def huffman_encode_from_hist(words: torch.Tensor, total_bits: torch.Tensor,

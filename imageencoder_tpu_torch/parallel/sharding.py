@@ -39,7 +39,9 @@ the one-device path:
 The host adds the bytes no segment covers whole to stage 2's histogram,
 as the JAX package does, and reads the dict tables back once for each
 stream's prefix; the segments are spliced on the device (the JAX package
-splices them on the host) and one copy brings each stream to the host.
+splices them on the host), the wire emit writes the streams' bytes there,
+a stream that falls back included, and one copy brings them to the
+host.
 Offsets are int64 throughout, so :func:`check_int32_bit_capacity` guards
 nothing here; it is kept for the JAX package's chunk layout.
 """
@@ -55,7 +57,7 @@ from ..ops import cuda_decode, cuda_encode, cuda_kernels, cuda_pack
 from ..ops import dict_table, huffman
 from ..ops.bitpack import BitWriter
 from ..ops.device_pack import bytes_to_words, to_device
-from ..ops.huffman import MAX_CODE_LEN, Tail, _fallback, huffman_launch
+from ..ops.huffman import MAX_CODE_LEN, Tail, huffman_launch
 from ..ops.pipeline import make_encode_fields
 from ..utils.quant import QuantMatrix
 from .mesh import (all_gather, all_reduce, axis_index, axis_size,
@@ -429,9 +431,12 @@ def _splice(words, bits: np.ndarray, start, headers, mode: str):
 
 
 def _stream_bytes(rows: torch.Tensor, totals: np.ndarray) -> list[bytes]:
-    """Each row's first ceil(total / 8) bytes, through one pinned copy
-    (ops/huffman.py::Tail)."""
-    return Tail(rows, to_device(totals, rows.device)).finish()
+    """Each row's first ceil(total / 8) bytes, the totals held on the host:
+    the wire emit and one pinned copy (ops/huffman.py::Tail), no wait for
+    the lengths."""
+    lengths = torch.from_numpy(np.asarray(totals, np.int64))
+    return Tail(rows, to_device(lengths.numpy(), rows.device),
+                lengths=lengths).finish()
 
 
 def _prefix(table: np.ndarray, got: _Streams, st: int,
@@ -465,11 +470,13 @@ def encode_sharded_huffman(words, bits, hist, start_bit: int, header: bytes,
     the host reads the tables back once for the prefixes (the dict, then
     the header bytes' codes); every rank codes its own bytes on its device
     with the tables' codes (:func:`make_sharded_huffman_pack`); the
-    compressed segments are spliced on the device behind the prefix and
-    one copy brings each stream to the host.  Where the coded stream would
-    not be smaller, the stream falls back to [0][raw inner bytes], spliced
-    from the inner segments.  Equal to ops/huffman.py::huffman_encode of
-    the assembled inner stream.
+    compressed segments are spliced on the device behind the prefix.
+    Where the coded stream would not be smaller, the stream falls back to
+    [0][raw inner bytes]: only then is its inner stream spliced, on the
+    device.  The wire emit writes every stream's bytes and one copy brings
+    them to the host (ops/huffman.py::Tail, the tables' totals already
+    read).  Equal to ops/huffman.py::huffman_encode of the assembled inner
+    stream.
 
     Returns bytes (concat) or a list of each frame's bytes (separate).
     """
@@ -477,39 +484,48 @@ def encode_sharded_huffman(words, bits, hist, start_bit: int, header: bytes,
     f, dev, t = words.shape[0], words.device, dict_table
     tables = huffman.build_dict_batch(
         to_device(got.freqs.astype(np.int32), dev), to_device(got.totals, dev))
+    host = tables.cpu().numpy()
+    metas = np.ascontiguousarray(host[:, t.META:]).view(np.int64)
     prefix_bits = np.zeros(f, np.int64)
     prefixes = [b""] * got.n
-    fallbacks: list = [None] * got.n
-    inner = None
-    for st, table in enumerate(tables.cpu().numpy()):
-        meta = dict(zip(t.META_FIELDS, table[t.META:].view(np.int64)))
+    fallback = []
+    for st, table in enumerate(host):
+        meta = dict(zip(t.META_FIELDS, metas[st].tolist()))
         if meta["error"]:
             raise RuntimeError("the Huffman code-length limit found no valid "
                                "code profile for this histogram")
-        if meta["fallback"]:
-            if inner is None:
-                inner = assemble_packed_stream(words, got.bits, start_bit,
-                                               header, mode)
-                inner = [inner] if mode == "concat" else inner
-            fallbacks[st] = _fallback(inner[st][0])
+        fallback.append(bool(meta["fallback"]))
+        if fallback[-1]:
             continue
         pw = _prefix(table, got, st, start_bit)
         prefixes[st] = pw.getvalue()
         prefix_bits[got.frames[st]] = pw.position
-    if all(fb is not None for fb in fallbacks):
-        return fallbacks[0] if mode == "concat" else fallbacks
-    # A stream that falls back codes nothing.
-    keep = to_device(np.array([fb is None for fb in fallbacks]), dev)
-    out_words, out_bits = make_sharded_huffman_pack(mesh, mode)(
-        words, got.bits, got.bnd.reshape(f, -1),
-        tables[:, t.CODE_W:t.CODE_W + 256],
-        tables[:, t.CODE_L:t.CODE_L + 256] * keep[:, None], start_bit,
-        prefix_bits)
-    out_start = int(prefix_bits[0]) if mode == "concat" else prefix_bits
-    rows, totals = _splice(out_words, out_bits.cpu().numpy(), out_start,
-                           prefixes, mode)
-    out = [fb if fb is not None else data
-           for fb, data in zip(fallbacks, _stream_bytes(rows, totals))]
+    # A stream that falls back codes nothing: the emit writes its inner
+    # stream, spliced here, behind one 0 bit.
+    inner = coded = None
+    if any(fallback):
+        inner, _ = _splice(words, got.bits, start_bit, [header] * got.n,
+                           mode)
+    if not all(fallback):
+        keep = to_device(np.array([not fb for fb in fallback]), dev)
+        out_words, out_bits = make_sharded_huffman_pack(mesh, mode)(
+            words, got.bits, got.bnd.reshape(f, -1),
+            tables[:, t.CODE_W:t.CODE_W + 256],
+            tables[:, t.CODE_L:t.CODE_L + 256] * keep[:, None], start_bit,
+            prefix_bits)
+        out_start = int(prefix_bits[0]) if mode == "concat" else prefix_bits
+        coded, totals = _splice(out_words, out_bits.cpu().numpy(), out_start,
+                                prefixes, mode)
+        want = metas[:, t.META_FIELDS.index("out_total")]
+        if any(not fb and int(totals[st]) != int(want[st])
+               for st, fb in enumerate(fallback)):
+            raise RuntimeError("the coded segments' bits differ from the "
+                               "dict tables' out totals")
+    inner = coded if inner is None else inner
+    lengths = torch.from_numpy(host.reshape(-1)[
+        t.META:(got.n - 1) * t.TABLE_WORDS + t.TABLE_WORDS].copy())
+    out = Tail(inner, None, tables, inner if coded is None else coded,
+               lengths=lengths).finish()
     return out[0] if mode == "concat" else out
 
 

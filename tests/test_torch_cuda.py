@@ -1643,6 +1643,80 @@ def test_batch_with_a_fallback_stream_equals_host_engine(dev):
     assert [bool(s[0] & 0x80) for s in got] == [True, True, True, False]
 
 
+@pytest.mark.parametrize("n,width,huff", [(1, 5, False), (1, 4100, True),
+                                          (17, 260, True), (17, 260, False),
+                                          (3, 64, True)])
+def test_emit_wire_kernel_equals_plain(dev, n, width, huff):
+    """The wire emit on streams whose words are garbage past each one's
+    end: coded, fallback, Huffman-off, refused and failed-dict streams;
+    its buffer up to the last stream's padded end equals the plain
+    version's, in one launch."""
+    rng = np.random.default_rng(n * width)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (n, width))
+                             .astype(np.int32))
+    payload = torch.from_numpy(rng.integers(-2**31, 2**31, (n, width + 8))
+                               .astype(np.int32))
+    bits = rng.integers(0, 32 * width + 1, n)
+    bits[0] = 32 * width
+    if n > 2:
+        bits[2] = -1
+    if huff:
+        zeros = np.zeros(256)
+        tables = torch.stack([dict_table.make_table(
+            zeros, zeros, zeros, "cpu", inner_bits=int(b),
+            out_total=int(rng.integers(0, max(int(b), 0) + 1)),
+            fallback=int(k % 2 == 1 or b < 0), error=int(k % 7 == 6))
+            for k, b in enumerate(bits)])
+        args = (words, None, tables, payload)
+    else:
+        args = (words, torch.from_numpy(bits))
+    sources = cuda_pack.wire_sources(*args[1:3])
+    want = cuda_pack.emit_wire_plain(*args)
+    before = cuda_pack.emit_wire.launches
+    got = cuda_pack.emit_wire(*(None if a is None else a.to(dev)
+                                for a in args))
+    assert cuda_pack.emit_wire.launches == before + 1
+    nbytes, offsets, _ = cuda_pack.wire_layout(sources, width)
+    end = offsets[-1] + -(-nbytes[-1] // 16) * 16
+    assert torch.equal(got[:end].cpu(), want[:end])
+
+
+def test_no_card_path_serializes_on_the_host(dev, monkeypatch):
+    """With the host serialization made to raise (words_to_bytes and the
+    fallback's repack), the card's encodes still run and equal the host
+    engine: coded, fallback and Huffman-off images, a batch that mixes
+    them, raw and recon video."""
+    quant = QuantMatrix(np.array(JPEG4, np.uint32))
+    q_ones = QuantMatrix(np.ones((4, 4), np.uint32))
+    imgs = np.stack([image(128, 256, 4), np.random.default_rng(9).integers(
+        0, 256, (128, 256), np.uint8)])
+    w, h = 64, 48
+    data = b"".join(f.tobytes() + bytes(w * h // 2)
+                    for f in video_frames(w, h, 6, 2))
+    cases = [(q, huff) for q in (quant, q_ones) for huff in (True, False)]
+    want = [[imageencoder_tpu.encode_image(im, q, use_huffman=huff,
+                                           backend="numpy") for im in imgs]
+            for q, huff in cases]
+    want_v = [bytes(host_video.encode_video(
+        data, w, h, quant, True, 3, 8, use_huffman=huff, backend="numpy",
+        ref_mode=mode)) for mode in ("raw", "recon") for huff in (True, False)]
+
+    def refuse(*args):
+        raise AssertionError("a card path serialized on the host")
+
+    monkeypatch.setattr(device_pack, "words_to_bytes", refuse)
+    monkeypatch.setattr(huffman, "_fallback", refuse)
+    got = [imageencoder_tpu_torch.encode_image_batch(
+        imgs, quant_from_numpy(q.matrix), use_huffman=huff, device=dev)
+        for q, huff in cases]
+    got_v = [imageencoder_tpu_torch.encode_video(
+        data, w, h, quant_from_numpy(quant.matrix), True, 3, 8,
+        use_huffman=huff, ref_mode=mode, device=dev)
+        for mode in ("raw", "recon") for huff in (True, False)]
+    assert got == want and got_v == want_v
+    assert not got[2][1][0] & 0x80  # noise under quant all ones falls back
+
+
 @pytest.mark.parametrize("depth", [1, 2, 3])
 def test_stream_on_the_card_equals_host_engine(dev, depth):
     imgs = [image(912, 4096, k) for k in range(5)]

@@ -1,10 +1,12 @@
 """K2 over a batch and K4 pack_payload over one stream, a batch and byte
-windows (csrc/pack.cu, K2's two launches) run on the host through
-tools/emulate_pack.py, which compiles pack.cu with g++ against a small
-emulation of CUDA, and held against the port's plain versions: the
-two-launch kernels' logic without a card, on ragged batches (streams of
-many tiles, streams with nothing to code, one stream and 17) written into
-dirty buffers.
+windows (csrc/pack.cu, K2's two launches), and the wire emit over the
+batch with and without Huffman (csrc/wire.cu), run on the host through
+tools/emulate_pack.py, which compiles pack.cu and wire.cu with g++
+against a small emulation of CUDA, and held against the port's plain
+versions: the kernels' logic without a card, on ragged batches (streams
+of many tiles, streams with nothing to code or that fall back, one
+stream and 17) written into dirty buffers, the emit's input dirty past
+each stream.
 
 Skipped only where g++ is absent.
 """
@@ -43,5 +45,5 @@ def test_emulated_batch_packers_equal_their_plain_versions(lib, case):
     results = {}
     TOOL_MOD.run_case(lib, case, kinds, shape, quant,
                       lambda label, ok: results.setdefault(label, ok))
-    assert len(results) == 6
+    assert len(results) == 8
     assert all(results.values()), results

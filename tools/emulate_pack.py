@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Run the packers' two-launch kernels on the host, with no card and no
-nvcc.
+"""Run the packers' two-launch kernels and the wire emit on the host,
+with no card and no nvcc.
 
     python tools/emulate_pack.py
 
-Compiles csrc/pack.cu with g++ against tools/emulate_decode.py's
+Compiles csrc/pack.cu and csrc/wire.cu with g++ against
+tools/emulate_decode.py's
 emulation of CUDA (each CUDA thread of a block a fiber on one OS thread,
 run in turn; barriers, ballots and shuffles yield until every thread has
 arrived; two-dimensional grids; dynamic shared memory filled with
@@ -12,12 +13,15 @@ garbage at each block), widened here to the intrinsics and atomics the
 packers use.  Then it holds K2 over a batch (ie_pack_locals_batch, with
 and without the histograms, from one start bit or one a stream) and K4
 pack_payload over a batch (ie_pack_payload_batch: the payloads of a batch
-and byte windows at odd start bits; ie_pack_payload, one stream)
-against their plain versions
-(ops/cuda_pack.py) on ragged batches: streams of very different lengths,
-a stream that takes the raw-copy fallback (no byte to code), one stream
-and 17.  The output buffers start dirty: only the words up to each
-stream's end are compared.
+and byte windows at odd start bits; ie_pack_payload, one stream) and
+the wire emit (ie_emit_wire: the batch's streams without Huffman, and
+with it the payloads or, where a stream falls back, its inner words with
+one 0 bit first) against their plain versions (ops/cuda_pack.py) on
+ragged batches: streams of very different lengths, a stream that takes
+the raw-copy fallback (no byte to code), one stream and 17.  The output
+buffers start dirty: only the words up to each stream's end are compared
+(the emit's bytes up to the last stream's padded end, all of which it
+writes); the emit's input words are dirty past each stream's last byte.
 
 The single-pass packer (pack_tiles: one CTA waits for others) is compiled
 but not run: blocks run one after another here, so it would wait forever.
@@ -48,7 +52,9 @@ from imageencoder_tpu_torch.ops import (cuda_encode, cuda_pack,  # noqa
 
 CSRC = REPO / "imageencoder_tpu_torch" / "csrc"
 ENTRY = ("ie_pack_locals_batch", "ie_pack_locals_scratch",
-         "ie_pack_payload", "ie_pack_payload_batch", "ie_pack_payload_scratch")
+         "ie_pack_payload", "ie_pack_payload_batch", "ie_pack_payload_scratch",
+         "ie_emit_wire")
+UNITS = ("pack.cu", "wire.cu")
 JPEG4 = np.array([[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
                   [14, 17, 22, 29]])
 
@@ -140,15 +146,17 @@ def source(text: str, launch: re.Pattern) -> str:
 
 
 def build(tmp: pathlib.Path) -> ctypes.CDLL:
-    """pack.cu, launches rewritten, compiled into a library."""
+    """pack.cu and wire.cu, launches rewritten, compiled into a
+    library."""
     emu = load_decode_emulation()
     (tmp / "cuda_runtime.h").write_text(shim(emu.SHIM))
-    for src in [*CSRC.glob("*.cuh"), CSRC / "pack.cu"]:
+    for src in [*CSRC.glob("*.cuh"), *(CSRC / u for u in UNITS)]:
         (tmp / src.name).write_text(source(src.read_text(), emu.LAUNCH))
     lib = tmp / "libemu_pack.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared",
-                    f"-I{tmp}", "-x", "c++", str(tmp / "pack.cu"), "-o",
-                    str(lib)], check=True)
+    cmd = ["g++", "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{tmp}"]
+    for unit in UNITS:
+        cmd += ["-x", "c++", str(tmp / unit)]
+    subprocess.run([*cmd, "-o", str(lib)], check=True)
     dll = ctypes.CDLL(str(lib))
     for name in ENTRY:
         getattr(dll, name).argtypes = SIGNATURES[name]
@@ -205,6 +213,43 @@ def payload_one(lib, words, table, n_words: int):
     assert lib.ie_pack_payload(ptr(words), len(words), ptr(table), ptr(out),
                                n_words, ptr(sums), ptr(total), None) == 0
     return out, total
+
+
+def emit_wire(lib, words, totals=None, tables=None, payload=None):
+    """The wire emit, emulated, into a dirty buffer: u8
+    [wire_capacity(B, W)]."""
+    b, w = words.shape
+    out = np.full(cuda_pack.wire_capacity(b, w), 0x5B, np.uint8)
+    p_words = 0 if payload is None else payload.shape[1]
+    assert lib.ie_emit_wire(
+        ptr(words), w, w, None if payload is None else ptr(payload), p_words,
+        p_words, None if tables is None else ptr(tables),
+        None if totals is None else ptr(totals), b, ptr(out), None) == 0
+    return out
+
+
+def dirty_past(words: torch.Tensor, bits) -> np.ndarray:
+    """Each row's words with garbage in every byte past its stream's
+    ceil(bits / 8), as the packers leave their buffers."""
+    rows = words.numpy().copy()
+    raw = rows.view(np.uint8).reshape(rows.shape[0], -1)
+    for k, t in enumerate(bits):
+        nbytes = (max(int(t), 0) + 7) // 8
+        # Bytes in memory are little-endian within a word: byte i of the
+        # stream lies at 4 (i // 4) + 3 - i % 4.
+        idx = np.arange(raw.shape[1])
+        stream_pos = 4 * (idx // 4) + 3 - idx % 4
+        raw[k, stream_pos >= nbytes] = 0xA7
+    return rows
+
+
+def same_wire(got: np.ndarray, want: torch.Tensor, sources,
+              n_words: int) -> bool:
+    """The emit's bytes up to the last stream's padded end (every one it
+    writes) equal the plain version's."""
+    nbytes, offsets, _ = cuda_pack.wire_layout(sources, n_words)
+    end = offsets[-1] + -(-nbytes[-1] // 16) * 16 if nbytes else 0
+    return np.array_equal(got[:end], want[:end].numpy())
 
 
 def same_streams(got, want) -> bool:
@@ -319,6 +364,27 @@ def run_case(lib, label: str, kinds, shape, quant, report) -> None:
     report(f"{label}: K4 pack_payload window",
            same_streams(got, cuda_pack.pack_payload_batch_plain(
                words, win, p_words)))
+    # The wire emit on the streams with garbage past each one's end: the
+    # inner words without Huffman, and with it each stream's payload or,
+    # where its table falls back, its inner words behind one 0 bit.
+    n_w = words.shape[1]
+    inner = dirty_past(words, plain[1])
+    report(f"{label}: wire emit without Huffman",
+           same_wire(emit_wire(lib, inner, totals=plain[1].numpy()),
+                     cuda_pack.emit_wire_plain(torch.from_numpy(inner),
+                                               plain[1]),
+                     [(int(t), False) for t in plain[1]], n_w))
+    payload, p_totals = cuda_pack.pack_payload_batch_plain(words, tables,
+                                                           p_words)
+    payload = dirty_past(payload, p_totals)
+    sources = cuda_pack.wire_sources(None, tables)
+    report(f"{label}: wire emit with Huffman (fallback "
+           f"{[fb for _, fb in sources]})",
+           same_wire(emit_wire(lib, inner, tables=tables.numpy(),
+                               payload=payload),
+                     cuda_pack.emit_wire_plain(
+                         torch.from_numpy(inner), None, tables,
+                         torch.from_numpy(payload)), sources, n_w))
 
 
 CASES = {  # label: image kinds, (H, W), quant
