@@ -254,12 +254,13 @@ def parse_stream(data: bytes, block_size: int = BLOCK_SIZE,
     data = bytes(data)
     out = {"huffman": bool(data[0] & 0x80)}
     if out["huffman"]:
-        entries, dict_end = huffman_ops.parse_dict_bytes(data)
-        if not entries:
-            raise ValueError("huffman_decode called on a stream without a "
-                             "dict")
-        huffman_ops.validate_dict_entries(entries)
-        table, max_len, min_len = huffman_ops.decode_table(entries)
+        with profiling.stage("dict"):
+            entries, dict_end = huffman_ops.parse_dict_bytes(data)
+            if not entries:
+                raise ValueError("huffman_decode called on a stream without "
+                                 "a dict")
+            huffman_ops.validate_dict_entries(entries)
+            table, max_len, min_len = huffman_ops.decode_table(entries)
         head = huffman_ops.head_decode(data, dict_end, table, max_len,
                                        header_bytes(block_size, video))
         reader = BitReader(head, position=0)
@@ -278,22 +279,23 @@ def parse_stream(data: bytes, block_size: int = BLOCK_SIZE,
     out.update(quant=quant, use_rle=use_rle, w=w, h=h, params=params,
                start=reader.position,
                n_blocks=(w // block_size) * (h // block_size))
-    parts = [("nbytes", np.array([len(data), 0], np.int64)),
-             ("quant", quant.as_float().reshape(-1)),
-             ("table", table),
-             ("stream", np.frombuffer(data, np.uint8))]
-    layout, pos = {}, 0
-    for name, arr in parts:
-        if arr is None:
-            continue
-        layout[name] = (pos, arr.nbytes)
-        pos += -(-arr.nbytes // 16) * 16 + (16 if name == "stream" else 0)
-    staging = np.zeros(pos, np.uint8)
-    for name, arr in parts:
-        if arr is not None:
-            off, n = layout[name]
-            staging[off:off + n] = np.ascontiguousarray(arr).reshape(
-                -1).view(np.uint8)
+    with profiling.stage("staging"):
+        parts = [("nbytes", np.array([len(data), 0], np.int64)),
+                 ("quant", quant.as_float().reshape(-1)),
+                 ("table", table),
+                 ("stream", np.frombuffer(data, np.uint8))]
+        layout, pos = {}, 0
+        for name, arr in parts:
+            if arr is None:
+                continue
+            layout[name] = (pos, arr.nbytes)
+            pos += -(-arr.nbytes // 16) * 16 + (16 if name == "stream" else 0)
+        staging = np.zeros(pos, np.uint8)
+        for name, arr in parts:
+            if arr is not None:
+                off, n = layout[name]
+                staging[off:off + n] = np.ascontiguousarray(arr).reshape(
+                    -1).view(np.uint8)
     out.update(staging=staging, parts=layout)
     return out
 

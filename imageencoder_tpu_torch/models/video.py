@@ -174,9 +174,11 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
     with profiling.stage("device video encode"):
         for s in range(0, n_frames, chunk):
             words, total = fn(frames[s:s + chunk], qf, 0, None)
-            total = host_total(total)
+            with profiling.stage("wait"):
+                total = host_total(total)
             segments.append((stream_bytes(words, total), total))
-    inner = bitpack.concat_bit_segments(segments)
+    with profiling.stage("splice"):
+        inner = bitpack.concat_bit_segments(segments)
     if use_huffman:
         with profiling.stage("huffman"):
             return huffman_encode(inner, dev)
@@ -403,7 +405,9 @@ def decode_video(data: bytes, motioncomp: bool = True,
             host = torch.empty(buf.shape, dtype=torch.uint8,
                                pin_memory=True)
             host.copy_(buf, non_blocking=True)
-            torch.cuda.current_stream(dev).synchronize()
+            profiling.count("bytes_down", host.nbytes)
+            with profiling.stage("wait"):
+                torch.cuda.current_stream(dev).synchronize()
             buf = host
         return buf.numpy().tobytes(), params, (w, h)
 

@@ -32,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 MASK32 = 0xFFFFFFFF
 MAX_FIELD_BITS = 16  # coefficients, counts, mvecs, Huffman codes all fit
 HEADER_WORDS = 64  # host header prefix capacity (2048 bits)
@@ -92,6 +94,7 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if torch.device(device).type != "cuda":
         return t
+    profiling.count("bytes_up", t.nbytes)
     return t.pin_memory().to(device, non_blocking=True)
 
 
@@ -102,9 +105,11 @@ def words_to_numpy(words: torch.Tensor) -> np.ndarray:
     if words.device.type == "cuda":
         host = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
         host.copy_(words, non_blocking=True)
+        profiling.count("bytes_down", host.nbytes)
         done = torch.cuda.Event()
         done.record()
-        done.synchronize()
+        with profiling.stage("wait"):
+            done.synchronize()
         words = host
     return words.numpy().view(np.uint32)
 

@@ -51,6 +51,7 @@ import torch
 
 from ..kernels import build
 from . import cuda_kernels, cuda_pack, dict_table
+from ..utils import profiling
 from ..utils.exceptions import StreamFormatError
 from .bitpack import BitReader, pack_fields
 from .device_pack import bytes_to_words, host_total, to_device
@@ -364,6 +365,7 @@ class Tail:
         self.lengths = torch.empty(src.shape, dtype=src.dtype,
                                    pin_memory=True)
         self.lengths.copy_(src, non_blocking=True)
+        profiling.count("bytes_down", self.lengths.nbytes)
         self.lengths_ready = torch.cuda.Event()
         self.lengths_ready.record()
 
@@ -372,7 +374,8 @@ class Tail:
         takes them; raises on a refused stream or a failed length limit."""
         self.read_lengths()
         if self.lengths_ready is not None:
-            self.lengths_ready.synchronize()
+            with profiling.stage("wait"):
+                self.lengths_ready.synchronize()
         if self.tables is None:
             return [(host_total(t), False) for t in self.lengths.tolist()]
         tw, n = dict_table.TABLE_WORDS, 2 * dict_table.N_META
@@ -402,15 +405,18 @@ class Tail:
                               pin_memory=True)
         self.buffer = out
         out[:end].copy_(self.wire[:end], non_blocking=True)
+        profiling.count("bytes_down", end)
         self.copied = torch.cuda.Event()
         self.copied.record()
 
     def result(self) -> list[bytes]:
         """The streams' bytes, after :meth:`copy`."""
         if self.copied is not None and not self.copied.query():
-            self.copied.synchronize()
-        data = self.buffer.numpy()
-        return [data[at:at + n].tobytes() for at, n in self.parts]
+            with profiling.stage("wait"):
+                self.copied.synchronize()
+        with profiling.stage("tobytes"):
+            data = self.buffer.numpy()
+            return [data[at:at + n].tobytes() for at, n in self.parts]
 
     def finish(self) -> list[bytes]:
         """:meth:`copy`, then :meth:`result`."""
@@ -468,7 +474,8 @@ def huffman_encode(inner: bytes, device) -> bytes:
     spliced chunks of a long video, a header-only stream): its words go to
     ``device`` and through :func:`huffman_encode_device`, so on a card K3,
     the dict kernel and K4 run and on the CPU their plain versions."""
-    words = to_device(bytes_to_words(inner), device)
+    with profiling.stage("restage"):
+        words = to_device(bytes_to_words(inner), device)
     return huffman_encode_device(words, 8 * len(inner))
 
 

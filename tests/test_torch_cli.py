@@ -284,8 +284,10 @@ def test_tracing_scopes_and_device_trace(tmp_path):
         assert prof is not None
     assert profiling.current() is None
     assert [label for label, _ in t.stages] == ["device encode+pack+hist",
-                                                "huffman"]
-    assert t.total >= sum(dt for _, dt in t.stages) > 0
+                                                "huffman", "tobytes"]
+    assert [parent for *_, parent in t.records] == [-1, -1, 1]
+    top = [dt for (_, dt), r in zip(t.stages, t.records) if r[3] < 0]
+    assert t.total >= sum(top) > 0
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
 
