@@ -42,8 +42,9 @@ each of which raises on failure:
      1 sums those lengths, launch 2 packs the records from the
      coefficients and the vectors and counts their byte histogram),
      pack_coeffs alone, and again from the coefficients' own lengths, the
-     dict and K4 pack_payload; encode_video at 320x176 with 40 frames, which
-     goes in two chunks spliced on the host, for K3 byte_histogram alone
+     dict and K4 pack_payload; encode_video at 320x176 with 40 frames,
+     forced into two chunks spliced on the host (a card's frame budget
+     would take it in one pass), for K3 byte_histogram alone
      (the only path left that runs it) and the dict on its histogram; the
      kernels no path runs on inputs taken from those calls: K6
      motion_search and K7 predict (the search and the prediction alone) on
@@ -678,6 +679,21 @@ def module(name: str):
     import importlib
 
     return importlib.import_module(f"imageencoder_tpu_torch.ops.{name}")
+
+
+@contextlib.contextmanager
+def chunked_passes():
+    """Encodes inside the block take the JAX package's 32 frames a pass,
+    as the plain versions do, so a clip past them goes in chunks spliced
+    on the host (a card's frame budget would take it in one pass)."""
+    from imageencoder_tpu_torch.models import video
+
+    real = video.frames_per_pass
+    video.frames_per_pass = lambda *args: real(*args[:6], device="cpu")
+    try:
+        yield
+    finally:
+        video.frames_per_pass = real
 
 
 @contextlib.contextmanager
@@ -2630,10 +2646,10 @@ def main() -> None:
     del nbits, ref, found, coeffs_call, k5_call
 
     # K3 alone runs where a stream arrives packed: the chunks of a video
-    # longer than 32 frames, spliced on the host.
+    # longer than its passes' frames, spliced on the host.
     lw_, lh_, ln_ = VIDEO_LONG
     long_data = yuv420(video_frames(lw_, lh_, ln_, 3))
-    with captured_calls() as calls:
+    with captured_calls() as calls, chunked_passes():
         encode_video(long_data, lw_, lh_, "raw", True)
     for name in ("K3 byte_histogram", "Huffman dict", "K4 pack_payload"):
         if len(calls[name]) != 1:
@@ -2808,10 +2824,11 @@ def main() -> None:
             f"video {mode}", wrappers, lambda mode=mode: video_streams.update(
                 {(mode, huff): encode_video(vdata, vw, vh, mode, huff)
                  for huff in (True, False)})))
-    counts.append(phase_of_path(
-        "video long", wrappers, lambda: video_streams.update(
-            {("long", True): encode_video(long_data, lw_, lh_, "raw",
-                                          True)})))
+    with chunked_passes():
+        counts.append(phase_of_path(
+            "video long", wrappers, lambda: video_streams.update(
+                {("long", True): encode_video(long_data, lw_, lh_, "raw",
+                                              True)})))
     decoded = []
     counts.append(phase_of_path("image decode", wrappers, lambda: decoded.extend(
         port.decode_image(s, device="cuda") for s in streams)))

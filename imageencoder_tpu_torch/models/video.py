@@ -30,16 +30,17 @@ once.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ..ops import bitpack, cuda_decode, cuda_motion
+from ..ops import bitpack, cuda_decode, cuda_encode, cuda_motion, cuda_pack
 from ..ops.bitpack import BitReader, BitWriter
-from ..ops.device_pack import (header_to_words, host_total, stream_bytes,
-                               to_device)
+from ..ops.device_pack import (header_to_words, host_total,
+                               packed_words_bound, stream_bytes, to_device)
 from ..ops.huffman import (Tail, huffman_decode, huffman_encode,
-                           huffman_encode_from_hist)
+                           huffman_encode_from_hist, payload_words)
 from ..ops.motion import MACRO
 from ..ops.video_pipeline import (make_encode_video_packed,
                                   make_encode_video_packed_recon)
@@ -53,8 +54,15 @@ from .headers import (VideoParams, read_image_header, read_video_params,
                       write_image_header, write_video_params)
 from .image import BLOCK_SIZE, parse_stream, upload, walk_block_offsets
 
-MAX_FRAMES_PER_CALL = 32  # longer videos go in GOP-aligned chunks
+# The JAX package's frames a call (a TPU memory bound): the pass of the
+# plain versions, and a rank's of the sharded encode.
+MAX_FRAMES_PER_CALL = 32
 UV_FILL = 0x80  # dc::VIDEO_UV_FILL (Frame.hpp:12): decoded U and V
+# A pass's small device tensors: the header words, the totals, the byte
+# histogram, the dict table, K1's overflow flag.
+PASS_SMALL_BYTES = 1 << 16
+INDEX_LIMIT = 1 << 31  # a 32-bit signed index's range
+GRID_Z_LIMIT = 65535  # the search's frames a launch (its grid z)
 
 
 def mvec_bits(merange: int) -> int:
@@ -123,6 +131,118 @@ def check_video(width: int, height: int, gop: int, ref_mode: str,
             f"undecodable streams for these when gop > 1")
 
 
+@lru_cache(maxsize=None)
+def _record_words(block_size: int, norm: str, residual: bool) -> int:
+    return (cuda_encode.video_lw if residual else cuda_encode.frontend_lw)(
+        block_size, norm)
+
+
+def _tile_sums_bytes(n_records: int) -> int:
+    """Bytes of K2's and K4's i64 tile sums over n records (the library's
+    ie_pack_*_scratch): a tile holds at least 256 records and a group of
+    8 tiles takes one sum more, so two sums a 256 records bound them."""
+    return 16 * (n_records // 256 + 1)
+
+
+def _pass_stream(n_frames: int, h: int, w: int, gop: int, ref_mode: str,
+                 block_size: int, norm: str):
+    """(P-frames, macroblocks a frame, records, register words a record)
+    of one pass over n_frames frames, as the pass packs them."""
+    b = block_size
+    n_p = n_frames - -(-n_frames // gop)
+    n_macro = (h // MACRO) * (w // MACRO) if n_p else 0
+    records = n_frames * ((h // b) * (w // b) + n_macro)
+    return n_p, n_macro, records, _record_words(
+        b, norm, ref_mode == "recon" or n_p > 0)
+
+
+def pass_bytes(n_frames: int, h: int, w: int, gop: int, ref_mode: str,
+               use_huffman: bool, block_size: int = BLOCK_SIZE,
+               norm: str = "reference") -> int:
+    """Device bytes that one pass of :func:`encode_frames` over n_frames
+    u8 frames [h, w] already on the card allocates, from the sizes its
+    buffers are allocated with, summed as if all were live at once (the
+    front's buffers are freed before the Huffman tail allocates):
+
+      raw: the int16 residual stack (none without a P-frame: K1 then
+        reads the frames), K1's register files and lengths (lw + 1 words
+        a block, cuda_encode.video_lw or frontend_lw);
+      recon: the int32 coefficients and the record lengths, and the
+        prediction and reconstruction frames of frame k of every GOP;
+      both: the vectors, the stream words (packed_words_bound) and their
+        tile sums, with Huffman K4's payload (payload_words) and its tile
+        sums, the wire buffer (cuda_pack.wire_capacity), and
+        PASS_SMALL_BYTES."""
+    gop = max(1, gop)
+    hw, n_micro = h * w, (h // block_size) * (w // block_size)
+    n_p, n_macro, records, lw = _pass_stream(n_frames, h, w, gop, ref_mode,
+                                             block_size, norm)
+    if ref_mode == "raw":
+        front = (2 * hw * n_frames if n_p else 0) + \
+            4 * (lw + 1) * n_micro * n_frames
+    else:
+        front = 4 * (hw + n_micro) * n_frames + \
+            2 * hw * len(range(1, n_frames, gop))
+    n_words = packed_words_bound(records, lw)
+    total = (front + 8 * n_p * n_macro + 4 * n_words
+             + _tile_sums_bytes(records) + cuda_pack.wire_capacity(1, n_words)
+             + PASS_SMALL_BYTES)
+    if use_huffman:
+        total += 4 * payload_words(n_words) + _tile_sums_bytes(
+            -(-n_words // 4))
+    return total
+
+
+def frames_per_pass(h: int, w: int, gop: int, ref_mode: str,
+                    use_huffman: bool, block_size: int = BLOCK_SIZE,
+                    device="cuda", norm: str = "reference",
+                    free: int | None = None) -> int:
+    """The frames of one device pass of :func:`encode_frames`: a whole
+    number of GOPs, at least one.  On a card the most whose
+    :func:`pass_bytes` fit in half of ``free`` (by default the card's free
+    memory and what the caching allocator holds unused), and whose every
+    32-bit index on the path stays in range:
+
+      records (the pass's vector and block records) below 2^31: K2's and
+        K4 pack_coeffs' cursors (unsigned record, frame and P-frame
+        indices), K5's and the recon step's unsigned block indices, and
+        the tile-sum counts the library returns as an int;
+      with Huffman, the inner stream's bytes (at most 4 words of
+        packed_words_bound) below 2^31: the int32 bins of the byte
+        histogram that K2 and K4 pack_coeffs count and the dict kernel
+        reads;
+      the frames, at most 65535: the search's grid z of a raw pass (a
+        recon pass's, its GOPs, are fewer).
+
+    K1, K4 pack_payload, the wire emit and the Tail index in 64 bits.
+    Elsewhere the JAX package's 32 frames, in GOPs."""
+    gop = max(1, gop)
+    if torch.device(device).type != "cuda":
+        return max(gop, (MAX_FRAMES_PER_CALL // gop) * gop)
+    if free is None:
+        free = torch.cuda.mem_get_info(device)[0] + (
+            torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+    def fits(n: int) -> bool:
+        _, _, records, lw = _pass_stream(n, h, w, gop, ref_mode, block_size,
+                                         norm)
+        return (records < INDEX_LIMIT
+                and not (use_huffman and 4 * packed_words_bound(records, lw)
+                         >= INDEX_LIMIT)
+                and pass_bytes(n, h, w, gop, ref_mode, use_huffman,
+                               block_size, norm) <= free // 2)
+
+    lo, hi = 1, GRID_Z_LIMIT // gop  # GOPs
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid * gop):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo * gop
+
+
 def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
                   use_rle: bool, gop: int, merange: int,
                   use_huffman: bool = True, norm: str = "reference",
@@ -152,7 +272,10 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
                else make_encode_video_packed_recon)
     qf = quant.as_float()
     mb = mvec_bits(merange)
-    if n_frames <= MAX_FRAMES_PER_CALL:
+    budget = frames_per_pass(height, width, gop, ref_mode, use_huffman,
+                             block_size, dev, norm)
+    if n_frames <= budget:
+        profiling.count("encode_passes", 1)
         fn = factory(gop, merange, mb, block_size, use_rle, norm,
                      with_hist=use_huffman)
         header = to_device(header_to_words(writer.getvalue()).view(np.int32),
@@ -165,15 +288,15 @@ def encode_frames(frames, width: int, height: int, quant: QuantMatrix,
         words, total = got
         return Tail(words[None], total.reshape(1), read=True).finish()[0]
 
-    # Long videos: GOP-aligned chunks (GOPs are independent) encoded at bit
-    # 0 and spliced after the header on the host, then Huffman over the
+    # Past the budget: GOP-aligned chunks (GOPs are independent) encoded at
+    # bit 0 and spliced after the header on the host, then Huffman over the
     # whole stream on ``dev`` (K3, the dict kernel and K4 on a card).
-    chunk = max(gop, (MAX_FRAMES_PER_CALL // gop) * gop)
+    profiling.count("encode_passes", -(-n_frames // budget))
     fn = factory(gop, merange, mb, block_size, use_rle, norm)
     segments = [(writer.getvalue(), writer.position)]
     with profiling.stage("device video encode"):
-        for s in range(0, n_frames, chunk):
-            words, total = fn(frames[s:s + chunk], qf, 0, None)
+        for s in range(0, n_frames, budget):
+            words, total = fn(frames[s:s + budget], qf, 0, None)
             with profiling.stage("wait"):
                 total = host_total(total)
             segments.append((stream_bytes(words, total), total))

@@ -20,12 +20,14 @@ import imageencoder_tpu_torch
 from imageencoder_tpu.models import video as host_video
 from imageencoder_tpu.utils.quant import QuantMatrix
 from imageencoder_tpu_torch import quant_from_numpy
+from imageencoder_tpu_torch.models import video as port_video
 from imageencoder_tpu_torch.models.image import \
     stream_header as image_stream_header
 from imageencoder_tpu_torch.ops import (cuda_decode, cuda_encode,
                                         cuda_kernels, cuda_motion, cuda_pack,
                                         device_pack, dict_table, huffman,
                                         pipeline)
+from imageencoder_tpu_torch.utils import profiling
 from imageencoder_tpu_torch.utils.exceptions import StreamFormatError
 
 from test_torch_decode import (STREAMS, d1_args,  # tests/ is on the path
@@ -609,7 +611,8 @@ def test_encode_locals_kernel_takes_extreme_residuals(dev):
     (4, "reference", 5, False)])
 def test_small_videos_equal_host_engine(dev, ref_mode, b, norm, gop,
                                         use_rle):
-    """8x8 blocks, all I-frames, RLE off, and 40 frames (two chunks)."""
+    """8x8 blocks, all I-frames, RLE off, and 40 frames (one pass on a
+    card)."""
     w, h, n = 96, 64, 40
     frames = video_frames(w, h, n, b + gop)
     data = b"".join(f.tobytes() + bytes(w * h // 2) for f in frames)
@@ -656,6 +659,40 @@ def test_video_720p25_equals_host_engine_and_decodes(dev, ref_mode):
                                   before)] == [1, 1, 1, 4, 3] + [0] * 5
     assert frames_d.device == dev
     np.testing.assert_array_equal(frames_d.cpu().numpy().reshape(n, -1), y)
+
+
+@pytest.mark.parametrize("ref_mode", ["raw", "recon"])
+def test_long_720p_clip_in_one_pass_equals_its_chunks(dev, monkeypatch,
+                                                      ref_mode):
+    """72 720p frames at gop 4, Huffman on: within the card's frame budget
+    one pass, whose device memory at its peak stays under the bytes the
+    budget counted for it; the stream byte for byte the one of the same
+    clip forced into the JAX package's 32-frame chunks (3 passes)."""
+    w, h, n, gop = 1280, 720, 72, 4
+    frames = torch.from_numpy(video_frames(w, h, n, 5)).to(dev)
+    quant = quant_from_numpy(np.array(JPEG4))
+    assert port_video.frames_per_pass(h, w, gop, ref_mode, True,
+                                      device=dev) >= n
+
+    def encode() -> tuple[bytes, dict]:
+        with profiling.tracing("encode") as t:
+            got = port_video.encode_frames(frames, w, h, quant, True, gop,
+                                           16, ref_mode=ref_mode, device=dev)
+        return got, t.counters
+
+    encode()  # the constants and the allocator's first segments
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    one, counted = encode()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert counted["encode_passes"] == 1
+    assert peak <= port_video.pass_bytes(n, h, w, gop, ref_mode, True), peak
+    monkeypatch.setattr(port_video, "frames_per_pass",
+                        lambda *args, **kwargs: 32)
+    chunked, counted = encode()
+    assert counted["encode_passes"] == 3
+    assert one == chunked and one[0] & 0x80
 
 
 def held_dict(hist, total):
@@ -835,7 +872,8 @@ def test_pack_coeffs_hist_on_a_stream_that_ends_on_a_word(dev):
 def test_no_card_path_builds_the_dict_on_the_host(dev, monkeypatch):
     """With the host dict made to raise, every Huffman path on the card
     still runs and equals the host engine: image, fallback image, raw and
-    recon video, and a 40-frame video (K3 on the spliced chunks)."""
+    recon video, and a 40-frame video in 32-frame chunks, its passes'
+    frames forced (K3 on the spliced chunks)."""
     quant = QuantMatrix(np.array(JPEG4, np.uint32))
     q_ones = QuantMatrix(np.ones((4, 4), np.uint32))
     noise = np.random.default_rng(9).integers(0, 256, (128, 256), np.uint8)
@@ -858,6 +896,9 @@ def test_no_card_path_builds_the_dict_on_the_host(dev, monkeypatch):
         raise AssertionError("the host dict ran on a card path")
 
     monkeypatch.setattr(huffman, "_dict_and_codes", host_dict)
+    off_card = port_video.frames_per_pass  # the JAX package's 32 frames
+    monkeypatch.setattr(port_video, "frames_per_pass",
+                        lambda *args: off_card(*args[:6], device="cpu"))
     got = [imageencoder_tpu_torch.encode_image(
         im, quant_from_numpy(q.matrix), use_huffman=True, device=dev)
         for im, q in ((img, quant), (noise, q_ones))]

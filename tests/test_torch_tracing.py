@@ -1,6 +1,7 @@
 """The port's spans and counters (utils/profiling.py) on the CPU: the span
-tree of a long clip's encode and of its decode, each child inside its
-parent, the stream unchanged by tracing; the benchmark's span recorder
+tree of a long clip's encode, in chunks and in one pass, and of its
+decode, each child inside its parent, the stream unchanged by tracing;
+the encode's passes counted; the benchmark's span recorder
 receiving every label; no clock read and no profiler range entered with
 no trace active; the spans in a device trace's timeline; the report's
 tree; and the benchmark's readers of the new spans."""
@@ -17,6 +18,7 @@ from imageencoder_tpu_torch.models import video
 from imageencoder_tpu_torch.utils import profiling
 
 W, H, N, GOP, MERANGE = 64, 48, 40, 4, 8  # two chunks of 32 and 8 frames
+# on the CPU, whose passes take the JAX package's 32 frames
 OLD = {"device video encode", "huffman", "parse", "upload", "device decode"}
 NEW = {"wait", "tobytes", "splice", "restage", "dict", "staging"}
 
@@ -72,7 +74,37 @@ def test_span_tree_of_a_long_clip_encode():
                        ("restage", "huffman"),
                        ("tobytes", "huffman")]
     assert_nested(t)
-    assert not t.counters  # nothing crosses to or from a card on the CPU
+    # Two passes; nothing crosses to or from a card on the CPU.
+    assert t.counters == {"encode_passes": 2}
+
+
+def test_span_tree_of_a_long_clip_encode_in_one_pass(monkeypatch):
+    """The whole clip in one pass, its budget forced (a card's would take
+    it so): no chunk's wait or cut, no splice, no restage.  On the CPU
+    the Tail's lengths are read at once, so it waits on no event."""
+    plain = encode()
+    monkeypatch.setattr(video, "frames_per_pass", lambda *args, **kw: N)
+    with profiling.tracing("encode") as t:
+        got = encode()
+    assert got == plain
+    assert tree(t) == [("device video encode", None), ("huffman", None),
+                       ("tobytes", "huffman")]
+    assert_nested(t)
+    assert t.counters == {"encode_passes": 1}
+
+
+@pytest.mark.parametrize("budget,passes", [(4, 10), (12, 4), (32, 2),
+                                           (40, 1), (64, 1)])
+def test_encode_passes_counts_the_device_passes(monkeypatch, budget,
+                                                passes):
+    monkeypatch.setattr(video, "frames_per_pass",
+                        lambda *args, **kw: budget)
+    with profiling.tracing("encode") as t:
+        encode()
+    assert t.counters == {"encode_passes": passes}
+    labels = [label for label, _, _, _ in t.records]
+    assert labels.count("splice") == labels.count("restage") == (
+        passes > 1)
 
 
 def test_parse_spans_of_a_decode():
@@ -152,10 +184,10 @@ def test_report_prints_a_tree_with_calls_and_counters(capsys):
              capsys.readouterr().err.splitlines() if tag in line]
     assert [line.split(":")[0] for line in lines] == [
         "device video encode", "  wait", "  tobytes", "splice", "huffman",
-        "  restage", "  tobytes", "bytes_up", "total"]
+        "  restage", "  tobytes", "encode_passes", "bytes_up", "total"]
     assert "(self " in lines[0] and lines[1].endswith(", 2 calls)")
     assert lines[3].endswith(", 1 call)")
-    assert lines[7] == "bytes_up: 12"
+    assert lines[7:9] == ["encode_passes: 2", "bytes_up: 12"]
     for depth, label, calls, total, own in t.tree():
         assert 0 <= own <= total and calls >= 1
 

@@ -23,7 +23,13 @@ every kernel wrapper runs its plain version.
     encode_video(backend="numpy") byte for byte, raw and recon reference,
     Huffman on and off, gop 1/3/4, RLE off, 40 frames (chunked) and an
     empty input, and stays within the tolerance of
-    tests/test_video_device.py:73-86 of encode_video(backend="jax").
+    tests/test_video_device.py:73-86 of encode_video(backend="jax");
+  * the frames a device pass takes (models/video.py::frames_per_pass) from
+    a given free memory: whole GOPs, growing with the memory, within the
+    32-bit indices, fewer for recon, and at the 720p cell's shape the
+    buffers summed by hand; and the stream, with that budget forced to one
+    GOP, to an uneven chunk and to the whole clip, byte for byte the host
+    engine's.
 
 Inputs are seeded frames built like bench.py's video content, and the 4x4
 top-left of the JPEG luminance table, one array made into each package's
@@ -50,8 +56,10 @@ from imageencoder_tpu.ops.zigzag import zigzag_order
 from imageencoder_tpu.runtime.native import idct_recon_exact_native
 from imageencoder_tpu.utils.quant import QuantMatrix
 import imageencoder_tpu_torch
+from imageencoder_tpu_torch.models import video as port_video
 from imageencoder_tpu_torch.ops import (cuda_encode, cuda_pack, device_pack,
                                         pipeline)
+from imageencoder_tpu_torch.utils import profiling
 
 from tests.test_video_parity import make_video
 
@@ -405,3 +413,95 @@ def test_encode_video_near_the_jax_device_path_and_decodes(mode):
     y = ya.reshape(8, -1)[:, :64 * 64]
     mse = ((y - np.stack(frames).reshape(8, -1)) ** 2).mean()
     assert 10 * np.log10(255 ** 2 / mse) > 28
+
+
+# ---- the frames a device pass takes ----
+
+GEOMETRIES = [  # h, w, gop, block size
+    (720, 1280, 4, 4), (48, 64, 3, 4), (64, 96, 1, 8), (16, 16, 1, 4),
+    (2160, 3840, 6, 4), (720, 1280, 60, 8)]
+FREES = [0, 10 ** 6, 10 ** 8, 10 ** 9, 8 * 10 ** 9, 40 * 10 ** 9,
+         79 * 10 ** 9, 10 ** 13]
+
+
+def cell_pass_bytes(n: int) -> int:
+    """One pass over n frames (a multiple of 4) of the 720p cell (gop 4,
+    raw, Huffman on), its buffers summed by hand: 57,600 4x4 blocks and
+    3,600 macroblocks a frame, 7-word register files."""
+    p = 3 * n // 4  # P-frames
+    words = 428_400 * n + 64  # 61,200 records of 7 words, the header
+    return (1_843_200 * n  # the int16 residual stack
+            + 57_600 * 8 * 4 * n  # K1's files and lengths
+            + 3_600 * 8 * p  # the vectors
+            + 4 * words  # the stream
+            + 16 * (61_200 * n // 256 + 1)  # K2's tile sums
+            + 4 * ((4 * words * 15) // 32 + 256 + 8)  # K4's payload
+            + 16 * (words // 4 // 256 + 1)  # K4's tile sums
+            + -(-(4 * words + 1) // 16) * 16  # the wire buffer
+            + 65_536)  # the small tensors
+
+
+@pytest.mark.parametrize("prop", ["gops", "monotone", "indices", "recon",
+                                  "cell"])
+def test_frames_per_pass(prop):
+    def budget(h, w, gop, b, free, mode="raw", huff=True):
+        return port_video.frames_per_pass(h, w, gop, mode, huff, b,
+                                          device="cuda", free=free)
+
+    if prop == "cell":
+        free = 8 * 10 ** 9
+        n = budget(720, 1280, 4, 4, free)
+        assert n == 384
+        assert cell_pass_bytes(n) == port_video.pass_bytes(
+            n, 720, 1280, 4, "raw", True)
+        assert cell_pass_bytes(n) <= free // 2 < cell_pass_bytes(n + 4)
+        # The JAX package's bound off the card.
+        assert port_video.frames_per_pass(720, 1280, 4, "raw", True,
+                                          device="cpu") == 32
+        assert port_video.frames_per_pass(720, 1280, 3, "raw", True,
+                                          device="cpu") == 30
+        return
+    for h, w, gop, b in GEOMETRIES:
+        for huff in (True, False):
+            got = {mode: [budget(h, w, gop, b, f, mode, huff) for f in FREES]
+                   for mode in ("raw", "recon")}
+            for mode, ns in got.items():
+                if prop == "gops":
+                    assert all(n >= gop and n % gop == 0 for n in ns)
+                elif prop == "monotone":
+                    assert ns == sorted(ns)
+                elif prop == "indices":
+                    # The most the indices allow, and one GOP more breaks
+                    # one of them unless the search's grid stopped it.
+                    n = ns[-1]
+                    for m, ok in ((n, True), (n + gop, False)):
+                        _, _, records, lw = port_video._pass_stream(
+                            m, h, w, gop, mode, b, "reference")
+                        words = device_pack.packed_words_bound(records, lw)
+                        fits = (records < 2 ** 31
+                                and not (huff and 4 * words >= 2 ** 31))
+                        assert fits == ok or (not ok and m > 65535)
+                        assert m <= 65535 or not ok
+            if prop == "recon":
+                assert all(r <= a for r, a in zip(got["recon"], got["raw"]))
+
+
+@pytest.mark.parametrize("huff", [True, False])
+@pytest.mark.parametrize("mode", ["raw", "recon"])
+@pytest.mark.parametrize("budget", [3, 9, 14])  # a GOP, uneven, the clip
+def test_forced_frame_budget_equals_host_engine(monkeypatch, budget, mode,
+                                                huff):
+    """A 14-frame clip in GOPs of 3, its passes' frames forced: one GOP
+    (5 passes), 9 frames (9 + 5) and the whole clip (one pass)."""
+    w, h, n, gop = 64, 32, 14, 3
+    monkeypatch.setattr(port_video, "frames_per_pass",
+                        lambda *args, **kwargs: budget)
+    data = yuv420(bench_frames(w, h, n, budget))
+    with profiling.tracing("encode") as t:
+        got = imageencoder_tpu_torch.encode_video(
+            data, w, h, PORT_QUANT, True, gop, 8, use_huffman=huff,
+            ref_mode=mode, device="cpu")
+    assert got == bytes(jax_video.encode_video(
+        data, w, h, QUANT, True, gop, 8, use_huffman=huff, backend="numpy",
+        ref_mode=mode))
+    assert t.counters == {"encode_passes": -(-n // budget)}
