@@ -52,12 +52,17 @@ the prediction, the step reads the prediction and writes the carry.  At
 straight from the coefficients and the vectors in K2's two launches, the
 first summing the lengths, and with the histogram counts the stream's
 bytes as it stores them.
+
+K5 and the loop of steps run inside the span ``recon``
+(utils/profiling.py::stage), and a pass counts its steps past the
+I-frames as ``recon_steps``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import cuda_encode, cuda_motion, cuda_pack
 from .device_pack import packed_words_bound
 from .motion import MACRO
@@ -118,24 +123,27 @@ def make_encode_video_packed_recon(gop: int, merange: int, mvec_nbits: int,
         lens = torch.empty((f, n_micro), dtype=torch.int32, device=dev)
         mvecs = torch.empty((n_p, n_macro, 2), dtype=torch.int32, device=dev)
         steps = gop_steps(f, gop)
-        if steps:
-            cuda_encode.quantize_image(frames[0::gop], quant, b, norm,
-                                       out=coeffs[0::gop], lens=lens[0::gop],
-                                       use_rle=use_rle)
-        if len(steps) > 1:
-            n_1 = steps[1][1]
-            carry = frames[0::gop][:n_1]
-            pred = torch.empty((n_1, h, w), dtype=torch.uint8, device=dev)
-            recon = torch.empty_like(pred)
-            for k, n_k in steps[1:]:
-                cur = frames[k::gop]
-                cuda_motion.search_predict(cur, carry[:n_k], merange,
-                                           mvec=mvecs[k - 1::gop - 1],
-                                           out=pred[:n_k])
-                cuda_encode.recon_step(cur, pred[:n_k], quant, b, norm,
-                                       out=coeffs[k::gop], recon=recon[:n_k],
-                                       lens=lens[k::gop], use_rle=use_rle)
-                carry = recon
+        profiling.count("recon_steps", max(len(steps) - 1, 0))
+        with profiling.stage("recon"):
+            if steps:
+                cuda_encode.quantize_image(frames[0::gop], quant, b, norm,
+                                           out=coeffs[0::gop],
+                                           lens=lens[0::gop], use_rle=use_rle)
+            if len(steps) > 1:
+                n_1 = steps[1][1]
+                carry = frames[0::gop][:n_1]
+                pred = torch.empty((n_1, h, w), dtype=torch.uint8, device=dev)
+                recon = torch.empty_like(pred)
+                for k, n_k in steps[1:]:
+                    cur = frames[k::gop]
+                    cuda_motion.search_predict(cur, carry[:n_k], merange,
+                                               mvec=mvecs[k - 1::gop - 1],
+                                               out=pred[:n_k])
+                    cuda_encode.recon_step(cur, pred[:n_k], quant, b, norm,
+                                           out=coeffs[k::gop],
+                                           recon=recon[:n_k],
+                                           lens=lens[k::gop], use_rle=use_rle)
+                    carry = recon
 
         # Every frame's records, in stream order, straight from the
         # coefficients and the vectors, their lengths summed first: K4's

@@ -504,4 +504,8 @@ def test_forced_frame_budget_equals_host_engine(monkeypatch, budget, mode,
     assert got == bytes(jax_video.encode_video(
         data, w, h, QUANT, True, gop, 8, use_huffman=huff, backend="numpy",
         ref_mode=mode))
-    assert t.counters == {"encode_passes": -(-n // budget)}
+    want = {"encode_passes": -(-n // budget)}
+    if mode == "recon":  # each pass's P steps: its GOPs' frames 1 .. gop - 1
+        want["recon_steps"] = sum(min(gop, n - s, budget) - 1
+                                  for s in range(0, n, budget))
+    assert t.counters == want
