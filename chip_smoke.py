@@ -1417,7 +1417,7 @@ def time_decode(data: bytes, h: int, w: int, dev) -> None:
     t = []
     for _ in range(SAMPLES):
         t0 = time.perf_counter()
-        plan = parse_stream(data)
+        plan = parse_stream(data, pinned=True)
         t.append(time.perf_counter() - t0)
     parse = quantiles(t)
     t = []
@@ -1471,7 +1471,7 @@ def time_video_decode(data: bytes, n: int, h: int, w: int, dev) -> None:
     t = []
     for _ in range(VIDEO_SAMPLES):
         t0 = time.perf_counter()
-        plan = plan_video(data)
+        plan = plan_video(data, pinned=True)
         t.append(time.perf_counter() - t0)
     parse = quantiles(t)
     t = []

@@ -193,7 +193,7 @@ def decode_image_batch(streams, norm: str = "reference",
     out = []
     for data in streams:
         with profiling.stage("parse"):
-            plan = parse_stream(data, block_size)
+            plan = parse_stream(data, block_size, pinned=dev.type == "cuda")
         with profiling.stage("upload"):
             views = upload(plan, dev)
         with profiling.stage("device decode"):

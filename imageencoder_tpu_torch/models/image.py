@@ -235,8 +235,41 @@ def header_bytes(block_size: int, video: bool = False) -> int:
             + 7) // 8
 
 
+def staging_layout(parts) -> tuple[dict, int]:
+    """Where the staging buffer holds each of ``parts`` ((name, array or
+    None), in order): {name: (offset, length)} and the buffer's size.
+    Each part starts at a 16-byte boundary; the stream, the last, is
+    followed by 16 bytes more."""
+    layout, pos = {}, 0
+    for name, arr in parts:
+        if arr is None:
+            continue
+        layout[name] = (pos, arr.nbytes)
+        pos += -(-arr.nbytes // 16) * 16 + (16 if name == "stream" else 0)
+    return layout, pos
+
+
+def fill_staging(dest: np.ndarray, parts, layout: dict) -> np.ndarray:
+    """Write ``parts`` into ``dest`` (uint8, of the layout's size, its
+    contents anything) at their offsets, each with one copy, and zero the
+    pads: every byte from a part's end to the next part's offset, and
+    from the stream's end to the buffer's.  ``dest`` then holds what a
+    zeroed buffer filled with the parts would.  Returns ``dest``."""
+    end = 0
+    for name, arr in parts:
+        if arr is None:
+            continue
+        off, n = layout[name]
+        dest[end:off] = 0
+        dest[off:off + n] = np.ascontiguousarray(arr).reshape(-1).view(
+            np.uint8)
+        end = off + n
+    dest[end:] = 0
+    return dest
+
+
 def parse_stream(data: bytes, block_size: int = BLOCK_SIZE,
-                 video: bool = False) -> dict:
+                 video: bool = False, pinned: bool = False) -> dict:
     """The host's part of a decode: the dict (if any), the image header
     (with video=True the video parameters after it) and the layout of the
     one upload.  Nothing runs on a device.
@@ -244,11 +277,14 @@ def parse_stream(data: bytes, block_size: int = BLOCK_SIZE,
     Returns a dict with ``huffman``, ``quant``, ``use_rle``, ``w``, ``h``,
     ``start`` (the header's end bit in the payload), ``n_blocks`` (a
     frame's), ``params`` (a video's VideoParams, else None) and
-    ``staging`` (numpy uint8: the stream's byte count as int64, the quant
+    ``staging`` (uint8: the stream's byte count as int64, the quant
     matrix f64 [B*B] row-major, the decode table with Huffman, the stream
-    zero-padded), with each part's (offset, length) under ``parts``; with
-    Huffman also ``dict_end``, ``max_len`` and ``cap`` (the decoded
-    payload's capacity in bytes)."""
+    zero-padded; a numpy array, or with pinned=True, for a copy to a
+    card, a pinned torch tensor from PyTorch's caching host allocator,
+    which reuses its block only once the copy recorded on it has run),
+    with each part's (offset, length) under ``parts``; with Huffman also
+    ``dict_end``, ``max_len`` and ``cap`` (the decoded payload's capacity
+    in bytes)."""
     if not data:
         raise StreamFormatError("empty stream")
     data = bytes(data)
@@ -284,27 +320,22 @@ def parse_stream(data: bytes, block_size: int = BLOCK_SIZE,
                  ("quant", quant.as_float().reshape(-1)),
                  ("table", table),
                  ("stream", np.frombuffer(data, np.uint8))]
-        layout, pos = {}, 0
-        for name, arr in parts:
-            if arr is None:
-                continue
-            layout[name] = (pos, arr.nbytes)
-            pos += -(-arr.nbytes // 16) * 16 + (16 if name == "stream" else 0)
-        staging = np.zeros(pos, np.uint8)
-        for name, arr in parts:
-            if arr is not None:
-                off, n = layout[name]
-                staging[off:off + n] = np.ascontiguousarray(arr).reshape(
-                    -1).view(np.uint8)
+        layout, size = staging_layout(parts)
+        if pinned:
+            staging = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            fill_staging(staging.numpy(), parts, layout)
+            profiling.count("bytes_staged_pinned", size)
+        else:
+            staging = fill_staging(np.empty(size, np.uint8), parts, layout)
     out.update(staging=staging, parts=layout)
     return out
 
 
 def upload(plan: dict, device) -> dict:
-    """The staging buffer on ``device`` (to a card one pinned copy that
-    does not wait) and its parts as typed views: ``nbytes`` int64 [1],
-    ``quant`` f64 [B*B], ``table`` int16 [2**L] with Huffman, ``stream``
-    uint8."""
+    """The staging buffer on ``device`` (to a card one copy that does not
+    wait, from the plan's pinned buffer where it has one) and its parts
+    as typed views: ``nbytes`` int64 [1], ``quant`` f64 [B*B], ``table``
+    int16 [2**L] with Huffman, ``stream`` uint8."""
     buf = to_device(plan["staging"], device)
     dtypes = {"nbytes": torch.int64, "quant": torch.float64,
               "table": torch.int16, "stream": torch.uint8}
@@ -346,7 +377,7 @@ def decode_image(data: bytes, norm: str = "reference",
     """
     dev = resolve_device(device)
     with profiling.stage("parse"):
-        plan = parse_stream(data, block_size)
+        plan = parse_stream(data, block_size, pinned=dev.type == "cuda")
     with profiling.stage("upload"):
         views = upload(plan, dev)
     with profiling.stage("device decode"):

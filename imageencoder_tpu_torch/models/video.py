@@ -403,14 +403,16 @@ def assemble_yuv420(frames, width: int, height: int) -> bytes:
 
 # ---- decode on the device ----
 
-def plan_video(data: bytes, block_size: int = BLOCK_SIZE) -> dict:
+def plan_video(data: bytes, block_size: int = BLOCK_SIZE,
+               pinned: bool = False) -> dict:
     """The host's part of a video decode (models/image.py::parse_stream
-    with the video parameters), and what the frames need: ``n_macro``,
+    with the video parameters; pinned=True stages the stream in pinned
+    memory, for a copy to a card), and what the frames need: ``n_macro``,
     ``mb`` (the vector field width) and ``vbits`` (a P-frame's vector
     bits, 0 where the video has no P-frame).  Raises StreamFormatError
     where a P-frame cannot be predicted: frames that are no multiple of
     the 16-pixel macroblock (the host decoder fails on them too)."""
-    plan = parse_stream(data, block_size, video=True)
+    plan = parse_stream(data, block_size, video=True, pinned=pinned)
     params, w, h = plan["params"], plan["w"], plan["h"]
     has_p = params.frame_count > 1 and params.gop > 1
     if has_p and (w % MACRO or h % MACRO):
@@ -477,7 +479,7 @@ def decode_into(plan: dict, views: dict, y: torch.Tensor,
 def _planned(data: bytes, block_size: int, device):
     dev = resolve_device(device)
     with profiling.stage("parse"):
-        plan = plan_video(data, block_size)
+        plan = plan_video(data, block_size, pinned=dev.type == "cuda")
     views = None
     if plan["params"].frame_count and plan["n_blocks"]:
         with profiling.stage("upload"):

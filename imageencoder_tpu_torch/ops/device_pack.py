@@ -87,15 +87,19 @@ def as_uint(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
-def to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """A host array as a tensor on ``device``.  To a card it goes through
-    pinned memory by a copy that does not wait for the device (PyTorch's
-    pinned-memory allocator keeps the block until the copy has run)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+def to_device(arr: np.ndarray | torch.Tensor, device) -> torch.Tensor:
+    """A host array (or host tensor) as a tensor on ``device``.  To a
+    card it goes through pinned memory by a copy that does not wait for
+    the device (PyTorch's pinned-memory allocator keeps the block until
+    the copy has run); a tensor already pinned is sent as it is."""
+    t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(arr))
     if torch.device(device).type != "cuda":
         return t
     profiling.count("bytes_up", t.nbytes)
-    return t.pin_memory().to(device, non_blocking=True)
+    if not t.is_pinned():
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:

@@ -678,7 +678,7 @@ def decode_image_sharded(data: bytes, mesh, norm: str = "reference",
     all-gathered.  Block rows that do not divide among the ranks pad the
     last stripes with gray rows, cut off after the gather."""
     dev = mesh_device(mesh)
-    plan = parse_stream(data, block_size)
+    plan = parse_stream(data, block_size, pinned=dev.type == "cuda")
     views = upload(plan, dev)
     payload, nbytes = views["stream"], views["nbytes"]
     if plan["huffman"]:

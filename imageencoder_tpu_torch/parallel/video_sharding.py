@@ -615,7 +615,7 @@ def decode_video_sharded(data: bytes, mesh, motioncomp: bool = True,
     from ..models.video import decode_into
 
     dev = mesh_device(mesh)
-    plan = plan_video(data, block_size)
+    plan = plan_video(data, block_size, pinned=dev.type == "cuda")
     params, w, h = plan["params"], plan["w"], plan["h"]
     n = params.frame_count
     if n == 0:

@@ -1389,6 +1389,67 @@ def test_decode_image_and_frames_make_no_host_wait(dev):
     assert torch.equal(got[1], want[1])
 
 
+def test_video_decode_stages_once_in_pinned_memory(dev, monkeypatch):
+    """A card's plan stages the stream in a pinned tensor, byte for byte
+    the numpy plan's staging; upload sends that tensor itself, with no
+    second host copy.  Four distinct 720p25 streams decoded back to back,
+    queued behind a spin so that every copy up is still pending when the
+    next stream is staged, each equal their decode from the numpy plan:
+    a reused pinned block is never overwritten before its copy has
+    run."""
+    from imageencoder_tpu_torch.models.image import upload
+
+    w, h, n = 1280, 720, 25
+    quant = quant_from_numpy(np.array(JPEG4, np.uint32))
+    streams = [imageencoder_tpu_torch.encode_video(
+        b"".join(f.tobytes() + bytes(w * h // 2)
+                 for f in video_frames(w, h, n, 40 + k)),
+        w, h, quant, True, 4, 16, use_huffman=True, device=dev)
+        for k in range(4)]
+    assert len(set(streams)) == 4
+    plan = port_video.plan_video(streams[0], pinned=True)
+    host = port_video.plan_video(streams[0])
+    staging = plan["staging"]
+    assert isinstance(staging, torch.Tensor) and staging.is_pinned()
+    assert plan["parts"] == host["parts"]
+    np.testing.assert_array_equal(staging.numpy(), host["staging"])
+
+    sent, real_to = [], torch.Tensor.to
+
+    def to(self, *args, **kwargs):
+        sent.append(self.data_ptr())
+        return real_to(self, *args, **kwargs)
+
+    def no_pin(self, *args, **kwargs):
+        raise AssertionError("a second host copy of the staging")
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", no_pin)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    with profiling.tracing("upload") as t:
+        views = upload(plan, dev)
+    monkeypatch.undo()
+    assert sent == [staging.data_ptr()]
+    assert t.counters == {"bytes_up": staging.nbytes}
+    assert views["stream"].device == dev
+
+    want = []
+    for data in streams:
+        p = port_video.plan_video(data)
+        y = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+        want.append(port_video.decode_into(p, upload(p, dev), y))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1.0e9))  # about half a second of spin
+    with profiling.tracing("decode") as t:
+        got = [imageencoder_tpu_torch.decode_frames(data, device=dev)
+               for data in streams]
+    assert t.counters["bytes_staged_pinned"] == sum(
+        port_video.plan_video(data)["staging"].nbytes for data in streams)
+    torch.cuda.synchronize()
+    for k in range(4):
+        assert torch.equal(got[k], want[k]), k
+    assert not torch.equal(want[0], want[1])
+
+
 @pytest.mark.parametrize("merange,mb", [(1, 2), (16, 6), (300, 10),
                                         (20000, 16)])
 def test_read_vectors_kernel_equals_plain_out_to_the_widest(dev, merange,

@@ -12,9 +12,11 @@ import types
 import numpy as np
 import pytest
 
+import torch
+
 from benchmark import harness, tracing as bench_tracing
 import imageencoder_tpu_torch as port
-from imageencoder_tpu_torch.models import video
+from imageencoder_tpu_torch.models import image, video
 from imageencoder_tpu_torch.utils import profiling
 
 W, H, N, GOP, MERANGE = 64, 48, 40, 4, 8  # two chunks of 32 and 8 frames
@@ -115,6 +117,36 @@ def test_parse_spans_of_a_decode():
                        ("staging", "parse"), ("upload", None),
                        ("device decode", None)]
     assert_nested(t)
+    # On the CPU the stream is staged in numpy: nothing pinned, nothing
+    # copied up.
+    assert t.counters == {}
+
+
+@pytest.mark.cuda
+def test_pinned_staging_counted_on_a_card():
+    """On a card each decode stages its stream once in pinned memory,
+    under ``staging`` within ``parse``, and counts that buffer's bytes;
+    ``upload`` stays top-level and copies the same bytes up."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    stream = encode()
+    img = port.encode_image(frames()[:8].reshape(8 * H, W), QUANT,
+                            use_huffman=True, device="cpu")
+    assert img[0] & 0x80 and stream[0] & 0x80  # both with a dict
+    size = {data: image.parse_stream(data, video=data is stream)[
+        "staging"].nbytes for data in (stream, img)}
+    with profiling.tracing("decode") as t:
+        video.decode_frames(stream, device="cuda")
+        port.decode_image(img, device="cuda")
+        video.decode_frames(stream, device="cuda")
+    torch.cuda.synchronize()
+    one = [("parse", None), ("dict", "parse"), ("staging", "parse"),
+           ("upload", None), ("device decode", None)]
+    assert tree(t) == one * 3
+    assert_nested(t)
+    staged = 2 * size[stream] + size[img]
+    assert t.counters == {"bytes_staged_pinned": staged,
+                          "bytes_up": staged}
 
 
 def test_benchmark_spans_receive_every_label():

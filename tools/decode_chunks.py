@@ -128,7 +128,8 @@ def main() -> None:
         for key in opts.streams.split(","):
             name, data = streams[key]
             video = key in ("raw", "recon")
-            plan = plan_video(data) if video else parse_stream(data)
+            plan = (plan_video(data, pinned=True) if video
+                    else parse_stream(data, pinned=True))
             views = upload(plan, dev)
             d1_args = (views["stream"], views["nbytes"], plan["dict_end"],
                        views["table"], plan["max_len"], plan["cap"])

@@ -225,7 +225,7 @@ def decode_path(path: str, quant, dev):
         size = [w, h]
         data = port.encode_image(cs.synthetic(h, w, 2), quant,
                                  use_huffman=True, device="cuda")
-        plan = parse_stream(data)
+        plan = parse_stream(data, pinned=True)
         views = upload(plan, dev)
 
         def call():
@@ -241,7 +241,7 @@ def decode_path(path: str, quant, dev):
                                  h, quant, True, cs.GOP, cs.MERANGE,
                                  use_huffman=True, ref_mode="raw",
                                  device="cuda")
-        plan = video.plan_video(data)
+        plan = video.plan_video(data, pinned=True)
         views = upload(plan, dev)
         y = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
 
