@@ -315,7 +315,7 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                      "imageencoder_tpu_torch/csrc/huffman.cu",
                      "imageencoder_tpu/ops/huffman.py:194"),
     "K4 pack_records": ("cuda_pack", "pack_records", "pack_records_plain",
-                        "pack_records_kernel",
+                        ("tile_sums_kernel", "pack_known_kernel"),
                         "imageencoder_tpu_torch/csrc/pack.cu",
                         "imageencoder_tpu/ops/pallas_pack.py:55"),
     "K4 pack_payload": ("cuda_pack", "pack_payload", "pack_payload_plain",
@@ -456,7 +456,7 @@ KERNELS = {  # name: (wrapper's module, wrapper, plain version,
                                     ":38"),
     "K4 pack_records segments": ("cuda_pack", "pack_records_segments",
                                  "pack_records_segments_plain",
-                                 "pack_records_segments_kernel",
+                                 ("tile_sums_kernel", "pack_known_kernel"),
                                  "imageencoder_tpu_torch/csrc/pack.cu",
                                  "imageencoder_tpu/ops/pallas_pack.py:55"),
     # No TPU kernel: the JAX package's host serialization of the final

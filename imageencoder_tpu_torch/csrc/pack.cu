@@ -1,23 +1,26 @@
 // K2 and K4: the bitstream packers.
 //
 // Both concatenate N variable-length records into one MSB-first,
-// big-endian u32 stream that starts at bit `start_bit`.
+// big-endian u32 stream that starts at bit `start_bit`, on one engine with
+// four front ends.  The engine is reduce, then scan, in two launches and
+// nothing else: the first (tile_sums_kernel) sums the lengths of each tile,
+// and of each group of 8 tiles; in the second (pack_known_kernel) every
+// CTA adds up the sums before its own (the groups before its group, the
+// tiles before it there: a few hundred values in L2), so it knows its
+// start before it begins and waits for no other CTA.  It composes its
+// words in shared memory and stores them 16 bytes at a time.  A word that
+// tiles share is written once, whole, by the tile that holds its first
+// bit: that tile reads on past its last record for the bits the word
+// still lacks.  No global atomic, no zeroed buffer, no scratch to clear.
+// A front end yields each record's length and then its words, read where
+// they already lie, so no record tensor is built first.
 //
 // K2, pack_locals, replaces imageencoder_tpu/ops/pallas_pack.py
 // _pack_locals_call (reached through pack_locals_pallas): a record is a
 // register file of lw words plus a bit length, as K1 (encode.cu) writes
 // it, or a P-frame macroblock's vector pair, built in registers from the
 // vectors; the front end (LocalsFront) yields both in stream order, so no
-// copy merges them first.  A record's length costs 4 bytes to read, so K2
-// is reduce, then scan, in two launches and nothing else: the first sums
-// the lengths of each tile, and of each group of 8 tiles; in the second
-// every CTA adds up the sums before its own (the groups before its group,
-// the tiles before it there: a few hundred values in L2), so it knows its
-// start before it begins and waits for no other CTA.  It composes its
-// words in shared memory and stores them 16 bytes at a time.  A word that
-// tiles share is written once, whole, by the tile that holds its first
-// bit: that tile reads on past its last record for the bits the word
-// still lacks.  No global atomic, no zeroed buffer, no scratch to clear.
+// copy merges them first.  A record's length costs 4 bytes to read.
 // With a histogram buffer (the image and raw video paths, Huffman on) it
 // also takes K3's place, imageencoder_tpu/ops/pallas_kernels.py _hist_call:
 // launch 1 zeroes the 256 bins, and launch 2 counts the bytes of exactly
@@ -27,47 +30,42 @@
 // record written).
 //
 // K4 replaces pallas_pack.py _pack_call (reached through
-// pack_records_pallas and device_pack.pack_blocks_device).  Its front ends
-// yield each record's length and then its fields, so no field tensor is
-// built first:
+// pack_records_pallas and device_pack.pack_blocks_device), with three
+// front ends:
 //   pack_records: [N, F] (value, width) fields, the generic form (also
-//                 over segments, each from its own start bit);
+//                 over segments, each from its own start bit;
+//                 RecordsFront): launch 1 reads the widths to sum them,
+//                 launch 2 the widths again and the values;
 //   pack_payload: the Huffman payload, 16 stream bytes a record, each
-//                 byte's code looked up in shared memory;
+//                 byte's code looked up in shared memory (PayloadFront):
+//                 launch 1 reads the bytes to sum their codes' lengths,
+//                 launch 2 reads them again to emit the codes;
 //   pack_coeffs:  a recon video's motion-vector and block records, read
-//                 from the coefficient tensor and the vectors.
-// pack_records runs on a single-pass packer (pack_tiles): a record's
-// length costs as much to find as its fields (its widths), so each tile
-// finds them once and looks back for its start.  pack_coeffs and
-// pack_payload run on K2's two launches instead.  pack_coeffs
-// (CoeffsFront below): the transform that wrote the coefficients
-// (transform.cu: K5 and the recon step) also wrote each block's record
-// length, 4 bytes a block, and a vector record's length is arithmetic, so
-// launch 1 sums lengths alone and launch 2 emits with every tile's start
-// known, with K3 folded in as in K2.  pack_payload (PayloadFront), one
-// stream or a batch of streams or of byte windows: launch 1 reads the
-// bytes once more to sum their codes' lengths, which costs less than the
-// single pass's look-back, its wait for the last tile and its merge (over
-// a batch each stream's CTAs waited on their own, a share of a persistent
-// grid); its grid is not persistent, and a CTA past its stream's bytes
+//                 from the coefficient tensor and the vectors
+//                 (CoeffsFront): the transform that wrote the
+//                 coefficients (transform.cu: K5 and the recon step) also
+//                 wrote each block's record length, 4 bytes a block, and a
+//                 vector record's length is arithmetic, so launch 1 sums
+//                 lengths alone; K3 is folded in as in K2.
+// pack_payload, one stream or a batch of streams or of byte windows: its
+// grid is sized by the worst case, and a CTA past its stream's bytes
 // leaves, so the card's CTAs go to whichever stream has work.
-// Bound: HBM bytes.  pack_payload reads 1 byte per coded byte twice (both
-// launches read the bytes) and writes the payload, pack_coeffs 4 bytes
-// per coefficient and the lengths, and writes the stream.  pack_payload
-// reads its codes, the dict, its start bit and its byte count from the
-// dict kernel's table (huffman.cu, dict_table.cuh), so its tiles are
-// bounded by the bytes coded, not by the worst-case word buffer.
-// The single-pass design keeps everything else on chip: the scan is one pass
-// (decoupled look-back over tiles taken in order); a tile's words are
-// composed in shared memory and leave by 16-byte stores; the words tiles
-// share are merged once at the end instead of by global atomics; the
-// output is not zeroed first.
+// Bound: HBM bytes.  pack_records reads the widths and the values of the
+// records that are not empty, pack_payload 1 byte per coded byte (both
+// launches read the bytes: the second read is its loss, not its bound)
+// and pack_coeffs 4 bytes per coefficient and the lengths; each writes the
+// stream.  pack_payload reads its codes, the dict, its start bit and its
+// byte count from the dict kernel's table (huffman.cu, dict_table.cuh), so
+// its tiles are bounded by the bytes coded, not by the worst-case word
+// buffer.
 //
 // A batch of image streams (the serving path, models/batch.py) takes K2
 // and pack_payload once each: blockIdx.y is the stream, and each stream has
 // its own register files or bytes, output words, sums, total and histogram
 // at a fixed stride, so no tile composes a word from two streams and every
-// stream ends where its own records do.
+// stream ends where its own records do.  Segments (pack_records over the
+// sharded video's vector segments, K2 over a sharded stream's block
+// segments) are such a batch, each stream from its own start bit.
 //
 // The TPU kernel's merge tree, its bit-reversal pre-permute, the capped
 // level schedule and the row splice are workarounds for a machine without
@@ -83,35 +81,7 @@
 
 namespace {
 
-// ---- K4: the single-pass packer (pack_records) ----
-
 constexpr int kTile = 256;  // records a tile, threads a CTA
-constexpr unsigned long long kFlagA = 1ull << 62;  // a tile's aggregate
-constexpr unsigned long long kFlagP = 2ull << 62;  // its inclusive prefix
-constexpr unsigned long long kValue = kFlagA - 1ull;
-
-__device__ __forceinline__ unsigned long long ld_acquire(
-        const unsigned long long* p) {
-    unsigned long long v;
-    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-                 : "=l"(v) : "l"(p) : "memory");
-    return v;
-}
-
-// Coherent at the card's scope, and free to overlap with other loads.
-__device__ __forceinline__ unsigned long long ld_relaxed(
-        const unsigned long long* p) {
-    unsigned long long v;
-    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-                 : "=l"(v) : "l"(p) : "memory");
-    return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned long long* p,
-                                           unsigned long long v) {
-    asm volatile("st.release.gpu.global.u64 [%0], %1;"
-                 :: "l"(p), "l"(v) : "memory");
-}
 
 // Counts the bytes of word w, the stream's bytes b0 .. b0 + 3, that lie
 // before byte `end`, into the shared bins.  The count, not the flush, is
@@ -143,291 +113,206 @@ __device__ __forceinline__ void flush_bins(const int* bins, int32_t* hist) {
     }
 }
 
-// One pack's outputs and scratch.  scratch: u64 words zeroed by the
-// caller, [0] the tile counter, [1] tiles done, [2] the error flag, [3 + t]
-// tile t's status (flag | value); edges: u64 [2 * n_tiles], each tile's
-// first and last span word as ((word + 1) << 32) | bits, 0 for none.
-struct PackOut {
-    long long n;  // records
-    long long n_tiles;
-    long long start_bit;
-    const uint32_t* prefix;
-    long long prefix_words;
-    uint32_t* out;
-    long long n_words;
-    unsigned long long* scratch;
-    unsigned long long* edges;
-    long long* total;
-    int span_words;       // capacity of the shared span
-    int max_record_bits;  // longer records are refused
+// ---- the front ends ----
+//
+// Each hands the two launches (tile_sums_kernel and pack_known_kernel
+// below) its records in stream order: at(i), a cursor at record i;
+// next<kWords>(c, st), the record at the cursor into st and the cursor one
+// on, returning the record's length unchecked (refused(len) is true for a
+// length no record may have); emit_words(st, lead, sink), the record's
+// words shifted to start `lead` bits into the first; lw, the shared words
+// a record takes in launch 2 (its words at most, the tile's span, and for
+// pack_records its staged fields); to_stream(k, a), stream k of a batch;
+// enter() and settle(st, len), where a length waits for something shared;
+// and reach_length, reach_fill and skip_empty for the reach past a tile.
+// kAllAtomic picks OwnedSink's stores, kStrided launch 1's layout.
 
-    __device__ __forceinline__ uint32_t prefix_word(long long w) const {
-        return w < prefix_words ? prefix[w] : 0u;
-    }
-};
-
-// A record's words into the tile's span: the first and last word may be
-// shared with the neighbouring records (shared-memory atomicOr), the
-// interior ones are the record's alone.
-struct SpanSink {
-    uint32_t* span;
-    int base;
-    int last;
-    __device__ __forceinline__ void operator()(int k, uint32_t w) const {
-        if (k == 0 || k == last) {
-            if (w != 0u) atomicOr(span + base + k, w);
-        } else {
-            span[base + k] = w;
-        }
-    }
-};
-
-// The exclusive prefix (start_bit included) of tile t, by decoupled
-// look-back: warp 0 publishes the tile's aggregate, then reads the status
-// of kWindow earlier tiles at a time (kPerLane consecutive ones a lane),
-// adding aggregates back to the nearest inclusive prefix, and publishes
-// its own.  Tiles are taken in order from a counter, so every tile looked
-// at belongs to a running CTA.  The prefixes advance by at most a window
-// per round trip to L2, so the window is wide.
-constexpr int kPerLane = 4;
-constexpr int kWindow = 32 * kPerLane;
-
-__device__ __forceinline__ long long look_back(unsigned long long* status,
-                                               long long t, long long agg,
-                                               long long start_bit) {
-    const int lane = threadIdx.x & 31;
-    if (t == 0) {
-        if (lane == 0) st_release(status, kFlagP | (start_bit + agg));
-        return start_bit;
-    }
-    if (lane == 0) st_release(status + t, kFlagA | agg);
-    long long excl = 0;
-    for (long long top = t - 1;; top -= kWindow) {
-        // Lane l holds tiles top - kPerLane * l - k, k = 0..kPerLane-1,
-        // nearest first: all read at once, then the unpublished ones read
-        // again up to the lane's nearest inclusive prefix.
-        unsigned long long s[kPerLane];
-#pragma unroll
-        for (int k = 0; k < kPerLane; k++) {
-            const long long j = top - kPerLane * lane - k;
-            s[k] = j >= 0 ? ld_relaxed(status + j) : kFlagP;  // before tile 0
-        }
-        int first_p = kPerLane;  // the lane's nearest inclusive prefix
-#pragma unroll
-        for (int k = 0; k < kPerLane; k++) {
-            const long long j = top - kPerLane * lane - k;
-            while ((s[k] >> 62) == 0) s[k] = ld_relaxed(status + j);
-            if ((s[k] >> 62) == 2) {
-                first_p = k;
-                break;
-            }
-        }
-        const unsigned p = __ballot_sync(0xffffffffu, first_p < kPerLane);
-        const int stop = p ? __ffs(p) - 1 : 31;
-        long long v = 0;
-#pragma unroll
-        for (int k = 0; k < kPerLane; k++)
-            if (lane < stop || (lane == stop && k <= first_p))
-                v += (long long)(s[k] & kValue);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            v += __shfl_xor_sync(0xffffffffu, v, o);
-        excl += v;
-        if (p) break;
-    }
-    if (lane == 0) st_release(status + t, kFlagP | (excl + agg));
-    return excl;
-}
-
-// The packer.  A CTA takes tiles of kTile * ITEMS records from the tile
-// counter, each thread ITEMS consecutive records.  Per tile: each record's
-// length from the front end; a block scan of the threads' sums; the tile's
-// prefix by look-back; the tile's span of output words composed in shared
-// memory, each record emitted from the state its thread kept; the span's
-// interior words stored by 16-byte stores; its first and last word, which
-// other tiles (or the prefix) may share, kept as edges.  When every tile is
-// done, every CTA merges the edges: the tile holding the first stream bit
-// of a shared word ORs in the later tiles' parts of it and stores it, once.
-// No word of the output is written twice or by an atomic, and nothing of
-// it is zeroed first: the words past the stream's last word are left as
-// they were.
-template <int ITEMS, class Front>
-__device__ __forceinline__ void pack_tiles(const Front& fe,
-                                           const PackOut& a) {
-    constexpr long long kRecords = (long long)kTile * ITEMS;
-    extern __shared__ __align__(16) uint32_t span[];
-    __shared__ long long warp_sums[32];
-    __shared__ long long s_tile, s_agg, s_excl;
-    unsigned long long* counter = a.scratch;
-    unsigned long long* done = a.scratch + 1;
-    unsigned long long* err = a.scratch + 2;
-    unsigned long long* status = a.scratch + 3;
-    const int tid = threadIdx.x;
-
-    for (;;) {
-        // Take a tile only when about to pack it: a later tile's look-back
-        // waits for this one's aggregate.
-        if (tid == 0) s_tile = (long long)atomicAdd(counter, 1ull);
-        __syncthreads();
-        const long long t = s_tile;
-        if (t >= a.n_tiles) break;
-        const long long first = t * kRecords + (long long)tid * ITEMS;
-        typename Front::State st[ITEMS];
-        long long lens[ITEMS];
-        long long sum = 0;
-        unsigned refused = 0u;
-#pragma unroll
-        for (int r = 0; r < ITEMS; r++) {
-            long long len = first + r < a.n ? fe.length(first + r, st[r]) : 0;
-            if (len < 0 || len > a.max_record_bits) refused |= 1u << r;
-            lens[r] = len < 0 ? 0 : len;
-            sum += lens[r];
-        }
-        if (refused) atomicExch(err, 1ull);
-        const long long local = ie::block_exclusive_scan(sum, warp_sums);
-        if (tid == kTile - 1) s_agg = local + sum;
-        __syncthreads();
-        const long long agg = s_agg;
-        // ceil((31 + agg) / 32) words hold the tile at any offset.
-        const long long need = (agg + 62) >> 5;
-        const bool fits = need <= a.span_words;
-        if (fits) {
-            for (long long k = tid; k < need; k += kTile) span[k] = 0u;
-        } else if (tid == 0) {
-            atomicExch(err, 1ull);
-        }
-        if (tid < 32) {
-            const long long excl = look_back(status, t, agg, a.start_bit);
-            if (tid == 0) s_excl = excl;
-        }
-        __syncthreads();
-        const long long s0 = s_excl;
-        const long long f = s0 >> 5;
-        const int nspan = agg > 0 ? (int)(((s0 + agg - 1) >> 5) - f + 1) : 0;
-        if (fits) {
-            long long rs = s0 + local;
-#pragma unroll
-            for (int r = 0; r < ITEMS; r++) {
-                const long long len = lens[r];
-                if (len > 0 && !(refused >> r & 1u)) {
-                    const int lead = (int)(rs & 31);
-                    const int touched = (int)((lead + len + 31) >> 5);
-                    ie::BitEmitter<SpanSink> em(
-                        SpanSink{span, (int)((rs >> 5) - f), touched - 1},
-                        lead);
-                    fe.emit(st[r], em);
-                    em.finish();
-                }
-                rs += len;
-            }
-        }
-        __syncthreads();
-        if (fits) {
-            const long long lo = f + 1;
-            const long long hi = min(f + nspan - 1, a.n_words);
-            if (lo < hi) {
-                const long long a0 = min((lo + 3) & ~3ll, hi);
-                const long long a1 = a0 + ((hi - a0) & ~3ll);
-                // Interior words: every byte lies inside the stream.
-                if (tid < a0 - lo)
-                    a.out[lo + tid] =
-                        span[lo + tid - f] | a.prefix_word(lo + tid);
-                if (tid < hi - a1)
-                    a.out[a1 + tid] =
-                        span[a1 + tid - f] | a.prefix_word(a1 + tid);
-                for (long long v = a0 + 4 * tid; v < a1; v += 4 * kTile) {
-                    const uint32_t* sp = span + (v - f);
-                    *reinterpret_cast<uint4*>(a.out + v) = make_uint4(
-                        sp[0] | a.prefix_word(v), sp[1] | a.prefix_word(v + 1),
-                        sp[2] | a.prefix_word(v + 2),
-                        sp[3] | a.prefix_word(v + 3));
-                }
-            }
-        }
-        if (tid == 0) {
-            a.edges[2 * t] = fits && nspan > 0
-                ? ((unsigned long long)(f + 1) << 32) | span[0] : 0ull;
-            a.edges[2 * t + 1] = fits && nspan > 1
-                ? ((unsigned long long)(f + nspan) << 32) | span[nspan - 1]
-                : 0ull;
-            __threadfence();  // the edges before the count that reveals them
-            atomicAdd(done, 1ull);
-        }
-    }
-
-    // A CTA past the words the final merge writes has nothing to wait for,
-    // and leaves instead of polling the counter.
-    if (blockIdx.x != 0 && (long long)blockIdx.x * kTile
-                               >= max(2 * a.n_tiles, a.start_bit >> 5))
-        return;
-    // Every tile has been taken by a running CTA: wait for all of them.
-    if (tid == 0)
-        while (ld_acquire(done) < (unsigned long long)a.n_tiles)
-            __nanosleep(64);
-    __syncthreads();
-    const long long total = a.n_tiles
-        ? (long long)(ld_acquire(status + a.n_tiles - 1) & kValue)
-        : a.start_bit;
-    const long long g = blockIdx.x * (long long)kTile + tid;
-    const long long stride = (long long)gridDim.x * kTile;
-    for (long long e = g; e < 2 * a.n_tiles; e += stride) {
-        const unsigned long long ed = ld_relaxed(a.edges + e);
-        if (ed == 0ull) continue;
-        const long long w = (long long)(ed >> 32) - 1;
-        const long long t = e >> 1;
-        const long long s0 =
-            t ? (long long)(ld_relaxed(status + t - 1) & kValue) : a.start_bit;
-        if (s0 > max(32 * w, a.start_bit)) continue;  // an earlier tile's word
-        uint32_t v = (uint32_t)ed | a.prefix_word(w);
-        const long long end = min(32 * (w + 1), total);
-        for (long long t2 = t + 1; t2 < a.n_tiles; t2++) {
-            if ((long long)(ld_relaxed(status + t2 - 1) & kValue) >= end)
-                break;
-            v |= (uint32_t)ld_relaxed(a.edges + 2 * t2);
-        }
-        if (w < a.n_words) a.out[w] = v;
-    }
-    const long long head = min(a.start_bit >> 5, a.n_words);
-    for (long long w = g; w < head; w += stride) a.out[w] = a.prefix_word(w);
-    if (g == 0) {
-        // An empty stream that starts inside a word: that word is prefix.
-        if (total == a.start_bit && (a.start_bit & 31) && head < a.n_words)
-            a.out[head] = a.prefix_word(head);
-        *a.total = ld_acquire(err) ? -1 : total;
-    }
-}
-
-// The front ends: length(i, st) is record i's length in bits (-1 for a
-// record that breaks the front end's contract), keeping in st what
-// emit(st, em) needs to emit its fields; kItems is the records a thread.
-
-// pack_records: [N, F] fields (value, width 0..16), read from global
-// memory as the thread walks them.
+// pack_records: [N, F] fields (value, width 0..16), record i the fields
+// i * f .. i * f + f - 1; over segments, segment k's n records from
+// k * n * f.  A record's fields lie f words apart from the next record's,
+// so a warp that read them a record a thread would touch f cache lines a
+// load: both launches read them side by side instead.  Launch 1 needs only
+// each tile's bits and whether a width is refused, so strided_lengths
+// hands it each thread's share of the tile's widths, every kTile-th one,
+// not a record's length.  Launch 2's enter() stages the tile's fields in
+// shared memory past its span, a word a field, (width << 16) | the value's
+// low 16 bits (a width is at most 16); settle() and emit_words() read a
+// record there.  The reach past the tile reads its records from global
+// memory, 8 widths a round trip, and skips the tiles launch 1 found empty
+// (an I-frame's run of empty vector records in the recon fields is 3,600
+// long).  A width outside 0..16 makes its record's length -1: the tile's
+// sum and the total are -1.
 struct RecordsFront {
-    static constexpr int kItems = 1;
+    static constexpr int kItems = 1;  // records a thread
+    static constexpr bool kAllAtomic = true;  // emitted a field at a time
+    static constexpr bool kStrided = true;    // see tile_sums_kernel
+    static constexpr int kBatch = 8;  // loads in flight a thread
+    static constexpr uint32_t kBad = 0xFFFF0000u;  // a width outside 0..16
     struct State {
+        long long r;
+    };
+    struct Cursor {
         long long r;
     };
     const int32_t* vals;
     const int32_t* nbits;
     int f;
+    int words;  // a record's words at most: (16 * f + 31) / 32
+    int lw;     // shared words a record takes in launch 2: words + f
+    long long n;                // the stream's records
+    const long long* tile_bits;  // launch 1's sums: each tile's bits
+    long long tile0;            // launch 2: the tile's first record
+    const uint32_t* staged;     // launch 2: the tile's fields
 
-    __device__ __forceinline__ long long length(long long r,
-                                                State& st) const {
-        st.r = r;
-        long long len = 0;
-        for (int k = 0; k < f; k++) {
-            const int nb = nbits[r * f + k];
-            if (nb < 0 || nb > 16) return -1;
-            len += nb;
-        }
-        return len;
+    template <class Out>
+    __device__ __forceinline__ void to_stream(long long k, const Out& a) {
+        vals += k * a.n * f;
+        nbits += k * a.n * f;
+        n = a.n;
+        tile_bits = a.sums;
     }
 
-    template <class E>
-    __device__ __forceinline__ void emit(const State& st, E& em) const {
-        for (int k = 0; k < f; k++)
-            em.put(nbits[st.r * f + k], (uint32_t)vals[st.r * f + k]);
+    // A field as staged.
+    static __device__ __forceinline__ uint32_t field(int32_t nb, int32_t v) {
+        return ((unsigned)nb > 16u ? kBad : (uint32_t)nb << 16)
+               | ((uint32_t)v & 0xFFFFu);
+    }
+
+    // Field k of record r: staged, or from global memory past the tile.
+    __device__ __forceinline__ uint32_t field_of(long long r, int k) const {
+        const long long i = r - tile0;
+        if (i < (long long)kTile * kItems) return staged[i * f + k];
+        return field(__ldg(nbits + r * f + k), __ldg(vals + r * f + k));
+    }
+
+    // Launch 1: the thread's kCount shares of the tile's widths (the tile's
+    // first record is r - threadIdx.x), each of f widths step apart: at
+    // most 16 f bits, as a record, or -1 where a width lies outside 0..16.
+    template <int kCount>
+    __device__ __forceinline__ void strided_lengths(long long r,
+                                                    long long step,
+                                                    long long, int* len) {
+        const long long t0 = r - threadIdx.x;
+        const long long cnt = (min(n, t0 + step * kCount) - t0) * f;
+        const int32_t* nb = nbits + t0 * f + threadIdx.x;
+#pragma unroll
+        for (int j = 0; j < kCount; j++) {
+            int sum = 0;
+            bool bad = false;
+            for (int m0 = 0; m0 < f; m0 += kBatch) {
+                unsigned w[kBatch];
+#pragma unroll
+                for (int u = 0; u < kBatch; u++) {
+                    const long long q = step * ((long long)j * f + m0 + u);
+                    w[u] = m0 + u < f && q + threadIdx.x < cnt
+                        ? (unsigned)__ldg(nb + q) : 0u;
+                }
+#pragma unroll
+                for (int u = 0; u < kBatch; u++) {
+                    bad |= w[u] > 16u;
+                    sum += w[u] > 16u ? 0 : (int)w[u];
+                }
+            }
+            len[j] = bad ? -1 : sum;
+        }
+    }
+
+    // Launch 2: the tile's fields into shared memory past its span, read
+    // side by side, kBatch of each a thread in flight.
+    __device__ __forceinline__ void enter() {
+        extern __shared__ __align__(16) uint32_t smem[];
+        uint32_t* tile = smem + kTile * kItems * words + 3;
+        tile0 = (long long)blockIdx.x * kTile * kItems;
+        const int cnt = (int)(max(min(n - tile0, (long long)kTile * kItems),
+                                  0ll) * f);
+        const int32_t* nb = nbits + tile0 * f;
+        const int32_t* v = vals + tile0 * f;
+        for (int q0 = threadIdx.x; q0 < cnt; q0 += kTile * kBatch) {
+            int32_t a[kBatch], b[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; u++) {
+                const int q = q0 + kTile * u;
+                a[u] = q < cnt ? __ldg(nb + q) : 0;
+                b[u] = q < cnt ? __ldg(v + q) : 0;
+            }
+#pragma unroll
+            for (int u = 0; u < kBatch; u++)
+                if (q0 + kTile * u < cnt)
+                    tile[q0 + kTile * u] = field(a[u], b[u]);
+        }
+        staged = tile;
+        __syncthreads();
+    }
+
+    __device__ __forceinline__ Cursor at(long long i) const {
+        return Cursor{i};
+    }
+
+    // Record r's length, -1 where a width lies outside 0..16: staged, or
+    // past the tile its widths from global memory, kBatch a round trip.
+    __device__ __forceinline__ int length(long long r) const {
+        const long long i = r - tile0;
+        const uint32_t* s =
+            i < (long long)kTile * kItems ? staged + i * f : nullptr;
+        const int32_t* nb = nbits + r * f;
+        int len = 0;
+        bool bad = false;
+        for (int k0 = 0; k0 < f; k0 += kBatch) {
+            uint32_t w[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; u++)
+                w[u] = k0 + u >= f ? 0u
+                    : s ? s[k0 + u] >> 16 : (uint32_t)__ldg(nb + k0 + u);
+#pragma unroll
+            for (int u = 0; u < kBatch; u++) {
+                bad |= w[u] > 16u;
+                len += w[u] > 16u ? 0 : (int)w[u];
+            }
+        }
+        return bad ? -1 : len;
+    }
+
+    // Launch 2: the record is asked for; its length waits for the staged
+    // fields (settle, after enter).
+    template <bool kWords>
+    __device__ __forceinline__ int next(Cursor& c, State& st) const {
+        st.r = c.r++;
+        return 0;
+    }
+    __device__ __forceinline__ int settle(const State& st, int) const {
+        return length(st.r);
+    }
+
+    __device__ __forceinline__ bool refused(int len) const {
+        return len < 0 || len > 32 * words;
+    }
+
+    __device__ __forceinline__ int reach_length(long long i,
+                                                State& st) const {
+        st.r = i;
+        const int len = length(i);
+        return refused(len) ? -1 : len;
+    }
+    __device__ __forceinline__ void reach_fill(long long, State&) const {}
+
+    // The first record at or after i that may hold bits: past every whole
+    // tile, from one on a tile's first record, that launch 1 found empty.
+    __device__ __forceinline__ long long skip_empty(long long i) const {
+        constexpr long long kRecords = (long long)kTile * kItems;
+        while (i < n && i % kRecords == 0 && tile_bits[i / kRecords] == 0)
+            i += kRecords;
+        return i;
+    }
+
+    template <class Sink>
+    __device__ __forceinline__ void emit_words(const State& st, int lead,
+                                               const Sink& sink) const {
+        ie::BitEmitter<Sink> em(sink, lead);
+        for (int k = 0; k < f; k++) {
+            const uint32_t e = field_of(st.r, k);
+            em.put((int)(e >> 16), e & 0xFFFFu);
+        }
+        em.finish();
     }
 };
 
@@ -604,96 +489,6 @@ struct PayloadFront {
         em.finish();
     }
 };
-
-__global__ void __launch_bounds__(kTile) pack_records_kernel(
-        const int32_t* __restrict__ vals, const int32_t* __restrict__ nbits,
-        int f, PackOut a) {
-    const RecordsFront fe{vals, nbits, f};
-    pack_tiles<RecordsFront::kItems>(fe, a);
-}
-
-// pack_records over segments: blockIdx.y is the segment, with its own N
-// records of f fields, its own start bit starts[y] (its bit phase in the
-// stream it joins), output row, total, and scratch and edges at the given
-// strides (the sharded video's vector segments, parallel/video_sharding.py).
-__global__ void __launch_bounds__(kTile) pack_records_segments_kernel(
-        const int32_t* __restrict__ vals, const int32_t* __restrict__ nbits,
-        int f, const long long* __restrict__ starts,
-        long long scratch_stride, long long edges_stride, PackOut a) {
-    const long long b = blockIdx.y;
-    vals += b * a.n * f;
-    nbits += b * a.n * f;
-    a.out += b * a.n_words;
-    a.total += b;
-    a.scratch += b * scratch_stride;
-    a.edges += b * edges_stride;
-    a.start_bit = starts[b];
-    const RecordsFront fe{vals, nbits, f};
-    pack_tiles<RecordsFront::kItems>(fe, a);
-}
-
-// Fills in the launch-side fields of PackOut for tiles of kTile * items
-// records and launches a persistent grid: as many CTAs as fit on the card
-// at once, at most one a tile, so that every CTA that waits for the others
-// waits on running ones.  With n_streams > 1 the grid's y is the stream and
-// the card's CTAs are shared among the streams; a CTA waits only for tiles
-// of its own stream that running CTAs have taken.
-template <class... P, class... A>
-int launch_pack_streams(void (*kernel)(P...), int items, PackOut a,
-                        long long max_record_bits, long long n_streams,
-                        cudaStream_t s, A... args) {
-    if (n_streams < 1 || n_streams > 65535)
-        return (int)cudaErrorInvalidValue;
-    const long long records = (long long)kTile * items;  // a tile
-    a.n_tiles = (a.n + records - 1) / records;
-    a.max_record_bits = (int)max_record_bits;
-    a.span_words = (int)(records * ((max_record_bits + 31) / 32) + 2);
-    const size_t smem = (size_t)a.span_words * sizeof(uint32_t);
-    cudaError_t e = cudaSuccess;
-    if (smem > 48 * 1024)
-        e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    int per_sm = 0, dev = 0, sms = 0;
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kTile, smem);
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const long long grid = std::max(
-        1ll, std::min(a.n_tiles, ((long long)per_sm * sms + n_streams - 1)
-                                     / n_streams));
-    kernel<<<dim3((unsigned)grid, (unsigned)n_streams), kTile, smem, s>>>(
-        args..., a);
-    return (int)cudaGetLastError();
-}
-
-template <class... P, class... A>
-int launch_pack(void (*kernel)(P...), int items, PackOut a,
-                long long max_record_bits, cudaStream_t s, A... args) {
-    return launch_pack_streams(kernel, items, a, max_record_bits, 1, s,
-                               args...);
-}
-
-PackOut pack_out(long long n, long long start_bit, const void* prefix,
-                 long long prefix_words, void* out, long long n_words,
-                 void* scratch, void* edges, void* total) {
-    PackOut a{};
-    a.n = n;
-    a.start_bit = start_bit;
-    a.prefix = (const uint32_t*)prefix;
-    a.prefix_words = prefix ? prefix_words : 0;
-    a.out = (uint32_t*)out;
-    a.n_words = n_words;
-    a.scratch = (unsigned long long*)scratch;
-    a.edges = (unsigned long long*)edges;
-    a.total = (long long*)total;
-    return a;
-}
-
-// ---- K2: reduce, then pack with every tile's start known ----
 
 // K2's records in stream order.  Without vectors (n_macro == 0) record i
 // is block i: register file local[i], lw words MSB-first, of lens[i] bits
@@ -1003,6 +798,8 @@ struct CoeffsFront {
     }
 };
 
+// ---- the two launches ----
+
 // A record's words into the words a tile owns, span[0 .. nspan): words
 // outside them belong to a neighbouring tile and are dropped.  The
 // record's first and last word may be shared with its neighbours
@@ -1092,9 +889,11 @@ constexpr int kWarps = kTile / 32;
 // (a group) a CTA, each lane consecutive records (one cursor), group g's
 // bits into sums[n_tiles + g]; or, with Front::kStrided, a CTA a tile, its
 // threads' records every kTile-th (pack_payload: 16-byte loads side by
-// side, the codes coming into shared memory meanwhile; a sum needs no
-// order) and no group sums: a group of its tiles (64 KB of bytes) was too
-// much work for one CTA, and too few CTAs left the SMs unevenly loaded.
+// side, the codes coming into shared memory meanwhile; pack_records: the
+// widths side by side, a thread's shares of them for its lengths; a sum
+// needs no order) and no group sums: a group of pack_payload's tiles (64
+// KB of bytes) was too much work for one CTA, and too few CTAs left the
+// SMs unevenly loaded.
 // CTA 0 also zeroes the histogram that launch 2 counts into; a CTA past
 // its stream's tiles leaves.  grid: (ceil(n_tiles / kWarps), n_streams),
 // with kStrided (n_tiles, n_streams).
@@ -1399,7 +1198,7 @@ long long known_sums(long long n_records, int items) {
     return tiles + (tiles + kWarps - 1) / kWarps;
 }
 
-// K2's two launches for a front end whose records are at most fe.lw words.
+// K2's two launches for a front end whose records take fe.lw shared words.
 template <int ITEMS, class Front>
 int launch_known(const Front& fe, KnownOut a, cudaStream_t s) {
     const long long records = (long long)kTile * ITEMS;
@@ -1518,51 +1317,61 @@ extern "C" int ie_pack_locals_batch(const void* local, const void* lens,
                                  : launch_known<1>(blocks, a, s);
 }
 
-// K4 pack_records' entry points share their tail: start_bit; prefix, u32
-// [prefix_words] OR'd into the first words (the header or dict; may be
-// null); out, u32 [n_words], 16-byte aligned, not zeroed: the stream's
-// words are written up to its last, the rest is left as it was; scratch,
-// u64 [3 + n_tiles] zeroed; edges, u64 [2 * n_tiles]; total, i64 [1]: the
-// stream's end bit (start_bit included), or -1 if a record was refused
-// (longer than the front end's bound).  A tile is ie_pack_tile() threads of
-// 1 to 4 records each, so n_tiles <= ceil(N / ie_pack_tile()).
+// K4 pack_records, K2's two launches (RecordsFront).  vals, nbits: i32
+// [N, F], widths 0..16; start_bit; prefix, u32 [prefix_words] OR'd into
+// the first words (the header or dict; may be null); out, u32 [n_words],
+// 16-byte aligned, not zeroed: the stream's words are written up to its
+// last, the rest is left as it was; sums, i64
+// [ie_pack_records_scratch(N)], scratch that needs no clearing; total,
+// i64 [1]: the stream's end bit (start_bit included), or -1 if a record
+// was refused (a width outside 0..16).
+static RecordsFront records_front(const void* vals, const void* nbits,
+                                  int f) {
+    RecordsFront fe{};
+    fe.vals = (const int32_t*)vals;
+    fe.nbits = (const int32_t*)nbits;
+    fe.f = f;
+    fe.words = (16 * f + 31) / 32;
+    fe.lw = fe.words + f;
+    return fe;
+}
 
-extern "C" int ie_pack_tile() { return kTile; }
+extern "C" int ie_pack_records_scratch(long long n) {
+    return (int)known_sums(n, RecordsFront::kItems);
+}
 
-// vals, nbits: i32 [N, F], widths 0..16.
 extern "C" int ie_pack_records(const void* vals, const void* nbits,
                                long long n, int f, long long start_bit,
                                const void* prefix, long long prefix_words,
-                               void* out, long long n_words, void* scratch,
-                               void* edges, void* total, void* stream) {
-    const PackOut a = pack_out(n, start_bit, prefix, prefix_words, out,
-                               n_words, scratch, edges, total);
-    return launch_pack(pack_records_kernel, RecordsFront::kItems, a,
-                       16ll * f, (cudaStream_t)stream, (const int32_t*)vals,
-                       (const int32_t*)nbits, f);
+                               void* out, long long n_words, void* sums,
+                               void* total, void* stream) {
+    if (n < 0 || f < 0) return (int)cudaErrorInvalidValue;
+    const RecordsFront fe = records_front(vals, nbits, f);
+    KnownOut a = known_out(1, start_bit, prefix, prefix_words, out, n_words,
+                           sums, 0, total, nullptr);
+    a.n = n;
+    return launch_known<RecordsFront::kItems>(fe, a, (cudaStream_t)stream);
 }
 
-// pack_records over n_segments segments of n records each in one launch:
-// vals, nbits i32 [n_segments, n, f]; starts i64 [n_segments] on the
-// device, each segment's start bit; out u32 [n_segments, n_words], 16-byte
-// aligned rows; total i64 [n_segments]; each segment's scratch (u64,
-// zeroed) and edges at strides of scratch_stride and edges_stride words,
-// at least 3 + n_tiles and 2 * n_tiles for n records.  No prefix.
+// pack_records over n_segments segments of n records each, in the same
+// two launches: vals, nbits i32 [n_segments, n, f]; starts i64
+// [n_segments] on the device, each segment's start bit; out u32
+// [n_segments, n_words], 16-byte aligned rows; sums i64 [n_segments,
+// ie_pack_records_scratch(n)]; total i64 [n_segments].  No prefix.
 extern "C" int ie_pack_records_segments(const void* vals, const void* nbits,
                                         long long n, int f,
                                         long long n_segments,
                                         const void* starts, void* out,
-                                        long long n_words, void* scratch,
-                                        long long scratch_stride, void* edges,
-                                        long long edges_stride, void* total,
-                                        void* stream) {
-    const PackOut a = pack_out(n, 0, nullptr, 0, out, n_words, scratch,
-                               edges, total);
-    return launch_pack_streams(
-        pack_records_segments_kernel, RecordsFront::kItems, a, 16ll * f,
-        n_segments, (cudaStream_t)stream, (const int32_t*)vals,
-        (const int32_t*)nbits, f, (const long long*)starts, scratch_stride,
-        edges_stride);
+                                        long long n_words, void* sums,
+                                        void* total, void* stream) {
+    if (n < 0 || f < 0 || n_segments < 1 || n_segments > 65535)
+        return (int)cudaErrorInvalidValue;
+    const RecordsFront fe = records_front(vals, nbits, f);
+    KnownOut a = known_out(n_segments, 0, nullptr, 0, out, n_words, sums,
+                           ie_pack_records_scratch(n), total, nullptr,
+                           starts);
+    a.n = n;
+    return launch_known<RecordsFront::kItems>(fe, a, (cudaStream_t)stream);
 }
 
 // K4 pack_payload, K2's two launches (PayloadFront), over

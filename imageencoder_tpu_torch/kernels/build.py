@@ -36,9 +36,6 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _U64 = ctypes.c_ulonglong
-# start_bit, prefix, prefix_words, out, n_words, scratch, edges, total,
-# stream
-_K4_TAIL = [_I64, _P, _I64, _P, _I64, _P, _P, _P, _P]
 SIGNATURES = {
     "ie_encode_locals": [_P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _I32,
                          _I32, _P, _P, _P, _P],
@@ -75,12 +72,15 @@ SIGNATURES = {
     "ie_pack_locals_batch": [_P, _P, _I64, _I32, _I64, _I64, _P, _P, _I64,
                              _P, _I64, _P, _P, _P, _P],
     "ie_pack_locals_scratch": [_I64, _I32],
-    "ie_pack_tile": [],
-    "ie_pack_records": [_P, _P, _I64, _I32, *_K4_TAIL],
-    # vals, nbits, n, f, n_segments, starts, out, n_words, scratch,
-    # scratch_stride, edges, edges_stride, total, stream
+    # vals, nbits, n, f, start_bit, prefix, prefix_words, out, n_words,
+    # sums, total, stream
+    "ie_pack_records": [_P, _P, _I64, _I32, _I64, _P, _I64, _P, _I64, _P, _P,
+                        _P],
+    # vals, nbits, n, f, n_segments, starts, out, n_words, sums, total,
+    # stream
     "ie_pack_records_segments": [_P, _P, _I64, _I32, _I64, _P, _P, _I64, _P,
-                                 _I64, _P, _I64, _P, _P],
+                                 _P, _P],
+    "ie_pack_records_scratch": [_I64],
     # words, n_in, table, out, n_words, sums, total, stream
     "ie_pack_payload": [_P, _I64, _P, _P, _I64, _P, _P, _P],
     # words, n_in, tables, n_streams, out, n_words, sums, total, stream

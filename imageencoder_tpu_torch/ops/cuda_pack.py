@@ -12,17 +12,16 @@ The counterpart of imageencoder_tpu/ops/pallas_pack.py:
     batch of image streams in the same two launches, and
     :func:`pack_segments` a sharded stream's segments, each from its own
     start bit;
-  * K4 (pack_records_pallas) has three front ends, each of which reads
-    its records' fields where they already are: on a single-pass kernel
+  * K4 (pack_records_pallas) has three front ends on K2's two launches,
+    each of which reads its records' fields where they already are:
     :func:`pack_records` [N, F] field tensors of (value, nbits) pairs,
     fields at most 16 bits wide (:func:`pack_records_segments` B segments
-    of them, each from its own start bit, in one launch).  On K2's two
-    launches :func:`pack_payload` the Huffman payload, each stream byte
-    replaced by its code (huffman._device_stages.pack_payload), under the
-    dict kernel's table (ops/dict_table.py); :func:`pack_payload_batch`
-    a batch of payloads, :func:`pack_payload_window` a batch of byte
-    windows, each at its own start bit (the sharded Huffman stage); and
-    :func:`pack_coeffs` a recon
+    of them, each from its own start bit); :func:`pack_payload` the
+    Huffman payload, each stream byte replaced by its code
+    (huffman._device_stages.pack_payload), under the dict kernel's table
+    (ops/dict_table.py); :func:`pack_payload_batch` a batch of payloads,
+    :func:`pack_payload_window` a batch of byte windows, each at its own
+    start bit (the sharded Huffman stage); and :func:`pack_coeffs` a recon
     video's motion-vector and block records from its coefficient tensor
     (pipeline.fields_from_coeffs and the vector fields, then the pack),
     launch 1 summing the record lengths the transform wrote beside the
@@ -45,9 +44,8 @@ wrappers run the plain versions, which return zeros past the stream.  On
 a CUDA tensor they launch csrc/pack.cu, which writes the stream's words up
 to its last one and leaves the rest of the buffer as allocated
 (:func:`stream_words` is the part that is defined).  The wrappers run
-nothing on the device but their kernels (pack_records also clears its
-scratch), and the total and every start stay there: nothing waits on the
-host.
+nothing on the device but their kernels (no scratch to clear), and the
+total and every start stay there: nothing waits on the host.
 
 :func:`emit_wire` (csrc/wire.cu) replaces no TPU kernel: it writes the
 packers' final streams, one or a batch, as wire-order bytes on the card,
@@ -351,24 +349,6 @@ def _prefix(prefix, dev):
     return prefix.data_ptr(), prefix.shape[0]
 
 
-def _k4(entry: str, n_records: int, n_words: int, dev, args: tuple):
-    """Launch a single-pass K4 front end on ``args`` (its arguments before
-    ``out``): allocates its output (not zeroed), its zeroed scratch and
-    its edges, and returns (words, total_bits)."""
-    lib = build.library()
-    n_tiles = -(-n_records // lib.ie_pack_tile())
-    scratch = torch.zeros(3 + n_tiles, dtype=torch.int64, device=dev)
-    edges = torch.empty(max(2 * n_tiles, 1), dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    out = torch.empty(n_words, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = getattr(lib, entry)(
-            *args, out.data_ptr(), n_words, scratch.data_ptr(),
-            edges.data_ptr(), total.data_ptr(), build.stream_ptr(dev))
-    build.check(code, entry)
-    return out, total.reshape(())
-
-
 def pack_records_plain(vals, nbits, start_bit: int, n_words: int,
                        prefix=None):
     """The plain version of K4 pack_records, on any device."""
@@ -378,7 +358,9 @@ def pack_records_plain(vals, nbits, start_bit: int, n_words: int,
 def pack_records(vals: torch.Tensor, nbits: torch.Tensor, start_bit: int,
                  n_words: int, prefix: torch.Tensor | None = None):
     """Pack [N, F] int32 fields (values, widths 0..16; width 0 = skip).
-    On the card a width outside 0..16 makes the total -1."""
+    On the card a width outside 0..16 makes the total -1.  K2's two
+    launches: the first sums each tile's widths, the second packs with
+    every tile's start known."""
     if vals.device.type == "cpu":
         return pack_records_plain(vals, nbits, start_bit, n_words, prefix)
     dev = vals.device
@@ -388,11 +370,19 @@ def pack_records(vals: torch.Tensor, nbits: torch.Tensor, start_bit: int,
         raise ValueError(f"nbits {tuple(nbits.shape)} != vals "
                          f"{tuple(vals.shape)}")
     n, f = vals.shape
-    got = _k4("ie_pack_records", n, n_words, dev,
-              (vals.data_ptr(), nbits.data_ptr(), n, f, start_bit,
-               *_prefix(prefix, dev)))
+    lib = build.library()
+    sums = torch.empty(lib.ie_pack_records_scratch(n), dtype=torch.int64,
+                       device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    out = torch.empty(n_words, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.ie_pack_records(
+            vals.data_ptr(), nbits.data_ptr(), n, f, start_bit,
+            *_prefix(prefix, dev), out.data_ptr(), n_words, sums.data_ptr(),
+            total.data_ptr(), build.stream_ptr(dev))
+    build.check(code, "ie_pack_records")
     pack_records.launches += 1
-    return got
+    return out, total.reshape(())
 
 
 pack_records.launches = 0
@@ -411,8 +401,9 @@ def pack_records_segments(vals: torch.Tensor, nbits: torch.Tensor,
     """K4 pack_records over B segments: [B, N, F] int32 fields (values,
     widths 0..16), segment k from its own start bit ``starts[k]`` (int64
     [B] on the device: its bit phase in the stream it joins) in its own
-    row -> (words int32 [B, n_words], totals int64 [B]).  One launch (the
-    sharded video's vector segments, parallel/video_sharding.py)."""
+    row -> (words int32 [B, n_words], totals int64 [B]).  One stream's two
+    launches, whatever B is (the sharded video's vector segments,
+    parallel/video_sharding.py)."""
     if vals.dim() != 3 or nbits.shape != vals.shape:
         raise ValueError(f"expected vals and nbits [B, N, F], got "
                          f"{tuple(vals.shape)} and {tuple(nbits.shape)}")
@@ -429,18 +420,15 @@ def pack_records_segments(vals: torch.Tensor, nbits: torch.Tensor,
         raise ValueError(f"n_words must be a multiple of 4, got {n_words}")
     b, n, f = vals.shape
     lib = build.library()
-    n_tiles = -(-n // lib.ie_pack_tile())
-    scratch_stride, edges_stride = 3 + n_tiles, max(2 * n_tiles, 1)
-    scratch = torch.zeros(b * scratch_stride, dtype=torch.int64, device=dev)
-    edges = torch.empty(b * edges_stride, dtype=torch.int64, device=dev)
+    sums = torch.empty(b * lib.ie_pack_records_scratch(n),
+                       dtype=torch.int64, device=dev)
     total = torch.empty(b, dtype=torch.int64, device=dev)
     out = torch.empty((b, n_words), dtype=torch.int32, device=dev)
     if b:
         with torch.cuda.device(dev):
             code = lib.ie_pack_records_segments(
                 vals.data_ptr(), nbits.data_ptr(), n, f, b, starts.data_ptr(),
-                out.data_ptr(), n_words, scratch.data_ptr(), scratch_stride,
-                edges.data_ptr(), edges_stride, total.data_ptr(),
+                out.data_ptr(), n_words, sums.data_ptr(), total.data_ptr(),
                 build.stream_ptr(dev))
         build.check(code, "ie_pack_records_segments")
         pack_records_segments.launches += 1

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the packers' two-launch kernels and the wire emit on the host,
-with no card and no nvcc.
+"""Run the packers' kernels and the wire emit on the host, with no card
+and no nvcc.
 
     python tools/emulate_pack.py
 
@@ -18,13 +18,18 @@ the wire emit (ie_emit_wire: the batch's streams without Huffman, and
 with it the payloads or, where a stream falls back, its inner words with
 one 0 bit first) against their plain versions (ops/cuda_pack.py) on
 ragged batches: streams of very different lengths, a stream that takes
-the raw-copy fallback (no byte to code), one stream and 17.  The output
-buffers start dirty: only the words up to each stream's end are compared
-(the emit's bytes up to the last stream's padded end, all of which it
-writes); the emit's input words are dirty past each stream's last byte.
+the raw-copy fallback (no byte to code), one stream and 17.  It holds K4
+pack_records (ie_pack_records, ie_pack_records_segments) against its plain
+versions on one stream from bit 0 and from an odd bit behind a 3-word
+prefix, on the recon fields of a small clip encoded on the host, on a
+run of empty records longer than a tile, and on ragged segments (1 and
+17 of them, of 0 records or of several tiles, at odd start bits), and a
+record of width 17, whose total must be -1.  The
+output buffers start dirty: only the words up to each stream's end are
+compared (the emit's bytes up to the last stream's padded end, all of
+which it writes); the emit's input words are dirty past each stream's
+last byte.
 
-The single-pass packer (pack_tiles: one CTA waits for others) is compiled
-but not run: blocks run one after another here, so it would wait forever.
 It finds compile errors and logic faults before a chip call; it says
 nothing of speed, of nvcc's own rules, or of races (its threads run in
 turn).  Exit status 1 on a mismatch.
@@ -53,7 +58,8 @@ from imageencoder_tpu_torch.ops import (cuda_encode, cuda_pack,  # noqa
 CSRC = REPO / "imageencoder_tpu_torch" / "csrc"
 ENTRY = ("ie_pack_locals_batch", "ie_pack_locals_scratch",
          "ie_pack_payload", "ie_pack_payload_batch", "ie_pack_payload_scratch",
-         "ie_emit_wire")
+         "ie_pack_records", "ie_pack_records_segments",
+         "ie_pack_records_scratch", "ie_emit_wire")
 UNITS = ("pack.cu", "wire.cu")
 JPEG4 = np.array([[16, 11, 10, 16], [12, 12, 14, 19], [14, 13, 16, 24],
                   [14, 17, 22, 29]])
@@ -68,24 +74,11 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
     *p = old | v;
     return old;
 }
-inline unsigned atomicAdd(unsigned* p, unsigned v) {
-    const unsigned old = *p;
-    *p = old + v;
-    return old;
-}
 inline int atomicAdd(int* p, int v) {
     const int old = *p;
     *p = old + v;
     return old;
 }
-inline unsigned long long atomicExch(unsigned long long* p,
-                                     unsigned long long v) {
-    const unsigned long long old = *p;
-    *p = v;
-    return old;
-}
-inline void __threadfence() {}
-inline void __nanosleep(unsigned) {}
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
     return (unsigned)(((((unsigned long long)hi) << 32) | lo) >> (s & 31));
 }
@@ -99,22 +92,9 @@ inline int __reduce_add_sync(unsigned, int v) {
     __syncwarp();
     return (int)r;
 }
-enum { cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 template <class K>
 inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
-    return cudaSuccess;
-}
-template <class K>
-inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        int* n, K, int, size_t) {
-    *n = 1;
-    return cudaSuccess;
-}
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-    *v = 4;
     return cudaSuccess;
 }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
@@ -136,11 +116,9 @@ def shim(base: str) -> str:
 
 def source(text: str, launch: re.Pattern) -> str:
     """pack.cu for the emulation: launches as calls, dynamic shared memory
-    from the launch, the PTX loads and stores as plain ones."""
+    from the launch."""
     text = re.sub(r"extern __shared__ __align__\(16\) (\w+) (\w+)\[\];",
                   r"\1* \2 = (\1*)emu_dyn.data();", text)
-    text = re.sub(r'asm volatile\("ld[^"]*"[^;]*;', "v = *p;", text)
-    text = re.sub(r'asm volatile\("st[^"]*"[^;]*;', "*p = v;", text)
     return launch.sub(lambda m: f"emu_launch({m.group(2)}, [&]{{ "
                                 f"{m.group(1)}({m.group(3)}); }});", text)
 
@@ -212,6 +190,32 @@ def payload_one(lib, words, table, n_words: int):
     out, total = dirty(n_words), np.full(1, -9, np.int64)
     assert lib.ie_pack_payload(ptr(words), len(words), ptr(table), ptr(out),
                                n_words, ptr(sums), ptr(total), None) == 0
+    return out, total
+
+
+def records_one(lib, vals, nbits, start: int, n_words: int, prefix=None):
+    """K4 pack_records of one stream, emulated: (words [1, n_words],
+    total [1])."""
+    n, f = vals.shape
+    sums = np.full(lib.ie_pack_records_scratch(n), -7, np.int64)
+    out, total = dirty(n_words), np.full(1, -9, np.int64)
+    assert lib.ie_pack_records(
+        ptr(vals), ptr(nbits), n, f, start,
+        None if prefix is None else ptr(prefix),
+        0 if prefix is None else len(prefix), ptr(out), n_words, ptr(sums),
+        ptr(total), None) == 0
+    return out[None], total
+
+
+def records_segments(lib, vals, nbits, starts, n_words: int):
+    """K4 pack_records over segments, emulated: (words [B, n_words],
+    totals [B])."""
+    b, n, f = vals.shape
+    sums = np.full(b * lib.ie_pack_records_scratch(n), -7, np.int64)
+    out, total = dirty((b, n_words)), np.full(b, -9, np.int64)
+    assert lib.ie_pack_records_segments(
+        ptr(vals), ptr(nbits), n, f, b, ptr(starts), ptr(out), n_words,
+        ptr(sums), ptr(total), None) == 0
     return out, total
 
 
@@ -399,6 +403,121 @@ CASES = {  # label: image kinds, (H, W), quant
 }
 
 
+def fields(shape, seed: int, widths=(0, 17)):
+    """Random (vals, nbits) int32 fields of ``shape``, widths drawn from
+    [widths[0], widths[1])."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-2 ** 15, 2 ** 15, shape).astype(np.int32)
+    return vals, rng.integers(*widths, shape).astype(np.int32)
+
+
+def row_words(n: int, f: int) -> int:
+    """Words enough for n records of f fields of up to 16 bits from any
+    start bit below 32, rounded to 16 bytes."""
+    return -(-(n * f * 16 // 32 + 2) // 4) * 4
+
+
+def recon_fields(seed: int):
+    """The recon path's records as pack_records fields: a 128x96 clip of 8
+    frames encoded on the host (encode_video, ref_mode="recon", gop 4),
+    its pack_coeffs call's coefficients and vectors through coeff_fields:
+    (vals, nbits, start bit, n_words, header prefix)."""
+    import imageencoder_tpu_torch as port
+
+    calls = []
+    real = cuda_pack.pack_coeffs_hist
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    w, h = 128, 96
+    frames = images(("smooth",) * 8, h, w, seed)
+    data = b"".join(f.tobytes() + bytes([128]) * (w * h // 2) for f in frames)
+    cuda_pack.pack_coeffs_hist = record
+    try:
+        port.encode_video(data, w, h, port.quant_from_numpy(JPEG4), True, 4,
+                          8, ref_mode="recon", device="cpu")
+    finally:
+        cuda_pack.pack_coeffs_hist = real
+    (coeffs, mvecs, gop, nb, b, rle, _lw, start, n_words), kw = calls[0]
+    vals, nbits = cuda_pack.coeff_fields(coeffs, mvecs, gop, nb, b, rle)
+    return (vals.numpy(), nbits.numpy(), start, n_words,
+            kw["prefix"].numpy())
+
+
+def held_records(lib, vals, nbits, start: int, n_words: int,
+                 prefix=None) -> bool:
+    """K4 pack_records, emulated into a dirty buffer, equals its plain
+    version up to the stream's end."""
+    want = cuda_pack.pack_records_plain(
+        torch.from_numpy(vals), torch.from_numpy(nbits), start, n_words,
+        None if prefix is None else torch.from_numpy(prefix))
+    return same_streams(records_one(lib, vals, nbits, start, n_words, prefix),
+                        (want[0][None], want[1].reshape(1)))
+
+
+def held_segments(lib, vals, nbits, starts, n_words: int) -> bool:
+    """K4 pack_records over segments, emulated into dirty buffers, equals
+    its plain version segment by segment up to each one's end."""
+    want = cuda_pack.pack_records_segments_plain(
+        torch.from_numpy(vals), torch.from_numpy(nbits),
+        torch.from_numpy(starts), n_words)
+    return same_streams(records_segments(lib, vals, nbits, starts, n_words),
+                        want)
+
+
+def empty_run(lib) -> bool:
+    """Records 301 .. 1,500 of 2,000 empty: the tiles before the run reach
+    past whole empty tiles for the bits of their last words."""
+    vals, nbits = fields((2000, 3), 8)
+    nbits[301:1501] = 0
+    nbits[300] = (5, 7, 9)  # the run starts inside a word
+    return held_records(lib, vals, nbits, 11, row_words(2000, 3))
+
+
+def refused_width(lib) -> bool:
+    """A record with a width of 17, in the second tile of three: the total
+    is -1."""
+    vals, nbits = fields((1500, 5), 4)
+    nbits[700, 2] = 17
+    return int(records_one(lib, vals, nbits, 3, row_words(1500, 5))[1][0]) \
+        == -1
+
+
+def one_stream(lib, n: int, f: int, start: int, prefix_words: int,
+               seed: int) -> bool:
+    vals, nbits = fields((n, f), seed)
+    prefix = None
+    if prefix_words:
+        prefix = np.random.default_rng(seed).integers(
+            -2 ** 31, 2 ** 31, prefix_words).astype(np.int32)
+    return held_records(lib, vals, nbits, start, row_words(n, f) + 4, prefix)
+
+
+def segments(lib, b: int, n: int, f: int, seed: int, widths=(0, 17)) -> bool:
+    vals, nbits = fields((b, n, f), seed, widths)
+    starts = np.random.default_rng(seed).integers(0, 16, b) * 2 + 1
+    return held_segments(lib, vals, nbits, starts.astype(np.int64),
+                         row_words(n, f))
+
+
+RECORD_CASES = {  # label: check(lib) -> bool
+    # 10 tiles of 512 records: two groups of tiles.
+    "one stream from bit 0": lambda lib: one_stream(lib, 5000, 7, 0, 0, 1),
+    "one stream from bit 101 behind 3 prefix words":
+        lambda lib: one_stream(lib, 700, 18, 101, 3, 2),
+    "the recon fields of a small clip":
+        lambda lib: held_records(lib, *recon_fields(3)),
+    "a run of 1,200 empty records": empty_run,
+    "a width of 17: total -1": refused_width,
+    "1 segment of several tiles, widths 6":
+        lambda lib: segments(lib, 1, 1500, 2, 5, (6, 7)),
+    "17 segments of 0 records": lambda lib: segments(lib, 17, 0, 2, 6),
+    "17 segments of several tiles": lambda lib: segments(lib, 17, 1100, 3, 7),
+}
+
+
 def main() -> int:
     failed = 0
 
@@ -411,6 +530,8 @@ def main() -> int:
         lib = build(pathlib.Path(tmp))
         for label, (kinds, shape, quant) in CASES.items():
             run_case(lib, label, kinds, shape, quant, report)
+        for label, check in RECORD_CASES.items():
+            report(f"K4 pack_records: {label}", check(lib))
     return 1 if failed else 0
 
 

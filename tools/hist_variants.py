@@ -77,8 +77,7 @@ VARIANTS = {  # name: (source, [(old, new[, times]), ...])
 }
 # Their outputs must equal the kept design's.
 EXACT = ("byte_checks",)
-ENTRIES = {"pack.cu": ("ie_pack_tile", "ie_pack_locals",
-                       "ie_pack_locals_batch",
+ENTRIES = {"pack.cu": ("ie_pack_locals", "ie_pack_locals_batch",
                        "ie_pack_locals_scratch", "ie_pack_coeffs",
                        "ie_pack_coeffs_scratch")}
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K2's two designs and where its time goes, on a GPU.
+"""Where K2's time goes, on a GPU.
 
     python3 tools/k2_variants.py [--reps N] [--batch | --parent DIR]
 
@@ -10,15 +10,8 @@ tile's words in shared memory and stores them, reading on past its last
 record for the bits its last word lacks.  K4 pack_coeffs runs on the same
 two kernels with its own front end (CoeffsFront: the lengths K5 and the
 recon step wrote, then each block's coefficients).  This script derives
-from pack.cu, at run time into a temporary directory, the other design
-and variants of the kept one:
+from pack.cu, at run time into a temporary directory, variants of it:
 
-  lookback     design (a): the same front end (LocalsFront) under K4's
-               single-pass packer pack_tiles (decoupled look-back over a
-               persistent grid, the tiles' shared words merged at the end),
-               4 records a thread, the records emitted by the same code.
-               Its entry point and kernel are added to pack.cu as text; it
-               needs K4's zeroed scratch;
   items4,      the pack takes 4 or 1 records a thread instead of 2 (tiles
   items1       of 1024 or 256 records instead of 512);
   no_emit      records are not emitted (the words stay zero);
@@ -41,10 +34,8 @@ builds K2 and each with nvcc (one process each, in parallel), and times
 each on the inputs K2 gets on the main paths, captured from real calls
 (the 4096x912 image's register files; the 720p25 raw video's, with its
 vectors), and pack_coeffs on the 720p25 recon video's coefficients,
-vectors and lengths (all but the lookback design, which is K2's alone),
-in turns: the kernels' device time a call and the whole device
-time a call (the scratch's memset included) from torch.profiler.  The
-lookback design's stream is held equal to K2's; no_emit's, no_reach's and
+vectors and lengths, in turns: the kernels' device time a call and the
+whole device time a call from torch.profiler.  no_emit's, no_reach's and
 two_words' outputs are wrong by design, and only their times are read.
 Prints one line per input and one JSON line last.
 
@@ -93,45 +84,7 @@ sys.path.insert(0, str(ROOT))
 
 ITEMS = "int locals_items(int lw) { return lw <= 8 ? 2 : 1; }"
 REACH = "    if (tid < 32 && nspan > 0 && need > 0) {"
-KERNEL_AT = "// Records a thread of K2's pack takes:"
-LOOKBACK_KERNEL = """\
-// K2's front end in K4's protocol: the same emission, through the
-// emitter's sink (the emitter itself stays empty, so its finish() adds
-// nothing).
-struct LocalsFrontEm : LocalsFront<true> {
-    template <class E>
-    __device__ __forceinline__ void emit(const State& st, E& em) const {
-        emit_words(st, em.nacc, em.sink);
-    }
-};
-
-__global__ void __launch_bounds__(kTile) pack_locals_lookback_kernel(
-        LocalsFrontEm fe, PackOut a) {
-    pack_tiles<4>(fe, a);
-}
-
-"""
-LOOKBACK_ENTRY = """
-extern "C" int ie_pack_locals_lookback(
-        const void* local, const void* lens, long long n_blocks, int lw,
-        const void* mvecs, long long n_frames, long long n_macro, int gop,
-        int mvec_nbits, long long start_bit, const void* prefix,
-        long long prefix_words, void* out, long long n_words, void* scratch,
-        void* edges, void* total, void* stream) {
-    LocalsFrontEm fe;
-    long long n = 0;
-    if (!locals_front(local, lens, n_blocks, lw, mvecs, n_frames, n_macro,
-                      gop, mvec_nbits, &fe, &n))
-        return (int)cudaErrorInvalidValue;
-    const PackOut a = pack_out(n, start_bit, prefix, prefix_words, out,
-                               n_words, scratch, edges, total);
-    return launch_pack(pack_locals_lookback_kernel, 4, a, 32ll * lw,
-                       (cudaStream_t)stream, fe);
-}
-"""
-VARIANTS = {  # name: [(old, new), ...] in pack.cu; None appends the entry
-    "lookback": [(KERNEL_AT, LOOKBACK_KERNEL + KERNEL_AT),
-                 (None, LOOKBACK_ENTRY)],
+VARIANTS = {  # name: [(old, new), ...] in pack.cu
     "items4": [(ITEMS, ITEMS.replace("? 2 :", "? 4 :")),
                ("return items == 2 ? launch_known<2>(fe, a, s)",
                 "return items == 4 ? launch_known<4>(fe, a, s)"),
@@ -155,8 +108,7 @@ VARIANTS = {  # name: [(old, new), ...] in pack.cu; None appends the entry
                              f"constexpr int kCoeffsItems4 = {n};")]
        for n in (1, 4)},
 }
-SYMBOLS = ("tile_sums_kernel", "pack_known_kernel",
-           "pack_locals_lookback_kernel")
+SYMBOLS = ("tile_sums_kernel", "pack_known_kernel")
 # --parent's variants of the kept pack.cu.
 SHARED = {
     "tiles_from_grid": [
@@ -187,9 +139,6 @@ def build_all(tmp: pathlib.Path, variants: dict = VARIANTS,
             (d / src.name).write_text(src.read_text())
         text = (csrc / "pack.cu").read_text()
         for old, new in variants.get(name, []):
-            if old is None:
-                text += new
-                continue
             if text.count(old) != 1:
                 raise RuntimeError(f"variant {name}: {old!r} not found once")
             text = text.replace(old, new)
@@ -201,39 +150,17 @@ def build_all(tmp: pathlib.Path, variants: dict = VARIANTS,
     return libs
 
 
-def load(path: pathlib.Path, lookback: bool) -> ctypes.CDLL:
+def load(path: pathlib.Path) -> ctypes.CDLL:
     from imageencoder_tpu_torch.kernels import build
 
     lib = ctypes.CDLL(str(path))
-    sigs = {name: build.SIGNATURES[name]
-            for name in ("ie_pack_tile", "ie_pack_locals",
-                         "ie_pack_locals_scratch", "ie_pack_coeffs",
-                         "ie_pack_coeffs_scratch")}
-    if lookback:  # K2's arguments up to the total, then K4's tail
-        sigs["ie_pack_locals_lookback"] = (
-            build.SIGNATURES["ie_pack_locals"][:9] + build._K4_TAIL)
-    for name, argtypes in sigs.items():
-        getattr(lib, name).argtypes = argtypes
+    for name in ("ie_pack_locals", "ie_pack_locals_scratch", "ie_pack_coeffs",
+                 "ie_pack_coeffs_scratch"):
+        getattr(lib, name).argtypes = build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     lib.ie_error_string.argtypes = [ctypes.c_int]
     lib.ie_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def pack_locals_lookback(local, lens, start_bit, n_words, prefix=None,
-                         mvecs=None, n_frames=1, gop=1, mvec_nbits=0):
-    """pack_locals through the lookback design's entry point, with the
-    library that has it loaded (build._LIB): K4's allocation and call."""
-    from imageencoder_tpu_torch.ops import cuda_pack
-
-    n, lw = local.shape
-    n_macro = 0 if mvecs is None else mvecs.shape[1]
-    return cuda_pack._k4(
-        "ie_pack_locals_lookback", n + n_frames * n_macro, n_words,
-        local.device, (local.data_ptr(), lens.data_ptr(), n, lw,
-                       mvecs.data_ptr() if n_macro else None, n_frames,
-                       n_macro, gop, mvec_nbits, start_bit,
-                       *cuda_pack._prefix(prefix, local.device)))
 
 
 def batch_main(reps: int) -> None:
@@ -333,7 +260,7 @@ def parent_main(reps: int, parent: pathlib.Path) -> None:
     out = {"gpu": gpu_identity(), "reps": reps, "parent": str(parent),
            "inputs": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {name: load(p, False) for name, p in build_all(
+        libs = {name: load(p) for name, p in build_all(
             pathlib.Path(tmp), SHARED, parent).items()}
         saved = build.library()
         names = ["k2", "parent", *SHARED]
@@ -425,30 +352,17 @@ def main() -> None:
 
     out = {"gpu": gpu_identity(), "reps": reps, "inputs": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {name: load(p, name == "lookback")
+        libs = {name: load(p)
                 for name, p in build_all(pathlib.Path(tmp)).items()}
         saved = build.library()
         try:
             for label, (packer, (args, kwargs)) in inputs.items():
                 names = list(libs)
-                if packer is cuda_pack.pack_locals:
-                    want = cuda_pack.stream_words(*packer(*args, **kwargs))
-                    build._LIB = libs["lookback"]
-                    got = cuda_pack.stream_words(
-                        *pack_locals_lookback(*args, **kwargs))
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"{label}: the lookback "
-                                             f"design's stream differs from "
-                                             f"K2's")
-                else:
-                    names.remove("lookback")
+                call = lambda: packer(*args, **kwargs)  # noqa: E731
                 times = {name: [] for name in names}
                 for turn in range(2):  # K2, variants, variants, K2
                     for name in (names if turn == 0 else names[::-1]):
                         build._LIB = libs[name]
-                        fn = (pack_locals_lookback if name == "lookback"
-                              else packer)
-                        call = lambda fn=fn: fn(*args, **kwargs)  # noqa: E731
                         times[name].append(
                             (cs.profiled_ms(call, SYMBOLS, reps) * 1e3,
                              cs.profiled_ms(call, None, reps) * 1e3))
