@@ -1783,6 +1783,27 @@ def test_emit_wire_kernel_equals_plain(dev, n, width, huff):
     assert torch.equal(got[:end].cpu(), want[:end])
 
 
+def test_tail_cuts_a_61_mb_wire_on_threads(dev):
+    """A Tail over one stream of 60,915,314 bytes on the card (the recon
+    clip's): the real copy into pinned memory, then the cut on threads,
+    equal to tobytes() of the same buffer and to the words' plain wire
+    bytes; the counter takes the stream's bytes."""
+    n = 60_915_314
+    rng = np.random.default_rng(61)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (1, -(-n // 4)))
+                             .astype(np.int32))
+    bits = 8 * n - 3
+    tail = huffman.Tail(words.to(dev), torch.tensor([bits], device=dev),
+                        read=True)
+    with profiling.tracing("tail") as t:
+        tail.copy()
+        got = tail.result()
+    assert tail.buffer.is_pinned()
+    assert got == [tail.buffer.numpy()[:n].tobytes()]
+    assert got == [cuda_pack.wire_bytes(words[0], bits).numpy().tobytes()]
+    assert t.counters["bytes_cut_threaded"] == n
+
+
 def test_no_card_path_serializes_on_the_host(dev, monkeypatch):
     """With the host serialization made to raise (words_to_bytes and the
     fallback's repack), the card's encodes still run and equal the host

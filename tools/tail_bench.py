@@ -26,9 +26,16 @@ path on chip_smoke.py's inputs, already on the card:
   sharded, sharded_stage2
                  parallel's encode_sharded_image_batch of the 16 images in
                  a world of one over NCCL, Huffman after stage 1 and by
-                 the distributed stage 2.
+                 the distributed stage 2;
+  cut            Tail.result's cut alone, on a pinned buffer of each of
+                 CUT_BYTES (the raw and the recon clip's streams): one
+                 tobytes() against ops/huffman.py::cut_threaded on 1, 2,
+                 4 and 8 threads (a pool of the bench's own, past the
+                 program's cap) where the tree has it, in turns, with
+                 the cores this process may use and the host's
+                 transparent huge page mode (read only).
 
-For each it reads, over N calls: the whole call (host clock, median and
+For each encode path it reads, over N calls: the whole call (host clock, median and
 p90); the host's milliseconds a call inside ops/huffman.py::Tail.copy and
 Tail.result, and inside device_pack.words_to_bytes and huffman._fallback
 wherever the port calls them (0 where it does not); the device-to-host
@@ -44,6 +51,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import pathlib
 import sys
 import time
@@ -52,8 +60,11 @@ sys.modules["jax"] = None
 sys.modules["imageencoder_tpu"] = None
 
 PATHS = ("image", "image_off", "fallback", "noise_full", "fallback_full",
-         "batch", "raw", "recon", "sharded", "sharded_stage2")
+         "batch", "raw", "recon", "sharded", "sharded_stage2", "cut")
 FULL_FALLBACK_BYTES = 2_637_546
+CUT_BYTES = (46_729_792, 60_915_314)
+CUT_THREADS = (1, 2, 4, 8)
+THP = pathlib.Path("/sys/kernel/mm/transparent_hugepage/enabled")
 PROFILED_CALLS = 5
 WAIT_CALLS = 5
 
@@ -98,6 +109,50 @@ def timed_functions(timers: dict):
             setattr(owner, attr, real)
 
     return restore
+
+
+def cut_times(samples: int) -> dict:
+    """The cut alone: milliseconds (median, p90) of tobytes() and of the
+    tree's cut_threaded at each of CUT_THREADS, taken in turns, on a
+    pinned buffer of each of CUT_BYTES; each cut checked against
+    tobytes()."""
+    import torch
+
+    from imageencoder_tpu_torch.ops import huffman
+
+    import concurrent.futures
+
+    threaded = getattr(huffman, "cut_threaded", None)
+    if threaded is not None:
+        pool = concurrent.futures.ThreadPoolExecutor(max(CUT_THREADS) - 1)
+        huffman._pool = lambda: pool
+    thp = THP.read_text().strip() if THP.exists() else None
+    out = {"cores": len(os.sched_getaffinity(0)), "thp": thp,
+           "threaded": threaded is not None}
+    for n in CUT_BYTES:
+        buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        buf.random_(0, 256, generator=torch.Generator().manual_seed(n))
+        data, parts = buf.numpy(), [(0, n)]
+        ways = {"tobytes": lambda: [data[:n].tobytes()]}
+        if threaded is not None:
+            ways.update({f"threads_{k}": (lambda k=k: threaded(data, parts, k))
+                         for k in CUT_THREADS})
+        want = data[:n].tobytes()
+        for name, fn in ways.items():
+            if fn() != [want]:
+                raise SystemExit(f"tail_bench: cut {name} of {n} bytes "
+                                 f"differs from tobytes()")
+        del want
+        t = {name: [] for name in ways}
+        for _ in range(samples):
+            for name, fn in ways.items():
+                t0 = time.perf_counter()
+                fn()
+                t[name].append((time.perf_counter() - t0) * 1e3)
+        out[str(n)] = {name: [sorted(v)[len(v) // 2],
+                              sorted(v)[int(len(v) * 0.9)]]
+                       for name, v in t.items()}
+    return out
 
 
 def main() -> None:
@@ -182,6 +237,11 @@ def main() -> None:
     }
     results = {}
     for name in wanted:
+        if name == "cut":
+            results[name] = cut_times(opts.samples)
+            print(f"{name}: {json.dumps(results[name])}", file=sys.stderr,
+                  flush=True)
+            continue
         fn = calls[name]
         got = fn()
         streams = got if isinstance(got, list) else [got]
